@@ -1,0 +1,115 @@
+"""Deterministic synthetic LM data: per-shard Markov-mixture streams (the
+JAX ``data/pipeline.py``), with the chain logits on the device.
+
+  - A base transition matrix T0 (seeded) shared by all shards.
+  - Per-shard perturbations P_i; shard i samples from
+    softmax(T0 + alpha * P_i). alpha=0 -> i.i.d.; alpha>0 -> non-i.i.d.
+  - The validation stream samples from the *mixture* over shards.
+
+The transition logits come from numpy ``default_rng(seed)`` in the
+reference's draw order, so they equal the JAX package's bit for bit. At
+the paper's vocab (32000) one (V, V) float64 draw is 8.2 GB, so the
+draws are taken in row chunks from the one generator (consecutive draws
+continue the same stream), cast to float32 and moved to the device
+chunk by chunk; the mixture is a running sum over shards, row chunk by
+row chunk. Tokens are sampled on the device from a ``torch.Generator``
+(the port cannot reproduce ``jax.random``; parity tests feed both
+packages the JAX sampler's tokens).
+"""
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+_CHUNK_ELEMS = 1 << 24       # normals per host draw: 128 MiB of float64
+
+
+class MarkovMixture:
+    """Batch sampler over k shard distributions; logits on ``device``."""
+
+    def __init__(self, vocab_size: int = 256, k: int = 8,
+                 alpha: float = 2.0, seed: int = 0,
+                 shard_sizes: np.ndarray | None = None, *, device,
+                 chunk_rows: int = 0):
+        V = self.vocab_size = vocab_size
+        self.k = k
+        self.alpha = float(alpha)
+        self.device = torch.device(device)
+        rows = chunk_rows or max(1, _CHUNK_ELEMS // V)
+        rng = np.random.default_rng(seed)
+
+        def draw(n):
+            x = rng.normal(size=(n, V)).astype(np.float32)
+            return torch.from_numpy(x).to(self.device)
+
+        chunks = [(r0, min(rows, V - r0)) for r0 in range(0, V, rows)]
+        base = torch.empty((V, V), dtype=torch.float32, device=self.device)
+        for r0, n in chunks:
+            base[r0:r0 + n] = draw(n)
+        # logits: (k, V, V); shard i transition logits, in the reference's
+        # float32 arithmetic: base + alpha * pert
+        alpha32 = float(np.float32(self.alpha))
+        self._logits = torch.empty((k, V, V), dtype=torch.float32,
+                                   device=self.device)
+        for i in range(k):
+            for r0, n in chunks:
+                self._logits[i, r0:r0 + n] = base[r0:r0 + n] \
+                    + alpha32 * draw(n)
+        del base
+        # mixture (validation) logits: log of the mean shard probability
+        self._mix_logits = torch.empty((V, V), dtype=torch.float32,
+                                       device=self.device)
+        for r0, n in chunks:
+            acc = torch.zeros((n, V), dtype=torch.float32,
+                              device=self.device)
+            for i in range(k):
+                acc += torch.softmax(self._logits[i, r0:r0 + n], dim=-1)
+            self._mix_logits[r0:r0 + n] = torch.log(acc / k + 1e-9)
+        if shard_sizes is None:
+            shard_sizes = np.ones((k,), np.float32)
+        self.shard_sizes = np.asarray(shard_sizes, np.float32)
+
+    # ---- sampling ----
+    def sample_all_shards(self, gen, batch: int, seq_len: int):
+        """tokens (k, batch, seq_len) int64: one batch per shard."""
+        shard = torch.arange(self.k, device=self.device)[:, None]
+        return _sample_chain(gen, lambda tok: self._logits[shard, tok],
+                             (self.k, batch), seq_len, self.vocab_size,
+                             self.device)
+
+    def sample_validation(self, gen, batch: int, seq_len: int):
+        """tokens (batch, seq_len) int64 from the mixture chain."""
+        return _sample_chain(gen, lambda tok: self._mix_logits[tok],
+                             (batch,), seq_len, self.vocab_size,
+                             self.device)
+
+    # ---- statistics ----
+    def entropy_floor(self) -> float:
+        """Per-token entropy (nats) of the mixture chain = best achievable
+        validation loss; exp() of it is the perplexity floor."""
+        V = self.vocab_size
+        p = torch.softmax(self._mix_logits, dim=-1)
+        pi = torch.full((V,), 1.0 / V, dtype=torch.float32,
+                        device=self.device)
+        for _ in range(64):
+            pi = pi @ p
+        rows = max(1, _CHUNK_ELEMS // V)
+        ent = torch.zeros((), dtype=torch.float32, device=self.device)
+        for r0 in range(0, V, rows):
+            pr = p[r0:r0 + rows]
+            ent += torch.sum(pi[r0:r0 + rows, None] * pr
+                             * torch.log(pr + 1e-12))
+        return float(-ent)
+
+
+def _sample_chain(gen, rows_of, lead, seq_len: int, vocab: int, device):
+    """First tokens uniform, then ``seq_len - 1`` categorical steps from
+    the rows ``rows_of(tok)`` of the transition logits."""
+    tok = torch.randint(0, vocab, lead, generator=gen, device=device)
+    out = torch.empty(lead + (seq_len,), dtype=torch.int64, device=device)
+    out[..., 0] = tok
+    for t in range(1, seq_len):
+        probs = torch.softmax(rows_of(tok), dim=-1).reshape(-1, vocab)
+        tok = torch.multinomial(probs, 1, generator=gen).reshape(lead)
+        out[..., t] = tok
+    return out

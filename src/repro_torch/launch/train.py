@@ -1,0 +1,298 @@
+"""DiLoCo training driver (CLI), the synchronous path of the JAX
+``launch/train.py``: an optional single-worker pretraining phase, then
+T rounds of (H inner AdamW steps × k replicas + one outer Nesterov
+step), with the paper's data regimes, communication drops, adaptive
+compute schedules and outer optimizers.
+
+It takes the JAX driver's flags and prints its console and ``--out``
+JSON lines. Two flags differ: ``--device`` (default ``cuda``; a run on
+the CPU is asked for with ``--device cpu``) and ``--kernel-mode``
+(``auto`` by default: the CUDA kernels on CUDA tensors, their plain
+PyTorch versions on the CPU). Flags of transports and features that are
+not ported exit with a message that names their ROADMAP.md item.
+
+Example:
+  PYTHONPATH=src python -m repro_torch.launch.train \\
+      --full --arch diloco_150m --k 2 --H 4 --rounds 2 --batch 8 --seq 1024
+"""
+from __future__ import annotations
+
+import argparse
+import time
+
+import numpy as np
+import torch
+
+from ..configs.base import DiLoCoConfig, TrainConfig
+from ..core import diloco, schedules
+from ..data.sharding import make_regime, shard_weights
+from ..models.registry import get_arch, get_smoke_arch
+from ..obs import metrics as obs_metrics
+from ..optim import adamw
+
+# flag dest -> the ROADMAP.md port-queue item that ports it. A flag left
+# at its default passes; any other value exits with the item's name.
+UNPORTED = {
+    "prune_frac": "compression (sign_prune kernel)",
+    "stream_fragments": "streaming", "stream_alpha": "streaming",
+    "stream_tau": "streaming", "outer_grad_dtype": "streaming",
+    "error_feedback": "streaming", "pack_wire": "streaming",
+    "transport": "transports", "pods": "transports",
+    "staleness_lambda": "transports", "gossip_pairing": "transports",
+    "gossip_mix": "transports", "ticks": "transports",
+    "restore": "transports",
+    "speeds": "fault scenarios", "link_latency": "fault scenarios",
+    "latency_jitter": "fault scenarios", "max_retries": "fault scenarios",
+    "retry_backoff": "fault scenarios", "preempt": "fault scenarios",
+    "crash_at_round": "fault scenarios", "crash_at_tick": "fault scenarios",
+    "nan_bomb": "fault scenarios",
+    "param_dtype": "mixed-precision policy",
+    "master_dtype": "mixed-precision policy",
+    "checkpoint": "checkpoints and resilience",
+    "checkpoint_dir": "checkpoints and resilience",
+    "checkpoint_every": "checkpoints and resilience",
+    "resume": "checkpoints and resilience",
+    "retain": "checkpoints and resilience",
+    "state_hash_out": "checkpoints and resilience",
+    "guard": "checkpoints and resilience",
+    "guard_window": "checkpoints and resilience",
+    "guard_spike": "checkpoints and resilience",
+    "guard_rollbacks": "checkpoints and resilience",
+    "trace": "telemetry",
+}
+
+
+def resolve_device(name: str) -> torch.device:
+    """``name`` as a device; asking for CUDA without a GPU raises."""
+    dev = torch.device(name)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            f"--device {name}: no CUDA device is visible. The port runs on "
+            "the GPU by default; pass --device cpu to run on the CPU")
+    return dev
+
+
+def check_ported(args, parser=None):
+    parser = parser or make_parser()
+    bad = [dest for dest, item in UNPORTED.items()
+           if getattr(args, dest) != parser.get_default(dest)]
+    if bad:
+        raise SystemExit("not ported yet: " + "; ".join(
+            f"--{d.replace('_', '-')} (ROADMAP.md, port queue: "
+            f"{UNPORTED[d]})" for d in bad))
+    if args.kernel_mode in ("pallas", "interpret"):
+        raise SystemExit(f"--kernel-mode {args.kernel_mode} names TPU "
+                         "(Pallas) machinery; the port's modes are "
+                         "auto|kernel|ref")
+    if args.guard_clip > 0 and not args.guard_outer:
+        raise SystemExit("--guard-clip scales deltas inside the in-graph "
+                         "guard; add --guard-outer")
+
+
+def build(args, device):
+    arch = (get_smoke_arch if args.smoke else get_arch)(args.arch)
+    cfg = arch.cfg
+    dcfg = DiLoCoConfig(k=args.k, H=args.H, outer_opt=args.outer_opt,
+                        outer_lr=args.outer_lr,
+                        outer_momentum=args.outer_momentum,
+                        drop_prob=args.drop_prob,
+                        weighted_avg=args.weighted,
+                        kernel_mode=args.kernel_mode,
+                        guard_outer=args.guard_outer,
+                        guard_clip=args.guard_clip)
+    total = args.pretrain_steps + args.rounds * args.H
+    tcfg = TrainConfig(inner_lr=args.inner_lr, warmup_steps=args.warmup,
+                       total_steps=total, batch_size=args.batch,
+                       seq_len=args.seq, seed=args.seed,
+                       kernel_mode=args.kernel_mode)
+    sampler = make_regime(args.regime, k=args.k,
+                          vocab_size=cfg.vocab_size, seed=args.seed,
+                          imbalanced=args.weighted, device=device)
+    return arch, cfg, dcfg, tcfg, sampler
+
+
+def run(args, recorder=None):
+    """Drive the configured run end-to-end. Returns the record history;
+    ``recorder.manifest["timing"]`` holds the host seconds of the data
+    set-up and of each round's sampling, inner phase and outer step."""
+    check_ported(args)
+    device = resolve_device(args.device)
+    t_setup = time.perf_counter()
+    arch, cfg, dcfg, tcfg, sampler = build(args, device)
+    data_setup_s = time.perf_counter() - t_setup
+    loss_fn = lambda p, b: arch.loss(p, b)
+    gen = torch.Generator(device=device)
+    gen.manual_seed(args.seed)
+    params = arch.init(generator=gen, device=device)
+    ev = diloco.make_eval(loss_fn)
+    val_gen = torch.Generator(device=device)
+    val_gen.manual_seed(10_000)
+    val = sampler.sample_validation(val_gen, args.eval_batch, args.seq)
+    rec = recorder if recorder is not None else obs_metrics.RunRecorder(
+        transport="simulated", log_format=args.log_format)
+    rec.manifest.setdefault("config", dict(vars(args)))
+
+    # ---- pretraining phase (paper: 24k steps before DiLoCo) ----
+    if args.pretrain_steps:
+        step = diloco.make_single_worker_step(loss_fn, tcfg,
+                                              total_steps=tcfg.total_steps)
+        opt = adamw.init(params)
+        for i in range(args.pretrain_steps):
+            batch = {"tokens": sampler.sample_validation(
+                gen, args.batch, args.seq)}
+            params, opt, m = step(params, opt, batch, i)
+            if (i + 1) % args.log_every == 0:
+                rec.pretrain(step=i + 1, loss=float(m["loss"]),
+                             val_loss=float(ev(params, val)))
+        params = adamw.master_params(params, opt)
+
+    # ---- DiLoCo phase ----
+    state = diloco.init_state(params, dcfg)
+    round_wire = diloco.outer_wire_bytes(params, dcfg)
+    rec.attach_wire_plan([{"fragment": 0, "send_step": args.H,
+                           "apply_step": args.H,
+                           "wire_bytes": float(round_wire),
+                           "wire_dtype": dcfg.outer_grad_dtype}])
+    rng = np.random.default_rng(args.seed)
+    drops = schedules.drop_masks(rng, args.drop_prob, args.k, args.rounds)
+    acts = schedules.active_masks(
+        schedules.compute_schedule(args.compute_schedule, args.k,
+                                   args.rounds), args.k)
+    weights = shard_weights(sampler, args.weighted)
+    rnd = diloco.make_round(loss_fn, sampler.sample_all_shards, dcfg, tcfg,
+                            total_steps=tcfg.total_steps,
+                            compute_cosine=args.cosine_stats,
+                            batch_size=args.batch, seq_len=args.seq)
+    timing = {"device": str(device), "data_setup_s": data_setup_s,
+              "rounds": []}
+    rec.manifest["timing"] = timing
+
+    t0 = time.time()
+    for t in range(args.rounds):
+        state, m = rnd(state, gen, drops[t], acts[t], weights)
+        evaled = (t + 1) % args.eval_every == 0 or t == args.rounds - 1
+        val_loss = float(ev(state.global_params, val)) if evaled \
+            else float("nan")
+        extras = {kk: float(m[kk]) for kk in ("inner_loss_last",
+                                              "drop_frac") if kk in m}
+        if args.cosine_stats:
+            extras["cos_mean"] = float(m["cos_mean"])
+            extras["cos_std"] = float(m["cos_std"])
+        rec.round(round=t + 1, rounds=args.rounds,
+                  inner_steps=args.pretrain_steps + (t + 1) * args.H,
+                  inner_loss=float(m["inner_loss"]), val_loss=val_loss,
+                  outer_gnorm=float(m["outer_gnorm"]),
+                  active=int(np.asarray(acts[t]).sum()),
+                  dropped=int(args.k - np.asarray(drops[t]).sum()),
+                  wire_bytes=round_wire, extras=extras, evaled=evaled)
+        timing["rounds"].append({kk: m[kk] for kk in
+                                 ("sample_s", "inner_s", "outer_s")})
+
+    floor = sampler.entropy_floor()
+    rec.note(f"done in {time.time() - t0:.1f}s; "
+             f"entropy floor = {floor:.4f} (ppl {np.exp(floor):.2f})")
+    if args.out:
+        rec.dump(args.out, args=vars(args))
+        rec.note(f"wrote {args.out}")
+    return rec.records
+
+
+def make_parser():
+    ap = argparse.ArgumentParser(description=__doc__,
+                                 formatter_class=argparse.
+                                 RawDescriptionHelpFormatter)
+    ap.add_argument("--device", default="cuda",
+                    help="torch device; 'cpu' runs the plain PyTorch "
+                         "versions of the kernels")
+    ap.add_argument("--arch", default="diloco_150m")
+    ap.add_argument("--smoke", action="store_true", default=True)
+    ap.add_argument("--full", dest="smoke", action="store_false")
+    ap.add_argument("--k", type=int, default=8)
+    ap.add_argument("--H", type=int, default=50)
+    ap.add_argument("--rounds", type=int, default=20)
+    ap.add_argument("--pretrain-steps", type=int, default=0)
+    ap.add_argument("--batch", type=int, default=16)
+    ap.add_argument("--seq", type=int, default=128)
+    ap.add_argument("--eval-batch", type=int, default=64)
+    ap.add_argument("--inner-lr", type=float, default=1e-3)
+    ap.add_argument("--warmup", type=int, default=50)
+    ap.add_argument("--outer-opt", default="nesterov",
+                    choices=["nesterov", "sgd", "sgdm", "adam"])
+    ap.add_argument("--outer-lr", type=float, default=0.7)
+    ap.add_argument("--outer-momentum", type=float, default=0.9)
+    ap.add_argument("--regime", default="non_iid",
+                    choices=["iid", "non_iid"])
+    ap.add_argument("--drop-prob", type=float, default=0.0)
+    ap.add_argument("--weighted", action="store_true")
+    ap.add_argument("--compute-schedule", default="constant_distributed",
+                    choices=["constant_local", "constant_distributed",
+                             "doubling", "halving", "ramp_up", "ramp_down"])
+    ap.add_argument("--cosine-stats", action="store_true")
+    ap.add_argument("--kernel-mode", default="auto",
+                    choices=["auto", "kernel", "ref", "pallas", "interpret"],
+                    help="optimizer kernels: auto = CUDA kernels on CUDA "
+                         "tensors, plain PyTorch on the CPU; kernel = CUDA "
+                         "kernels or an error; ref = the legacy tree maps")
+    ap.add_argument("--rounds-per-call", type=int, default=0,
+                    help="accepted for the JAX driver's command lines; the "
+                         "port runs one round per call")
+    ap.add_argument("--legacy-loop", action="store_true",
+                    help="accepted for the JAX driver's command lines; the "
+                         "port's loop is the per-round loop")
+    ap.add_argument("--eval-every", type=int, default=1,
+                    help="eval cadence in rounds (the last round is always "
+                         "evaluated)")
+    ap.add_argument("--guard-outer", action="store_true",
+                    help="exclude replicas with non-finite outer deltas "
+                         "from the outer reduce")
+    ap.add_argument("--guard-clip", type=float, default=0.0,
+                    help="with --guard-outer: clip each replica's "
+                         "outer-delta norm to this multiple of the median")
+    ap.add_argument("--log-every", type=int, default=200)
+    ap.add_argument("--log-format", default="text", choices=["text", "json"])
+    ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--out", default="")
+    # ---- not ported: accepted so that they can be refused by name ----
+    nyi = "not ported yet (see ROADMAP.md)"
+    ap.add_argument("--prune-frac", type=float, default=0.0, help=nyi)
+    ap.add_argument("--stream-fragments", type=int, default=0, help=nyi)
+    ap.add_argument("--stream-alpha", type=float, default=1.0, help=nyi)
+    ap.add_argument("--stream-tau", type=int, default=0, help=nyi)
+    ap.add_argument("--outer-grad-dtype", default="float32", help=nyi)
+    ap.add_argument("--error-feedback", action="store_true", help=nyi)
+    ap.add_argument("--transport", default="simulated", help=nyi)
+    ap.add_argument("--staleness-lambda", type=float, default=1.0, help=nyi)
+    ap.add_argument("--gossip-pairing", default="butterfly", help=nyi)
+    ap.add_argument("--gossip-mix", type=float, default=0.5, help=nyi)
+    ap.add_argument("--ticks", type=int, default=0, help=nyi)
+    ap.add_argument("--speeds", default="", help=nyi)
+    ap.add_argument("--link-latency", default="", help=nyi)
+    ap.add_argument("--latency-jitter", type=float, default=0.0, help=nyi)
+    ap.add_argument("--max-retries", type=int, default=0, help=nyi)
+    ap.add_argument("--retry-backoff", type=int, default=1, help=nyi)
+    ap.add_argument("--preempt", action="append", default=[], help=nyi)
+    ap.add_argument("--restore", default="", help=nyi)
+    ap.add_argument("--no-pack-wire", dest="pack_wire",
+                    action="store_false", default=True, help=nyi)
+    ap.add_argument("--pods", type=int, default=0, help=nyi)
+    ap.add_argument("--param-dtype", default="float32", help=nyi)
+    ap.add_argument("--master-dtype", default="float32", help=nyi)
+    ap.add_argument("--trace", default="", help=nyi)
+    ap.add_argument("--checkpoint", default="", help=nyi)
+    ap.add_argument("--checkpoint-dir", default="", help=nyi)
+    ap.add_argument("--checkpoint-every", type=int, default=0, help=nyi)
+    ap.add_argument("--resume", default="", help=nyi)
+    ap.add_argument("--retain", type=int, default=3, help=nyi)
+    ap.add_argument("--crash-at-round", type=int, default=-1, help=nyi)
+    ap.add_argument("--crash-at-tick", type=int, default=-1, help=nyi)
+    ap.add_argument("--nan-bomb", action="append", default=[], help=nyi)
+    ap.add_argument("--guard", action="store_true", help=nyi)
+    ap.add_argument("--guard-window", type=int, default=8, help=nyi)
+    ap.add_argument("--guard-spike", type=float, default=4.0, help=nyi)
+    ap.add_argument("--guard-rollbacks", type=int, default=2, help=nyi)
+    ap.add_argument("--state-hash-out", default="", help=nyi)
+    return ap
+
+
+if __name__ == "__main__":
+    run(make_parser().parse_args())
