@@ -26,11 +26,31 @@ Phases, each printing one JSON line; any failure exits non-zero:
               inside a step (``torch.cuda`` sync debug mode), then one
               step under ``torch.profiler``: device time by kernel group
               and the top kernels.
+  6. flash    the four flash-attention kernels against their plain
+              versions (o and lse within 2e-5, dq, dk, dv within 5e-4,
+              as atol = rtol) at diloco_400m's layer shape (B 8, H = G =
+              12, S 1024, d 128, causal) and at GQA, sliding-window,
+              bidirectional and non-block-aligned cases at d 64 and 128;
+              then each kernel's time at the layer shape beside its plain
+              version, one PyTorch library call (the yardstick, which the
+              port never calls: ``scaled_dot_product_attention``) and the
+              bound.
+  7. train_400m  slice 2's path at full width: diloco_400m with
+              ``use_pallas=True`` (the flash branch), k=2, H=4, 2 rounds,
+              batch 8, seq 1024, through ``core.diloco.make_round`` and
+              ``make_eval`` with ``arch.loss(..., cfg=...)`` as a user
+              reaches it (the trainer's ``build`` for data and configs).
+              The counters are set to 0 just before and read just after:
+              per replica step 2·L ``fwd_lse`` (remat runs the forward
+              twice), L ``bwd_dq`` and L ``bwd_dkv``, L ``fwd`` per eval,
+              and the optimizer kernels' k·H·rounds·12 and rounds·12.
+  8. profile_400m  one profiled inner step of that path, as phase 5.
 
-Then the ``{"kernels": [...]}`` line, the card's line again, and the last
-line ``{"ok": true, "device": {...}}``. Without a GPU, or run from a
-directory that holds nothing else of the repository, it exits non-zero
-and prints no result.
+Then the ``{"kernels": [...]}`` line (each kernel's launches from its own
+path's run: phase 4 for the optimizer kernels, phase 7 for attention),
+the card's line again, and the last line ``{"ok": true, "device":
+{...}}``. Without a GPU, or run from a directory that holds nothing else
+of the repository, it exits non-zero and prints no result.
 """
 from __future__ import annotations
 
@@ -47,6 +67,16 @@ sys.path.insert(0, str(ROOT / "src"))
 
 K, H, ROUNDS, BATCH, SEQ = 2, 4, 2, 8, 1024
 N_LEAVES = 12
+FWD_TOL, BWD_TOL = 2e-5, 5e-4     # the JAX package's kernel tolerances
+# B, H, G, S, d, causal, window: the 400m layer, then GQA, window,
+# bidirectional and non-block-aligned cases at d 64 and 128
+FLASH_LAYER = (BATCH, 12, 12, SEQ, 128, True, 0)
+FLASH_CASES = [FLASH_LAYER] + [
+    (b, h, g, s, d, c, w) for d in (64, 128)
+    for b, h, g, s, c, w in ((2, 8, 2, 512, True, 0),
+                             (1, 4, 4, 640, True, 256),
+                             (2, 4, 2, 384, False, 0),
+                             (2, 4, 2, 1000, True, 0))]
 # H100 device-memory rates (NVIDIA data sheets), bytes/s, by card name
 BANDWIDTH = (("H100 PCIe", 2.0e12), ("H100 NVL", 3.9e12), ("H200", 4.8e12),
              ("H100", 3.35e12))
@@ -54,7 +84,8 @@ PEAK_F32 = 67e12       # f32 FLOP/s outside the tensor cores, H100 SXM
 ADAMW_FLOPS, NESTEROV_FLOPS = 16, 6      # per element, kernels/csrc
 ADAMW_BYTES, NESTEROV_BYTES = 28, 20     # 4 reads + 3 writes; 3 + 2
 # device kernels of the profiled inner step, grouped by a name substring
-PROFILE_GROUPS = (("fused_adamw", "adamw_kernel"), ("matmul", "gemm"),
+PROFILE_GROUPS = (("flash", "flash_"), ("fused_adamw", "adamw_kernel"),
+                  ("matmul", "gemm"),
                   ("softmax", "softmax"), ("reduction", "reduce"),
                   ("elementwise", "elementwise"),
                   ("elementwise", "vectorized"), ("copy", "copy"),
@@ -316,10 +347,11 @@ def phase_train(torch, dev):
     return launches
 
 
-def phase_profile(torch, dev):
-    """Inner steps of one diloco_150m replica at full width: the host
-    syncs inside one step, then one step under the profiler (device time
-    by kernel, and the device's busy share)."""
+def phase_profile(torch, dev, arch_name="diloco_150m", label="profile",
+                  **cfg_changes):
+    """Inner steps of one replica of ``arch_name`` (with ``cfg_changes``)
+    at full width: the host syncs inside one step, then one step under the
+    profiler (device time by kernel, and the device's busy share)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     from repro_torch.configs.base import TrainConfig
@@ -327,13 +359,14 @@ def phase_profile(torch, dev):
     from repro_torch.models.registry import get_arch
     from repro_torch.optim import adamw
 
-    arch = get_arch("diloco_150m")
+    arch = get_arch(arch_name)
+    cfg = arch.cfg.replace(**cfg_changes)
     params = arch.init(generator=torch.Generator(device=dev).manual_seed(1),
-                       device=dev)
+                       device=dev, cfg=cfg)
     opt = adamw.init(params)
-    step = diloco.make_inner_step(lambda p, b: arch.loss(p, b),
+    step = diloco.make_inner_step(lambda p, b: arch.loss(p, b, cfg=cfg),
                                   TrainConfig(inner_lr=1e-3, warmup_steps=2))
-    toks = torch.randint(0, arch.cfg.vocab_size, (BATCH, SEQ), device=dev)
+    toks = torch.randint(0, cfg.vocab_size, (BATCH, SEQ), device=dev)
     params, opt, _ = step(params, opt, {"tokens": toks}, 0)   # warm-up
     torch.cuda.synchronize()
     # host syncs inside one step: each drains the device's queue, and the
@@ -365,7 +398,8 @@ def phase_profile(torch, dev):
         g = next((name for name, pat in PROFILE_GROUPS if pat in key),
                  "other")
         groups[g] = groups.get(g, 0.0) + ms
-    say({"phase": "profile", "host_syncs_per_inner_step": len(syncs),
+    say({"phase": label, "arch": arch_name, "cfg_changes": cfg_changes,
+         "host_syncs_per_inner_step": len(syncs),
          "first_sync": syncs[:1], "wall_ms": wall_ms,
          "device_ms": device_ms if rows else "not measured",
          "device_busy_share": device_ms / wall_ms if rows else
@@ -373,6 +407,215 @@ def phase_profile(torch, dev):
          "by_group_ms": groups,
          "top": [{"kernel": key[:100], "ms": ms, "calls": n}
                  for key, ms, n in rows[:12]]})
+    del params, opt
+    torch.cuda.empty_cache()
+
+
+def phase_flash(torch, dev):
+    """The four flash-attention kernels against their plain versions, then
+    their times at diloco_400m's layer shape. Returns the kernels' rows."""
+    from repro_torch.kernels import flash_attention as FK
+    from repro_torch.kernels import ref
+
+    names = ("fwd", "fwd_lse", "bwd_dq", "bwd_dkv")
+    err = dict.fromkeys(names, 0.0)
+    gen = torch.Generator(device=dev).manual_seed(2)
+
+    def inputs(B, Hh, G, S, d):
+        return [torch.randn(shape, generator=gen, device=dev) for shape in
+                ((B, Hh, S, d), (B, G, S, d), (B, G, S, d), (B, Hh, S, d))]
+
+    def check(name, got, want, tol):
+        """max |got - want|; fails unless within tol·(1 + |want|)."""
+        diff = (got - want).abs()
+        worst = float(diff.max())
+        if not bool((diff <= tol + tol * want.abs()).all()):
+            raise SystemExit(f"flash {name} differs from its plain version:"
+                             f" max abs {worst} beyond {tol}·(1 + |want|)")
+        err[name] = max(err[name], worst)
+        return worst
+
+    for case in FLASH_CASES:
+        B, Hh, G, S, d, causal, window = case
+        q, k, v, do = inputs(B, Hh, G, S, d)
+        opts = dict(causal=causal, window=window)
+        o_nolse = FK.flash_fwd(q, k, v, **opts)
+        o, lse = FK.flash_fwd_lse(q, k, v, **opts)
+        dq, dk, dv = FK.flash_bwd(q, k, v, o, lse, do, **opts)
+        torch.cuda.synchronize()
+        # the plain backward from the kernels' own residuals (o, lse)
+        want_o, want_lse = ref.flash_fwd_lse(q, k, v, **opts)
+        delta = (do * o).sum(-1)
+        want_dq = ref.flash_bwd_dq(q, k, v, lse, do, delta, **opts)
+        want_dk, want_dv = ref.flash_bwd_dkv(q, k, v, lse, do, delta,
+                                             **opts)
+        say({"phase": "flash", "case": dict(zip(
+            ("B", "H", "G", "S", "d", "causal", "window"), case)),
+             "max_abs_err": {
+                 "fwd": check("fwd", o_nolse, want_o, FWD_TOL),
+                 "fwd_lse": max(check("fwd_lse", o, want_o, FWD_TOL),
+                                check("fwd_lse", lse, want_lse, FWD_TOL)),
+                 "bwd_dq": check("bwd_dq", dq, want_dq, BWD_TOL),
+                 "bwd_dkv": max(check("bwd_dkv", dk, want_dk, BWD_TOL),
+                                check("bwd_dkv", dv, want_dv, BWD_TOL))},
+             "fwd_tol": FWD_TOL, "bwd_tol": BWD_TOL})
+        del q, k, v, do, o_nolse, o, lse, dq, dk, dv, want_o, want_lse
+        del delta, want_dq, want_dk, want_dv
+    torch.cuda.empty_cache()
+
+    # times at the 400m layer shape
+    B, Hh, G, S, d, causal, window = FLASH_LAYER
+    q, k, v, do = inputs(B, Hh, G, S, d)
+    opts = dict(causal=causal, window=window)
+    o, lse = FK.flash_fwd_lse(q, k, v, **opts)
+    delta = (do * o).sum(-1).contiguous()
+    dq, dk, dv = (torch.empty_like(t) for t in (q, k, v))
+    launch = dict(do=do, lse=lse, delta=delta, scale=d ** -0.5, q_offset=0,
+                  **opts)
+    kernel = {
+        "fwd": lambda: FK.flash_fwd(q, k, v, **opts),
+        "fwd_lse": lambda: FK.flash_fwd_lse(q, k, v, **opts),
+        "bwd_dq": lambda: FK._launch("bwd_dq", q, k, v, out=dq, **launch),
+        "bwd_dkv": lambda: FK._launch("bwd_dkv", q, k, v, out=None, dk=dk,
+                                      dv=dv, **launch)}
+    plain = {
+        "fwd": lambda: ref.flash_fwd_lse(q, k, v, **opts)[0],
+        "fwd_lse": lambda: ref.flash_fwd_lse(q, k, v, **opts),
+        "bwd_dq": lambda: ref.flash_bwd_dq(q, k, v, lse, do, delta, **opts),
+        "bwd_dkv": lambda: ref.flash_bwd_dkv(q, k, v, lse, do, delta,
+                                             **opts)}
+    # the yardstick: PyTorch's fused attention on the same f32 inputs; it
+    # computes dq, dk and dv in one backward call
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
+    out = sdpa(*leaves, is_causal=causal)
+    lib_fwd = time_ms(torch, lambda: sdpa(q, k, v, is_causal=causal))
+    lib_bwd = time_ms(torch, lambda: torch.autograd.grad(
+        out, leaves, do, retain_graph=True))
+    library = {"fwd": lib_fwd, "fwd_lse": lib_fwd, "bwd_dq": lib_bwd,
+               "bwd_dkv": lib_bwd}
+    flash_leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
+    both = {"kernels": lambda: torch.autograd.grad(FK.flash_attention(
+                *flash_leaves, **opts), flash_leaves, do),
+            "library": lambda: torch.autograd.grad(sdpa(
+                *leaves, is_causal=causal), leaves, do)}
+    fwd_bwd_ms = {n: time_ms(torch, fn) for n, fn in both.items()}
+
+    # the bound: visible (query, key) pairs of this run's mask; flops per
+    # pair and head: 2·d for each product a kernel computes (forward s and
+    # p·v; dq s, dp and ds·k; dk/dv s, dp, pᵀ·dO and dsᵀ·q); bytes: each
+    # input read once, each output written once
+    pairs = int(ref.flash_visible(S, S, causal=causal, window=window,
+                                  device=dev).sum()) * B * Hh
+    nq, nkv, nrow = 4 * q.numel(), 4 * k.numel(), 4 * lse.numel()
+    work = {"fwd": (4 * d * pairs, 2 * nq + 2 * nkv),
+            "fwd_lse": (4 * d * pairs, 2 * nq + 2 * nkv + nrow),
+            "bwd_dq": (6 * d * pairs, 3 * nq + 2 * nkv + 2 * nrow),
+            "bwd_dkv": (8 * d * pairs, 2 * nq + 4 * nkv + 2 * nrow)}
+    bw = bandwidth(torch.cuda.get_device_name(0))
+    tpu = {"fwd": "src/repro/kernels/flash_attention.py:218",
+           "fwd_lse": "src/repro/kernels/flash_attention.py:293",
+           "bwd_dq": "src/repro/kernels/flash_attention.py:360",
+           "bwd_dkv": "src/repro/kernels/flash_attention.py:380"}
+    rows = []
+    for n in names:
+        flops, nbytes = work[n]
+        by_ops, by_bytes = flops / PEAK_F32, nbytes / bw
+        t = {"ms": time_ms(torch, kernel[n]),
+             "plain_ms": time_ms(torch, plain[n])}
+        rows.append({"name": f"flash_{n}", "route": "cuda",
+                     "source": "src/repro_torch/kernels/csrc/"
+                               "flash_attention.cu",
+                     "replaces": tpu[n], "launches": None,
+                     "max_abs_err": err[n], **t,
+                     "bound_ms": max(by_ops, by_bytes) * 1e3,
+                     "bound_by": "operations" if by_ops >= by_bytes
+                     else "bytes", "library_ms": library[n]})
+        say({"phase": "flash", "kernel": n, "shape": list(FLASH_LAYER),
+             "flops": flops, "bytes": nbytes, **t,
+             "bound_ms": rows[-1]["bound_ms"],
+             "bound_by": rows[-1]["bound_by"], "library_ms": library[n],
+             "kernel_TFLOPs": flops / t["ms"] / 1e9})
+    say({"phase": "flash", "fwd_plus_bwd_ms": fwd_bwd_ms,
+         "shape": list(FLASH_LAYER)})
+    del q, k, v, do, o, lse, delta, dq, dk, dv, leaves, out, flash_leaves
+    torch.cuda.empty_cache()
+    return rows
+
+
+def phase_train_400m(torch, dev):
+    """Slice 2's path at full width: diloco_400m with use_pallas=True
+    through ``make_round``/``make_eval``. Returns {kernel: launches}."""
+    from repro_torch import tree
+    from repro_torch.core import diloco
+    from repro_torch.kernels import flash_attention as FK
+    from repro_torch.kernels import fused_adamw as FA
+    from repro_torch.kernels import outer_nesterov as ON
+    from repro_torch.launch import train
+
+    argv = ["--full", "--arch", "diloco_400m", "--k", str(K), "--H", str(H),
+            "--rounds", str(ROUNDS), "--batch", str(BATCH), "--seq",
+            str(SEQ)]
+    args = train.make_parser().parse_args(argv)
+    t0 = time.perf_counter()
+    arch, cfg, dcfg, tcfg, sampler = train.build(args, dev)
+    data_setup_s = time.perf_counter() - t0
+    # no trainer flag sets use_pallas: a user reaches it through the loss
+    cfg = cfg.replace(use_pallas=True)
+    loss_fn = lambda p, b: arch.loss(p, b, cfg=cfg)
+    gen = torch.Generator(device=dev).manual_seed(args.seed)
+    params = arch.init(generator=gen, device=dev, cfg=cfg)
+    n_params = sum(t.numel() for t in tree.leaves(params))
+    state = diloco.init_state(params, dcfg)
+    del params
+    rnd = diloco.make_round(loss_fn, sampler.sample_all_shards, dcfg, tcfg,
+                            total_steps=tcfg.total_steps, batch_size=BATCH,
+                            seq_len=SEQ)
+    ev = diloco.make_eval(loss_fn)
+    val = sampler.sample_validation(
+        torch.Generator(device=dev).manual_seed(10_000), BATCH, SEQ)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    FK.launches.update(dict.fromkeys(FK.launches, 0))
+    FA.launches = ON.launches = 0
+    rounds = []
+    t0 = time.perf_counter()
+    for _ in range(ROUNDS):
+        state, m = rnd(state, gen)
+        rounds.append({"inner_loss": float(m["inner_loss"]),
+                       "val_loss": float(ev(state.global_params, val)),
+                       **{n: m[n] for n in ("sample_s", "inner_s",
+                                            "outer_s")}})
+    wall_s = time.perf_counter() - t0
+    L, steps = cfg.n_layers, K * H * ROUNDS
+    launches = {**{f"flash_{n}": c for n, c in FK.launches.items()},
+                "fused_adamw": FA.launches, "outer_nesterov": ON.launches}
+    want = {"flash_fwd": ROUNDS * L, "flash_fwd_lse": 2 * L * steps,
+            "flash_bwd_dq": L * steps, "flash_bwd_dkv": L * steps,
+            "fused_adamw": steps * N_LEAVES,
+            "outer_nesterov": ROUNDS * N_LEAVES}
+    if launches != want:
+        raise SystemExit(f"launch counts {launches}, expected {want}")
+    if not all(math.isfinite(r[n]) for r in rounds
+               for n in ("inner_loss", "val_loss")):
+        raise SystemExit(f"bad round records: {rounds}")
+    # model FLOPs per token as in phase 4 (no recompute, full S·S)
+    n_matmul = n_params - cfg.vocab_size * cfg.d_model
+    flops_tok = 6 * n_matmul + 12 * L * SEQ * cfg.n_heads \
+        * cfg.resolved_head_dim
+    tok_s = K * H * BATCH * SEQ / rounds[-1]["inner_s"]
+    say({"phase": "train_400m", "argv": argv, "use_pallas": True,
+         "params": n_params, "launches": launches, "rounds": rounds,
+         "data_setup_s": data_setup_s, "tokens_per_s": tok_s,
+         "model_flops_per_token": flops_tok,
+         "mfu_vs_f32_peak": tok_s * flops_tok / PEAK_F32,
+         "inner_step_ms": rounds[-1]["inner_s"] * 1e3 / (K * H),
+         "outer_step_ms": rounds[-1]["outer_s"] * 1e3, "wall_s": wall_s,
+         "max_memory_allocated_GB":
+             torch.cuda.max_memory_allocated(dev) / 1e9})
+    del state, sampler, val
+    torch.cuda.empty_cache()
+    return launches
 
 
 def main() -> int:
@@ -386,6 +629,11 @@ def main() -> int:
     phase_smoke(torch, dev)
     launches = phase_train(torch, dev)
     phase_profile(torch, dev)
+    rows += phase_flash(torch, dev)
+    # each kernel's launches from its own path's run
+    launches.update({n: c for n, c in phase_train_400m(torch, dev).items()
+                     if n.startswith("flash_")})
+    phase_profile(torch, dev, "diloco_400m", "profile_400m", use_pallas=True)
     for row in rows:
         row["launches"] = launches[row["name"]]
     say({"kernels": rows})

@@ -85,7 +85,7 @@ class ModelConfig:
     remat: bool = True          # torch.utils.checkpoint per layer
     logit_softcap: float = 0.0
     init_scale: float = 0.02
-    use_pallas: bool = False    # flash-attention kernel (not ported yet)
+    use_pallas: bool = False    # flash-attention kernels (hd, S % 128 == 0)
 
     def replace(self, **kw) -> "ModelConfig":
         return dataclasses.replace(self, **kw)

@@ -5,9 +5,13 @@ csrc/fused_adamw.cu     inner AdamW step, one pass (replaces the Pallas
                         kernels/fused_adamw.py:fused_adamw)
 csrc/outer_nesterov.cu  outer Nesterov step, one pass (replaces the
                         Pallas kernels/outer_nesterov.py:outer_nesterov)
+csrc/flash_attention.cu flash attention forward (with and without the
+                        logsumexp), dq and dk/dv (replaces the Pallas
+                        kernels/flash_attention.py)
 fused_adamw.py,         wrappers: kernel on CUDA tensors, plain version
-outer_nesterov.py       on CPU tensors, launch counters
+outer_nesterov.py,      on CPU tensors, launch counters; flash attention's
+flash_attention.py      is also a torch.autograd.Function
 ref.py                  the plain PyTorch versions
-ops.py                  kernel_mode dispatch and tree-level updates
+ops.py                  kernel_mode dispatch, tree-level updates, attention
 build.py                nvcc build into build/repro_torch_kernels, ctypes
 """

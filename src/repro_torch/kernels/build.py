@@ -3,7 +3,7 @@
 Each source under ``csrc/`` is compiled on its own into a shared library
 with a plain C interface (no PyTorch headers, so a build takes seconds).
 The libraries go into ``build/repro_torch_kernels/`` at the root of the
-checkout, named by a hash of the source and the flags: a changed source
+checkout, named by a hash of the source and its flags: a changed source
 builds anew, an unchanged one is loaded as it is. The build runs at first
 use; ``build_all`` starts one nvcc per source, all at once.
 """
@@ -22,16 +22,18 @@ import torch
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = (Path(__file__).resolve().parents[3] / "build"
              / "repro_torch_kernels")
-SOURCES = {
-    "fused_adamw": CSRC / "fused_adamw.cu",
-    "outer_nesterov": CSRC / "outer_nesterov.cu",
+# --fmad=false: no multiply-add contraction, so the optimizer kernels
+# round where their plain PyTorch versions round (bitwise agreement).
+# Attention is held to a tolerance and contracts its dot products.
+BITWISE = ("--fmad=false",)
+SOURCES = {    # name -> (source, flags of its own)
+    "fused_adamw": (CSRC / "fused_adamw.cu", BITWISE),
+    "outer_nesterov": (CSRC / "outer_nesterov.cu", BITWISE),
+    "flash_attention": (CSRC / "flash_attention.cu", ()),
 }
-# --fmad=false: no multiply-add contraction, so each kernel rounds where
-# its plain PyTorch version rounds. -Xptxas -v reports registers and
-# spills in the build log.
+# -Xptxas -v reports registers, shared memory and spills in the build log.
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "--fmad=false", "-shared", "-Xcompiler", "-fPIC",
-              "-Xptxas", "-v")
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _loaded: dict = {}       # name -> ctypes.CDLL, one load per process
 build_log: dict = {}     # name -> {"seconds": float, "ptxas": str}
@@ -49,9 +51,13 @@ def nvcc() -> str:
                        "the CUDA kernels are built from csrc/ at first use")
 
 
+def flags(name: str) -> tuple:
+    return NVCC_FLAGS + SOURCES[name][1]
+
+
 def lib_path(name: str) -> Path:
-    h = hashlib.sha256(SOURCES[name].read_bytes())
-    h.update(" ".join(NVCC_FLAGS).encode())
+    h = hashlib.sha256(SOURCES[name][0].read_bytes())
+    h.update(" ".join(flags(name)).encode())
     return BUILD_DIR / f"{name}-{h.hexdigest()[:16]}.so"
 
 
@@ -69,7 +75,7 @@ def build_all(names=None) -> dict:
     t0 = time.time()
     for n in todo:
         tmp = lib_path(n).with_suffix(f".so.tmp{os.getpid()}")
-        cmd = [exe, *NVCC_FLAGS, "-o", str(tmp), str(SOURCES[n])]
+        cmd = [exe, *flags(n), "-o", str(tmp), str(SOURCES[n][0])]
         procs[n] = (tmp, subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                           stderr=subprocess.STDOUT,
                                           text=True))

@@ -18,6 +18,7 @@ from __future__ import annotations
 import numpy as np
 
 from .. import tree
+from . import flash_attention as _flash
 from . import fused_adamw as _adamw
 from . import outer_nesterov as _nesterov
 from . import ref
@@ -37,6 +38,24 @@ def _resolve(mode: str, like) -> bool:
         raise ValueError("kernel_mode='kernel' launches the CUDA kernels and "
                          f"needs CUDA tensors, got {like.device}")
     return mode != "ref"
+
+
+def flash_attention(q, k, v, *, causal=True, window=0, scale=None,
+                    mode: str = "auto"):
+    """Differentiable flash attention in the model layout: q (B, S, H, d),
+    k/v (B, S, G, d) -> (B, S, H, d). ``auto`` and ``kernel`` go through
+    the kernel wrapper (the kernels on CUDA tensors, the plain versions of
+    their maths on CPU tensors); ``ref`` is the plain full-softmax
+    attention of the JAX ``kernels/ref.py``."""
+    if not _resolve(mode, q):
+        return ref.flash_attention(q, k, v, causal=causal, window=window,
+                                   scale=scale)
+    # the kernels read the (B, S, H, d) buffers in place through the
+    # transposed views
+    out = _flash.flash_attention(q.transpose(1, 2), k.transpose(1, 2),
+                                 v.transpose(1, 2), causal=causal,
+                                 window=window, scale=scale)
+    return out.transpose(1, 2)
 
 
 def adamw_scalars(count: int, b1: float, b2: float):

@@ -1,10 +1,11 @@
 """Plain PyTorch versions of the port's kernels.
 
-Each function computes what its CUDA kernel computes, with the same
-operation order, so that the kernel agrees with it bit for bit on the
-card. They are what the kernel wrappers run on CPU tensors, what the CPU
-tests hold against the JAX package's ``kernels/ref.py``, and what
-``chip_smoke.py`` holds the kernels against.
+Each optimizer function computes what its CUDA kernel computes, with the
+same operation order, so that the kernel agrees with it bit for bit on
+the card; the flash-attention functions compute the kernels' maths on
+whole (Sq, Sk) score matrices and agree to a tolerance. They are what the
+kernel wrappers run on CPU tensors, what the CPU tests hold against the
+JAX package, and what ``chip_smoke.py`` holds the kernels against.
 
 Scalars are rounded to float32 once (as JAX's weak typing does) and the
 divisors are 0-d tensors on the operands' device: PyTorch turns a
@@ -15,6 +16,8 @@ from __future__ import annotations
 
 import numpy as np
 import torch
+
+NEG_INF = -1e30
 
 
 def f32(x) -> float:
@@ -51,3 +54,118 @@ def outer_nesterov(p, delta, buf, *, lr, momentum=0.9):
     b_new = mu * buf + delta
     p_new = p - f32(lr) * (mu * b_new + delta)
     return p_new, b_new
+
+
+# ---------------------------------------------------------------------------
+# flash attention
+# ---------------------------------------------------------------------------
+
+def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
+                    scale: float | None = None):
+    """q: (B, Sq, H, d); k/v: (B, Sk, G, d), H % G == 0: the JAX
+    ``kernels/ref.py`` full-softmax attention, in the model layout. Masks
+    use the ``(Sk - Sq)`` offset of that reference."""
+    B, Sq, H, d = q.shape
+    _, Sk, G, _ = k.shape
+    rep = H // G
+    scale = d ** -0.5 if scale is None else scale
+    qh = (q * f32(scale)).reshape(B, Sq, G, rep, d).float()
+    s = torch.einsum("bqgrd,bkgd->bgrqk", qh, k.float())
+    # queries start at Sk - Sq here whether or not the mask is causal
+    ok = flash_visible(Sq, Sk, causal=causal, window=window,
+                       q_offset=0 if causal else Sk - Sq, device=q.device)
+    s = torch.where(ok, s, NEG_INF)
+    p = torch.softmax(s, dim=-1)
+    o = torch.einsum("bgrqk,bkgd->bqgrd", p, v.float())
+    return o.reshape(B, Sq, H, d).to(q.dtype)
+
+
+def flash_visible(Sq, Sk, *, causal, window, q_offset=0, device=None):
+    """(Sq, Sk) bool: which keys each query sees, from absolute positions
+    with the kernels' rule: queries start at q_offset + (Sk - Sq) when
+    causal and Sq != Sk, else at q_offset."""
+    off = q_offset + (Sk - Sq if causal and Sq != Sk else 0)
+    qpos = torch.arange(Sq, device=device)[:, None] + off
+    kpos = torch.arange(Sk, device=device)[None, :]
+    ok = torch.ones((Sq, Sk), dtype=torch.bool, device=device)
+    if causal:
+        ok = ok & (kpos <= qpos)
+    if window and window > 0:
+        ok = ok & (kpos > qpos - window)
+    return ok
+
+
+def _per_query_head(t, rep):
+    """(B, G, S, d) -> (B, G * rep, S, d): query head h reads kv head
+    h // rep."""
+    return t.repeat_interleave(rep, dim=1).float()
+
+
+def flash_fwd_lse(q, k, v, *, causal=True, window=0, scale=None,
+                  q_offset=0):
+    """The forward kernels' maths in the kernel layout: q (B, H, Sq, d),
+    k/v (B, G, Sk, d). Returns o (B, H, Sq, d) as q.dtype and the per-row
+    logsumexp lse = m + log(max(l, 1e-30)) (B, H, Sq) float32."""
+    B, H, Sq, d = q.shape
+    G, Sk = k.shape[1], k.shape[2]
+    scale = d ** -0.5 if scale is None else scale
+    ok = flash_visible(Sq, Sk, causal=causal, window=window,
+                       q_offset=q_offset, device=q.device)
+    s = (q.float() * f32(scale)) @ _per_query_head(k, H // G).transpose(
+        -1, -2)
+    s = torch.where(ok, s, NEG_INF)
+    m = s.amax(-1, keepdim=True)
+    p = torch.exp(s - m)
+    l = torch.clamp(p.sum(-1, keepdim=True), min=1e-30)
+    o = (p @ _per_query_head(v, H // G)) / l
+    return o.to(q.dtype), (m + torch.log(l))[..., 0]
+
+
+def _flash_p_ds(q, k, v, lse, do, delta, ok, scale):
+    """Per query head: q·scale, k, p recomputed from lse and
+    dS = p∘(dO·vᵀ − Δ)."""
+    rep = q.shape[1] // k.shape[1]
+    qs = q.float() * f32(scale)
+    kh = _per_query_head(k, rep)
+    p = torch.where(ok, torch.exp(qs @ kh.transpose(-1, -2)
+                                  - lse.float()[..., None]), 0.0)
+    ds = p * (do.float() @ _per_query_head(v, rep).transpose(-1, -2)
+              - delta.float()[..., None])
+    return qs, kh, p, ds
+
+
+def flash_bwd_dq(q, k, v, lse, do, delta, *, causal=True, window=0,
+                 scale=None, q_offset=0):
+    """The dq kernel's maths: dq = (dS·k)·scale."""
+    scale = q.shape[-1] ** -0.5 if scale is None else scale
+    ok = flash_visible(q.shape[2], k.shape[2], causal=causal, window=window,
+                       q_offset=q_offset, device=q.device)
+    _, kh, _, ds = _flash_p_ds(q, k, v, lse, do, delta, ok, scale)
+    return ((ds @ kh) * f32(scale)).to(q.dtype)
+
+
+def flash_bwd_dkv(q, k, v, lse, do, delta, *, causal=True, window=0,
+                  scale=None, q_offset=0):
+    """The dk/dv kernel's maths: dk = dSᵀ·(q·scale) and dv = pᵀ·dO per
+    query head, summed over each GQA group."""
+    B, H, Sq, d = q.shape
+    G, Sk = k.shape[1], k.shape[2]
+    scale = d ** -0.5 if scale is None else scale
+    ok = flash_visible(Sq, Sk, causal=causal, window=window,
+                       q_offset=q_offset, device=q.device)
+    qs, _, p, ds = _flash_p_ds(q, k, v, lse, do, delta, ok, scale)
+    dk = (ds.transpose(-1, -2) @ qs).view(B, G, H // G, Sk, d).sum(2)
+    dv = (p.transpose(-1, -2) @ do.float()).view(B, G, H // G, Sk, d).sum(2)
+    return dk.to(k.dtype), dv.to(v.dtype)
+
+
+def flash_bwd(q, k, v, o, lse, do, *, causal=True, window=0, scale=None,
+              q_offset=0):
+    """The backward kernels' maths in the kernel layout: Δ = rowsum(dO∘O),
+    then ``flash_bwd_dq`` and ``flash_bwd_dkv``. Returns (dq, dk, dv) as
+    q, k, v's dtypes."""
+    delta = (do.float() * o.float()).sum(-1)
+    opts = dict(causal=causal, window=window, scale=scale,
+                q_offset=q_offset)
+    return (flash_bwd_dq(q, k, v, lse, do, delta, **opts),
+            *flash_bwd_dkv(q, k, v, lse, do, delta, **opts))

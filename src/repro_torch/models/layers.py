@@ -14,6 +14,8 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from ..kernels import ops as kops
+
 NEG_INF = -1e30
 
 
@@ -199,12 +201,14 @@ def apply_attention(p, x, cfg, *, positions, window=0, causal=True):
     if cfg.pos_emb == "rope":
         q = apply_rope(q, positions, cfg.rope_theta, cfg.rope_pct)
         k = apply_rope(k, positions, cfg.rope_theta, cfg.rope_pct)
-    if cfg.use_pallas:
-        raise NotImplementedError(
-            "use_pallas selects the flash-attention kernel, which is not "
-            "ported yet (ROADMAP.md, slice 2)")
-    out = attention(q, k, v, causal=causal, window=window,
-                    chunk=cfg.attn_chunk)
+    # the JAX model's dispatch rule, condition for condition (it also needs
+    # self-attention without kv_positions, which every call here is)
+    if (cfg.use_pallas and cfg.resolved_head_dim % 128 == 0
+            and q.shape[1] % 128 == 0):
+        out = kops.flash_attention(q, k, v, causal=causal, window=window)
+    else:
+        out = attention(q, k, v, causal=causal, window=window,
+                        chunk=cfg.attn_chunk)
     return torch.einsum("bshk,hkd->bsd", out, p["wo"].to(dt)), None
 
 

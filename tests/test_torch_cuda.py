@@ -1,6 +1,7 @@
 """The port on the card: the CUDA kernels against their plain PyTorch
-versions, and a DiLoCo round of the smoke config on CUDA against the same
-round on the CPU.
+versions, and DiLoCo rounds of smoke configs on CUDA against the same
+rounds on the CPU (diloco_150m's, and a diloco_400m variant that takes
+the flash-attention path).
 
 Every test here needs an NVIDIA GPU (``cuda`` marker) and skips without
 one. The file imports nothing of JAX, so it runs where JAX is not
@@ -18,7 +19,9 @@ torch = pytest.importorskip("torch")
 from repro_torch import convert, tree  # noqa: E402
 from repro_torch.configs.base import DiLoCoConfig, TrainConfig  # noqa: E402
 from repro_torch.core import diloco  # noqa: E402
+from repro_torch.kernels import flash_attention as TFK  # noqa: E402
 from repro_torch.kernels import fused_adamw as TFA  # noqa: E402
+from repro_torch.kernels import ops as tops  # noqa: E402
 from repro_torch.kernels import outer_nesterov as TON  # noqa: E402
 from repro_torch.kernels import ref as tref  # noqa: E402
 from repro_torch.models.registry import get_smoke_arch  # noqa: E402
@@ -69,18 +72,20 @@ def test_cuda_kernels_equal_plain(cuda, n, offset):
         assert _ulps(a, b) <= 2
 
 
-def _smoke_round(device, *, k=2, H=2, B=2, S=32, seed=0):
-    """One DiLoCo round of the diloco_150m smoke config on ``device``,
-    from params and tokens made on the CPU from ``seed``."""
-    arch = get_smoke_arch("diloco_150m")
+def _smoke_round(device, *, k=2, H=2, B=2, S=32, seed=0,
+                 arch_name="diloco_150m", **cfg_changes):
+    """One DiLoCo round of a smoke config (with ``cfg_changes``) on
+    ``device``, from params and tokens made on the CPU from ``seed``."""
+    arch = get_smoke_arch(arch_name)
+    cfg = arch.cfg.replace(**cfg_changes)
     gen = torch.Generator().manual_seed(seed)
-    params = arch.init(generator=gen, device="cpu")
+    params = arch.init(generator=gen, device="cpu", cfg=cfg)
     toks = torch.randint(0, arch.cfg.vocab_size, (k, H * B, S),
                          generator=gen)
     params = tree.map(lambda t: t.to(device), params)
     dcfg = DiLoCoConfig(k=k, H=H)
     tcfg = TrainConfig(inner_lr=1e-3, warmup_steps=2, total_steps=4 * H)
-    rnd = diloco.make_round(lambda p, b: arch.loss(p, b),
+    rnd = diloco.make_round(lambda p, b: arch.loss(p, b, cfg=cfg),
                             lambda g, b, s: toks.to(device), dcfg, tcfg,
                             batch_size=B, seq_len=S)
     state, _ = rnd(diloco.init_state(params, dcfg), None)
@@ -98,6 +103,88 @@ def test_cuda_round_matches_cpu(cuda):
     assert TFA.launches - a0 == k * H * n_leaves
     assert TON.launches - n0 == n_leaves
     want = _smoke_round(torch.device("cpu"), k=k, H=H)
+    for (path, a), (_, b) in zip(tree.paths(got), tree.paths(want)):
+        np.testing.assert_allclose(a, b, rtol=1e-4, atol=1e-5,
+                                   err_msg=path)
+
+
+# B, H, G, S, d, causal, window: the JAX ATTN_CASES kinds (GQA, sliding
+# window, bidirectional, not block-aligned), each at d 64 and 128
+FLASH_CASES = [(b, h, g, s, d, c, w) for d in (64, 128)
+               for b, h, g, s, c, w in ((2, 4, 2, 128, True, 0),
+                                        (1, 2, 1, 192, True, 64),
+                                        (1, 4, 2, 256, False, 0),
+                                        (2, 8, 2, 96, True, 0))]
+
+
+def _flash_inputs(dev, B, H, G, S, d, seed):
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    shapes = ((B, H, S, d), (B, G, S, d), (B, G, S, d), (B, H, S, d))
+    return [torch.randn(s, generator=gen, device=dev) for s in shapes]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,H,G,S,d,causal,window", FLASH_CASES)
+def test_cuda_flash_kernels_match_plain(cuda, B, H, G, S, d, causal,
+                                        window):
+    """Each of the four kernels against its plain version. Tolerances
+    atol = rtol = 2e-5 forward and 5e-4 backward, the JAX package's for
+    its kernels: sums run in another order (tiles of 64, FMA)."""
+    q, k, v, do = _flash_inputs(cuda, B, H, G, S, d, S + d)
+    opts = dict(causal=causal, window=window)
+    before = dict(TFK.launches)
+    o_plain = TFK.flash_fwd(q, k, v, **opts)
+    o, lse = TFK.flash_fwd_lse(q, k, v, **opts)
+    dq, dk, dv = TFK.flash_bwd(q, k, v, o, lse, do, **opts)
+    torch.cuda.synchronize()
+    assert {n: TFK.launches[n] - before[n] for n in before} == {
+        "fwd": 1, "fwd_lse": 1, "bwd_dq": 1, "bwd_dkv": 1}
+    want_o, want_lse = tref.flash_fwd_lse(q, k, v, **opts)
+    want_grads = tref.flash_bwd(q, k, v, o, lse, do, **opts)
+    close = lambda a, b, tol: torch.testing.assert_close(
+        a, b, rtol=tol, atol=tol)
+    close(o_plain, want_o, 2e-5)
+    close(o, want_o, 2e-5)
+    close(lse, want_lse, 2e-5)
+    for got, want in zip((dq, dk, dv), want_grads):
+        close(got, want, 5e-4)
+
+
+@pytest.mark.cuda
+def test_cuda_flash_model_layout_and_checks(cuda):
+    """The model's (B, S, H, d) tensors go in as transposed views (no
+    copy); autograd through the kernels matches autograd through the
+    plain full-softmax attention; an unbuilt head dim raises."""
+    q, k, v, do = _flash_inputs(cuda, 2, 4, 2, 256, 128, 7)
+    q, k, v, do = (t.transpose(1, 2).contiguous() for t in (q, k, v, do))
+    grads = []
+    for mode in ("kernel", "ref"):
+        leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
+        out = tops.flash_attention(*leaves, causal=True, mode=mode)
+        grads.append((out.detach(), *torch.autograd.grad(out, leaves, do)))
+    for got, want in zip(*grads):
+        torch.testing.assert_close(got, want, rtol=5e-4, atol=5e-4)
+    with pytest.raises(ValueError, match="head dims"):
+        TFK.flash_fwd(*(torch.zeros(1, 2, 128, 32, device=cuda)
+                        for _ in range(3)))
+
+
+@pytest.mark.cuda
+def test_cuda_flash_round_matches_cpu(cuda):
+    """A k=2, H=2 round of the diloco_400m smoke config with head_dim 128
+    and use_pallas (seq 128: the flash branch) on the card against the CPU.
+    With remat each inner step runs the forward twice: 2·L fwd_lse, L
+    bwd_dq and L bwd_dkv launches per replica step."""
+    k, H, L = 2, 2, 2
+    changes = dict(arch_name="diloco_400m", S=128, use_pallas=True,
+                   head_dim=128)
+    before = dict(TFK.launches)
+    got = _smoke_round(cuda, k=k, H=H, **changes)
+    steps = k * H
+    assert {n: TFK.launches[n] - before[n] for n in before} == {
+        "fwd": 0, "fwd_lse": 2 * L * steps, "bwd_dq": L * steps,
+        "bwd_dkv": L * steps}
+    want = _smoke_round(torch.device("cpu"), k=k, H=H, **changes)
     for (path, a), (_, b) in zip(tree.paths(got), tree.paths(want)):
         np.testing.assert_allclose(a, b, rtol=1e-4, atol=1e-5,
                                    err_msg=path)
