@@ -45,9 +45,44 @@ Phases, each printing one JSON line; any failure exits non-zero:
               twice), L ``bwd_dq`` and L ``bwd_dkv``, L ``fwd`` per eval,
               and the optimizer kernels' k·H·rounds·12 and rounds·12.
   8. profile_400m  one profiled inner step of that path, as phase 5.
+  9. mixed_kernels  ``fused_adamw_mixed`` and the bf16 ``fused_adamw``
+              against their plain versions at each diloco_150m leaf shape,
+              aligned and misaligned (bitwise expected, 2 ulp pass), and
+              ``sign_prune`` against its plain version on each leaf of a
+              stacked k=2 delta at frac 0.5 (output, elected sign and
+              threshold of every row bit for bit); then each one's time
+              for one whole-tree call (the pruning in place, as the outer
+              step runs it, from fresh deltas each time) beside its plain
+              version, a library call where one exists, and the bound.
+ 10. smoke_mixed  a k=2, H=2 round of the diloco_150m smoke config on the
+              card against the CPU under (bf16, f32) with prune_frac 0.5
+              and under (bf16, bf16), with the tolerances of
+              ``tests/test_torch_mixed.py`` (``repro_torch.check``).
+ 11. train_mixed  slice 3's path at full width: ``repro_torch.launch.train
+              --full --arch diloco_150m --param-dtype bfloat16
+              --master-dtype float32 --prune-frac 0.5`` with phase 4's
+              sizes. Counters set to 0 just before and read just after:
+              fused_adamw_mixed k·H·rounds·12 = 192, fused_adamw (f32 and
+              bf16) 0, outer_nesterov rounds·12 = 24, sign_prune rounds ·
+              Σ over the leaves of its launches for (k·R, C) (1 for a row
+              of at most RESIDENT_MAX_COLS, 28 for a longer one:
+              diloco_150m has five short-row and seven long-row leaves,
+              2·(5 + 7·28) = 402).
+ 12. profile_mixed  one profiled inner step under the mixed policy, as
+              phase 5.
+ 13. train_bf16  the pure (bf16, bf16) policy, and ``--pretrain-steps``
+              under both bf16 policies, at full width through the
+              trainer: diloco_150m with 2 pretraining steps, then one
+              k=2, H=2 round (the mixed run with ``--prune-frac 0.5``);
+              counters set to 0 just before and read just after each run:
+              (2 + k·H)·12 = 72 launches of the policy's AdamW kernel,
+              12 outer_nesterov, one round's sign_prune (201) or 0.
 
-Then the ``{"kernels": [...]}`` line (each kernel's launches from its own
-path's run: phase 4 for the optimizer kernels, phase 7 for attention),
+Every trainer run asserts the launches of every kernel, 0 for those its
+path does not run. Then the ``{"kernels": [...]}`` line (each kernel's
+launches from its own path's run: phase 4 for the f32 optimizer kernels,
+phase 7 for attention, phase 11 for the mixed AdamW and the pruning,
+phase 13's pure-policy run for the bf16 ``fused_adamw``),
 the card's line again, and the last line ``{"ok": true, "device":
 {...}}``. Without a GPU, or run from a directory that holds nothing else
 of the repository, it exits non-zero and prints no result.
@@ -83,6 +118,14 @@ BANDWIDTH = (("H100 PCIe", 2.0e12), ("H100 NVL", 3.9e12), ("H200", 4.8e12),
 PEAK_F32 = 67e12       # f32 FLOP/s outside the tensor cores, H100 SXM
 ADAMW_FLOPS, NESTEROV_FLOPS = 16, 6      # per element, kernels/csrc
 ADAMW_BYTES, NESTEROV_BYTES = 28, 20     # 4 reads + 3 writes; 3 + 2
+# bf16 p, g, m, v read and p, m, v written; bf16 g, m, v + f32 master read,
+# f32 master + bf16 m, v, p written
+BF16_ADAMW_BYTES, MIXED_ADAMW_BYTES = 14, 20
+# sign_prune per element of the f32 deltas: read once, written once; its
+# operations: |x|, two selects and adds and the max (4), 26 bisection
+# steps of a compare and an add (52), the mask (4)
+PRUNE_BYTES, PRUNE_OPS = 8, 60
+PRUNE_FRAC = 0.5
 # device kernels of the profiled inner step, grouped by a name substring
 PROFILE_GROUPS = (("flash", "flash_"), ("fused_adamw", "adamw_kernel"),
                   ("matmul", "gemm"),
@@ -110,12 +153,17 @@ def bandwidth(name: str) -> float:
     raise SystemExit(f"no memory rate known for {name!r}")
 
 
-def time_ms(torch, fn, reps=20, warmup=3) -> float:
-    """Median ms of ``fn`` over ``reps`` runs, each between CUDA events."""
+def time_ms(torch, fn, reps=20, warmup=3, setup=None) -> float:
+    """Median ms of ``fn`` over ``reps`` runs, each between CUDA events;
+    ``setup`` (untimed) runs before each."""
     for _ in range(warmup):
+        if setup:
+            setup()
         fn()
     times = []
     for _ in range(reps):
+        if setup:
+            setup()
         a = torch.cuda.Event(enable_timing=True)
         b = torch.cuda.Event(enable_timing=True)
         a.record()
@@ -126,10 +174,91 @@ def time_ms(torch, fn, reps=20, warmup=3) -> float:
     return sorted(times)[len(times) // 2]
 
 
+def reset_launches():
+    """Every launch counter of the port's kernel wrappers to 0."""
+    from repro_torch.kernels import flash_attention as FK
+    from repro_torch.kernels import fused_adamw as FA
+    from repro_torch.kernels import outer_nesterov as ON
+    from repro_torch.kernels import sign_prune as SP
+    for counts in (FK.launches, FA.launches):
+        counts.update(dict.fromkeys(counts, 0))
+    ON.launches = SP.launches = 0
+
+
+def read_launches() -> dict:
+    """{kernel name, as in the kernels line: launches since the last
+    ``reset_launches``}."""
+    from repro_torch.kernels import flash_attention as FK
+    from repro_torch.kernels import fused_adamw as FA
+    from repro_torch.kernels import outer_nesterov as ON
+    from repro_torch.kernels import sign_prune as SP
+    return {**{f"flash_{n}": c for n, c in FK.launches.items()},
+            **FA.launches, "outer_nesterov": ON.launches,
+            "sign_prune": SP.launches}
+
+
+def expect_launches(**counts) -> dict:
+    """``counts``, and 0 for every other kernel."""
+    return {**dict.fromkeys(read_launches(), 0), **counts}
+
+
 def ulps(torch, a, b) -> int:
-    d = a.view(torch.int32).to(torch.int64) - b.view(torch.int32).to(
-        torch.int64)
+    """Largest distance of ``a`` from ``b`` in units in the last place of
+    their dtype (float32 or bfloat16), over values of one sign."""
+    view = torch.int16 if a.dtype == torch.bfloat16 else torch.int32
+    d = a.view(view).to(torch.int64) - b.view(view).to(torch.int64)
     return int(d.abs().max()) if a.numel() else 0
+
+
+def run_trainer(torch, dev, argv):
+    """One run of ``repro_torch.launch.train`` with ``argv``, the launch
+    counters set to 0 just before it and read just after. Returns (round
+    records, the recorder's timing, wall s, {kernel: launches})."""
+    from repro_torch.launch import train
+    from repro_torch.obs.metrics import RunRecorder
+
+    args = train.make_parser().parse_args(argv)
+    assert args.device == "cuda" and args.kernel_mode == "auto"
+    rec = RunRecorder(log_format="text")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    reset_launches()
+    t0 = time.perf_counter()
+    records = train.run(args, recorder=rec)
+    wall_s = time.perf_counter() - t0
+    launches = read_launches()
+    torch.cuda.synchronize()
+    return records, rec.manifest["timing"], wall_s, launches
+
+
+def prune_launches_per_round(torch, k):
+    """``sign_prune`` launches of one outer step of diloco_150m with k
+    replicas: Σ over the leaves of the launches for its (k·R, C) matrix."""
+    from repro_torch import tree
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import sign_prune as SP
+    from repro_torch.models.registry import get_arch
+
+    return sum(SP.launches_for(*ops.as_rows(
+        torch.empty((k,) + tuple(t.shape), device="meta"), 1).shape)
+        for t in tree.leaves(get_arch("diloco_150m").init(
+            generator=None, device="meta")))
+
+
+def check_records(records, label, frac, n_pretrain=0, rounds=ROUNDS):
+    """Finite losses for every pretraining step and round, the rounds'
+    pruned densities in (0, frac]. Returns (losses, densities)."""
+    pre = [r for r in records if r["phase"] == "pretrain"]
+    rnds = [r for r in records if r["phase"] == "diloco"]
+    losses = [(r["inner_loss"], r["val_loss"]) for r in pre + rnds]
+    if len(pre) != n_pretrain or len(rnds) != rounds or not all(
+            math.isfinite(x) for pair in losses for x in pair):
+        raise SystemExit(f"{label}: bad records: {losses}")
+    density = [r["prune_density"] for r in rnds if frac > 0]
+    if not all(0.0 < d <= frac for d in density):
+        raise SystemExit(f"{label}: pruned density {density} outside "
+                         f"(0, {frac}]")
+    return losses, density
 
 
 # ---------------------------------------------------------------------------
@@ -296,41 +425,25 @@ def phase_smoke(torch, dev):
 def phase_train(torch, dev):
     """The main path at full width, through the trainer's entry point.
     Returns {kernel name: launches}."""
-    from repro_torch.kernels import fused_adamw as FA
-    from repro_torch.kernels import outer_nesterov as ON
     from repro_torch import tree
-    from repro_torch.launch import train
     from repro_torch.models.registry import get_arch
-    from repro_torch.obs.metrics import RunRecorder
 
     argv = ["--full", "--arch", "diloco_150m", "--k", str(K), "--H", str(H),
             "--rounds", str(ROUNDS), "--batch", str(BATCH), "--seq",
             str(SEQ), "--eval-batch", "8"]
-    args = train.make_parser().parse_args(argv)
-    assert args.device == "cuda" and args.kernel_mode == "auto"
-    rec = RunRecorder(log_format="text")
-    torch.cuda.reset_peak_memory_stats(dev)
-    FA.launches = ON.launches = 0
-    t0 = time.perf_counter()
-    records = train.run(args, recorder=rec)
-    wall_s = time.perf_counter() - t0
-    launches = {"fused_adamw": FA.launches, "outer_nesterov": ON.launches}
-    want = {"fused_adamw": K * H * ROUNDS * N_LEAVES,
-            "outer_nesterov": ROUNDS * N_LEAVES}
+    records, timing, wall_s, launches = run_trainer(torch, dev, argv)
+    want = expect_launches(fused_adamw=K * H * ROUNDS * N_LEAVES,
+                           outer_nesterov=ROUNDS * N_LEAVES)
     if launches != want:
         raise SystemExit(f"launch counts {launches}, expected {want}")
-    losses = [(r["inner_loss"], r["val_loss"]) for r in records]
-    if len(records) != ROUNDS or not all(
-            math.isfinite(x) for pair in losses for x in pair):
-        raise SystemExit(f"bad round records: {losses}")
-    timing = rec.manifest["timing"]
+    losses, _ = check_records(records, "train", 0.0)
     last = timing["rounds"][-1]
     # model FLOPs per token (PaLM's count, no recompute): 6 per matmul
     # weight (all but the embedding gather) + 12·L·S·H·hd of attention
-    cfg = get_arch(args.arch).cfg
-    n_matmul = sum(math.prod(t.shape) for t in tree.leaves(get_arch(
-        args.arch).init(generator=None, device="meta"))) \
-        - cfg.vocab_size * cfg.d_model
+    arch = get_arch("diloco_150m")
+    cfg = arch.cfg
+    n_matmul = sum(math.prod(t.shape) for t in tree.leaves(arch.init(
+        generator=None, device="meta"))) - cfg.vocab_size * cfg.d_model
     flops_tok = 6 * n_matmul + 12 * cfg.n_layers * SEQ * cfg.n_heads \
         * cfg.resolved_head_dim
     tok_s = K * H * BATCH * SEQ / last["inner_s"]
@@ -348,24 +461,29 @@ def phase_train(torch, dev):
 
 
 def phase_profile(torch, dev, arch_name="diloco_150m", label="profile",
-                  **cfg_changes):
-    """Inner steps of one replica of ``arch_name`` (with ``cfg_changes``)
-    at full width: the host syncs inside one step, then one step under the
-    profiler (device time by kernel, and the device's busy share)."""
+                  policy=("float32", "float32"), **cfg_changes):
+    """Inner steps of one replica of ``arch_name`` (with ``cfg_changes``,
+    under the precision ``policy``) at full width: the host syncs inside
+    one step, then one step under the profiler (device time by kernel, and
+    the device's busy share)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     from repro_torch.configs.base import TrainConfig
     from repro_torch.core import diloco
     from repro_torch.models.registry import get_arch
-    from repro_torch.optim import adamw
+    from repro_torch.optim import adamw, precision
 
     arch = get_arch(arch_name)
     cfg = arch.cfg.replace(**cfg_changes)
     params = arch.init(generator=torch.Generator(device=dev).manual_seed(1),
                        device=dev, cfg=cfg)
-    opt = adamw.init(params)
-    step = diloco.make_inner_step(lambda p, b: arch.loss(p, b, cfg=cfg),
-                                  TrainConfig(inner_lr=1e-3, warmup_steps=2))
+    pol = precision.make_policy(*policy)
+    opt = adamw.init(params, policy=pol)
+    params = precision.cast_tree(params, pol.param_dtype)
+    step = diloco.make_inner_step(
+        lambda p, b: arch.loss(p, b, cfg=cfg),
+        TrainConfig(inner_lr=1e-3, warmup_steps=2, param_dtype=policy[0],
+                    master_dtype=policy[1]))
     toks = torch.randint(0, cfg.vocab_size, (BATCH, SEQ), device=dev)
     params, opt, _ = step(params, opt, {"tokens": toks}, 0)   # warm-up
     torch.cuda.synchronize()
@@ -399,6 +517,7 @@ def phase_profile(torch, dev, arch_name="diloco_150m", label="profile",
                  "other")
         groups[g] = groups.get(g, 0.0) + ms
     say({"phase": label, "arch": arch_name, "cfg_changes": cfg_changes,
+         "policy": list(policy),
          "host_syncs_per_inner_step": len(syncs),
          "first_sync": syncs[:1], "wall_ms": wall_ms,
          "device_ms": device_ms if rows else "not measured",
@@ -548,9 +667,6 @@ def phase_train_400m(torch, dev):
     through ``make_round``/``make_eval``. Returns {kernel: launches}."""
     from repro_torch import tree
     from repro_torch.core import diloco
-    from repro_torch.kernels import flash_attention as FK
-    from repro_torch.kernels import fused_adamw as FA
-    from repro_torch.kernels import outer_nesterov as ON
     from repro_torch.launch import train
 
     argv = ["--full", "--arch", "diloco_400m", "--k", str(K), "--H", str(H),
@@ -576,8 +692,7 @@ def phase_train_400m(torch, dev):
         torch.Generator(device=dev).manual_seed(10_000), BATCH, SEQ)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats(dev)
-    FK.launches.update(dict.fromkeys(FK.launches, 0))
-    FA.launches = ON.launches = 0
+    reset_launches()
     rounds = []
     t0 = time.perf_counter()
     for _ in range(ROUNDS):
@@ -588,12 +703,11 @@ def phase_train_400m(torch, dev):
                                             "outer_s")}})
     wall_s = time.perf_counter() - t0
     L, steps = cfg.n_layers, K * H * ROUNDS
-    launches = {**{f"flash_{n}": c for n, c in FK.launches.items()},
-                "fused_adamw": FA.launches, "outer_nesterov": ON.launches}
-    want = {"flash_fwd": ROUNDS * L, "flash_fwd_lse": 2 * L * steps,
-            "flash_bwd_dq": L * steps, "flash_bwd_dkv": L * steps,
-            "fused_adamw": steps * N_LEAVES,
-            "outer_nesterov": ROUNDS * N_LEAVES}
+    launches = read_launches()
+    want = expect_launches(flash_fwd=ROUNDS * L, flash_fwd_lse=2 * L * steps,
+                           flash_bwd_dq=L * steps, flash_bwd_dkv=L * steps,
+                           fused_adamw=steps * N_LEAVES,
+                           outer_nesterov=ROUNDS * N_LEAVES)
     if launches != want:
         raise SystemExit(f"launch counts {launches}, expected {want}")
     if not all(math.isfinite(r[n]) for r in rounds
@@ -618,6 +732,288 @@ def phase_train_400m(torch, dev):
     return launches
 
 
+def phase_mixed_kernels(torch, dev):
+    """Slice 3's kernels against their plain versions at the main path's
+    shapes, then their whole-tree times. Returns the kernels' rows."""
+    from repro_torch import tree
+    from repro_torch.kernels import fused_adamw as FA
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import ref
+    from repro_torch.kernels import sign_prune as SP
+    from repro_torch.models.registry import get_arch
+
+    gen = torch.Generator(device=dev).manual_seed(3)
+    rnd = lambda shape: torch.randn(shape, generator=gen, device=dev)
+    bf = lambda t: t.to(torch.bfloat16)
+    hp = dict(lr=3e-4, c1=0.19, c2=0.0975, b1=0.9, b2=0.95, eps=1e-8,
+              weight_decay=0.1)
+    leaves = tree.paths(get_arch("diloco_150m").init(generator=None,
+                                                     device="meta"))
+    shapes = [tuple(t.shape) for _, t in leaves]
+    err = {"fused_adamw_mixed": [0.0, 0], "fused_adamw_bf16": [0.0, 0],
+           "sign_prune": [0.0, 0]}
+
+    def hold(name, got, want):
+        for a, b in zip(got, want):
+            e = err[name]
+            e[0] = max(e[0], float((a.float() - b.float()).abs().max()))
+            e[1] = max(e[1], ulps(torch, a, b))
+
+    for (path, _), shape in zip(leaves, shapes):
+        n = math.prod(shape)
+        for offset in (0, 1):      # 1: unaligned pointers, scalar path
+            # sliced after the cast, so that offset 1 misaligns bf16 too
+            g, m, v, p = (bf(rnd(n + offset))[offset:].view(shape)
+                          for _ in range(4))
+            v = v.abs()
+            w = rnd(n + offset)[offset:].view(shape)
+            hold("fused_adamw_mixed", FA.fused_adamw_mixed(g, m, v, w, **hp),
+                 ref.fused_adamw_mixed(g, m, v, w, **hp))
+            hold("fused_adamw_bf16", FA.fused_adamw(p, g, m, v, **hp),
+                 ref.fused_adamw(p, g, m, v, **hp))
+            torch.cuda.synchronize()
+            del g, m, v, w, p
+        # the pruning, on this leaf of a stacked k=2 delta: (k·R, C)
+        x = ops.as_rows(rnd((K,) + shape), 1)
+        sign, hi, out = SP.sign_prune_parts(x, PRUNE_FRAC)
+        wsign, whi, wout = ref.sign_prune_parts(x, PRUNE_FRAC)
+        torch.cuda.synchronize()
+        rows_differ = int((sign != wsign).sum() + (hi != whi).sum())
+        hold("sign_prune", (out,), (wout,))
+        if rows_differ:
+            raise SystemExit(f"sign_prune on {path}: {rows_differ} rows "
+                             "elect another sign or threshold")
+        say({"phase": "mixed_kernels", "leaf": path, "shape": list(shape),
+             "prune_matrix": list(x.shape),
+             "prune_launches": SP.launches_for(*x.shape),
+             "prune_rows_with_other_sign_or_threshold": rows_differ,
+             **{f"{k}_max_abs_err": e[0] for k, e in err.items()},
+             **{f"{k}_max_ulps": e[1] for k, e in err.items()}})
+        del x, sign, hi, out, wsign, whi, wout
+    for name, (e, u) in err.items():
+        if u > 2:
+            raise SystemExit(f"{name}: kernel differs from its plain version "
+                             f"by {u} ulp (max abs {e})")
+
+    # one whole-tree call of each
+    n = sum(math.prod(sh) for sh in shapes)
+    mk = lambda dtype, stack=(): {f"{i:02d}": rnd(stack + sh).to(dtype)
+                                  for i, sh in enumerate(shapes)}
+    G, M = mk(torch.bfloat16), mk(torch.bfloat16)
+    V = {key: t.abs() for key, t in mk(torch.bfloat16).items()}
+    W, P = mk(torch.float32), mk(torch.bfloat16)
+    lG, lM, lV, lW, lP = (list(t.values()) for t in (G, M, V, W, P))
+    bw = bandwidth(torch.cuda.get_device_name(0))
+
+    def bound(elems, bytes_per, ops_per):
+        by_bytes, by_ops = elems * bytes_per / bw, elems * ops_per / PEAK_F32
+        return (max(by_bytes, by_ops) * 1e3,
+                "bytes" if by_bytes >= by_ops else "operations")
+
+    times = {
+        "fused_adamw_mixed": {
+            "ms": time_ms(torch, lambda: ops.adamw_update_tree_mixed(
+                P, G, M, V, W, lr=3e-4, count=5, mode="kernel")),
+            "plain_ms": time_ms(torch, lambda: [ref.fused_adamw_mixed(
+                g, m, v, w, **hp) for g, m, v, w in zip(lG, lM, lV, lW)]),
+            # no PyTorch call computes a master-copy AdamW step
+            "library_ms": None},
+        "fused_adamw_bf16": {
+            "ms": time_ms(torch, lambda: ops.adamw_update_tree(
+                P, G, M, V, lr=3e-4, count=5, mode="kernel")),
+            "plain_ms": time_ms(torch, lambda: [ref.fused_adamw(
+                p, g, m, v, **hp) for p, g, m, v in zip(lP, lG, lM, lV)])}}
+    steps = [torch.full((), 5.0, device=dev) for _ in shapes]
+    try:
+        times["fused_adamw_bf16"]["library_ms"] = time_ms(
+            torch, lambda: torch._fused_adamw_(
+                lP, lG, lM, lV, [], steps, lr=3e-4, beta1=0.9, beta2=0.95,
+                weight_decay=0.1, eps=1e-8, amsgrad=False, maximize=False))
+    except RuntimeError as e:      # the library's bf16 support is its own
+        times["fused_adamw_bf16"]["library_ms"] = None
+        say({"phase": "mixed_kernels", "library_refused": str(e)[:200]})
+    del G, M, V, W, P, lG, lM, lV, lW, lP
+    torch.cuda.empty_cache()
+    # stacked k=2 outer deltas, pruned in place as the outer step does;
+    # each timed call starts from the same fresh deltas (copied untimed)
+    D0 = mk(torch.float32, (K,))
+    D = {key: t.clone() for key, t in D0.items()}
+    fresh = lambda: [d.copy_(d0) for d, d0 in zip(D.values(), D0.values())]
+    times["sign_prune"] = {
+        "ms": time_ms(torch, lambda: ops.sign_prune_tree(
+            D, PRUNE_FRAC, stacked=True, mode="kernel"), setup=fresh),
+        "plain_ms": time_ms(torch, lambda: ops.sign_prune_tree(
+            D, PRUNE_FRAC, stacked=True, mode="ref"), reps=5, warmup=1,
+            setup=fresh),
+        # no PyTorch call computes it (torch.topk or kthvalue per row
+        # would select by magnitude only, without the sign election)
+        "library_ms": None}
+    del D, D0
+    torch.cuda.empty_cache()
+    work = {"fused_adamw_mixed": (n, MIXED_ADAMW_BYTES, ADAMW_FLOPS,
+                                  "src/repro/kernels/fused_adamw.py:136",
+                                  "fused_adamw.cu"),
+            "fused_adamw_bf16": (n, BF16_ADAMW_BYTES, ADAMW_FLOPS,
+                                 "src/repro/kernels/fused_adamw.py:96",
+                                 "fused_adamw.cu"),
+            "sign_prune": (K * n, PRUNE_BYTES, PRUNE_OPS,
+                           "src/repro/kernels/sign_prune.py:53",
+                           "sign_prune.cu")}
+    rows = []
+    for name, (elems, bpe, ope, tpu, src) in work.items():
+        b_ms, b_by = bound(elems, bpe, ope)
+        t = times[name]
+        rows.append({"name": name, "route": "cuda",
+                     "source": f"src/repro_torch/kernels/csrc/{src}",
+                     "replaces": tpu, "launches": None,
+                     "max_abs_err": err[name][0], **t, "bound_ms": b_ms,
+                     "bound_by": b_by})
+        say({"phase": "mixed_kernels", "kernel": name, "elements": elems,
+             "bytes": elems * bpe, **t, "bound_ms": b_ms, "bound_by": b_by,
+             "kernel_GBps": elems * bpe / t["ms"] / 1e6})
+    return rows
+
+
+def phase_smoke_mixed(torch, dev):
+    """k=2, H=2 rounds of the smoke config on the card and on the CPU under
+    the two bf16 policies."""
+    from repro_torch import check, convert, tree
+    from repro_torch.configs.base import DiLoCoConfig, TrainConfig
+    from repro_torch.core import diloco
+    from repro_torch.models.registry import get_smoke_arch
+
+    k, h, b, s = 2, 2, 2, 64
+    arch = get_smoke_arch("diloco_150m")
+    gen = torch.Generator().manual_seed(0)
+    params = arch.init(generator=gen, device="cpu")
+    toks = torch.randint(0, arch.cfg.vocab_size, (k, h * b, s),
+                         generator=gen)
+    for pdt, mdt, frac in (("bfloat16", "float32", PRUNE_FRAC),
+                           ("bfloat16", "bfloat16", 0.0)):
+        pol = dict(param_dtype=pdt, master_dtype=mdt)
+
+        def run(device):
+            dcfg = DiLoCoConfig(k=k, H=h, prune_frac=frac, **pol)
+            tcfg = TrainConfig(inner_lr=1e-3, warmup_steps=2, total_steps=8,
+                               **pol)
+            rnd = diloco.make_round(lambda p, bt: arch.loss(p, bt),
+                                    lambda g, bb, ss: toks.to(device), dcfg,
+                                    tcfg, batch_size=b, seq_len=s)
+            st = diloco.init_state(tree.map(lambda t: t.to(device), params),
+                                   dcfg)
+            st, m = rnd(st, None)
+            return convert.state_to_numpy(st), m
+
+        counts0 = read_launches()
+        got, m_gpu = run(dev)
+        counts = {n: c - counts0[n] for n, c in read_launches().items()}
+        want, m_cpu = run(torch.device("cpu"))
+        # the tolerances of tests/test_torch_mixed.py; with pruning at most
+        # 0.1% of a leaf's entries outside them (entries at a threshold)
+        shares = check.mismatch_shares(got, want, H=h,
+                                         pure=mdt == "bfloat16")
+        path = max(shares, key=shares.get)
+        if shares[path] > (1e-3 if frac else 0.0):
+            raise SystemExit(f"smoke_mixed {pdt}/{mdt}: {path}: "
+                             f"{shares[path]:.3g} of the entries outside "
+                             "the tolerance")
+        steps = k * h * N_LEAVES
+        adamw = "fused_adamw_mixed" if mdt == "float32" else \
+            "fused_adamw_bf16"
+        if {**counts, "sign_prune": 0} != expect_launches(
+                **{adamw: steps}, outer_nesterov=N_LEAVES) \
+                or (counts["sign_prune"] > 0) != (frac > 0):
+            raise SystemExit(f"smoke_mixed {pdt}/{mdt}: launches {counts}")
+        say({"phase": "smoke_mixed", "policy": [pdt, mdt], "prune_frac": frac,
+             "k": k, "H": h, "leaves_compared": len(tree.paths(got)),
+             "worst_share_outside_tolerance": shares[path],
+             "worst_leaf": path,
+             "launches": counts,
+             "inner_loss_cuda": float(m_gpu["inner_loss"]),
+             "inner_loss_cpu": float(m_cpu["inner_loss"]),
+             "prune_density_cuda": float(m_gpu.get("prune_density", 1.0)),
+             "prune_density_cpu": float(m_cpu.get("prune_density", 1.0))})
+
+
+def phase_train_mixed(torch, dev):
+    """Slice 3's path at full width through the trainer's entry point.
+    Returns {kernel name: launches}."""
+    argv = ["--full", "--arch", "diloco_150m", "--param-dtype", "bfloat16",
+            "--master-dtype", "float32", "--prune-frac", str(PRUNE_FRAC),
+            "--k", str(K), "--H", str(H), "--rounds", str(ROUNDS), "--batch",
+            str(BATCH), "--seq", str(SEQ), "--eval-batch", "8"]
+    per_round = prune_launches_per_round(torch, K)
+    records, timing, wall_s, launches = run_trainer(torch, dev, argv)
+    want = expect_launches(fused_adamw_mixed=K * H * ROUNDS * N_LEAVES,
+                           outer_nesterov=ROUNDS * N_LEAVES,
+                           sign_prune=ROUNDS * per_round)
+    if launches != want:
+        raise SystemExit(f"launch counts {launches}, expected {want}")
+    losses, density = check_records(records, "train_mixed", PRUNE_FRAC)
+    last = timing["rounds"][-1]
+    tok_s = K * H * BATCH * SEQ / last["inner_s"]
+    say({"phase": "train_mixed", "argv": argv, "launches": launches,
+         "sign_prune_launches_per_round": per_round,
+         "losses": losses, "prune_density": density,
+         "data_setup_s": timing["data_setup_s"],
+         "rounds": timing["rounds"], "tokens_per_s": tok_s,
+         "inner_step_ms": last["inner_s"] * 1e3 / (K * H),
+         "outer_step_ms": last["outer_s"] * 1e3,
+         "sample_ms": last["sample_s"] * 1e3, "wall_s": wall_s,
+         "max_memory_allocated_GB":
+             torch.cuda.max_memory_allocated(dev) / 1e9})
+    torch.cuda.empty_cache()
+    return launches
+
+
+def phase_train_bf16(torch, dev):
+    """The pure (bf16, bf16) policy, and pretraining under both bf16
+    policies, at full width through the trainer's entry point: diloco_150m
+    with ``--pretrain-steps 2`` (a single worker, whose master then starts
+    DiLoCo), k=2, H=2, batch 8, seq 1024, one round (H=2: DiLoCo's
+    schedule starts again at step 0, whose learning rate is 0, as in the
+    JAX driver). Launches per run: AdamW (pretraining steps + k·H)·12 =
+    72 of the policy's kernel, outer_nesterov 12, sign_prune one round's
+    under pruning, every other kernel 0. Returns {kernel name: launches}
+    of the pure-policy run."""
+    n_pre, h, rounds = 2, 2, 1
+    out = {}
+    for mdt, frac in (("bfloat16", 0.0), ("float32", PRUNE_FRAC)):
+        argv = ["--full", "--arch", "diloco_150m", "--param-dtype",
+                "bfloat16", "--master-dtype", mdt, "--prune-frac", str(frac),
+                "--pretrain-steps", str(n_pre), "--log-every", "1",
+                "--k", str(K), "--H", str(h), "--rounds", str(rounds),
+                "--batch", str(BATCH), "--seq", str(SEQ), "--eval-batch",
+                "8"]
+        records, timing, wall_s, launches = run_trainer(torch, dev, argv)
+        adamw = "fused_adamw_bf16" if mdt == "bfloat16" else \
+            "fused_adamw_mixed"
+        want = expect_launches(
+            **{adamw: (n_pre + K * h * rounds) * N_LEAVES},
+            outer_nesterov=rounds * N_LEAVES,
+            sign_prune=rounds * prune_launches_per_round(torch, K)
+            if frac else 0)
+        if launches != want:
+            raise SystemExit(f"train_bf16 ({mdt} master): launch counts "
+                             f"{launches}, expected {want}")
+        losses, density = check_records(records, "train_bf16", frac,
+                                        n_pretrain=n_pre, rounds=rounds)
+        last = timing["rounds"][-1]
+        say({"phase": "train_bf16", "argv": argv, "launches": launches,
+             "losses_pretrain_then_rounds": losses,
+             "prune_density": density,
+             "data_setup_s": timing["data_setup_s"],
+             "tokens_per_s": K * h * BATCH * SEQ / last["inner_s"],
+             "inner_step_ms": last["inner_s"] * 1e3 / (K * h),
+             "outer_step_ms": last["outer_s"] * 1e3, "wall_s": wall_s,
+             "max_memory_allocated_GB":
+                 torch.cuda.max_memory_allocated(dev) / 1e9})
+        torch.cuda.empty_cache()
+        if mdt == "bfloat16":
+            out = launches
+    return out
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -634,6 +1030,15 @@ def main() -> int:
     launches.update({n: c for n, c in phase_train_400m(torch, dev).items()
                      if n.startswith("flash_")})
     phase_profile(torch, dev, "diloco_400m", "profile_400m", use_pallas=True)
+    rows += phase_mixed_kernels(torch, dev)
+    phase_smoke_mixed(torch, dev)
+    mixed = phase_train_mixed(torch, dev)
+    launches.update({n: mixed[n] for n in ("fused_adamw_mixed",
+                                           "sign_prune")})
+    phase_profile(torch, dev, label="profile_mixed",
+                  policy=("bfloat16", "float32"))
+    launches["fused_adamw_bf16"] = \
+        phase_train_bf16(torch, dev)["fused_adamw_bf16"]
     for row in rows:
         row["launches"] = launches[row["name"]]
     say({"kernels": rows})

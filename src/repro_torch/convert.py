@@ -5,6 +5,13 @@ parameters (or a whole state) made on the JAX side and handed over as
 numpy arrays (``jax.tree.map(np.asarray, tree)``): nested dicts with the
 same key paths and shapes. The state functions read and write the
 fields of the JAX ``DiLoCoState`` by name, so every leaf can be compared.
+
+numpy has no bfloat16 of its own (JAX hands its bf16 leaves over with
+ml_dtypes' ``bfloat16``, which the port does not import). So bf16 leaves
+cross as their bit patterns: a numpy leaf of dtype ``bfloat16`` (by name)
+or ``uint16`` becomes a torch bfloat16 tensor of the same bits, and a
+torch bfloat16 tensor becomes a ``uint16`` array (``bf16_to_f32`` widens
+such bits to float32 exactly).
 """
 from __future__ import annotations
 
@@ -17,49 +24,77 @@ from .core.outer_opt import OuterState
 from .optim.adamw import AdamWState
 
 
+def _is_bf16_bits(a: np.ndarray) -> bool:
+    return a.dtype.name == "bfloat16" or a.dtype == np.uint16
+
+
+def tensor_from_numpy(a, *, device) -> torch.Tensor:
+    """One numpy leaf -> a tensor on ``device`` (a copy); bfloat16 or
+    uint16 arrays -> bfloat16 tensors of the same bits."""
+    a = np.asarray(a)
+    if _is_bf16_bits(a):
+        bits = torch.from_numpy(np.array(a).view(np.int16))    # a copy
+        return bits.view(torch.bfloat16).to(device)
+    return torch.tensor(a, device=device)
+
+
+def tensor_to_numpy(t: torch.Tensor) -> np.ndarray:
+    """One tensor -> numpy; bfloat16 -> its uint16 bit patterns."""
+    t = t.detach().cpu()
+    if t.dtype == torch.bfloat16:
+        return t.view(torch.int16).numpy().view(np.uint16)
+    return t.numpy()
+
+
+def bf16_to_f32(bits: np.ndarray) -> np.ndarray:
+    """uint16 bfloat16 bit patterns -> float32, exactly."""
+    return (np.asarray(bits, np.uint16).astype(np.uint32) << 16).view(
+        np.float32)
+
+
 def params_from_numpy(params, *, device):
     """Nested dict of numpy arrays -> nested dict of tensors on
-    ``device`` (float32 leaves; copies)."""
-    return tree.map(lambda a: torch.tensor(np.asarray(a), device=device),
-                    params)
+    ``device`` (copies; float32, or bfloat16 from bf16 bits)."""
+    return tree.map(lambda a: tensor_from_numpy(a, device=device), params)
 
 
 def params_to_numpy(params):
-    return tree.map(lambda t: t.detach().cpu().numpy(), params)
+    return tree.map(tensor_to_numpy, params)
 
 
 def state_from_numpy(state, *, device) -> DiLoCoState:
-    """A JAX ``DiLoCoState`` whose leaves are numpy arrays (float32
-    policy, no master) -> the port's state on ``device``."""
-    if state.inner_state.master is not None:
-        raise NotImplementedError("mixed-precision state is not ported yet "
-                                  "(ROADMAP.md, port queue: mixed-precision "
-                                  "policy)")
+    """A JAX ``DiLoCoState`` whose leaves are numpy arrays -> the port's
+    state on ``device``: bf16 replicas and moments, and the master copies
+    of a mixed policy, are carried over."""
     to = lambda t: params_from_numpy(t, device=device)
     os_, is_ = state.outer_state, state.inner_state
     return DiLoCoState(
         global_params=to(state.global_params),
         outer_state=OuterState(to(os_.buf), to(os_.buf2), int(os_.count)),
         replica_params=to(state.replica_params),
-        inner_state=AdamWState(to(is_.m), to(is_.v),
-                               np.asarray(is_.count, np.int32)),
+        inner_state=AdamWState(
+            to(is_.m), to(is_.v), np.asarray(is_.count, np.int32),
+            None if is_.master is None else to(is_.master)),
         outer_t=int(state.outer_t),
         inner_steps_done=int(state.inner_steps_done))
 
 
 def state_to_numpy(state: DiLoCoState) -> dict:
     """The port's state -> a nested dict of numpy arrays keyed like the
-    JAX ``DiLoCoState`` fields (counters as int32 arrays)."""
+    JAX ``DiLoCoState`` fields (counters as int32 arrays; bf16 leaves as
+    uint16 bits; ``inner_state.master`` only when the state has one)."""
     os_, is_ = state.outer_state, state.inner_state
+    inner = {"m": params_to_numpy(is_.m), "v": params_to_numpy(is_.v),
+             "count": np.asarray(is_.count, np.int32)}
+    if is_.master is not None:
+        inner["master"] = params_to_numpy(is_.master)
     return {
         "global_params": params_to_numpy(state.global_params),
         "outer_state": {"buf": params_to_numpy(os_.buf),
                         "buf2": params_to_numpy(os_.buf2),
                         "count": np.asarray(os_.count, np.int32)},
         "replica_params": params_to_numpy(state.replica_params),
-        "inner_state": {"m": params_to_numpy(is_.m),
-                        "v": params_to_numpy(is_.v),
-                        "count": np.asarray(is_.count, np.int32)},
+        "inner_state": inner,
         "outer_t": np.asarray(state.outer_t, np.int32),
         "inner_steps_done": np.asarray(state.inner_steps_done, np.int32),
     }

@@ -33,12 +33,17 @@ from .. import tree
 from ..configs.base import DiLoCoConfig, TrainConfig
 from ..optim import adamw, precision
 from ..optim.schedule import make_warmup_cosine
-from . import outer_opt
+from . import compression, outer_opt
 
 
 class DiLoCoState(NamedTuple):
     """Carried across rounds. replica_* leaves have a leading (k,) dim;
-    ``inner_state.count`` is a (k,) int32 numpy array."""
+    ``inner_state.count`` is a (k,) int32 numpy array.
+
+    Under a mixed precision policy ``replica_params`` and the inner m/v
+    moments ride at ``param_dtype`` (bfloat16) and ``inner_state.master``
+    carries the per-replica float32 master copies; ``global_params`` and
+    the outer state stay float32 under every policy."""
     global_params: Any            # θ^(t-1), the shared copy
     outer_state: outer_opt.OuterState
     replica_params: Any           # (k, ...) per-replica θ_i
@@ -48,19 +53,25 @@ class DiLoCoState(NamedTuple):
 
 
 def init_state(params, dcfg: DiLoCoConfig) -> DiLoCoState:
-    """Start DiLoCo from ``params`` (float32); every leaf is copied."""
-    precision.policy_of(dcfg)          # only float32 replicas are ported
+    """Start DiLoCo from ``params`` (float32); every leaf is copied. The
+    replicas are cast to the policy's ``param_dtype`` and their moments
+    allocated at it; under a mixed policy each replica also carries a
+    float32 master copy."""
+    pol = precision.policy_of(dcfg)
     k = dcfg.k
     rep = tree.map(lambda p: p.unsqueeze(0).expand(k, *p.shape).clone(),
                    params)
-    zeros = lambda p: torch.zeros_like(p)
+    zeros = lambda p: torch.zeros_like(p, dtype=pol.param_dtype)
     return DiLoCoState(
         global_params=tree.map(torch.clone, params),
         outer_state=outer_opt.init(params),
-        replica_params=rep,
-        inner_state=adamw.AdamWState(m=tree.map(zeros, rep),
-                                     v=tree.map(zeros, rep),
-                                     count=np.zeros((k,), np.int32)),
+        replica_params=precision.cast_tree(rep, pol.param_dtype),
+        inner_state=adamw.AdamWState(
+            m=tree.map(zeros, rep), v=tree.map(zeros, rep),
+            count=np.zeros((k,), np.int32),
+            # the stacked copies are fresh: they become the masters as they
+            # are (cast_tree copies them to the narrower working dtype)
+            master=rep if pol.mixed else None),
         outer_t=0,
         inner_steps_done=0)
 
@@ -126,9 +137,11 @@ def inner_phase(inner_step, replica_params, inner_state, batches, step0,
             gnorms.append([nan] * H)
             continue
         p = tree.map(lambda a: a[i], replica_params)
-        s = adamw.AdamWState(tree.map(lambda a: a[i], inner_state.m),
-                             tree.map(lambda a: a[i], inner_state.v),
-                             int(counts[i]))
+        s = adamw.AdamWState(
+            tree.map(lambda a: a[i], inner_state.m),
+            tree.map(lambda a: a[i], inner_state.v), int(counts[i]),
+            None if inner_state.master is None
+            else tree.map(lambda a: a[i], inner_state.master))
         li, gi = [], []
         for h in range(H):
             batch = {name: b[i, h] for name, b in batches.items()}
@@ -141,7 +154,7 @@ def inner_phase(inner_step, replica_params, inner_state, batches, step0,
         losses.append(li)
         gnorms.append(gi)
     stack = lambda rows: torch.stack([torch.stack(r) for r in rows])
-    new_inner = adamw.AdamWState(inner_state.m, inner_state.v, counts)
+    new_inner = inner_state._replace(count=counts)
     return replica_params, new_inner, {"loss": stack(losses),
                                        "gnorm": stack(gnorms), "lr": lrs}
 
@@ -158,7 +171,10 @@ def outer_step(state: DiLoCoState, dcfg: DiLoCoConfig, *, drop_mask=None,
     drop_mask (k,): 1 = outer grad communicated, 0 = dropped (the replica
     keeps its own params for the next phase — Fig 8). active_mask (k,):
     0 = replica not in the pool this round. weights (k,): shard-size
-    weights (uniform if None). Returns (new_state, metrics).
+    weights (uniform if None). With ``dcfg.prune_frac > 0`` each
+    replica's delta is sign-pruned (Table 6) before the guard and the
+    reduce, and ``metrics["prune_density"]`` is the share of its entries
+    kept. Returns (new_state, metrics).
     """
     k = dcfg.k
     ones = np.ones((k,), np.float32)
@@ -170,8 +186,18 @@ def outer_step(state: DiLoCoState, dcfg: DiLoCoConfig, *, drop_mask=None,
     dev = tree.leaves(gp)[0].device
     m = torch.from_numpy(drop * act * w).to(dev)              # (k,)
 
-    # Δ_i = θ^(t-1) − θ_i^(t)   (line 12)
-    deltas = tree.map(lambda g, r: g[None] - r, gp, state.replica_params)
+    # Δ_i = θ^(t-1) − θ_i^(t)   (line 12). Under a mixed policy the
+    # deltas are taken master against master, in float32; bf16 replicas
+    # (the pure policy) are widened to float32 exactly.
+    masters = state.inner_state.master
+    deltas = tree.map(lambda g, r: g[None] - r, gp,
+                      state.replica_params if masters is None else masters)
+    prune_metrics = {}
+    if dcfg.prune_frac > 0:
+        # the k replicas' rows stacked: one pruning per leaf
+        compression.sign_prune(deltas, dcfg.prune_frac,
+                               mode=dcfg.kernel_mode, stacked=True)
+        prune_metrics["prune_density"] = compression.density(deltas)
 
     guard_metrics = {}
     if dcfg.guard_outer:
@@ -219,18 +245,22 @@ def outer_step(state: DiLoCoState, dcfg: DiLoCoConfig, *, drop_mask=None,
         eps=dcfg.outer_adam_eps, kernel_mode=dcfg.kernel_mode)
 
     # re-dispatch: communicated & active replicas adopt θ^(t); dropped
-    # replicas continue from their own θ_i; inactive replicas park on θ^(t)
+    # replicas continue from their own θ_i; inactive replicas park on θ^(t).
+    # copy_ rounds θ^(t) to the replicas' dtype; masters adopt it as it is.
     adopt = np.maximum(drop, 1.0 - act)
+    targets = [state.replica_params] + ([] if masters is None
+                                        else [masters])
     with torch.no_grad():
         for i in range(k):
             if adopt[i] > 0:
-                for g, r in zip(tree.leaves(new_global),
-                                tree.leaves(state.replica_params)):
-                    r[i].copy_(g)
+                for dst in targets:
+                    for g, r in zip(tree.leaves(new_global),
+                                    tree.leaves(dst)):
+                        r[i].copy_(g)
 
     metrics = {"outer_gnorm": _tree_norm(avg),
                "drop_frac": float(np.float32(1.0) - drop.mean()),
-               **guard_metrics}
+               **prune_metrics, **guard_metrics}
     if compute_cosine:
         metrics["cos_mean"], metrics["cos_std"] = _pairwise_cosine(deltas, m)
     return state._replace(global_params=new_global, outer_state=new_outer,
@@ -265,16 +295,17 @@ def _pairwise_cosine(deltas, mask):
 
 def _check_ported(dcfg: DiLoCoConfig, tcfg: TrainConfig):
     if precision.policy_of(dcfg) != precision.policy_of(tcfg):
-        raise ValueError("DiLoCoConfig and TrainConfig precision policies "
-                         "disagree")
+        raise ValueError(
+            "DiLoCoConfig and TrainConfig precision policies disagree: "
+            f"dcfg=({dcfg.param_dtype}, {dcfg.master_dtype}) vs "
+            f"tcfg=({tcfg.param_dtype}, {tcfg.master_dtype}); the state "
+            "layout (dcfg) must match the inner step (tcfg)")
     unported = [
         (dcfg.transport != "simulated",
          f"transport={dcfg.transport!r}", "transports"),
         (dcfg.streaming_fragments != 0, "streaming_fragments", "streaming"),
         (dcfg.outer_grad_dtype != "float32",
          f"outer_grad_dtype={dcfg.outer_grad_dtype!r}", "streaming"),
-        (dcfg.prune_frac > 0, "prune_frac",
-         "compression (sign_prune kernel)"),
         (dcfg.sync_inner_state, "sync_inner_state", "DiLoCo extras"),
     ]
     for bad, what, item in unported:
@@ -342,7 +373,10 @@ def make_eval(loss_fn):
 def make_single_worker_step(loss_fn, tcfg: TrainConfig,
                             total_steps: int | None = None):
     """Plain (non-DiLoCo) training step, in place — the paper's
-    pretraining stage and single-worker baselines."""
+    pretraining stage and single-worker baselines. Under ``tcfg``'s
+    precision policy: build the optimizer state with
+    ``adamw.init(params, policy=precision.policy_of(tcfg))`` and pass the
+    working params at its ``param_dtype``."""
     return make_inner_step(loss_fn, tcfg, total_steps)
 
 

@@ -30,6 +30,7 @@ SOURCES = {    # name -> (source, flags of its own)
     "fused_adamw": (CSRC / "fused_adamw.cu", BITWISE),
     "outer_nesterov": (CSRC / "outer_nesterov.cu", BITWISE),
     "flash_attention": (CSRC / "flash_attention.cu", ()),
+    "sign_prune": (CSRC / "sign_prune.cu", BITWISE),
 }
 # -Xptxas -v reports registers, shared memory and spills in the build log.
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
@@ -101,18 +102,19 @@ def load(name: str) -> ctypes.CDLL:
     return _loaded[name]
 
 
-def check_operands(name: str, tensors) -> None:
-    """Raise unless ``tensors`` are float32, contiguous, of one size and on
-    one device, the CPU or a CUDA card: what kernel ``name`` and its
-    plain version take."""
+def check_operands(name: str, tensors, dtypes) -> None:
+    """Raise unless ``tensors`` are contiguous, of one size and on one
+    device, the CPU or a CUDA card, and each has the dtype at its place in
+    ``dtypes`` (kernel ``name``'s own rule): what the kernel and its plain
+    version take."""
     first = tensors[0]
     if first.device.type not in ("cpu", "cuda"):
         raise ValueError(f"{name} runs on cpu or cuda tensors, not "
                          f"{first.device}")
-    for t in tensors:
-        if t.dtype != torch.float32:
-            raise TypeError(f"{name} takes float32 tensors only, got "
-                            f"{t.dtype} (other dtypes are not ported yet)")
+    for t, dt in zip(tensors, dtypes, strict=True):
+        if t.dtype != dt:
+            raise TypeError(f"{name} takes {[str(d) for d in dtypes]} "
+                            f"operands, got {t.dtype} where {dt} belongs")
         if t.device != first.device:
             raise ValueError(f"{name} operands on {t.device} and "
                              f"{first.device}")

@@ -10,10 +10,13 @@
 The JAX package's ``pallas`` and ``interpret`` modes name TPU machinery
 and have no counterpart here: they are rejected.
 
-The tree-level updates write their outputs over their inputs (θ, m, v and
-θ, buffer): the counterpart of the JAX driver donating the state.
+The tree-level updates and the pruning write their outputs over their
+inputs (θ, m, v; θ, buffer; the outer deltas): the counterpart of the JAX
+driver donating the state.
 """
 from __future__ import annotations
+
+import math
 
 import numpy as np
 
@@ -22,6 +25,7 @@ from . import flash_attention as _flash
 from . import fused_adamw as _adamw
 from . import outer_nesterov as _nesterov
 from . import ref
+from . import sign_prune as _prune
 
 MODES = ("auto", "kernel", "ref")
 
@@ -71,7 +75,9 @@ def adamw_update_tree(params, grads, m, v, *, lr, count, b1=0.9, b2=0.95,
                       eps=1e-8, weight_decay=0.1, mode: str = "auto"):
     """One fused AdamW step over a whole tree, in place: the new params
     and moments are written over ``params``, ``m`` and ``v``, which are
-    returned. ``count`` is the post-increment step."""
+    returned. ``count`` is the post-increment step. The leaves are all
+    float32 or all bfloat16 (the pure-bf16 policy); the maths is float32
+    either way."""
     c1, c2 = adamw_scalars(count, b1, b2)
     ps = tree.leaves(params)
     use_kernel = _resolve(mode, ps[0])
@@ -87,6 +93,75 @@ def adamw_update_tree(params, grads, m, v, *, lr, count, b1=0.9, b2=0.95,
             for dst, src in zip((p, mm, vv), outs):
                 dst.copy_(src)
     return params, m, v
+
+
+def adamw_update_tree_mixed(params, grads, m, v, master, *, lr, count,
+                            b1=0.9, b2=0.95, eps=1e-8, weight_decay=0.1,
+                            mode: str = "auto"):
+    """One mixed-precision fused AdamW step over a whole tree, in place:
+    the float32 ``master`` is authoritative, ``grads``, ``m`` and ``v``
+    ride at bfloat16, and the new bf16 working copy is written over
+    ``params`` in the same pass. Returns (params, m, v, master)."""
+    c1, c2 = adamw_scalars(count, b1, b2)
+    ps = tree.leaves(params)
+    use_kernel = _resolve(mode, ps[0])
+    hp = dict(lr=lr, c1=c1, c2=c2, b1=b1, b2=b2, eps=eps,
+              weight_decay=weight_decay)
+    for p, g, mm, vv, w in zip(ps, tree.leaves(grads), tree.leaves(m),
+                               tree.leaves(v), tree.leaves(master)):
+        if use_kernel:
+            _adamw.fused_adamw_mixed_(p, g, mm, vv, w, **hp)
+        else:
+            outs = ref.fused_adamw_mixed(g, mm, vv, w, param_dtype=p.dtype,
+                                         **hp)
+            for dst, src in zip((p, mm, vv, w), outs):
+                dst.copy_(src)
+    return params, m, v, master
+
+
+def sign_prune(x, frac: float, *, mode: str = "auto"):
+    """x: (R, C), pruned per row in place: the pruned values are written
+    over ``x``, which is returned (``frac <= 0`` leaves it as it is)."""
+    if frac <= 0:
+        return x
+    if _resolve(mode, x):
+        return _prune.sign_prune_(x, frac)
+    return x.copy_(ref.sign_prune(x, frac))
+
+
+def as_rows(x, lead: int):
+    """``x`` as (rows, cols): the first ``lead`` dims and the next one are
+    rows, the rest columns; a leaf with no dim past ``lead`` is one row
+    per leading index. None for a leaf with no dim beyond ``lead``'s."""
+    if x.dim() <= lead:
+        return None
+    if x.dim() == lead + 1:
+        return x.reshape(math.prod(x.shape[:lead]), x.shape[lead])
+    return x.reshape(math.prod(x.shape[:lead + 1]), -1)
+
+
+def sign_prune_tree(params, frac: float, *, mode: str = "auto",
+                    stacked: bool = False):
+    """Per-neuron sign pruning of every leaf, in place, as the JAX
+    ``ops.sign_prune_tree``: each leaf is pruned as (leading dim, the rest
+    flattened); a 1-D leaf is one row; a 0-d leaf is left as it is. The
+    pruned values are written over the leaves (which must be contiguous),
+    and ``params`` is returned.
+
+    ``stacked=True``: every leaf carries a leading replica dim (k, ...) and
+    each replica's leaf is pruned by that rule, with the k replicas' rows
+    stacked into one (k·R, C) matrix: one pruning per leaf, the JAX
+    ``vmap`` over k."""
+    if frac <= 0:
+        return params
+    for x in tree.leaves(params):
+        flat = as_rows(x, 1 if stacked else 0)
+        if flat is None:
+            continue
+        if not x.is_contiguous():
+            raise ValueError("in-place pruning needs contiguous leaves")
+        sign_prune(flat, frac, mode=mode)
+    return params
 
 
 def nesterov_update_tree(params, delta, buf, *, lr, momentum=0.9,

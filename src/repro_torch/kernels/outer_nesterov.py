@@ -15,6 +15,7 @@ from . import build, ref
 
 launches = 0
 _fn = None
+F32x3 = (torch.float32,) * 3     # θ, Δ and the buffer: the globals' dtype
 
 
 def _kernel():
@@ -47,7 +48,7 @@ def _launch(p, delta, buf, p_out, b_out, *, lr, momentum):
 def outer_nesterov(p, delta, buf, *, lr, momentum=0.9):
     """θ ← θ − lr·(μ·b_new + Δ), b_new = μ·b + Δ on one tensor of any
     shape. Returns new (p, buf); the inputs are left as they were."""
-    build.check_operands("outer_nesterov", (p, delta, buf))
+    build.check_operands("outer_nesterov", (p, delta, buf), F32x3)
     if p.device.type == "cpu":
         return ref.outer_nesterov(p, delta, buf, lr=lr, momentum=momentum)
     outs = (torch.empty_like(p), torch.empty_like(buf))
@@ -58,7 +59,7 @@ def outer_nesterov(p, delta, buf, *, lr, momentum=0.9):
 def outer_nesterov_(p, delta, buf, *, lr, momentum=0.9):
     """In-place form of ``outer_nesterov``: writes the new θ and buffer
     over the old ones."""
-    build.check_operands("outer_nesterov", (p, delta, buf))
+    build.check_operands("outer_nesterov", (p, delta, buf), F32x3)
     if p.device.type == "cpu":
         new_p, new_b = ref.outer_nesterov(p, delta, buf, lr=lr,
                                           momentum=momentum)

@@ -1,9 +1,10 @@
 """Plain PyTorch versions of the port's kernels.
 
-Each optimizer function computes what its CUDA kernel computes, with the
-same operation order, so that the kernel agrees with it bit for bit on
-the card; the flash-attention functions compute the kernels' maths on
-whole (Sq, Sk) score matrices and agree to a tolerance. They are what the
+Each optimizer and pruning function computes what its CUDA kernel
+computes, with the same operation order, so that the kernel agrees with
+it bit for bit on the card; the flash-attention functions compute the
+kernels' maths on whole (Sq, Sk) score matrices and agree to a
+tolerance. They are what the
 kernel wrappers run on CPU tensors, what the CPU tests hold against the
 JAX package, and what ``chip_smoke.py`` holds the kernels against.
 
@@ -32,20 +33,43 @@ def device_scalar(x, like: torch.Tensor) -> torch.Tensor:
     return torch.full((), f32(x), dtype=torch.float32, device=like.device)
 
 
-def fused_adamw(p, g, m, v, *, lr, b1=0.9, b2=0.95, eps=1e-8,
-                weight_decay=0.1, c1=1.0, c2=1.0):
-    """One AdamW step on one float32 tensor; returns new (p, m, v).
-
-    The order of ``_adamw_kernel`` (src/repro/kernels/fused_adamw.py):
-    the JAX oracle squares g first, the kernel multiplies (1-b2)*g by g.
-    """
-    c1t, c2t = device_scalar(c1, p), device_scalar(c2, p)
+def _adamw_f32(w, g, m, v, *, lr, b1, b2, eps, weight_decay, c1, c2):
+    """The f32 maths shared by both AdamW steps: (w_new, m_new, v_new)
+    from f32 (w, g, m, v), in the order of ``_adamw_kernel``
+    (src/repro/kernels/fused_adamw.py): the JAX oracle squares g first,
+    the kernel multiplies (1-b2)*g by g."""
+    c1t, c2t = device_scalar(c1, w), device_scalar(c2, w)
     m_new = f32(b1) * m + f32(1.0 - b1) * g
     v_new = f32(b2) * v + f32(1.0 - b2) * g * g
     step = (m_new / c1t) / (torch.sqrt(v_new / c2t) + f32(eps)) \
-        + f32(weight_decay) * p
-    p_new = p - f32(lr) * step
-    return p_new, m_new, v_new
+        + f32(weight_decay) * w
+    return w - f32(lr) * step, m_new, v_new
+
+
+def fused_adamw(p, g, m, v, *, lr, b1=0.9, b2=0.95, eps=1e-8,
+                weight_decay=0.1, c1=1.0, c2=1.0):
+    """One AdamW step on one tensor; returns new (p, m, v). The maths runs
+    in float32 whatever the storage dtype (float32 or bfloat16), and each
+    output is rounded to its operand's dtype (to nearest, ties to even)."""
+    p_new, m_new, v_new = _adamw_f32(
+        p.float(), g.float(), m.float(), v.float(), lr=lr, b1=b1, b2=b2,
+        eps=eps, weight_decay=weight_decay, c1=c1, c2=c2)
+    return p_new.to(p.dtype), m_new.to(m.dtype), v_new.to(v.dtype)
+
+
+def fused_adamw_mixed(g, m, v, master, *, lr, b1=0.9, b2=0.95, eps=1e-8,
+                      weight_decay=0.1, c1=1.0, c2=1.0,
+                      param_dtype=torch.bfloat16):
+    """One mixed-precision AdamW step on one tensor, the maths of
+    ``_adamw_mixed_kernel``: the master (float32) is the authoritative
+    parameter, g, m and v ride at the replica dtype (bfloat16), all maths
+    is float32. Returns (p_working at ``param_dtype``, m_new, v_new,
+    master_new), each rounded to its dtype."""
+    w_new, m_new, v_new = _adamw_f32(
+        master.float(), g.float(), m.float(), v.float(), lr=lr, b1=b1,
+        b2=b2, eps=eps, weight_decay=weight_decay, c1=c1, c2=c2)
+    return (w_new.to(param_dtype), m_new.to(m.dtype), v_new.to(v.dtype),
+            w_new.to(master.dtype))
 
 
 def outer_nesterov(p, delta, buf, *, lr, momentum=0.9):
@@ -54,6 +78,60 @@ def outer_nesterov(p, delta, buf, *, lr, momentum=0.9):
     b_new = mu * buf + delta
     p_new = p - f32(lr) * (mu * b_new + delta)
     return p_new, b_new
+
+
+# ---------------------------------------------------------------------------
+# per-neuron sign pruning of outer gradients
+# ---------------------------------------------------------------------------
+
+PRUNE_ITERS = 26
+# hi0 = max|x| * HI_SCALE + HI_FLOOR, the JAX constants rounded to float32
+HI_SCALE, HI_FLOOR = f32(1.0 + 1e-6), f32(1e-30)
+
+
+def keep_count(frac: float, cols: int) -> int:
+    """Entries kept per row of ``cols``: max(round((1 - frac)·cols), 1),
+    with Python's round (half to even), as the JAX wrapper computes it."""
+    return max(int(round((1.0 - frac) * cols)), 1)
+
+
+def bisect_threshold(mag, keep: int, iters: int = PRUNE_ITERS):
+    """Per-row threshold t with count(mag >= t) <= keep, by ``iters`` fixed
+    bisection steps from [0, max·(1 + 1e-6) + 1e-30]. mag: (R, C) >= 0,
+    float32. Returns hi (R, 1)."""
+    lo = torch.zeros((mag.shape[0], 1), dtype=torch.float32,
+                     device=mag.device)
+    hi = mag.amax(dim=-1, keepdim=True) * HI_SCALE + HI_FLOOR
+    for _ in range(iters):
+        mid = f32(0.5) * (lo + hi)
+        too_many = (mag >= mid).sum(dim=-1, keepdim=True) > keep
+        lo = torch.where(too_many, mid, lo)
+        hi = torch.where(too_many, hi, mid)
+    return hi
+
+
+def sign_prune_parts(x, frac: float):
+    """(elected sign (R, 1), threshold (R, 1), pruned x) of
+    ``sign_prune``: the per-row quantities the kernel is held to."""
+    xf = x.float()
+    mag = xf.abs()
+    zero = torch.zeros((), dtype=torch.float32, device=x.device)
+    pos = torch.where(xf > 0, mag, zero).sum(dim=-1, keepdim=True)
+    neg = torch.where(xf < 0, mag, zero).sum(dim=-1, keepdim=True)
+    elected = torch.where(pos >= neg, 1.0, -1.0)
+    # sign(0) = 0 agrees with neither elected sign
+    agrees = torch.sign(xf) == elected
+    hi = bisect_threshold(mag, keep_count(frac, x.shape[-1]))
+    keep = agrees & (mag >= hi)
+    return elected, hi, torch.where(keep, x, torch.zeros_like(x))
+
+
+def sign_prune(x, frac: float):
+    """x: (R, C). Per row: elect the sign with the larger magnitude mass
+    (ties to +), keep the entries that agree with it and lie in the top
+    (1 - frac) by magnitude (threshold by fixed bisection), zero the
+    rest. The JAX ``ref.sign_prune``."""
+    return sign_prune_parts(x, frac)[2]
 
 
 # ---------------------------------------------------------------------------

@@ -9,11 +9,16 @@ JSON lines. Two flags differ: ``--device`` (default ``cuda``; a run on
 the CPU is asked for with ``--device cpu``) and ``--kernel-mode``
 (``auto`` by default: the CUDA kernels on CUDA tensors, their plain
 PyTorch versions on the CPU). Flags of transports and features that are
-not ported exit with a message that names their ROADMAP.md item.
+not ported exit with a message that names their ROADMAP.md item. With
+``--prune-frac`` each round's record also carries ``prune_density``, the
+share of the outer-gradient entries kept.
 
 Example:
   PYTHONPATH=src python -m repro_torch.launch.train \\
       --full --arch diloco_150m --k 2 --H 4 --rounds 2 --batch 8 --seq 1024
+  PYTHONPATH=src python -m repro_torch.launch.train --full \\
+      --arch diloco_150m --param-dtype bfloat16 --master-dtype float32 \\
+      --prune-frac 0.5 --k 2 --H 4 --rounds 2 --batch 8 --seq 1024
 """
 from __future__ import annotations
 
@@ -28,12 +33,11 @@ from ..core import diloco, schedules
 from ..data.sharding import make_regime, shard_weights
 from ..models.registry import get_arch, get_smoke_arch
 from ..obs import metrics as obs_metrics
-from ..optim import adamw
+from ..optim import adamw, precision
 
 # flag dest -> the ROADMAP.md port-queue item that ports it. A flag left
 # at its default passes; any other value exits with the item's name.
 UNPORTED = {
-    "prune_frac": "compression (sign_prune kernel)",
     "stream_fragments": "streaming", "stream_alpha": "streaming",
     "stream_tau": "streaming", "outer_grad_dtype": "streaming",
     "error_feedback": "streaming", "pack_wire": "streaming",
@@ -46,8 +50,6 @@ UNPORTED = {
     "retry_backoff": "fault scenarios", "preempt": "fault scenarios",
     "crash_at_round": "fault scenarios", "crash_at_tick": "fault scenarios",
     "nan_bomb": "fault scenarios",
-    "param_dtype": "mixed-precision policy",
-    "master_dtype": "mixed-precision policy",
     "checkpoint": "checkpoints and resilience",
     "checkpoint_dir": "checkpoints and resilience",
     "checkpoint_every": "checkpoints and resilience",
@@ -96,15 +98,20 @@ def build(args, device):
                         outer_lr=args.outer_lr,
                         outer_momentum=args.outer_momentum,
                         drop_prob=args.drop_prob,
+                        prune_frac=args.prune_frac,
                         weighted_avg=args.weighted,
                         kernel_mode=args.kernel_mode,
+                        param_dtype=args.param_dtype,
+                        master_dtype=args.master_dtype,
                         guard_outer=args.guard_outer,
                         guard_clip=args.guard_clip)
     total = args.pretrain_steps + args.rounds * args.H
     tcfg = TrainConfig(inner_lr=args.inner_lr, warmup_steps=args.warmup,
                        total_steps=total, batch_size=args.batch,
                        seq_len=args.seq, seed=args.seed,
-                       kernel_mode=args.kernel_mode)
+                       kernel_mode=args.kernel_mode,
+                       param_dtype=args.param_dtype,
+                       master_dtype=args.master_dtype)
     sampler = make_regime(args.regime, k=args.k,
                           vocab_size=cfg.vocab_size, seed=args.seed,
                           imbalanced=args.weighted, device=device)
@@ -136,15 +143,25 @@ def run(args, recorder=None):
     if args.pretrain_steps:
         step = diloco.make_single_worker_step(loss_fn, tcfg,
                                               total_steps=tcfg.total_steps)
-        opt = adamw.init(params)
+        pol = precision.policy_of(tcfg)
+        opt = adamw.init(params, policy=pol)
+        # the working copy at param_dtype, a fresh buffer even when the
+        # cast is the identity (the step updates it in place)
+        work = precision.cast_tree(params, pol.param_dtype, fresh=True)
         for i in range(args.pretrain_steps):
             batch = {"tokens": sampler.sample_validation(
                 gen, args.batch, args.seq)}
-            params, opt, m = step(params, opt, batch, i)
+            work, opt, m = step(work, opt, batch, i)
             if (i + 1) % args.log_every == 0:
                 rec.pretrain(step=i + 1, loss=float(m["loss"]),
-                             val_loss=float(ev(params, val)))
-        params = adamw.master_params(params, opt)
+                             val_loss=float(ev(work, val)))
+        # hand the master-precision params to the DiLoCo phase (the
+        # working copy is a rounded view under a mixed policy); the upcast
+        # keeps the globals and outer state float32 under the pure-bf16
+        # policy, where no master exists
+        params = precision.cast_tree(adamw.master_params(work, opt),
+                                     torch.float32)
+        del work, opt
 
     # ---- DiLoCo phase ----
     state = diloco.init_state(params, dcfg)
@@ -174,7 +191,8 @@ def run(args, recorder=None):
         val_loss = float(ev(state.global_params, val)) if evaled \
             else float("nan")
         extras = {kk: float(m[kk]) for kk in ("inner_loss_last",
-                                              "drop_frac") if kk in m}
+                                              "drop_frac", "prune_density")
+                  if kk in m}
         if args.cosine_stats:
             extras["cos_mean"] = float(m["cos_mean"])
             extras["cos_std"] = float(m["cos_std"])
@@ -248,13 +266,23 @@ def make_parser():
     ap.add_argument("--guard-clip", type=float, default=0.0,
                     help="with --guard-outer: clip each replica's "
                          "outer-delta norm to this multiple of the median")
+    ap.add_argument("--prune-frac", type=float, default=0.0,
+                    help="sign-prune this fraction of each outer-gradient "
+                         "row before the reduce (paper Table 6)")
+    ap.add_argument("--param-dtype", default="float32",
+                    choices=["float32", "bfloat16"],
+                    help="replica working params and AdamW moments")
+    ap.add_argument("--master-dtype", default="float32",
+                    choices=["float32", "bfloat16"],
+                    help="per-replica master copy; wider than "
+                         "--param-dtype keeps an f32 master (the mixed "
+                         "policy)")
     ap.add_argument("--log-every", type=int, default=200)
     ap.add_argument("--log-format", default="text", choices=["text", "json"])
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--out", default="")
     # ---- not ported: accepted so that they can be refused by name ----
     nyi = "not ported yet (see ROADMAP.md)"
-    ap.add_argument("--prune-frac", type=float, default=0.0, help=nyi)
     ap.add_argument("--stream-fragments", type=int, default=0, help=nyi)
     ap.add_argument("--stream-alpha", type=float, default=1.0, help=nyi)
     ap.add_argument("--stream-tau", type=int, default=0, help=nyi)
@@ -275,8 +303,6 @@ def make_parser():
     ap.add_argument("--no-pack-wire", dest="pack_wire",
                     action="store_false", default=True, help=nyi)
     ap.add_argument("--pods", type=int, default=0, help=nyi)
-    ap.add_argument("--param-dtype", default="float32", help=nyi)
-    ap.add_argument("--master-dtype", default="float32", help=nyi)
     ap.add_argument("--trace", default="", help=nyi)
     ap.add_argument("--checkpoint", default="", help=nyi)
     ap.add_argument("--checkpoint-dir", default="", help=nyi)

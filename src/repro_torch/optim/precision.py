@@ -1,10 +1,25 @@
 """Replica-state precision policy (the JAX ``optim/precision.py``).
 
-This slice ports the (float32, float32) policy only: every replica leaf
-and AdamW moment is float32 and no master copy is carried. The mixed
-(bfloat16, float32) and pure (bfloat16, bfloat16) policies need the
-mixed-precision AdamW kernel, which is not ported yet; asking for them
-raises.
+  param_dtype   storage dtype of the replica-side state: the working
+                params the forward and backward run on, and the AdamW
+                moments;
+  master_dtype  storage dtype of the master-side state. When it is wider
+                than ``param_dtype``, each replica's AdamW state carries
+                a master copy of the params at this dtype: the update
+                reads it, writes it back and emits the working copy, and
+                the outer deltas are taken master against master.
+
+The three policies:
+
+  (float32, float32)    the default: no master copy (12 B/param/replica
+                        of params and moments);
+  (bfloat16, float32)   the mixed policy: bf16 working params and
+                        moments plus an f32 master (10 B/param/replica);
+  (bfloat16, bfloat16)  pure bf16 replica state, no master; the update
+                        still computes in f32 (6 B/param/replica).
+
+The global params and the outer optimizer's buffers stay float32 under
+every policy: they exist once, not k times.
 """
 from __future__ import annotations
 
@@ -38,11 +53,6 @@ def make_policy(param_dtype: str = "float32",
         raise ValueError(
             f"master_dtype ({master_dtype}) must be at least as wide as "
             f"param_dtype ({param_dtype})")
-    if (param_dtype, master_dtype) != ("float32", "float32"):
-        raise NotImplementedError(
-            f"precision policy ({param_dtype}, {master_dtype}) is not "
-            "ported yet: the port runs float32 replicas only (ROADMAP.md, "
-            "port queue: mixed-precision policy)")
     return Policy(DTYPES[param_dtype], DTYPES[master_dtype])
 
 
@@ -56,3 +66,10 @@ def cast_tree(params, dtype, *, fresh: bool = False):
     """Every leaf cast to ``dtype``; ``fresh=True`` copies even when the
     cast is the identity."""
     return tree.map(lambda x: x.to(dtype, copy=fresh), params)
+
+
+def tree_bytes(params) -> int:
+    """Total storage bytes of a tree's leaves (None-safe)."""
+    if params is None:
+        return 0
+    return int(sum(t.numel() * t.element_size() for t in tree.leaves(params)))

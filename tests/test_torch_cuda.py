@@ -1,6 +1,7 @@
 """The port on the card: the CUDA kernels against their plain PyTorch
 versions, and DiLoCo rounds of smoke configs on CUDA against the same
-rounds on the CPU (diloco_150m's, and a diloco_400m variant that takes
+rounds on the CPU (diloco_150m's, under the f32 and the two bf16
+policies, with and without pruning, and a diloco_400m variant that takes
 the flash-attention path).
 
 Every test here needs an NVIDIA GPU (``cuda`` marker) and skips without
@@ -16,7 +17,7 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
-from repro_torch import convert, tree  # noqa: E402
+from repro_torch import check, convert, tree  # noqa: E402
 from repro_torch.configs.base import DiLoCoConfig, TrainConfig  # noqa: E402
 from repro_torch.core import diloco  # noqa: E402
 from repro_torch.kernels import flash_attention as TFK  # noqa: E402
@@ -24,6 +25,7 @@ from repro_torch.kernels import fused_adamw as TFA  # noqa: E402
 from repro_torch.kernels import ops as tops  # noqa: E402
 from repro_torch.kernels import outer_nesterov as TON  # noqa: E402
 from repro_torch.kernels import ref as tref  # noqa: E402
+from repro_torch.kernels import sign_prune as TSP  # noqa: E402
 from repro_torch.models.registry import get_smoke_arch  # noqa: E402
 
 ADAMW = dict(lr=3e-4, c1=0.19, c2=0.0975, b1=0.9, b2=0.95, eps=1e-8,
@@ -40,8 +42,11 @@ def cuda():
 
 
 def _ulps(a, b):
-    ai = a.view(torch.int32).to(torch.int64)
-    bi = b.view(torch.int32).to(torch.int64)
+    """Largest distance in units in the last place of the dtype (float32
+    or bfloat16)."""
+    view = torch.int16 if a.dtype == torch.bfloat16 else torch.int32
+    ai = a.view(view).to(torch.int64)
+    bi = b.view(view).to(torch.int64)
     return int((ai - bi).abs().max()) if a.numel() else 0
 
 
@@ -56,9 +61,9 @@ def test_cuda_kernels_equal_plain(cuda, n, offset):
             for _ in range(4)]
     p, g, m, v = (t[offset:] for t in base)
     v = v.abs()
-    before = TFA.launches
+    before = TFA.launches["fused_adamw"]
     got = TFA.fused_adamw(p, g, m, v, **ADAMW)
-    assert TFA.launches == before + 1
+    assert TFA.launches["fused_adamw"] == before + 1
     want = tref.fused_adamw(p, g, m, v, **ADAMW)
     torch.cuda.synchronize()
     for a, b in zip(got, want):
@@ -72,10 +77,58 @@ def test_cuda_kernels_equal_plain(cuda, n, offset):
         assert _ulps(a, b) <= 2
 
 
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [1, 17, 1000, 4099, 1 << 20])
+@pytest.mark.parametrize("offset", [0, 1])
+def test_cuda_low_precision_adamw_equal_plain(cuda, n, offset):
+    """The mixed step and the bf16 step against their plain versions: bit
+    for bit expected, 2 ulp of each output's dtype pass."""
+    gen = torch.Generator(device=cuda).manual_seed(n + 1)
+    base = [torch.randn(n + offset, generator=gen, device=cuda)
+            for _ in range(5)]
+    # sliced after the cast, so that offset 1 misaligns bf16 too
+    g, m, v, p = (t.to(torch.bfloat16)[offset:] for t in base[:4])
+    v, w = v.abs(), base[4][offset:]
+    before = dict(TFA.launches)
+    got = TFA.fused_adamw_mixed(g, m, v, w, **ADAMW)
+    want = tref.fused_adamw_mixed(g, m, v, w, **ADAMW)
+    got_bf = TFA.fused_adamw(p, g, m, v, **ADAMW)
+    want_bf = tref.fused_adamw(p, g, m, v, **ADAMW)
+    torch.cuda.synchronize()
+    assert {n: TFA.launches[n] - before[n] for n in before} == {
+        "fused_adamw": 0, "fused_adamw_bf16": 1, "fused_adamw_mixed": 1}
+    for a, b in zip(got + got_bf, want + want_bf):
+        assert a.dtype == b.dtype and _ulps(a, b) <= 2
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,frac", [
+    ((64, 896), 0.5), ((9, 32000), 0.25), ((3, 60001), 0.5),
+    ((4, 200_000), 0.9), ((1, 1), 0.5), ((5, 1000), 0.9)])
+def test_cuda_sign_prune_equal_plain(cuda, shape, frac):
+    """Both regimes (rows in shared memory up to RESIDENT_MAX_COLS, longer
+    rows shared by blocks): the output, each row's elected sign and its
+    threshold bit for bit; the launches the regime takes."""
+    gen = torch.Generator(device=cuda).manual_seed(shape[1])
+    x = torch.randn(shape, generator=gen, device=cuda)
+    before = TSP.launches
+    sign, hi, out = TSP.sign_prune_parts(x, frac)
+    torch.cuda.synchronize()
+    assert TSP.launches - before == TSP.launches_for(*shape)
+    wsign, whi, wout = tref.sign_prune_parts(x, frac)
+    assert torch.equal(sign, wsign) and torch.equal(hi, whi)
+    assert torch.equal(out.view(torch.int32), wout.view(torch.int32))
+    y = x.clone()
+    TSP.sign_prune_(y, frac)
+    assert torch.equal(y, out)
+
+
 def _smoke_round(device, *, k=2, H=2, B=2, S=32, seed=0,
-                 arch_name="diloco_150m", **cfg_changes):
+                 arch_name="diloco_150m", dcfg_changes=None, **cfg_changes):
     """One DiLoCo round of a smoke config (with ``cfg_changes``) on
-    ``device``, from params and tokens made on the CPU from ``seed``."""
+    ``device``, from params and tokens made on the CPU from ``seed``.
+    ``dcfg_changes`` (the policy, prune_frac) go to both configs' fields
+    of those names."""
     arch = get_smoke_arch(arch_name)
     cfg = arch.cfg.replace(**cfg_changes)
     gen = torch.Generator().manual_seed(seed)
@@ -83,8 +136,11 @@ def _smoke_round(device, *, k=2, H=2, B=2, S=32, seed=0,
     toks = torch.randint(0, arch.cfg.vocab_size, (k, H * B, S),
                          generator=gen)
     params = tree.map(lambda t: t.to(device), params)
-    dcfg = DiLoCoConfig(k=k, H=H)
-    tcfg = TrainConfig(inner_lr=1e-3, warmup_steps=2, total_steps=4 * H)
+    dc = dict(dcfg_changes or {})
+    dcfg = DiLoCoConfig(k=k, H=H, **dc)
+    dc.pop("prune_frac", None)
+    tcfg = TrainConfig(inner_lr=1e-3, warmup_steps=2, total_steps=4 * H,
+                       **dc)
     rnd = diloco.make_round(lambda p, b: arch.loss(p, b, cfg=cfg),
                             lambda g, b, s: toks.to(device), dcfg, tcfg,
                             batch_size=B, seq_len=S)
@@ -98,9 +154,9 @@ def test_cuda_round_matches_cpu(cuda):
     their plain versions on the CPU. Tolerance atol 1e-5, rtol 1e-4: the
     matmuls reduce in another order on the card."""
     n_leaves, k, H = 12, 2, 2
-    a0, n0 = TFA.launches, TON.launches
+    a0, n0 = TFA.launches["fused_adamw"], TON.launches
     got = _smoke_round(cuda, k=k, H=H)
-    assert TFA.launches - a0 == k * H * n_leaves
+    assert TFA.launches["fused_adamw"] - a0 == k * H * n_leaves
     assert TON.launches - n0 == n_leaves
     want = _smoke_round(torch.device("cpu"), k=k, H=H)
     for (path, a), (_, b) in zip(tree.paths(got), tree.paths(want)):
@@ -188,3 +244,28 @@ def test_cuda_flash_round_matches_cpu(cuda):
     for (path, a), (_, b) in zip(tree.paths(got), tree.paths(want)):
         np.testing.assert_allclose(a, b, rtol=1e-4, atol=1e-5,
                                    err_msg=path)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("pdt,mdt,frac", [
+    ("bfloat16", "float32", 0.5), ("bfloat16", "bfloat16", 0.0)])
+def test_cuda_low_precision_round_matches_cpu(cuda, pdt, mdt, frac):
+    """A k=2, H=2 round under a bf16 policy (the mixed one with pruning) on
+    the card against the CPU, with the tolerances of
+    tests/test_torch_mixed.py (``check.mismatch_shares``); with pruning
+    at most 0.1% of a leaf's entries outside them (entries at a row's
+    threshold)."""
+    k, H, n_leaves = 2, 2, 12
+    changes = dict(param_dtype=pdt, master_dtype=mdt, prune_frac=frac)
+    before, p0 = dict(TFA.launches), TSP.launches
+    got = _smoke_round(cuda, k=k, H=H, dcfg_changes=changes)
+    steps = k * H * n_leaves
+    mixed = mdt == "float32"
+    assert {n: TFA.launches[n] - before[n] for n in before} == {
+        "fused_adamw": 0, "fused_adamw_bf16": 0 if mixed else steps,
+        "fused_adamw_mixed": steps if mixed else 0}
+    assert (TSP.launches > p0) == (frac > 0)
+    want = _smoke_round(torch.device("cpu"), k=k, H=H, dcfg_changes=changes)
+    for path, share in check.mismatch_shares(got, want, H=H,
+                                             pure=not mixed).items():
+        assert share <= (1e-3 if frac else 0.0), path

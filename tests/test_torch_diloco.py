@@ -135,7 +135,7 @@ def test_ref_and_auto_modes_agree():
 def test_round_launch_counts_on_cpu():
     """On CPU tensors the default mode runs the plain versions: no kernel
     launch is counted."""
-    a0, n0 = TFA.launches, TON.launches
+    a0, n0 = dict(TFA.launches), TON.launches
     _rounds(2, 1)
     assert (TFA.launches, TON.launches) == (a0, n0)
 
@@ -191,15 +191,25 @@ def test_outer_wire_bytes_and_eval_match_jax():
 
 
 def test_unported_features_raise():
+    """Features still unported raise and name their ROADMAP.md item;
+    pruning and both bf16 policies (ported) build a round; a state layout
+    that disagrees with the inner step's policy is refused."""
     loss = lambda p, b: (0.0, {})
     for dcfg in (DiLoCoConfig(transport="gossip"),
                  DiLoCoConfig(streaming_fragments=2),
-                 DiLoCoConfig(prune_frac=0.5)):
+                 DiLoCoConfig(outer_grad_dtype="int4"),
+                 DiLoCoConfig(sync_inner_state=True)):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             TD.make_round(loss, None, dcfg, TrainConfig())
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    for pdt, mdt in (("bfloat16", "float32"), ("bfloat16", "bfloat16")):
+        TD.make_round(loss, None,
+                      DiLoCoConfig(param_dtype=pdt, master_dtype=mdt,
+                                   prune_frac=0.5),
+                      TrainConfig(param_dtype=pdt, master_dtype=mdt))
+    with pytest.raises(ValueError, match="disagree"):
         TD.make_round(loss, None, DiLoCoConfig(param_dtype="bfloat16"),
-                      TrainConfig(param_dtype="bfloat16"))
+                      TrainConfig(param_dtype="bfloat16",
+                                  master_dtype="bfloat16"))
 
 
 @pytest.mark.parametrize("kind", ["constant_local", "constant_distributed",
@@ -222,10 +232,15 @@ def test_precision_policy():
     from repro_torch.optim import precision
     pol = precision.make_policy()
     assert pol == precision.policy_of(TrainConfig()) and not pol.mixed
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        precision.make_policy("bfloat16", "float32")
+    mixed = precision.make_policy("bfloat16", "float32")
+    assert mixed == (torch.bfloat16, torch.float32) and mixed.mixed
+    pure = precision.policy_of(TrainConfig(param_dtype="bfloat16",
+                                           master_dtype="bfloat16"))
+    assert pure == (torch.bfloat16, torch.bfloat16) and not pure.mixed
     with pytest.raises(ValueError):
         precision.make_policy("float32", "bfloat16")
+    with pytest.raises(ValueError):
+        precision.make_policy("float16", "float32")
     t = {"a": torch.ones(3)}
     assert precision.cast_tree(t, torch.float32)["a"] is t["a"]
     fresh = precision.cast_tree(t, torch.float32, fresh=True)["a"]

@@ -151,7 +151,7 @@ def test_kernel_modes():
 
 
 def test_plain_versions_launch_nothing():
-    a0, b0 = TFA.launches, TON.launches
+    a0, b0 = dict(TFA.launches), TON.launches
     x = torch.ones(10)
     TFA.fused_adamw(x, x, x, x, **ADAMW)
     TON.outer_nesterov_(x.clone(), x, x.clone(), lr=0.7)

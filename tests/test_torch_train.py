@@ -78,8 +78,8 @@ def test_recorder_format_matches_jax():
 
 @pytest.mark.parametrize("flags", [
     ["--transport", "gossip"], ["--stream-fragments", "2"],
-    ["--param-dtype", "bfloat16"], ["--checkpoint-dir", "ckpt"],
-    ["--trace", "t.json"], ["--prune-frac", "0.5"],
+    ["--outer-grad-dtype", "int4"], ["--checkpoint-dir", "ckpt"],
+    ["--trace", "t.json"], ["--crash-at-round", "1"],
     ["--preempt", "0:1"]])
 def test_unported_flags_exit_with_roadmap_item(flags):
     args = train.make_parser().parse_args(["--device", "cpu", *flags])
