@@ -77,12 +77,40 @@ Phases, each printing one JSON line; any failure exits non-zero:
               counters set to 0 just before and read just after each run:
               (2 + k·H)·12 = 72 launches of the policy's AdamW kernel,
               12 outer_nesterov, one round's sign_prune (201) or 0.
+ 14. quant_kernels  ``fake_quant`` (int4 and bf16) against its plain
+              version, bit for bit (NaN at the same places), at every
+              diloco_150m leaf shape stacked k=2, at misaligned and
+              ragged shapes and on blocks holding NaN, ±inf, zeros and
+              −0.0; then the time of one call over the whole stacked tree
+              (434 M float32) beside the plain version, the bf16
+              yardstick (``x.to(bfloat16).to(float32)``, two library
+              calls; none computes the int4 round trip) and the bound.
+ 15. train_stream  slice 4's path at full width through the trainer:
+              ``--stream-fragments 4 --stream-tau 2 --stream-alpha 0.5
+              --outer-grad-dtype int4 --error-feedback`` with phase 4's
+              sizes; then one bf16-transport round (P=2, τ=0) through
+              ``make_round``. Counters set to 0 just before and read just
+              after each: launches computed from ``fragments.schedule``
+              and the partition (one ``fake_quant`` per leaf a fragment
+              touches at each send; one ``outer_nesterov`` per such leaf
+              at each apply after the fragment's first send; int4 run:
+              78, 57, and 192 ``fused_adamw``), every other counter 0.
+              Then one round of the trainer's streaming config through
+              ``make_round`` under the profiler (after a round that arms
+              every fragment): the device's busy share across a round
+              whose inner segments and events each end in a host sync.
+ 16. smoke_stream  a k=2 streaming round of the smoke config (P=2, τ=1,
+              α=0.5, int4 with error feedback) on the card against the
+              CPU, with the tolerance of ``repro_torch.check`` (the flip
+              share, and each entry outside within the code steps of
+              the CPU's sends).
 
 Every trainer run asserts the launches of every kernel, 0 for those its
 path does not run. Then the ``{"kernels": [...]}`` line (each kernel's
 launches from its own path's run: phase 4 for the f32 optimizer kernels,
 phase 7 for attention, phase 11 for the mixed AdamW and the pruning,
-phase 13's pure-policy run for the bf16 ``fused_adamw``),
+phase 13's pure-policy run for the bf16 ``fused_adamw``, phase 15's runs
+for ``fake_quant``),
 the card's line again, and the last line ``{"ok": true, "device":
 {...}}``. Without a GPU, or run from a directory that holds nothing else
 of the repository, it exits non-zero and prints no result.
@@ -126,9 +154,17 @@ BF16_ADAMW_BYTES, MIXED_ADAMW_BYTES = 14, 20
 # steps of a compare and an add (52), the mask (4)
 PRUNE_BYTES, PRUNE_OPS = 8, 60
 PRUNE_FRAC = 0.5
+# fake_quant per element: read once, written once; int4's operations: |x|,
+# the max, the divide, rint, two compares of the clip and the multiply (7;
+# the scale's one multiply per block is not counted); bf16's: the rounding
+QUANT_BYTES, QUANT_OPS = 8, {"int4": 7, "bfloat16": 1}
+STREAM_FLAGS = ["--stream-fragments", "4", "--stream-tau", "2",
+                "--stream-alpha", "0.5", "--outer-grad-dtype", "int4",
+                "--error-feedback"]
 # device kernels of the profiled inner step, grouped by a name substring
 PROFILE_GROUPS = (("flash", "flash_"), ("fused_adamw", "adamw_kernel"),
-                  ("matmul", "gemm"),
+                  ("fake_quant", "fake_quant_"),
+                  ("outer_nesterov", "nesterov_kernel"), ("matmul", "gemm"),
                   ("softmax", "softmax"), ("reduction", "reduce"),
                   ("elementwise", "elementwise"),
                   ("elementwise", "vectorized"), ("copy", "copy"),
@@ -179,8 +215,9 @@ def reset_launches():
     from repro_torch.kernels import flash_attention as FK
     from repro_torch.kernels import fused_adamw as FA
     from repro_torch.kernels import outer_nesterov as ON
+    from repro_torch.kernels import quantize as QZ
     from repro_torch.kernels import sign_prune as SP
-    for counts in (FK.launches, FA.launches):
+    for counts in (FK.launches, FA.launches, QZ.launches):
         counts.update(dict.fromkeys(counts, 0))
     ON.launches = SP.launches = 0
 
@@ -191,10 +228,13 @@ def read_launches() -> dict:
     from repro_torch.kernels import flash_attention as FK
     from repro_torch.kernels import fused_adamw as FA
     from repro_torch.kernels import outer_nesterov as ON
+    from repro_torch.kernels import quantize as QZ
     from repro_torch.kernels import sign_prune as SP
     return {**{f"flash_{n}": c for n, c in FK.launches.items()},
             **FA.launches, "outer_nesterov": ON.launches,
-            "sign_prune": SP.launches}
+            "sign_prune": SP.launches,
+            "fake_quant_int4": QZ.launches["int4"],
+            "fake_quant_bf16": QZ.launches["bfloat16"]}
 
 
 def expect_launches(**counts) -> dict:
@@ -460,13 +500,39 @@ def phase_train(torch, dev):
     return launches
 
 
+def device_time(prof, wall_ms):
+    """Device time of a ``torch.profiler`` run that took ``wall_ms`` on
+    the host's clock: the total, the busy share, by kernel group and the
+    top kernels."""
+    from torch.autograd import DeviceType
+    # the device's own kernel events only: an operator's row (aten::mm)
+    # repeats the time of the kernels it launched
+    rows = [(e.key, e.self_device_time_total / 1e3, e.count)
+            for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA
+            and e.self_device_time_total > 0]
+    rows.sort(key=lambda r: -r[1])
+    device_ms = sum(r[1] for r in rows)
+    groups = {}
+    for key, ms, _ in rows:
+        g = next((name for name, pat in PROFILE_GROUPS if pat in key),
+                 "other")
+        groups[g] = groups.get(g, 0.0) + ms
+    return {"wall_ms": wall_ms,
+            "device_ms": device_ms if rows else "not measured",
+            "device_busy_share": device_ms / wall_ms if rows else
+            "not measured",
+            "by_group_ms": groups,
+            "top": [{"kernel": key[:100], "ms": ms, "calls": n}
+                    for key, ms, n in rows[:12]]}
+
+
 def phase_profile(torch, dev, arch_name="diloco_150m", label="profile",
                   policy=("float32", "float32"), **cfg_changes):
     """Inner steps of one replica of ``arch_name`` (with ``cfg_changes``,
     under the precision ``policy``) at full width: the host syncs inside
     one step, then one step under the profiler (device time by kernel, and
     the device's busy share)."""
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     from repro_torch.configs.base import TrainConfig
     from repro_torch.core import diloco
@@ -503,29 +569,10 @@ def phase_profile(torch, dev, arch_name="diloco_150m", label="profile",
         params, opt, _ = step(params, opt, {"tokens": toks}, 2)
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
-    # the device's own kernel events only: an operator's row (aten::mm)
-    # repeats the time of the kernels it launched
-    rows = [(e.key, e.self_device_time_total / 1e3, e.count)
-            for e in prof.key_averages()
-            if e.device_type == DeviceType.CUDA
-            and e.self_device_time_total > 0]
-    rows.sort(key=lambda r: -r[1])
-    device_ms = sum(r[1] for r in rows)
-    groups = {}
-    for key, ms, _ in rows:
-        g = next((name for name, pat in PROFILE_GROUPS if pat in key),
-                 "other")
-        groups[g] = groups.get(g, 0.0) + ms
     say({"phase": label, "arch": arch_name, "cfg_changes": cfg_changes,
          "policy": list(policy),
          "host_syncs_per_inner_step": len(syncs),
-         "first_sync": syncs[:1], "wall_ms": wall_ms,
-         "device_ms": device_ms if rows else "not measured",
-         "device_busy_share": device_ms / wall_ms if rows else
-         "not measured",
-         "by_group_ms": groups,
-         "top": [{"kernel": key[:100], "ms": ms, "calls": n}
-                 for key, ms, n in rows[:12]]})
+         "first_sync": syncs[:1], **device_time(prof, wall_ms)})
     del params, opt
     torch.cuda.empty_cache()
 
@@ -1014,6 +1061,290 @@ def phase_train_bf16(torch, dev):
     return out
 
 
+def bits_equal(torch, a, b) -> bool:
+    """``a`` and ``b`` (float32) bit for bit where ``b`` is not NaN, and
+    NaN at the same places (NaN payloads are not compared)."""
+    nan = torch.isnan(b)
+    return bool(torch.equal(torch.isnan(a), nan)) and bool(torch.equal(
+        a.view(torch.int32)[~nan], b.view(torch.int32)[~nan]))
+
+
+def phase_quant_kernels(torch, dev):
+    """``fake_quant`` against its plain version at the main path's shapes
+    and at edge cases, then its whole-tree times. Returns its rows."""
+    from repro_torch import tree
+    from repro_torch.kernels import quantize as QZ
+    from repro_torch.kernels import ref
+    from repro_torch.models.registry import get_arch
+
+    gen = torch.Generator(device=dev).manual_seed(4)
+    rnd = lambda shape: torch.randn(shape, generator=gen, device=dev)
+    leaves = tree.paths(get_arch("diloco_150m").init(generator=None,
+                                                     device="meta"))
+    err = {"int4": 0.0, "bfloat16": 0.0}
+    cases = 0
+
+    def hold(x, rows, label):
+        nonlocal cases
+        for dt in err:
+            got = QZ.fake_quant(x, dt, rows=rows)
+            want = ref.fake_quant_rows(x.reshape(rows, -1), dt).view(x.shape)
+            torch.cuda.synchronize()
+            if not bits_equal(torch, got, want):
+                raise SystemExit(f"fake_quant {dt} on {label}: the kernel "
+                                 "differs from its plain version")
+            fin = torch.isfinite(want)
+            if fin.any():
+                err[dt] = max(err[dt], float((got[fin] - want[fin]).abs()
+                                             .max()))
+        cases += 1
+
+    for path, t in leaves:          # each leaf of a stacked k=2 delta
+        hold(rnd((K,) + tuple(t.shape)) * 1e-2, K, path)
+    for rows, n in ((2, 1000), (3, 1_000_003), (1, 1), (K, 896 * 3 + 5)):
+        for offset in (0, 1):      # 1: unaligned pointers
+            hold(rnd(rows * n + offset)[offset:].view(rows, n), rows,
+                 f"({rows}, {n}) offset {offset}")
+    x = rnd((2, 8 * 128 + 77))
+    x[0, 3] = float("nan")
+    x[0, 200] = float("inf")
+    x[1, 130] = -float("inf")
+    x[1, 256:384] = 0.0
+    x[1, 384:512] = -0.0
+    x[0, 512::3] = -0.0
+    hold(x, 2, "NaN, inf, zero and -0.0 blocks")
+    got = QZ.fake_quant(x, "int4", rows=2)
+    if not (torch.isnan(got[0, :256]).all() and torch.isnan(
+            got[1, 128:256]).all() and torch.isfinite(got[1, 256:]).all()):
+        raise SystemExit("fake_quant int4: a block with a NaN or an "
+                         "infinity is not all NaN, or the NaN spread")
+    say({"phase": "quant_kernels", "cases": cases,
+         "max_abs_err": err, "bitwise": True})
+
+    # one call over the whole stacked tree, into preallocated outputs
+    X = [rnd((K,) + tuple(t.shape)) * 1e-2 for _, t in leaves]
+    O = [torch.empty_like(x) for x in X]
+    n = sum(x.numel() for x in X)
+    bw = bandwidth(torch.cuda.get_device_name(0))
+    rows = []
+    for dt, name in (("int4", "fake_quant_int4"),
+                     ("bfloat16", "fake_quant_bf16")):
+        t = {"ms": time_ms(torch, lambda: [QZ.fake_quant(
+                x, dt, rows=K, out=o) for x, o in zip(X, O)]),
+             "plain_ms": time_ms(torch, lambda: [ref.fake_quant_rows(
+                 x.view(K, -1), dt) for x in X], reps=5, warmup=1),
+             # no PyTorch call computes the blockwise int4 round trip
+             # (torch.fake_quantize_per_channel_affine takes a given scale
+             # and multiplies by its inverse); bf16's is two calls
+             "library_ms": None if dt == "int4" else time_ms(
+                 torch, lambda: [x.to(torch.bfloat16).to(torch.float32)
+                                 for x in X])}
+        by_bytes, by_ops = n * QUANT_BYTES / bw, n * QUANT_OPS[dt] / PEAK_F32
+        row = {"name": name, "route": "cuda",
+               "source": "src/repro_torch/kernels/csrc/quantize.cu",
+               "replaces": "src/repro/kernels/quantize.py:327",
+               "launches": None, "max_abs_err": err[dt], **t,
+               "bound_ms": max(by_bytes, by_ops) * 1e3,
+               "bound_by": "bytes" if by_bytes >= by_ops else "operations"}
+        rows.append(row)
+        say({"phase": "quant_kernels", "kernel": name, "elements": n,
+             "leaves": len(X), "bytes": n * QUANT_BYTES, **t,
+             "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
+             "kernel_GBps": n * QUANT_BYTES / t["ms"] / 1e6})
+    del X, O
+    torch.cuda.empty_cache()
+    return rows
+
+
+def stream_launches(params, P, H_, tau, rounds, dtype):
+    """(fake_quant, outer_nesterov) launches of ``rounds`` streaming rounds
+    of ``params``' tree from a fresh state: one fake_quant per leaf a
+    fragment touches at each of its sends (0 for float32), one
+    outer_nesterov per such leaf at each apply after its first send."""
+    from repro_torch.core import fragments
+    part = fragments.partition_params(params, P)
+    n_leaves = [len(r) for r in fragments.fragment_regions(part, params)]
+    armed, quant, nest = set(), 0, 0
+    for _ in range(rounds):
+        for _, events in fragments.schedule(P, H_, tau).phases:
+            for ev in events:
+                if ev.kind == "send":
+                    armed.add(ev.fragment)
+                    quant += n_leaves[ev.fragment] * (dtype != "float32")
+                elif ev.fragment in armed:
+                    nest += n_leaves[ev.fragment]
+    return quant, nest
+
+
+def phase_train_stream(torch, dev):
+    """Slice 4's path at full width through the trainer, then one
+    bf16-transport round through ``make_round``. Returns {kernel name:
+    launches} of fake_quant (int4 from the first run, bf16 from the
+    second)."""
+    from repro_torch.configs.base import DiLoCoConfig, TrainConfig
+    from repro_torch.core import diloco, streaming
+    from repro_torch.models.registry import get_arch
+
+    arch = get_arch("diloco_150m")
+    meta = arch.init(generator=None, device="meta")
+    argv = ["--full", "--arch", "diloco_150m", *STREAM_FLAGS, "--k", str(K),
+            "--H", str(H), "--rounds", str(ROUNDS), "--batch", str(BATCH),
+            "--seq", str(SEQ), "--eval-batch", "8"]
+    quant, nest = stream_launches(meta, 4, H, 2, ROUNDS, "int4")
+    records, timing, wall_s, launches = run_trainer(torch, dev, argv)
+    peak_gb = torch.cuda.max_memory_allocated(dev) / 1e9
+    want = expect_launches(fake_quant_int4=quant, outer_nesterov=nest,
+                           fused_adamw=K * H * ROUNDS * N_LEAVES)
+    if launches != want:
+        raise SystemExit(f"train_stream: launch counts {launches}, expected "
+                         f"{want}")
+    losses, _ = check_records(records, "train_stream", 0.0)
+    rnds = [r for r in records if r["phase"] == "diloco"]
+    last = timing["rounds"][-1]
+    say({"phase": "train_stream", "argv": argv, "launches": launches,
+         "losses": losses, "data_setup_s": timing["data_setup_s"],
+         "rounds": timing["rounds"],
+         "tokens_per_s": K * H * BATCH * SEQ / last["inner_s"],
+         "inner_step_ms": last["inner_s"] * 1e3 / (K * H),
+         "outer_ms_per_round": last["outer_s"] * 1e3,
+         "sample_ms": last["sample_s"] * 1e3, "wall_s": wall_s,
+         "stream_peak_sync_bytes": rnds[-1]["stream_peak_sync_bytes"],
+         "stream_round_sync_bytes": rnds[-1]["stream_round_sync_bytes"],
+         "outer_gnorm": [r["outer_gnorm"] for r in rnds],
+         "max_memory_allocated_GB": peak_gb})
+    torch.cuda.empty_cache()
+
+    # one bf16-transport round, P=2, tau=0, on random tokens
+    dcfg = DiLoCoConfig(k=K, H=H, streaming_fragments=2,
+                        outer_grad_dtype="bfloat16")
+    tcfg = TrainConfig(inner_lr=1e-3, warmup_steps=2, total_steps=H)
+    gen = torch.Generator(device=dev).manual_seed(5)
+    state = streaming.init_state(arch.init(generator=gen, device=dev), dcfg)
+    toks = torch.randint(0, arch.cfg.vocab_size, (K, H * BATCH, SEQ),
+                         generator=gen, device=dev)
+    rnd = diloco.make_round(lambda p, b: arch.loss(p, b),
+                            lambda g, b, s: toks, dcfg, tcfg,
+                            batch_size=BATCH, seq_len=SEQ)
+    torch.cuda.synchronize()
+    reset_launches()
+    state, m = rnd(state, None)
+    bf16 = read_launches()
+    torch.cuda.synchronize()
+    q2, n2 = stream_launches(meta, 2, H, 0, 1, "bfloat16")
+    want = expect_launches(fake_quant_bf16=q2, outer_nesterov=n2,
+                           fused_adamw=K * H * N_LEAVES)
+    if bf16 != want:
+        raise SystemExit(f"train_stream bf16: launch counts {bf16}, "
+                         f"expected {want}")
+    loss, gnorm = float(m["inner_loss"]), float(m["outer_gnorm"])
+    if not (math.isfinite(loss) and math.isfinite(gnorm) and gnorm > 0):
+        raise SystemExit(f"train_stream bf16: loss {loss}, gnorm {gnorm}")
+    say({"phase": "train_stream", "transport": "bfloat16", "P": 2, "tau": 0,
+         "launches": bf16, "inner_loss": loss, "outer_gnorm": gnorm,
+         "inner_step_ms": m["inner_s"] * 1e3 / (K * H),
+         "outer_ms_per_round": m["outer_s"] * 1e3,
+         "stream_round_sync_bytes": m["stream_round_sync_bytes"]})
+    del state, toks
+    torch.cuda.empty_cache()
+    profile_stream_round(torch, dev, arch)
+    return {"fake_quant_int4": launches["fake_quant_int4"],
+            "fake_quant_bf16": bf16["fake_quant_bf16"]}
+
+
+def profile_stream_round(torch, dev, arch):
+    """One round of the trainer's streaming config (P=4, τ=2, α=0.5, int4
+    with error feedback) through ``make_round`` under the profiler, after
+    an unprofiled round that arms every fragment: the device's busy share
+    across the round's inner segments and events, each closed by a host
+    synchronize."""
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.configs.base import DiLoCoConfig, TrainConfig
+    from repro_torch.core import diloco, streaming
+
+    dcfg = DiLoCoConfig(k=K, H=H, streaming_fragments=4, stream_tau=2,
+                        stream_alpha=0.5, outer_grad_dtype="int4",
+                        error_feedback=True)
+    tcfg = TrainConfig(inner_lr=1e-3, warmup_steps=2, total_steps=2 * H)
+    gen = torch.Generator(device=dev).manual_seed(6)
+    state = streaming.init_state(arch.init(generator=gen, device=dev), dcfg)
+    toks = torch.randint(0, arch.cfg.vocab_size, (K, H * BATCH, SEQ),
+                         generator=gen, device=dev)
+    rnd = diloco.make_round(lambda p, b: arch.loss(p, b),
+                            lambda g, b, s: toks, dcfg, tcfg,
+                            batch_size=BATCH, seq_len=SEQ)
+    state, _ = rnd(state, None)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        state, m = rnd(state, None)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    say({"phase": "profile_stream", "P": 4, "tau": 2, "alpha": 0.5,
+         "transport": "int4", "error_feedback": True,
+         "inner_ms": m["inner_s"] * 1e3, "outer_ms": m["outer_s"] * 1e3,
+         **device_time(prof, wall_ms)})
+    del state, toks
+    torch.cuda.empty_cache()
+
+
+def phase_smoke_stream(torch, dev):
+    """Two k=2 streaming rounds of the smoke config (P=2, τ=1, α=0.5, int4
+    with error feedback, so the second round applies the first's wrapped
+    send) on the card against the CPU, with the code steps of the CPU's
+    sends bounding the entries outside the tolerance."""
+    from repro_torch import check, convert, tree
+    from repro_torch.configs.base import DiLoCoConfig, TrainConfig
+    from repro_torch.core import diloco, streaming
+    from repro_torch.models.registry import get_smoke_arch
+
+    k, h, b, s, rounds = 2, 2, 2, 64, 2
+    arch = get_smoke_arch("diloco_150m")
+    gen = torch.Generator().manual_seed(0)
+    params = arch.init(generator=gen, device="cpu")
+    toks = torch.randint(0, arch.cfg.vocab_size, (rounds, k, h * b, s),
+                         generator=gen)
+    dcfg = DiLoCoConfig(k=k, H=h, streaming_fragments=2, stream_tau=1,
+                        stream_alpha=0.5, outer_grad_dtype="int4",
+                        error_feedback=True)
+
+    def run(device):
+        tcfg = TrainConfig(inner_lr=1e-3, warmup_steps=2, total_steps=8)
+        rnd = diloco.make_round(lambda p, bt: arch.loss(p, bt),
+                                lambda r, bb, ss: toks[r].to(device), dcfg,
+                                tcfg, batch_size=b, seq_len=s)
+        st = streaming.init_state(tree.map(lambda t: t.to(device), params),
+                                  dcfg)
+        for r in range(rounds):
+            st, m = rnd(st, r)
+        return convert.stream_state_to_numpy(st), m
+
+    counts0 = read_launches()
+    got, m_gpu = run(dev)
+    counts = {n: c - counts0[n] for n, c in read_launches().items()}
+    with check.TransportSteps(params, dcfg) as steps:
+        want, m_cpu = run(torch.device("cpu"))
+    quant, nest = stream_launches(
+        arch.init(generator=None, device="meta"), 2, h, 1, rounds, "int4")
+    if counts != expect_launches(fake_quant_int4=quant, outer_nesterov=nest,
+                                 fused_adamw=k * h * rounds * N_LEAVES):
+        raise SystemExit(f"smoke_stream: launches {counts}")
+    shares = check.stream_mismatch_shares(got, want, H=h, steps=steps)
+    path = max(shares, key=shares.get)
+    if shares[path] > check.TRANSPORT_FLIP_SHARE["int4"]:
+        raise SystemExit(f"smoke_stream: {path}: {shares[path]:.3g} of the "
+                         "entries outside the tolerance, or one beyond "
+                         f"{steps.allow:.3g} code steps")
+    say({"phase": "smoke_stream", "k": k, "H": h, "rounds": rounds,
+         "P": 2, "tau": 1, "alpha": 0.5, "transport": "int4",
+         "error_feedback": True, "leaves_compared": len(shares),
+         "worst_share_outside_tolerance": shares[path], "worst_leaf": path,
+         "code_steps_allowed": steps.allow,
+         "launches": counts,
+         "inner_loss_cuda": float(m_gpu["inner_loss"]),
+         "inner_loss_cpu": float(m_cpu["inner_loss"])})
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1039,6 +1370,9 @@ def main() -> int:
                   policy=("bfloat16", "float32"))
     launches["fused_adamw_bf16"] = \
         phase_train_bf16(torch, dev)["fused_adamw_bf16"]
+    rows += phase_quant_kernels(torch, dev)
+    launches.update(phase_train_stream(torch, dev))
+    phase_smoke_stream(torch, dev)
     for row in rows:
         row["launches"] = launches[row["name"]]
     say({"kernels": rows})

@@ -1,8 +1,10 @@
-"""Tolerances that hold a round under a bf16 precision policy to another
-run of it (the card against the CPU, the port against the JAX reference).
+"""Tolerances that hold a round under a bf16 precision policy, or a
+streaming round, to another run of it (the card against the CPU, the port
+against the JAX reference).
 
-``tests/test_torch_mixed.py`` states why each tolerance is what it is;
-``tests/test_torch_cuda.py`` and ``chip_smoke.py`` apply the same ones.
+``tests/test_torch_mixed.py`` and ``tests/test_torch_streaming.py`` state
+why each tolerance is what it is; ``tests/test_torch_cuda.py`` and
+``chip_smoke.py`` apply the same ones.
 """
 from __future__ import annotations
 
@@ -12,11 +14,41 @@ import numpy as np
 
 from . import tree
 from .convert import bf16_to_f32
+from .kernels.ref import INV_INT4_LEVELS, QUANT_BLOCK
 
 
 def ulp_bf16(x: float) -> float:
     """One bf16 ulp at magnitude x (8 significant bits)."""
     return 2.0 ** (math.floor(math.log2(x)) - 7) if x > 0 else 0.0
+
+
+def _values(x: np.ndarray) -> np.ndarray:
+    """A leaf's values: bf16 bits (uint16) widened to float32."""
+    return bf16_to_f32(x) if x.dtype == np.uint16 else x
+
+
+def _tolerances(want: dict, *, H: int, pure: bool) -> dict:
+    """Per leaf path of a state of ``state_to_numpy``'s form, the
+    tolerance on |a - b| of ``mismatch_shares`` (a scalar or per entry),
+    or None for a leaf compared exactly."""
+    want_paths = dict(tree.paths(want))
+    reps = {p[len("replica_params"):]: v for p, v in want_paths.items()
+            if p.startswith("replica_params.")}
+    tols = {}
+    for path, b in want_paths.items():
+        if b.dtype == np.uint16:
+            tols[path] = H * ulp_bf16(float(np.abs(_values(b)).max(
+                initial=0.0)))
+        elif b.dtype == np.float32:
+            atol = 1e-5
+            rep = next((v for suffix, v in reps.items()
+                        if path.endswith(suffix)), None)
+            if pure and rep is not None:
+                atol += 2 * ulp_bf16(float(np.abs(_values(rep)).max()))
+            tols[path] = atol + 1e-4 * np.abs(b)
+        else:
+            tols[path] = None
+    return tols
 
 
 def mismatch_shares(got: dict, want: dict, *, H: int, pure: bool) -> dict:
@@ -31,25 +63,230 @@ def mismatch_shares(got: dict, want: dict, *, H: int, pure: bool) -> dict:
     got_paths = dict(tree.paths(got))
     if sorted(got_paths) != sorted(want_paths):
         raise ValueError("the two states have different leaves")
-    reps = {p[len("replica_params"):]: v for p, v in want_paths.items()
-            if p.startswith("replica_params.")}
+    tols = _tolerances(want, H=H, pure=pure)
     shares = {}
     for path, b in want_paths.items():
         a = got_paths[path]
         if a.dtype != b.dtype:
             raise ValueError(f"{path}: {a.dtype} against {b.dtype}")
-        if a.dtype == np.uint16:
-            bf = bf16_to_f32(b)
-            ok = np.abs(bf16_to_f32(a) - bf) <= H * ulp_bf16(
-                float(np.abs(bf).max(initial=0.0)))
-        elif a.dtype == np.float32:
-            atol = 1e-5
-            rep = next((v for suffix, v in reps.items()
-                        if path.endswith(suffix)), None)
-            if pure and rep is not None:
-                atol += 2 * ulp_bf16(float(np.abs(bf16_to_f32(rep)).max()))
-            ok = np.abs(a - b) <= atol + 1e-4 * np.abs(b)
-        else:
+        if tols[path] is None:
             ok = np.asarray(a == b)
+        else:
+            ok = np.abs(_values(a) - _values(b)) <= tols[path]
         shares[path] = 1.0 - float(np.mean(ok))
+    return shares
+
+
+# Under a quantized transport (int4 or bf16) an upstream last-bit
+# difference can move a value across a rounding boundary of the transport
+# and flip its code: the transported value then differs by one code step
+# (the block's int4 scale, or one bf16 ulp), and the residual, the pending
+# reduce and what they update differ at that entry. So at most this share
+# of a leaf's entries may lie outside the round's tolerance, each finite
+# where the other run is finite and, given the run's ``TransportSteps``,
+# within ``allow`` code steps of it. A bf16 step is 2^-8 of the value,
+# where int4's is a seventh of the block's largest: a last-bit difference
+# of relative size e crosses a bf16 boundary with probability about e·2^8
+# (0.26 % at e = 1e-5), far more often than an int4 one. The largest
+# shares the JAX parity grid of ``tests/test_torch_stream_*.py`` and
+# ``tests/test_torch_streaming.py`` reads: int4 4.7e-4, bf16 1.4e-3.
+TRANSPORT_FLIP_SHARE = {"float32": 0.0, "int4": 1e-3, "bfloat16": 5e-3}
+
+
+class TransportSteps:
+    """The transport's code step at every entry of a streaming run, for
+    bounding how far a flipped code may move an entry.
+
+    Used as ``with TransportSteps(params, dcfg) as steps:`` around the
+    rounds of the run taken as the reference. For each send it records,
+    per replica and entry of the leaf, the step of the code the entry was
+    sent with: int4, its 128-entry block's scale (amax·INV_INT4_LEVELS of
+    the block the transport quantized); bfloat16, one bf16 ulp at the sent
+    value. Under sign pruning the row's threshold (the smallest magnitude
+    the pruning kept) is added: an entry at the threshold may be sent in
+    one run and dropped in the other. ``step[i]`` keeps the largest step
+    replica i's entry took over the run.
+
+    ``stream_mismatch_shares`` lets an entry outside the round's
+    tolerance lie up to ``allow`` = 1 + outer_lr·(1 + momentum) steps
+    beyond it, taking the largest step any replica took at that position:
+    a flipped code moves a transported value, its residual and the
+    weighted mean of the replicas' values by at most one step; the outer
+    Nesterov step carries the mean's into the momentum (one step) and the
+    globals (outer_lr·(1 + momentum) steps), which the replicas adopt and
+    the next sends take in. It reads the sends by wrapping
+    ``streaming._send_window`` (which leaf and flat window a send takes),
+    ``ops.sign_prune`` and ``ops.quant_roundtrip`` (the values sent)."""
+
+    def __init__(self, params, dcfg):
+        from .core import streaming
+        self.dtype = dcfg.outer_grad_dtype
+        self.leaf_of = {p: i for i, (p, _) in enumerate(tree.paths(params))}
+        shapes = [tuple(x.shape) for x in tree.leaves(params)]
+        self.n = [math.prod(s) for s in shapes]
+        self.cols = [n if len(s) <= 1 else math.prod(s[1:])
+                     for n, s in zip(self.n, shapes)]
+        self.per = [n // s[0] if s else n for n, s in zip(self.n, shapes)]
+        self.step = [np.zeros((int(dcfg.k), n)) for n in self.n]
+        self.regions = streaming._partition(params, dcfg)[1]
+        self.allow = 1.0 + float(dcfg.outer_lr) * (
+            1.0 + float(dcfg.outer_momentum))
+        self._send = None
+
+    def __enter__(self):
+        from .core import streaming
+        from .kernels import ops
+        window, prune, quant = (streaming._send_window, ops.sign_prune,
+                                ops.quant_roundtrip)
+        self._saved = window, prune, quant
+
+        def send_window(leaf, reg, qdtype, pr):
+            w = window(leaf, reg, qdtype, pr)
+            off = 0 if w[0] is None else w[0] * (self.n[reg.leaf]
+                                                 // int(leaf.shape[0]))
+            self._send = {"leaf": reg.leaf, "a": w[2], "off": off,
+                          "thr": None}
+            return w
+
+        def sign_prune(x, frac, **kw):
+            out = prune(x, frac, **kw)
+            if self._send is not None:
+                mag = np.abs(out.detach().cpu().numpy())
+                self._send["thr"] = np.where(
+                    mag > 0, mag, np.inf).min(axis=1, initial=np.inf)
+            return out
+
+        def quant_roundtrip(x, dtype, **kw):
+            if self._send is not None and kw.get("stacked"):
+                self._record(x.detach().cpu().numpy().reshape(x.shape[0],
+                                                              -1))
+                self._send = None
+            return quant(x, dtype, **kw)
+
+        streaming._send_window = send_window
+        ops.sign_prune = sign_prune
+        ops.quant_roundtrip = quant_roundtrip
+        return self
+
+    def __exit__(self, *exc):
+        from .core import streaming
+        from .kernels import ops
+        (streaming._send_window, ops.sign_prune,
+         ops.quant_roundtrip) = self._saved
+        return False
+
+    def _record(self, x):
+        k, w = x.shape
+        s = self._send
+        if self.dtype == "int4":
+            blk = QUANT_BLOCK
+            pad = np.zeros((k, -(-w // blk) * blk), np.float32)
+            pad[:, :w] = np.abs(x)
+            amax = pad.reshape(k, -1, blk).max(axis=2)
+            step = np.repeat(amax * np.float32(INV_INT4_LEVELS), blk,
+                             axis=1)[:, :w].astype(np.float64)
+        elif self.dtype == "bfloat16":
+            mag = np.abs(x).astype(np.float64)
+            step = np.where(mag > 0, np.exp2(np.floor(np.log2(
+                np.where(mag > 0, mag, 1.0))) - 7), 0.0)
+        else:
+            step = np.zeros((k, w))
+        if s["thr"] is not None:
+            cols = self.cols[s["leaf"]]
+            rows = (s["a"] - s["off"] + np.arange(w)) // cols
+            thr = s["thr"].reshape(k, -1)[:, rows]
+            step = step + np.where(np.isfinite(thr), thr, 0.0)
+        tgt = self.step[s["leaf"]][:, s["a"]:s["a"] + w]
+        np.maximum(tgt, step, out=tgt)
+
+    def of(self, path: str, size: int):
+        """For the state leaf at ``path`` (a path of
+        ``convert.stream_state_to_numpy``'s form) of ``size`` entries, the
+        largest step any replica took at each of its positions, flattened
+        (repeated over the leading k of a per-replica leaf; the band's for
+        an in-flight payload); None for a leaf that holds no transported
+        value (armed, masks, counters)."""
+        parts = path.split(".")
+        if parts[0] == "inflight":
+            if parts[2] != "payload":
+                return None
+            li = int(parts[3])
+            reg = next(r for r in self.regions[int(parts[1])]
+                       if r.leaf == li)
+            step = self.step[li].max(axis=0)
+            if reg.start is not None:
+                step = step[reg.start * self.per[li]:reg.stop * self.per[li]]
+        else:
+            li = next((i for p, i in sorted(self.leaf_of.items(),
+                                            key=lambda t: -len(t[0]))
+                       if path.endswith("." + p)), None)
+            if li is None:
+                return None
+            step = self.step[li].max(axis=0)
+        return np.tile(step, size // step.size)
+
+def _stream_value_widen(path: str, widen: list):
+    """For a pending, residual or in-flight payload leaf, the widening of
+    its replica leaf (by path; payloads are keyed by leaf index); None for
+    the other leaves (armed, masks)."""
+    parts = path.split(".")
+    if parts[0] in ("pending", "residual"):
+        return dict(widen)[".".join(parts[1:])]
+    if parts[0] == "inflight" and parts[2] == "payload":
+        return widen[int(parts[3])][1]
+    return None
+
+
+def stream_mismatch_shares(got: dict, want: dict, *, H: int,
+                           pure: bool = False,
+                           steps: TransportSteps | None = None) -> dict:
+    """For two states of ``convert.stream_state_to_numpy``'s form, each
+    leaf's share of entries outside the round's tolerance: ``base`` as
+    ``mismatch_shares``, the other float32 leaves (pending, residual,
+    in-flight payloads) atol 1e-5, rtol 1e-4 (under the pure policy, whose
+    deltas are taken from bf16 replicas, plus two bf16 ulps of the leaf's
+    largest replica value, as ``mismatch_shares`` widens the globals'),
+    the rest (armed, masks) exactly.
+
+    A float leaf counts as all outside (share 1.0) when its entries
+    disagree on being finite, or, given the ``steps`` recorded over the
+    reference run, when an entry outside the tolerance lies further than
+    ``steps.allow`` code steps beyond it (``TransportSteps``)."""
+    want_paths = dict(tree.paths(want))
+    got_paths = dict(tree.paths(got))
+    if sorted(got_paths) != sorted(want_paths):
+        raise ValueError("the two states have different leaves: "
+                         f"{sorted(set(got_paths) ^ set(want_paths))}")
+    for path, b in want_paths.items():
+        if got_paths[path].dtype != b.dtype:
+            raise ValueError(f"{path}: {got_paths[path].dtype} against "
+                             f"{b.dtype}")
+    tols = {f"base.{p}": t for p, t in _tolerances(
+        want["base"], H=H, pure=pure).items()}
+    widen = [(p, 2 * ulp_bf16(float(np.abs(_values(r)).max())))
+             for p, r in tree.paths(want["base"]["replica_params"])]
+    shares = {}
+    for path, b in want_paths.items():
+        a = got_paths[path]
+        tol = tols.get(path)
+        if not path.startswith("base.") and \
+                _stream_value_widen(path, widen) is not None:
+            atol = 1e-5 + (_stream_value_widen(path, widen) if pure else 0)
+            tol = atol + 1e-4 * np.abs(b)
+        if tol is None:
+            shares[path] = 1.0 - float(np.mean(a == b))
+            continue
+        a, b = _values(a), _values(b)
+        diff = np.abs(a - b)
+        out = ~(diff <= tol)
+        shares[path] = float(np.mean(out))
+        if (np.isfinite(a) != np.isfinite(b)).any():
+            shares[path] = 1.0
+        step = None if steps is None or not out.any() else \
+            steps.of(path, b.size)
+        if step is not None:
+            bound = np.broadcast_to(tol + steps.allow * step.reshape(
+                b.shape), b.shape)
+            if (diff[out] > bound[out]).any():
+                shares[path] = 1.0
     return shares

@@ -115,7 +115,7 @@ class DiLoCoConfig:
     sync_inner_state: bool = False
     # auto | kernel | ref (see kernels/ops.py)
     kernel_mode: str = "auto"
-    # --- streaming outer sync (not ported yet) ---
+    # --- streaming outer sync (core/streaming.py, simulated transport) ---
     streaming_fragments: int = 0
     stream_alpha: float = 1.0
     stream_tau: int = 0

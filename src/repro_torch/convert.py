@@ -4,7 +4,8 @@ The port cannot reproduce ``jax.random``, so parity runs start from
 parameters (or a whole state) made on the JAX side and handed over as
 numpy arrays (``jax.tree.map(np.asarray, tree)``): nested dicts with the
 same key paths and shapes. The state functions read and write the
-fields of the JAX ``DiLoCoState`` by name, so every leaf can be compared.
+fields of the JAX ``DiLoCoState`` (and of the streaming ``StreamState``)
+by name, so every leaf can be compared.
 
 numpy has no bfloat16 of its own (JAX hands its bf16 leaves over with
 ml_dtypes' ``bfloat16``, which the port does not import). So bf16 leaves
@@ -19,6 +20,7 @@ import numpy as np
 import torch
 
 from . import tree
+from .core import streaming
 from .core.diloco import DiLoCoState
 from .core.outer_opt import OuterState
 from .optim.adamw import AdamWState
@@ -98,3 +100,55 @@ def state_to_numpy(state: DiLoCoState) -> dict:
         "outer_t": np.asarray(state.outer_t, np.int32),
         "inner_steps_done": np.asarray(state.inner_steps_done, np.int32),
     }
+
+
+def stream_state_from_numpy(state, dcfg, *, device) -> streaming.StreamState:
+    """A JAX ``StreamState`` whose leaves are numpy arrays -> the port's on
+    ``device``. ``armed`` becomes a host float32 array; ``residual`` may be
+    None. ``inflight`` is a tuple of None or (payload tuple with None
+    entries, mask): the JAX payload holds whole (k, ...) leaves, of which
+    the port keeps the fragment's band (the partition of ``dcfg``)."""
+    to = lambda t: params_from_numpy(t, device=device)
+    inflight = None
+    if state.inflight is not None:
+        _, regions = streaming._partition(state.base.global_params, dcfg)
+        inflight = []
+        for regs, slot in zip(regions, state.inflight):
+            if slot is None:
+                inflight.append(None)
+                continue
+            payload, mask = slot
+            band = [None] * len(payload)
+            for reg in regs:
+                band[reg.leaf] = tensor_from_numpy(
+                    streaming._band(np.asarray(payload[reg.leaf]), reg, 1),
+                    device=device)
+            inflight.append((tuple(band), np.array(mask, np.float32)))
+        inflight = tuple(inflight)
+    return streaming.StreamState(
+        base=state_from_numpy(state.base, device=device),
+        pending=to(state.pending),
+        armed=np.asarray(state.armed, np.float32).copy(),
+        residual=None if state.residual is None else to(state.residual),
+        inflight=inflight)
+
+
+def stream_state_to_numpy(state: streaming.StreamState) -> dict:
+    """The port's streaming state -> a nested dict of numpy arrays keyed by
+    the ``StreamState`` fields: ``base`` as ``state_to_numpy``, ``pending``,
+    ``armed``, ``residual`` when there is one, and ``inflight`` when the
+    config defers, as {fragment: {"payload": {leaf index: band}, "mask":
+    (k,)}} for the fragments that have a slot."""
+    out = {"base": state_to_numpy(state.base),
+           "pending": params_to_numpy(state.pending),
+           "armed": np.asarray(state.armed, np.float32)}
+    if state.residual is not None:
+        out["residual"] = params_to_numpy(state.residual)
+    if state.inflight is not None:
+        out["inflight"] = {
+            str(f): {"payload": {str(i): tensor_to_numpy(t)
+                                 for i, t in enumerate(slot[0])
+                                 if t is not None},
+                     "mask": np.asarray(slot[1], np.float32)}
+            for f, slot in enumerate(state.inflight) if slot is not None}
+    return out

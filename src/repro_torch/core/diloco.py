@@ -12,9 +12,10 @@ parameter and AdamW leaf, as in the JAX package. Where JAX ``vmap``s the
 inner step over that dim and ``scan``s it over H, the port loops over
 replicas and steps in Python and updates each replica's slice of the
 stacked state in place (the counterpart of the JAX driver's donation).
-An inactive replica (adaptive compute pool) is skipped outright: it is
-not computed and then reverted, which leaves its state exactly as the
-JAX ``jnp.where`` does, without the work that hardware would not do.
+An inactive replica (adaptive compute pool) takes no step: its params
+and AdamW state stay as they were, as the JAX ``jnp.where`` leaves them,
+and only its loss on its batches is evaluated (a forward pass), as the
+JAX round reports it in ``inner_loss``.
 
 Step counters (AdamW counts, the outer count, ``outer_t``,
 ``inner_steps_done``) are host integers: the schedule and the bias
@@ -89,18 +90,27 @@ def make_inner_step(loss_fn: Callable, tcfg: TrainConfig,
                     total_steps: int | None = None):
     """One AdamW step for ONE replica. loss_fn(params, batch) ->
     (loss, metrics). Returns step(params, opt_state, batch, step_idx),
-    which updates ``params`` and the moments in place."""
+    which updates ``params`` and the moments in place; with
+    ``frozen=True`` it only evaluates the loss (forward only) and leaves
+    both as they are."""
     sched = make_warmup_cosine(tcfg.inner_lr, tcfg.warmup_steps,
                                total_steps or tcfg.total_steps)
     pol = precision.policy_of(tcfg)
 
-    def step(params, opt_state, batch, step_idx: int):
+    def step(params, opt_state, batch, step_idx: int, *,
+             frozen: bool = False):
+        lr = sched(step_idx)
+        if frozen:          # the loss of ``params`` only, no update
+            with torch.no_grad():
+                loss, _ = loss_fn(params, batch)
+            nan = torch.full((), float("nan"), device=loss.device)
+            return params, opt_state, {"loss": loss.float(), "gnorm": nan,
+                                       "lr": float(lr)}
         req = tree.map(lambda t: t.detach().requires_grad_(True), params)
         loss, _ = loss_fn(req, batch)
         grads = tree.unflatten(
             params, torch.autograd.grad(loss, tree.leaves(req)))
         grads, gnorm = adamw.clip_by_global_norm(grads, tcfg.grad_clip)
-        lr = sched(step_idx)
         params, opt_state = adamw.update(
             grads, opt_state, params, lr=lr, b1=tcfg.b1, b2=tcfg.b2,
             eps=tcfg.eps, weight_decay=tcfg.weight_decay,
@@ -117,25 +127,20 @@ def inner_phase(inner_step, replica_params, inner_state, batches, step0,
 
     batches: {"tokens": (k, H, B, S)}; step0: host index of the phase's
     first inner step (shared lr schedule). ``active_mask`` (k,): inactive
-    replicas are skipped and keep their params and AdamW state.
+    replicas take no step and keep their params and AdamW state; their
+    losses are those of their frozen params on their own batches (forward
+    only), as in the JAX package.
     Returns (replica_params, inner_state, metrics) with "loss" and
-    "gnorm" (k, H) tensors, NaN where a replica was skipped (the JAX
-    package evaluates the skipped replicas' losses on their frozen
-    params; the port does not run them).
+    "gnorm" (k, H) tensors ("gnorm" NaN where a replica was inactive).
     """
-    first = tree.leaves(replica_params)[0]
-    k = first.shape[0]
+    k = tree.leaves(replica_params)[0].shape[0]
     H = batches["tokens"].shape[1]
     active = (np.ones((k,), np.float32) if active_mask is None
               else np.asarray(active_mask, np.float32))
     counts = np.array(inner_state.count, np.int32)
-    nan = torch.full((), float("nan"), device=first.device)
     losses, gnorms, lrs = [], [], []
     for i in range(k):
-        if active[i] <= 0:
-            losses.append([nan] * H)
-            gnorms.append([nan] * H)
-            continue
+        frozen = bool(active[i] <= 0)
         p = tree.map(lambda a: a[i], replica_params)
         s = adamw.AdamWState(
             tree.map(lambda a: a[i], inner_state.m),
@@ -145,7 +150,7 @@ def inner_phase(inner_step, replica_params, inner_state, batches, step0,
         li, gi = [], []
         for h in range(H):
             batch = {name: b[i, h] for name, b in batches.items()}
-            p, s, m = inner_step(p, s, batch, step0 + h)
+            p, s, m = inner_step(p, s, batch, step0 + h, frozen=frozen)
             li.append(m["loss"])
             gi.append(m["gnorm"])
             if len(lrs) < H:
@@ -303,9 +308,6 @@ def _check_ported(dcfg: DiLoCoConfig, tcfg: TrainConfig):
     unported = [
         (dcfg.transport != "simulated",
          f"transport={dcfg.transport!r}", "transports"),
-        (dcfg.streaming_fragments != 0, "streaming_fragments", "streaming"),
-        (dcfg.outer_grad_dtype != "float32",
-         f"outer_grad_dtype={dcfg.outer_grad_dtype!r}", "streaming"),
         (dcfg.sync_inner_state, "sync_inner_state", "DiLoCo extras"),
     ]
     for bad, what, item in unported:
@@ -327,8 +329,21 @@ def make_round(loss_fn, sample_fn, dcfg: DiLoCoConfig, tcfg: TrainConfig,
     Metrics hold device scalars plus the host seconds the round spent
     sampling (``sample_s``), in the inner phase (``inner_s``) and in the
     outer step (``outer_s``), each closed by a device synchronize.
+    ``dcfg.streaming_fragments >= 1`` builds the streaming round
+    (``core/streaming.py``), whose state is a ``streaming.StreamState``.
     """
     _check_ported(dcfg, tcfg)
+    if dcfg.streaming_fragments:
+        from . import streaming
+        return streaming.make_stream_round_body(
+            loss_fn, sample_fn, dcfg, tcfg, total_steps=total_steps,
+            compute_cosine=compute_cosine, batch_size=batch_size,
+            seq_len=seq_len)
+    if dcfg.outer_grad_dtype != "float32":
+        raise NotImplementedError(
+            f"outer_grad_dtype={dcfg.outer_grad_dtype!r} rides the "
+            "streaming round: set streaming_fragments >= 1 (the classic "
+            "outer step ships float32 outer gradients)")
     inner_step = make_inner_step(loss_fn, tcfg, total_steps)
     B = batch_size or tcfg.batch_size
     S = seq_len or tcfg.seq_len
@@ -353,8 +368,8 @@ def make_round(loss_fn, sample_fn, dcfg: DiLoCoConfig, tcfg: TrainConfig,
                                active_mask=active_mask, weights=weights,
                                compute_cosine=compute_cosine)
         _sync(dev)
-        om["inner_loss"] = torch.nanmean(ms["loss"])
-        om["inner_loss_last"] = torch.nanmean(ms["loss"][:, -1])
+        om["inner_loss"] = ms["loss"].mean()
+        om["inner_loss_last"] = ms["loss"][:, -1].mean()
         om.update(sample_s=t1 - t0, inner_s=t2 - t1,
                   outer_s=time.perf_counter() - t2)
         return state, om
@@ -381,10 +396,8 @@ def make_single_worker_step(loss_fn, tcfg: TrainConfig,
 
 
 def outer_wire_bytes(params, dcfg: DiLoCoConfig) -> float:
-    """Bytes ONE replica ships for the classic synchronous outer step:
-    the full float32 outer gradient."""
-    if dcfg.outer_grad_dtype != "float32":
-        raise NotImplementedError(
-            "quantized outer gradients ride the streaming transports "
-            "(ROADMAP.md, port queue: streaming)")
+    """Bytes ONE replica ships for the classic synchronous outer step: the
+    full float32 outer gradient (the classic round runs only at float32
+    transport; streaming charges its fragments through
+    ``streaming.sync_plan``)."""
     return float(sum(leaf.numel() for leaf in tree.leaves(params)) * 4.0)

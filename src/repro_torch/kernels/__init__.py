@@ -13,10 +13,14 @@ csrc/flash_attention.cu flash attention forward (with and without the
 csrc/sign_prune.cu      per-row sign election and bisection threshold of
                         outer gradients (replaces the Pallas
                         kernels/sign_prune.py:sign_prune)
+csrc/quantize.cu        int4 or bf16 quantize→dequantize round trip of
+                        outer gradients (replaces the Pallas
+                        kernels/quantize.py:fake_quant)
 fused_adamw.py,         wrappers: kernel on CUDA tensors, plain version
 outer_nesterov.py,      on CPU tensors, launch counters; flash attention's
 flash_attention.py,     is also a torch.autograd.Function
-sign_prune.py
+sign_prune.py,
+quantize.py
 ref.py                  the plain PyTorch versions
 ops.py                  kernel_mode dispatch, tree-level updates, attention
 build.py                nvcc build into build/repro_torch_kernels, ctypes

@@ -31,6 +31,7 @@ SOURCES = {    # name -> (source, flags of its own)
     "outer_nesterov": (CSRC / "outer_nesterov.cu", BITWISE),
     "flash_attention": (CSRC / "flash_attention.cu", ()),
     "sign_prune": (CSRC / "sign_prune.cu", BITWISE),
+    "quantize": (CSRC / "quantize.cu", BITWISE),
 }
 # -Xptxas -v reports registers, shared memory and spills in the build log.
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",

@@ -24,6 +24,7 @@ from .. import tree
 from . import flash_attention as _flash
 from . import fused_adamw as _adamw
 from . import outer_nesterov as _nesterov
+from . import quantize as _quant
 from . import ref
 from . import sign_prune as _prune
 
@@ -180,3 +181,68 @@ def nesterov_update_tree(params, delta, buf, *, lr, momentum=0.9,
             p.copy_(new_p)
             b.copy_(new_b)
     return params, buf
+
+
+# ---------------------------------------------------------------------------
+# low-precision outer-gradient transport
+# ---------------------------------------------------------------------------
+
+# Wire cost of one transported element: int4 carries 0.5 B of codes plus
+# one f32 scale per 128-element block (the large-tensor amortization;
+# ``transport_bytes`` charges the started blocks exactly).
+QUANT_BLOCK = ref.QUANT_BLOCK
+# Packed int4 wire sections are padded to this byte boundary, so that the
+# f32 scales after the nibble-packed codes stay word-aligned.
+WIRE_ALIGN = 4
+TRANSPORT_BYTES_PER_ELEM = {
+    "float32": 4.0,
+    "bfloat16": 2.0,
+    "int4": 0.5 + 4.0 / QUANT_BLOCK,
+}
+
+
+def quant_roundtrip(x, dtype: str, *, mode: str = "auto",
+                    stacked: bool = False, out=None):
+    """Simulated low-precision transport: the quantize→dequantize round
+    trip of float32 ``x`` at ``dtype`` ("float32" returns ``x``). int4
+    uses one f32 scale per 128 consecutive entries of the flattened
+    tensor; ``stacked=True`` flattens each x[i] on its own (the JAX
+    ``vmap`` over a leading replica dim), so no block spans two replicas.
+    Writes into ``out`` when given (it may be ``x``)."""
+    if dtype == "float32":
+        return x
+    if dtype not in TRANSPORT_BYTES_PER_ELEM:
+        raise ValueError(f"unknown transport dtype {dtype!r}")
+    rows = x.shape[0] if stacked else 1
+    if _resolve(mode, x):
+        return _quant.fake_quant(x, dtype, rows=rows, out=out)
+    got = ref.fake_quant_rows(x.reshape(rows, -1), dtype).view(x.shape)
+    return got if out is None else out.copy_(got)
+
+
+def quant_roundtrip_tree(params, dtype: str, *, mode: str = "auto"):
+    """``quant_roundtrip`` of every leaf (each leaf flattened whole)."""
+    if dtype == "float32":
+        return params
+    return tree.map(lambda x: quant_roundtrip(x, dtype, mode=mode), params)
+
+
+def transport_bytes(n_elems: int, dtype: str, *,
+                    packed: bool = False) -> float:
+    """Wire bytes for ``n_elems`` outer-gradient elements, as the JAX
+    ``ops.transport_bytes``. ``packed=False`` (the fake-quant model): int4
+    charges 0.5 B per element plus 4 B per started 128-element block.
+    ``packed=True`` (the packed wire): int4 codes take ceil(n/2) bytes,
+    padded to ``WIRE_ALIGN``, then 4 B per started block. float32 and
+    bfloat16 ship whole elements either way."""
+    if dtype not in TRANSPORT_BYTES_PER_ELEM:
+        raise ValueError(f"unknown transport dtype {dtype!r}")
+    if dtype == "int4":
+        n = int(n_elems)
+        blocks = -(-n // QUANT_BLOCK)
+        if packed:
+            code_bytes = -(-n // 2)
+            code_bytes += (-code_bytes) % WIRE_ALIGN
+            return float(code_bytes + 4 * blocks)
+        return n * 0.5 + 4.0 * blocks
+    return n_elems * TRANSPORT_BYTES_PER_ELEM[dtype]

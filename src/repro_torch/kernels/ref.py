@@ -135,6 +135,71 @@ def sign_prune(x, frac: float):
 
 
 # ---------------------------------------------------------------------------
+# low-precision outer-gradient transport (streaming DiLoCo)
+# ---------------------------------------------------------------------------
+
+INT4_LEVELS = 7.0          # symmetric int4: codes in [-7, 7]
+# scale = amax × this pre-rounded float32 constant (not amax / 7), as in
+# the JAX reference, so every implementation rounds the scale alike
+INV_INT4_LEVELS = float(np.float32(1.0 / INT4_LEVELS))
+QUANT_BLOCK = 128          # elements sharing one int4 scale
+
+
+def quantize_int4(x):
+    """Blockwise symmetric int4 quantization. x: (R, C), each row a block
+    sharing one float32 scale. Returns (codes int8 in [-7, 7], scales
+    (R, 1) float32); an all-zero block gets scale 0 and codes 0."""
+    xf = x.float()
+    scale = xf.abs().amax(dim=-1, keepdim=True) * INV_INT4_LEVELS
+    q = torch.round(xf / torch.where(scale > 0, scale,
+                                     torch.ones_like(scale)))
+    return q.clamp(-INT4_LEVELS, INT4_LEVELS).to(torch.int8), scale
+
+
+def dequantize_int4(codes, scales):
+    """Inverse of ``quantize_int4``: (R, C) int8 × (R, 1) float32."""
+    return codes.float() * scales
+
+
+def fake_quant(x, dtype: str):
+    """Quantize→dequantize round trip at the transport ``dtype``. int4: x
+    is (R, C) blocks, one scale per row; bfloat16: any shape. Returns x's
+    shape and dtype.
+
+    int4 is computed as the Pallas ``_fake_quant_kernel`` computes it, the
+    codes kept in float32: ``dequantize_int4(quantize_int4(x))`` on finite
+    blocks. A block holding a NaN or an infinity comes out all NaN, as in
+    the JAX package: the max carries the NaN into the scale, an infinite
+    scale gives 0·inf, and the clip lets a NaN through."""
+    if dtype == "float32":
+        return x
+    if dtype == "bfloat16":
+        return x.to(torch.bfloat16).to(x.dtype)
+    if dtype != "int4":
+        raise ValueError(f"unknown transport dtype {dtype!r}")
+    xf = x.float()
+    scale = xf.abs().amax(dim=-1, keepdim=True) * INV_INT4_LEVELS
+    q = torch.round(xf / torch.where(scale > 0, scale,
+                                     torch.ones_like(scale)))
+    return (q.clamp(-INT4_LEVELS, INT4_LEVELS) * scale).to(x.dtype)
+
+
+def fake_quant_rows(x, dtype: str):
+    """``fake_quant`` of each row of a (rows, n) float32 matrix on its own:
+    int4 blocks are 128 consecutive entries of a row, the last one padded
+    with zeros (which change no block's max). Returns a new (rows, n)."""
+    if dtype != "int4":
+        return fake_quant(x, dtype)
+    rows, n = x.shape
+    nb = -(-n // QUANT_BLOCK)
+    padded = torch.zeros((rows, nb * QUANT_BLOCK), dtype=x.dtype,
+                         device=x.device)
+    padded[:, :n] = x
+    out = fake_quant(padded.view(rows * nb, QUANT_BLOCK), dtype)
+    return out.view(rows, nb * QUANT_BLOCK)[:, :n].contiguous()
+
+
+# ---------------------------------------------------------------------------
 # flash attention
 # ---------------------------------------------------------------------------
 

@@ -11,7 +11,11 @@ the CPU is asked for with ``--device cpu``) and ``--kernel-mode``
 PyTorch versions on the CPU). Flags of transports and features that are
 not ported exit with a message that names their ROADMAP.md item. With
 ``--prune-frac`` each round's record also carries ``prune_density``, the
-share of the outer-gradient entries kept.
+share of the outer-gradient entries kept. ``--stream-fragments P`` runs
+streaming DiLoCo on the simulated transport (``core/streaming.py``:
+``--stream-tau``, ``--stream-alpha``, ``--outer-grad-dtype``,
+``--error-feedback``); its records carry ``stream_peak_sync_bytes`` and
+``stream_round_sync_bytes``.
 
 Example:
   PYTHONPATH=src python -m repro_torch.launch.train \\
@@ -19,6 +23,10 @@ Example:
   PYTHONPATH=src python -m repro_torch.launch.train --full \\
       --arch diloco_150m --param-dtype bfloat16 --master-dtype float32 \\
       --prune-frac 0.5 --k 2 --H 4 --rounds 2 --batch 8 --seq 1024
+  PYTHONPATH=src python -m repro_torch.launch.train --full \\
+      --arch diloco_150m --stream-fragments 4 --stream-tau 2 \\
+      --stream-alpha 0.5 --outer-grad-dtype int4 --error-feedback \\
+      --k 2 --H 4 --rounds 2 --batch 8 --seq 1024
 """
 from __future__ import annotations
 
@@ -29,7 +37,7 @@ import numpy as np
 import torch
 
 from ..configs.base import DiLoCoConfig, TrainConfig
-from ..core import diloco, schedules
+from ..core import diloco, schedules, streaming
 from ..data.sharding import make_regime, shard_weights
 from ..models.registry import get_arch, get_smoke_arch
 from ..obs import metrics as obs_metrics
@@ -38,9 +46,7 @@ from ..optim import adamw, precision
 # flag dest -> the ROADMAP.md port-queue item that ports it. A flag left
 # at its default passes; any other value exits with the item's name.
 UNPORTED = {
-    "stream_fragments": "streaming", "stream_alpha": "streaming",
-    "stream_tau": "streaming", "outer_grad_dtype": "streaming",
-    "error_feedback": "streaming", "pack_wire": "streaming",
+    "pack_wire": "transports",
     "transport": "transports", "pods": "transports",
     "staleness_lambda": "transports", "gossip_pairing": "transports",
     "gossip_mix": "transports", "ticks": "transports",
@@ -89,6 +95,21 @@ def check_ported(args, parser=None):
     if args.guard_clip > 0 and not args.guard_outer:
         raise SystemExit("--guard-clip scales deltas inside the in-graph "
                          "guard; add --guard-outer")
+    if not args.stream_fragments:
+        # these knobs act only on the streaming outer path: running the
+        # classic float32 outer step while the command line says "int4"
+        # would mislabel every reported number (the JAX driver's check;
+        # its transport knobs are refused above as not ported)
+        ignored = [flag for flag, on in (
+            ("--outer-grad-dtype", args.outer_grad_dtype != "float32"),
+            ("--stream-alpha", args.stream_alpha != 1.0),
+            ("--stream-tau", args.stream_tau != 0),
+            ("--error-feedback", args.error_feedback)) if on]
+        if ignored:
+            raise SystemExit(
+                f"{', '.join(ignored)} require(s) --stream-fragments "
+                ">= 1 (streaming outer sync); the classic outer step "
+                "would ignore them")
 
 
 def build(args, device):
@@ -104,7 +125,12 @@ def build(args, device):
                         param_dtype=args.param_dtype,
                         master_dtype=args.master_dtype,
                         guard_outer=args.guard_outer,
-                        guard_clip=args.guard_clip)
+                        guard_clip=args.guard_clip,
+                        streaming_fragments=args.stream_fragments,
+                        stream_alpha=args.stream_alpha,
+                        stream_tau=args.stream_tau,
+                        outer_grad_dtype=args.outer_grad_dtype,
+                        error_feedback=args.error_feedback)
     total = args.pretrain_steps + args.rounds * args.H
     tcfg = TrainConfig(inner_lr=args.inner_lr, warmup_steps=args.warmup,
                        total_steps=total, batch_size=args.batch,
@@ -164,12 +190,17 @@ def run(args, recorder=None):
         del work, opt
 
     # ---- DiLoCo phase ----
-    state = diloco.init_state(params, dcfg)
-    round_wire = diloco.outer_wire_bytes(params, dcfg)
-    rec.attach_wire_plan([{"fragment": 0, "send_step": args.H,
-                           "apply_step": args.H,
-                           "wire_bytes": float(round_wire),
-                           "wire_dtype": dcfg.outer_grad_dtype}])
+    if dcfg.streaming_fragments:
+        state = streaming.init_state(params, dcfg)
+        plan = streaming.sync_plan(params, dcfg)
+        round_wire = sum(row["wire_bytes"] for row in plan)
+    else:
+        state = diloco.init_state(params, dcfg)
+        round_wire = diloco.outer_wire_bytes(params, dcfg)
+        plan = [{"fragment": 0, "send_step": args.H, "apply_step": args.H,
+                 "wire_bytes": float(round_wire),
+                 "wire_dtype": dcfg.outer_grad_dtype}]
+    rec.attach_wire_plan(plan)
     rng = np.random.default_rng(args.seed)
     drops = schedules.drop_masks(rng, args.drop_prob, args.k, args.rounds)
     acts = schedules.active_masks(
@@ -190,9 +221,9 @@ def run(args, recorder=None):
         evaled = (t + 1) % args.eval_every == 0 or t == args.rounds - 1
         val_loss = float(ev(state.global_params, val)) if evaled \
             else float("nan")
-        extras = {kk: float(m[kk]) for kk in ("inner_loss_last",
-                                              "drop_frac", "prune_density")
-                  if kk in m}
+        extras = {kk: float(m[kk]) for kk in (
+            "inner_loss_last", "drop_frac", "prune_density",
+            "stream_peak_sync_bytes", "stream_round_sync_bytes") if kk in m}
         if args.cosine_stats:
             extras["cos_mean"] = float(m["cos_mean"])
             extras["cos_std"] = float(m["cos_std"])
@@ -281,13 +312,26 @@ def make_parser():
     ap.add_argument("--log-format", default="text", choices=["text", "json"])
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--out", default="")
+    ap.add_argument("--stream-fragments", type=int, default=0,
+                    help="streaming outer sync: number of parameter "
+                         "fragments P (0 = classic synchronous outer step; "
+                         "see core/streaming.py)")
+    ap.add_argument("--stream-alpha", type=float, default=1.0,
+                    help="streaming merge weight "
+                         "θ_i <- α·θ_global + (1-α)·θ_i")
+    ap.add_argument("--stream-tau", type=int, default=0,
+                    help="inner steps between a fragment's snapshot and its "
+                         "application (simulated in-flight collective)")
+    ap.add_argument("--outer-grad-dtype", default="float32",
+                    choices=["float32", "bfloat16", "int4"],
+                    help="transport precision of outer gradients on the "
+                         "simulated wire")
+    ap.add_argument("--error-feedback", action="store_true",
+                    help="streaming: keep each replica's transport "
+                         "quantization residual and add it to its next "
+                         "delta")
     # ---- not ported: accepted so that they can be refused by name ----
     nyi = "not ported yet (see ROADMAP.md)"
-    ap.add_argument("--stream-fragments", type=int, default=0, help=nyi)
-    ap.add_argument("--stream-alpha", type=float, default=1.0, help=nyi)
-    ap.add_argument("--stream-tau", type=int, default=0, help=nyi)
-    ap.add_argument("--outer-grad-dtype", default="float32", help=nyi)
-    ap.add_argument("--error-feedback", action="store_true", help=nyi)
     ap.add_argument("--transport", default="simulated", help=nyi)
     ap.add_argument("--staleness-lambda", type=float, default=1.0, help=nyi)
     ap.add_argument("--gossip-pairing", default="butterfly", help=nyi)

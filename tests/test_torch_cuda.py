@@ -1,8 +1,8 @@
 """The port on the card: the CUDA kernels against their plain PyTorch
 versions, and DiLoCo rounds of smoke configs on CUDA against the same
 rounds on the CPU (diloco_150m's, under the f32 and the two bf16
-policies, with and without pruning, and a diloco_400m variant that takes
-the flash-attention path).
+policies, with and without pruning, a diloco_400m variant that takes
+the flash-attention path, and streaming rounds on the int4 transport).
 
 Every test here needs an NVIDIA GPU (``cuda`` marker) and skips without
 one. The file imports nothing of JAX, so it runs where JAX is not
@@ -19,11 +19,12 @@ torch = pytest.importorskip("torch")
 
 from repro_torch import check, convert, tree  # noqa: E402
 from repro_torch.configs.base import DiLoCoConfig, TrainConfig  # noqa: E402
-from repro_torch.core import diloco  # noqa: E402
+from repro_torch.core import diloco, streaming  # noqa: E402
 from repro_torch.kernels import flash_attention as TFK  # noqa: E402
 from repro_torch.kernels import fused_adamw as TFA  # noqa: E402
 from repro_torch.kernels import ops as tops  # noqa: E402
 from repro_torch.kernels import outer_nesterov as TON  # noqa: E402
+from repro_torch.kernels import quantize as TQ  # noqa: E402
 from repro_torch.kernels import ref as tref  # noqa: E402
 from repro_torch.kernels import sign_prune as TSP  # noqa: E402
 from repro_torch.models.registry import get_smoke_arch  # noqa: E402
@@ -269,3 +270,79 @@ def test_cuda_low_precision_round_matches_cpu(cuda, pdt, mdt, frac):
     for path, share in check.mismatch_shares(got, want, H=H,
                                              pure=not mixed).items():
         assert share <= (1e-3 if frac else 0.0), path
+
+
+def _bits_equal(a, b):
+    nan = torch.isnan(b)
+    return bool(torch.equal(torch.isnan(a), nan)) and bool(torch.equal(
+        a.view(torch.int32)[~nan], b.view(torch.int32)[~nan]))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["int4", "bfloat16"])
+@pytest.mark.parametrize("rows,n,offset", [
+    (1, 128, 0), (1, 1000, 1), (2, 300, 0), (3, 4099, 1), (2, 1 << 20, 0),
+    (1, 1, 0)])
+def test_cuda_fake_quant_equal_plain(cuda, dtype, rows, n, offset):
+    """The kernel bit for bit against its plain version (NaN at the same
+    places), blocks restarting at each row, in place and out of place; a
+    NaN or an infinity makes its whole int4 block NaN."""
+    gen = torch.Generator(device=cuda).manual_seed(rows * n + offset)
+    x = torch.randn(rows * n + offset, generator=gen,
+                    device=cuda)[offset:].view(rows, n)
+    if n >= 300:
+        x[0, 5] = float("nan")
+        x[-1, 130] = float("inf")
+        x[0, 256:270] = -0.0
+    before = dict(TQ.launches)
+    got = TQ.fake_quant(x, dtype, rows=rows)
+    y = x.clone()
+    TQ.fake_quant(y, dtype, rows=rows, out=y)
+    torch.cuda.synchronize()
+    want = tref.fake_quant_rows(x, dtype)
+    assert _bits_equal(got, want) and _bits_equal(y, want)
+    assert TQ.launches[dtype] - before[dtype] == 2
+    if dtype == "int4" and n >= 300:
+        assert torch.isnan(got[0, :128]).all()
+        assert torch.isnan(got[-1, 128:256]).all()
+
+
+@pytest.mark.cuda
+def test_cuda_stream_round_matches_cpu(cuda):
+    """Two k=2 streaming rounds of the smoke config (P=2, τ=1, α=0.5, int4
+    with error feedback) on the card against the CPU, within
+    ``check.stream_mismatch_shares`` and the int4 flip share, each entry
+    outside within the code steps recorded on the CPU; the card launched
+    fake_quant once per leaf and send."""
+    arch = get_smoke_arch("diloco_150m")
+    gen = torch.Generator().manual_seed(0)
+    params = arch.init(generator=gen, device="cpu")
+    toks = torch.randint(0, arch.cfg.vocab_size, (2, 2, 2 * 2, 32),
+                         generator=gen)
+    dcfg = DiLoCoConfig(k=2, H=2, streaming_fragments=2, stream_tau=1,
+                        stream_alpha=0.5, outer_grad_dtype="int4",
+                        error_feedback=True)
+
+    def run(device):
+        rnd = diloco.make_round(
+            lambda p, b: arch.loss(p, b), lambda r, b, s: toks[r].to(device),
+            dcfg, TrainConfig(inner_lr=1e-3, warmup_steps=2, total_steps=8),
+            batch_size=2, seq_len=32)
+        st = streaming.init_state(tree.map(lambda t: t.to(device), params),
+                                  dcfg)
+        for r in range(2):
+            st, _ = rnd(st, r)
+        return convert.stream_state_to_numpy(st)
+
+    from repro_torch.core import fragments
+    meta = arch.init(generator=None, device="meta")
+    sends = sum(len(r) for r in fragments.fragment_regions(
+        fragments.partition_params(meta, 2), meta))
+    q0 = TQ.launches["int4"]
+    got = run(cuda)
+    assert TQ.launches["int4"] - q0 == 2 * sends
+    with check.TransportSteps(params, dcfg) as steps:
+        want = run(torch.device("cpu"))
+    for path, share in check.stream_mismatch_shares(got, want, H=2,
+                                                    steps=steps).items():
+        assert share <= check.TRANSPORT_FLIP_SHARE["int4"], path

@@ -122,6 +122,10 @@ def test_round_with_masks_matches_jax():
     assert list(got["auto"]["inner_state"]["count"]) == [2, 2, 0]
     np.testing.assert_allclose(float(tm["auto"]["outer_gnorm"]),
                                float(jm["outer_gnorm"]), rtol=RTOL)
+    # the inactive replica's losses are its frozen params' on its batches
+    for name in ("inner_loss", "inner_loss_last"):
+        np.testing.assert_allclose(float(tm["auto"][name]), float(jm[name]),
+                                   rtol=RTOL, atol=ATOL, err_msg=name)
 
 
 def test_ref_and_auto_modes_agree():
@@ -192,15 +196,22 @@ def test_outer_wire_bytes_and_eval_match_jax():
 
 def test_unported_features_raise():
     """Features still unported raise and name their ROADMAP.md item;
-    pruning and both bf16 policies (ported) build a round; a state layout
-    that disagrees with the inner step's policy is refused."""
+    pruning, both bf16 policies and streaming (ported) build a round; a
+    quantized outer gradient off the streaming round is refused; a state
+    layout that disagrees with the inner step's policy is refused."""
     loss = lambda p, b: (0.0, {})
     for dcfg in (DiLoCoConfig(transport="gossip"),
-                 DiLoCoConfig(streaming_fragments=2),
-                 DiLoCoConfig(outer_grad_dtype="int4"),
+                 DiLoCoConfig(streaming_fragments=2, transport="sharded"),
                  DiLoCoConfig(sync_inner_state=True)):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             TD.make_round(loss, None, dcfg, TrainConfig())
+    with pytest.raises(NotImplementedError, match="streaming_fragments"):
+        TD.make_round(loss, None, DiLoCoConfig(outer_grad_dtype="int4"),
+                      TrainConfig())
+    TD.make_round(loss, None,
+                  DiLoCoConfig(streaming_fragments=2, outer_grad_dtype="int4",
+                               error_feedback=True, stream_tau=1),
+                  TrainConfig())
     for pdt, mdt in (("bfloat16", "float32"), ("bfloat16", "bfloat16")):
         TD.make_round(loss, None,
                       DiLoCoConfig(param_dtype=pdt, master_dtype=mdt,

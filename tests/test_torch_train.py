@@ -77,14 +77,60 @@ def test_recorder_format_matches_jax():
 
 
 @pytest.mark.parametrize("flags", [
-    ["--transport", "gossip"], ["--stream-fragments", "2"],
-    ["--outer-grad-dtype", "int4"], ["--checkpoint-dir", "ckpt"],
-    ["--trace", "t.json"], ["--crash-at-round", "1"],
-    ["--preempt", "0:1"]])
+    ["--transport", "gossip"], ["--transport", "sharded",
+                                "--stream-fragments", "2"],
+    ["--no-pack-wire", "--stream-fragments", "2"],
+    ["--checkpoint-dir", "ckpt"], ["--trace", "t.json"],
+    ["--crash-at-round", "1"], ["--preempt", "0:1"]])
 def test_unported_flags_exit_with_roadmap_item(flags):
     args = train.make_parser().parse_args(["--device", "cpu", *flags])
     with pytest.raises(SystemExit, match="ROADMAP.md"):
         train.run(args)
+
+
+@pytest.mark.parametrize("flags,named", [
+    (["--transport", "sharded"], "transports"),
+    (["--pods", "2", "--stream-fragments", "2"], "transports"),
+    (["--outer-grad-dtype", "int4"], "--outer-grad-dtype require"),
+    (["--stream-alpha", "0.5", "--stream-tau", "1", "--error-feedback"],
+     "--stream-alpha, --stream-tau, --error-feedback require"),
+])
+def test_streaming_knobs_need_stream_fragments(flags, named):
+    """Without ``--stream-fragments`` the streaming knobs exit with the JAX
+    driver's message; the sharded transport exits naming its ROADMAP.md
+    item."""
+    args = train.make_parser().parse_args(["--device", "cpu", *flags])
+    with pytest.raises(SystemExit, match=named):
+        train.run(args)
+
+
+@pytest.mark.parametrize("extra", [
+    [], ["--param-dtype", "bfloat16", "--master-dtype", "float32",
+         "--prune-frac", "0.5"]])
+def test_streaming_cli_runs_on_cpu(extra):
+    """``--stream-fragments 2 --stream-tau 1 --stream-alpha 0.5
+    --outer-grad-dtype int4 --error-feedback`` (and under the mixed policy
+    with pruning) trains; the records carry the stream byte counts and the
+    recorded wire plan is the streaming sync plan's."""
+    rec = tmetrics.RunRecorder(printer=lambda s, **_: None)
+    args = train.make_parser().parse_args(
+        ["--device", "cpu", "--k", "2", "--H", "2", "--rounds", "2",
+         "--batch", "2", "--seq", "32", "--eval-batch", "2",
+         "--stream-fragments", "2", "--stream-tau", "1", "--stream-alpha",
+         "0.5", "--outer-grad-dtype", "int4", "--error-feedback", *extra])
+    records = train.run(args, recorder=rec)
+    rounds = [r for r in records if r["phase"] == "diloco"]
+    assert len(rounds) == 2
+    for r in rounds:
+        assert math.isfinite(r["inner_loss"]) and math.isfinite(r["val_loss"])
+        assert 0 < r["stream_peak_sync_bytes"] < r["stream_round_sync_bytes"]
+        assert r["wire_bytes"] == r["stream_round_sync_bytes"]
+    assert rounds[1]["outer_gnorm"] > 0
+    plan = rec.manifest["wire_plan"]
+    assert [p["fragment"] for p in plan] == [0, 1]
+    assert [(p["send_step"], p["apply_step"]) for p in plan] == [(2, 3),
+                                                                 (1, 2)]
+    assert sum(p["wire_bytes"] for p in plan) == rounds[0]["wire_bytes"]
 
 
 @pytest.mark.parametrize("mode", ["pallas", "interpret"])
