@@ -105,12 +105,42 @@ Phases, each printing one JSON line; any failure exits non-zero:
               share, and each entry outside within the code steps of
               the CPU's sends).
 
-Every trainer run asserts the launches of every kernel, 0 for those its
-path does not run. Then the ``{"kernels": [...]}`` line (each kernel's
-launches from its own path's run: phase 4 for the f32 optimizer kernels,
-phase 7 for attention, phase 11 for the mixed AdamW and the pruning,
-phase 13's pure-policy run for the bf16 ``fused_adamw``, phase 15's runs
-for ``fake_quant``),
+ 17. wire_kernels  ``quantize_pack_int4`` and ``unpack_dequantize_int4``
+              (the packed int4 wire's sender and receiver) against their
+              plain versions, the wire byte for byte and the local values
+              and decode bit for bit (NaN at the same places), over
+              diloco_150m's whole flat tree (N = 217,012,096), at ragged
+              lengths (n ≡ 1, 2, 3 mod 4, n < 128, misaligned inputs) and
+              on blocks holding NaN, ±inf, zeros and −0.0; then each one's
+              time for one whole-tree call (the sender with and without
+              the local values) beside its plain version and the bound.
+ 18. train_async  slice 5's path at full width through the trainer:
+              ``--transport async --speeds 1,2 --staleness-lambda 0.7
+              --outer-grad-dtype int4 --error-feedback`` with phase 4's
+              sizes (4 ticks: worker 0 arrives at ticks 1-4, worker 1 at
+              2 and 4, stale by 0, 0, 2, 1, 0, 2). Counters set to 0 just
+              before and read just after: one ``quantize_pack_int4`` and
+              one ``unpack_dequantize_int4`` per arrival (6 and 6), 72
+              ``outer_nesterov``, 288 ``fused_adamw``, every other
+              counter 0. Prints, over the phases after the first (which
+              pays the card's warm-up): tokens/s with and without the
+              per-step token sampling, ms per inner step (sampling
+              excluded, as phase 4's) and per application (no eval);
+              each arrival's staleness, peak memory and the wire bytes
+              per application.
+ 19. smoke_async  an async run of a tiny config whose leaves straddle
+              int4 blocks (scenario B of ``tests/test_torch_async*.py``:
+              drops with a retry, a preemption and a rejoin), int4 with
+              error feedback and bf16, on the card against the CPU, with
+              the tolerance of ``repro_torch.check``.
+
+Every trainer run asserts the launches of every kernel (thirteen
+counters), 0 for those its path does not run. Then the
+``{"kernels": [...]}`` line (each kernel's launches from its own path's
+run: phase 4 for the f32 optimizer kernels, phase 7 for attention, phase
+11 for the mixed AdamW and the pruning, phase 13's pure-policy run for
+the bf16 ``fused_adamw``, phase 15's runs for ``fake_quant``, phase 18
+for the wire codecs),
 the card's line again, and the last line ``{"ok": true, "device":
 {...}}``. Without a GPU, or run from a directory that holds nothing else
 of the repository, it exits non-zero and prints no result.
@@ -158,12 +188,21 @@ PRUNE_FRAC = 0.5
 # the max, the divide, rint, two compares of the clip and the multiply (7;
 # the scale's one multiply per block is not counted); bf16's: the rounding
 QUANT_BYTES, QUANT_OPS = 8, {"int4": 7, "bfloat16": 1}
+# the packed int4 wire's operations per entry: the sender's |x|, max,
+# divide, rint, two compares of the clip, the NaN test and the shift-or
+# (8); the receiver's shift, mask, sign extension and multiply (4)
+PACK_OPS, UNPACK_OPS = 8, 4
+N_150M = 217_012_096        # entries of diloco_150m's flat tree
+ASYNC_FLAGS = ["--transport", "async", "--speeds", "1,2",
+               "--staleness-lambda", "0.7", "--outer-grad-dtype", "int4",
+               "--error-feedback"]
 STREAM_FLAGS = ["--stream-fragments", "4", "--stream-tau", "2",
                 "--stream-alpha", "0.5", "--outer-grad-dtype", "int4",
                 "--error-feedback"]
 # device kernels of the profiled inner step, grouped by a name substring
 PROFILE_GROUPS = (("flash", "flash_"), ("fused_adamw", "adamw_kernel"),
                   ("fake_quant", "fake_quant_"),
+                  ("wire_codecs", "_int4_kernel"),
                   ("outer_nesterov", "nesterov_kernel"), ("matmul", "gemm"),
                   ("softmax", "softmax"), ("reduction", "reduce"),
                   ("elementwise", "elementwise"),
@@ -234,7 +273,9 @@ def read_launches() -> dict:
             **FA.launches, "outer_nesterov": ON.launches,
             "sign_prune": SP.launches,
             "fake_quant_int4": QZ.launches["int4"],
-            "fake_quant_bf16": QZ.launches["bfloat16"]}
+            "fake_quant_bf16": QZ.launches["bfloat16"],
+            "quantize_pack_int4": QZ.launches["quantize_pack_int4"],
+            "unpack_dequantize_int4": QZ.launches["unpack_dequantize_int4"]}
 
 
 def expect_launches(**counts) -> dict:
@@ -1345,6 +1386,246 @@ def phase_smoke_stream(torch, dev):
          "inner_loss_cpu": float(m_cpu["inner_loss"])})
 
 
+def phase_wire_kernels(torch, dev):
+    """``quantize_pack_int4`` and ``unpack_dequantize_int4`` against their
+    plain versions over the whole flat tree and at edge cases, then their
+    whole-tree times. Returns their rows."""
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import quantize as QZ
+    from repro_torch.kernels import ref
+
+    gen = torch.Generator(device=dev).manual_seed(7)
+    err = {"quantize_pack_int4": 0.0, "unpack_dequantize_int4": 0.0}
+    cases = 0
+
+    def hold(x, label):
+        nonlocal cases
+        n = x.numel()
+        want_wire, want_local = ref.wire_encode_int4(x)
+        want_dec = ref.wire_decode_int4(want_wire, n)
+        wire = torch.empty(ops.wire_elems(n, "int4"), dtype=torch.uint8,
+                           device=dev)
+        local = torch.empty(n, device=dev)
+        QZ.quantize_pack_int4(x, wire, local)
+        dec = QZ.unpack_dequantize_int4(want_wire, n)
+        torch.cuda.synchronize()
+        if not (torch.equal(wire, want_wire) and bits_equal(
+                torch, local, want_local)):
+            raise SystemExit(f"quantize_pack_int4 on {label}: the kernel "
+                             "differs from its plain version")
+        if not bits_equal(torch, dec, want_dec):
+            raise SystemExit(f"unpack_dequantize_int4 on {label}: the "
+                             "kernel differs from its plain version")
+        wire.fill_(0xAB)
+        QZ.quantize_pack_int4(x, wire)              # without local
+        torch.cuda.synchronize()
+        if not torch.equal(wire, want_wire):
+            raise SystemExit(f"quantize_pack_int4 without local on {label}:"
+                             " the wire differs")
+        fin = torch.isfinite(want_local)
+        if fin.any():
+            err["quantize_pack_int4"] = max(err["quantize_pack_int4"], float(
+                (local[fin] - want_local[fin]).abs().max()))
+            err["unpack_dequantize_int4"] = max(
+                err["unpack_dequantize_int4"],
+                float((dec[fin] - want_dec[fin]).abs().max()))
+        cases += 1
+        del want_wire, want_local, want_dec, wire, local, dec
+
+    for n in (1, 2, 3, 5, 127, 128, 129, 300, 1000, 4099, 1_000_003):
+        for offset in (0, 1):      # 1: a misaligned input, scalar loads
+            hold(torch.randn(n + offset, generator=gen,
+                             device=dev)[offset:] * 1e-2,
+                 f"n={n} offset {offset}")
+    x = torch.randn(8 * 128 + 77, generator=gen, device=dev) * 1e-2
+    x[5] = float("nan")
+    x[130] = float("inf")
+    x[300] = -float("inf")
+    x[384:512] = 0.0
+    x[512:640] = -0.0
+    x[640::3] = -0.0
+    hold(x, "NaN, inf, zero and -0.0 blocks")
+    dec = QZ.unpack_dequantize_int4(ref.wire_encode_int4(x)[0], x.numel())
+    if not (torch.isnan(dec[:384]).all()
+            and torch.isfinite(dec[384:]).all()):
+        raise SystemExit("wire codecs: a block with a NaN or an infinity "
+                         "does not decode all NaN, or the NaN spread")
+    X = torch.randn(N_150M, generator=gen, device=dev) * 1e-2
+    hold(X, f"the flat diloco_150m tree (n={N_150M})")
+    say({"phase": "wire_kernels", "cases": cases, "max_abs_err": err,
+         "bitwise": True})
+
+    # one call over the whole flat tree, into preallocated outputs
+    n = N_150M
+    wire = torch.empty(ops.wire_elems(n, "int4"), dtype=torch.uint8,
+                       device=dev)
+    local = torch.empty(n, device=dev)
+    out = torch.empty(n, device=dev)
+    QZ.quantize_pack_int4(X, wire)
+    wire_b = wire.numel()
+    bw = bandwidth(torch.cuda.get_device_name(0))
+
+    def bound(nbytes, ops_per):
+        by_bytes, by_ops = nbytes / bw, n * ops_per / PEAK_F32
+        return (max(by_bytes, by_ops) * 1e3,
+                "bytes" if by_bytes >= by_ops else "operations")
+
+    pack = {"ms": time_ms(torch, lambda: QZ.quantize_pack_int4(X, wire)),
+            "ms_with_local": time_ms(torch, lambda: QZ.quantize_pack_int4(
+                X, wire, local)),
+            "plain_ms": time_ms(torch, lambda: ref.wire_encode_int4(X),
+                                reps=5, warmup=1),
+            # no PyTorch call quantizes blockwise and nibble-packs
+            "library_ms": None}
+    unpack = {"ms": time_ms(torch, lambda: QZ.unpack_dequantize_int4(
+                  wire, n, out)),
+              "plain_ms": time_ms(torch, lambda: ref.wire_decode_int4(
+                  wire, n), reps=5, warmup=1),
+              "library_ms": None}
+    rows = []
+    for name, t, nbytes, nbytes_local, ops_per, line in (
+            ("quantize_pack_int4", pack, 4 * n + wire_b,
+             8 * n + wire_b, PACK_OPS, 239),
+            ("unpack_dequantize_int4", unpack, wire_b + 4 * n, None,
+             UNPACK_OPS, 269)):
+        b_ms, b_by = bound(nbytes, ops_per)
+        row = {"name": name, "route": "cuda",
+               "source": "src/repro_torch/kernels/csrc/quantize.cu",
+               "replaces": f"src/repro/kernels/quantize.py:{line}",
+               "launches": None, "max_abs_err": err[name], **t,
+               "bound_ms": b_ms, "bound_by": b_by}
+        if nbytes_local is not None:
+            row["bound_ms_with_local"] = bound(nbytes_local, ops_per)[0]
+        rows.append(row)
+        say({"phase": "wire_kernels", "kernel": name, "elements": n,
+             "wire_bytes": wire_b, "bytes": nbytes,
+             **{k: v for k, v in row.items() if k.endswith("ms")},
+             "bound_by": b_by, "kernel_GBps": nbytes / t["ms"] / 1e6})
+    del X, wire, local, out
+    torch.cuda.empty_cache()
+    return rows
+
+
+def phase_train_async(torch, dev):
+    """Slice 5's path at full width through the trainer. Returns {kernel
+    name: launches} of the wire codecs."""
+    from repro_torch.kernels import ops
+
+    argv = ["--full", "--arch", "diloco_150m", *ASYNC_FLAGS, "--k", str(K),
+            "--H", str(H), "--rounds", str(ROUNDS), "--batch", str(BATCH),
+            "--seq", str(SEQ), "--eval-batch", "8"]
+    records, timing, wall_s, launches = run_trainer(torch, dev, argv)
+    peak_gb = torch.cuda.max_memory_allocated(dev) / 1e9
+    arrivals = [r for r in records if r["event"] == "arrival"]
+    n_arr = len(arrivals)
+    want = expect_launches(quantize_pack_int4=n_arr,
+                           unpack_dequantize_int4=n_arr,
+                           outer_nesterov=n_arr * N_LEAVES,
+                           fused_adamw=n_arr * H * N_LEAVES)
+    if n_arr != 6 or launches != want:
+        raise SystemExit(f"train_async: {n_arr} arrivals, launch counts "
+                         f"{launches}, expected {want}")
+    stale = [r["staleness"] for r in arrivals]
+    wire_b = ops.transport_bytes(N_150M, "int4", packed=True)
+    if stale != [0, 0, 2, 1, 0, 2] or any(
+            r["wire_bytes"] != wire_b or not math.isfinite(r["inner_loss"])
+            or not math.isfinite(r["val_loss"]) for r in arrivals):
+        raise SystemExit(f"train_async: bad records {arrivals}")
+    ev = timing["events"]
+    # the first phase pays the card's warm-up; phase 4 reports round 2
+    later = ev[1:]
+    phase_s = sum(e["phase_s"] for e in later)
+    train_s = sum(e["phase_s"] - e["sample_s"] for e in later)
+    steps = len(later) * H
+    say({"phase": "train_async", "argv": argv, "launches": launches,
+         "staleness": stale,
+         "losses": [(r["inner_loss"], r["val_loss"]) for r in arrivals],
+         "delta_norm": [r["delta_norm"] for r in arrivals],
+         "data_setup_s": timing["data_setup_s"], "events": ev,
+         "tokens_per_s": steps * BATCH * SEQ / phase_s,
+         "tokens_per_s_without_sampling": steps * BATCH * SEQ / train_s,
+         "inner_step_ms": train_s * 1e3 / steps,
+         "sample_ms_per_step": (phase_s - train_s) * 1e3 / steps,
+         "apply_ms": [e["apply_s"] * 1e3 for e in ev],
+         "apply_ms_mean_after_first": sum(e["apply_s"] for e in later)
+         * 1e3 / len(later),
+         "wire_bytes_per_apply": wire_b,
+         "float32_bytes_per_apply": 4 * N_150M, "wall_s": wall_s,
+         "max_memory_allocated_GB": peak_gb})
+    torch.cuda.empty_cache()
+    return {n: launches[n] for n in ("quantize_pack_int4",
+                                     "unpack_dequantize_int4")}
+
+
+def phase_smoke_async(torch, dev):
+    """Scenario B of the async parity tests on a tiny config whose leaves
+    straddle int4 blocks, int4 with error feedback and bf16, on the card
+    against the CPU."""
+    from repro_torch import check, convert, tree
+    from repro_torch.configs.base import (DiLoCoConfig, ModelConfig,
+                                          TrainConfig)
+    from repro_torch.core import async_diloco, faults
+    from repro_torch.models.registry import Arch
+
+    arch = Arch(cfg=ModelConfig(name="tiny", family="dense", n_layers=2,
+                                d_model=40, n_heads=2, n_kv_heads=2,
+                                d_ff=72, vocab_size=64, remat=False,
+                                attn_chunk=32))
+    gen = torch.Generator().manual_seed(0)
+    params = arch.init(generator=gen, device="cpu")
+    toks = torch.randint(0, 64, (64, 2, 16), generator=gen)
+    scen = faults.Scenario(speeds=(1, 2), drop_prob=0.3, max_retries=1,
+                           preemptions=((1, 3, 5),), seed=0)
+    tcfg = TrainConfig(inner_lr=3e-3, warmup_steps=2, total_steps=64,
+                       batch_size=2, seq_len=16)
+    for dtype, ef in (("int4", True), ("bfloat16", False)):
+        dcfg = DiLoCoConfig(k=2, H=3, transport="async",
+                            staleness_lambda=0.7, outer_grad_dtype=dtype,
+                            error_feedback=ef)
+
+        def run(device):
+            it = iter(toks.to(device))
+            eng = async_diloco.AsyncEngine(
+                lambda p, b: arch.loss(p, b), lambda g, b, s: next(it),
+                dcfg, tcfg, scenario=scen)
+            st = eng.init_state(tree.map(lambda t: t.to(device), params))
+            st, hist = eng.run(st, ticks=8)
+            return convert.async_state_to_numpy(st), hist
+
+        counts0 = read_launches()
+        got, hist = run(dev)
+        counts = {n: c - counts0[n] for n, c in read_launches().items()}
+        with check.TransportSteps(params, dcfg) as steps:
+            want, whist = run(torch.device("cpu"))
+        n_arr = sum(r["event"] == "arrival" for r in hist)
+        q = n_arr if dtype == "int4" else 0
+        phases = sum(r["event"] in ("arrival", "lost") for r in hist)
+        leaves = len(tree.leaves(params))
+        if counts != expect_launches(quantize_pack_int4=q,
+                                     unpack_dequantize_int4=q,
+                                     outer_nesterov=n_arr * leaves,
+                                     fused_adamw=phases * 3 * leaves):
+            raise SystemExit(f"smoke_async {dtype}: launches {counts}")
+        if [r["event"] for r in hist] != [r["event"] for r in whist]:
+            raise SystemExit(f"smoke_async {dtype}: other events")
+        shares = check.async_mismatch_shares(got, want, H=3, steps=steps)
+        path = max(shares, key=shares.get)
+        if shares[path] > check.TRANSPORT_FLIP_SHARE[dtype]:
+            raise SystemExit(f"smoke_async {dtype}: {path}: "
+                             f"{shares[path]:.3g} of the entries outside the "
+                             "tolerance, or one beyond "
+                             f"{steps.allow:.3g} code steps")
+        say({"phase": "smoke_async", "transport": dtype,
+             "error_feedback": ef, "events": [r["event"] for r in hist],
+             "leaves_compared": len(shares),
+             "worst_share_outside_tolerance": shares[path],
+             "worst_leaf": path, "launches": counts,
+             "delta_norm_cuda": [r["delta_norm"] for r in hist
+                                 if r["event"] == "arrival"],
+             "delta_norm_cpu": [r["delta_norm"] for r in whist
+                                if r["event"] == "arrival"]})
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1373,6 +1654,9 @@ def main() -> int:
     rows += phase_quant_kernels(torch, dev)
     launches.update(phase_train_stream(torch, dev))
     phase_smoke_stream(torch, dev)
+    rows += phase_wire_kernels(torch, dev)
+    launches.update(phase_train_async(torch, dev))
+    phase_smoke_async(torch, dev)
     for row in rows:
         row["launches"] = launches[row["name"]]
     say({"kernels": rows})

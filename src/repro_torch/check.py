@@ -1,10 +1,10 @@
-"""Tolerances that hold a round under a bf16 precision policy, or a
-streaming round, to another run of it (the card against the CPU, the port
-against the JAX reference).
+"""Tolerances that hold a round under a bf16 precision policy, a
+streaming round, or an async run, to another run of it (the card against
+the CPU, the port against the JAX reference).
 
-``tests/test_torch_mixed.py`` and ``tests/test_torch_streaming.py`` state
-why each tolerance is what it is; ``tests/test_torch_cuda.py`` and
-``chip_smoke.py`` apply the same ones.
+``tests/test_torch_mixed.py``, ``tests/test_torch_streaming.py`` and
+``tests/test_torch_async.py`` state why each tolerance is what it is;
+``tests/test_torch_cuda.py`` and ``chip_smoke.py`` apply the same ones.
 """
 from __future__ import annotations
 
@@ -89,7 +89,9 @@ def mismatch_shares(got: dict, want: dict, *, H: int, pure: bool) -> dict:
 # of relative size e crosses a bf16 boundary with probability about e·2^8
 # (0.26 % at e = 1e-5), far more often than an int4 one. The largest
 # shares the JAX parity grid of ``tests/test_torch_stream_*.py`` and
-# ``tests/test_torch_streaming.py`` reads: int4 4.7e-4, bf16 1.4e-3.
+# ``tests/test_torch_streaming.py`` reads: int4 4.7e-4, bf16 1.4e-3. The
+# async runs of ``tests/test_torch_async*.py`` (one flat payload per
+# arrival, six to eight arrivals) are held to the same limits.
 TRANSPORT_FLIP_SHARE = {"float32": 0.0, "int4": 1e-3, "bfloat16": 5e-3}
 
 
@@ -116,19 +118,31 @@ class TransportSteps:
     globals (outer_lr·(1 + momentum) steps), which the replicas adopt and
     the next sends take in. It reads the sends by wrapping
     ``streaming._send_window`` (which leaf and flat window a send takes),
-    ``ops.sign_prune`` and ``ops.quant_roundtrip`` (the values sent)."""
+    ``ops.sign_prune`` and ``ops.quant_roundtrip`` (the values sent).
+
+    Under ``dcfg.transport == "async"`` a send is one flat payload (the
+    tree's leaves in order, a worker's delta plus its residual) through
+    ``ops.wire_encode``, which it wraps instead; the steps are those of
+    the flat payload's blocks (which straddle leaves), one row for all
+    workers. A flipped code moves the applied value by at most one step
+    times the arrival's weight (≤ 1), and the outer step carries it as in
+    a round: the same ``allow``. An arrival's delta is taken against its
+    own snapshot, so a shifted global shifts both terms alike."""
 
     def __init__(self, params, dcfg):
         from .core import streaming
         self.dtype = dcfg.outer_grad_dtype
+        self.flat = getattr(dcfg, "transport", "simulated") == "async"
         self.leaf_of = {p: i for i, (p, _) in enumerate(tree.paths(params))}
         shapes = [tuple(x.shape) for x in tree.leaves(params)]
         self.n = [math.prod(s) for s in shapes]
         self.cols = [n if len(s) <= 1 else math.prod(s[1:])
                      for n, s in zip(self.n, shapes)]
         self.per = [n // s[0] if s else n for n, s in zip(self.n, shapes)]
-        self.step = [np.zeros((int(dcfg.k), n)) for n in self.n]
-        self.regions = streaming._partition(params, dcfg)[1]
+        self.step = [np.zeros((1 if self.flat else int(dcfg.k), n))
+                     for n in self.n]
+        self.regions = None if self.flat else \
+            streaming._partition(params, dcfg)[1]
         self.allow = 1.0 + float(dcfg.outer_lr) * (
             1.0 + float(dcfg.outer_momentum))
         self._send = None
@@ -136,6 +150,15 @@ class TransportSteps:
     def __enter__(self):
         from .core import streaming
         from .kernels import ops
+        if self.flat:
+            encode = self._saved = ops.wire_encode
+
+            def wire_encode(x, dtype, **kw):
+                self._record_flat(x.detach().cpu().numpy().reshape(-1))
+                return encode(x, dtype, **kw)
+
+            ops.wire_encode = wire_encode
+            return self
         window, prune, quant = (streaming._send_window, ops.sign_prune,
                                 ops.quant_roundtrip)
         self._saved = window, prune, quant
@@ -171,26 +194,41 @@ class TransportSteps:
     def __exit__(self, *exc):
         from .core import streaming
         from .kernels import ops
+        if self.flat:
+            ops.wire_encode = self._saved
+            return False
         (streaming._send_window, ops.sign_prune,
          ops.quant_roundtrip) = self._saved
         return False
 
-    def _record(self, x):
+    def _code_steps(self, x):
+        """(k, w) values sent -> the step of the code each one took."""
         k, w = x.shape
-        s = self._send
         if self.dtype == "int4":
             blk = QUANT_BLOCK
             pad = np.zeros((k, -(-w // blk) * blk), np.float32)
             pad[:, :w] = np.abs(x)
             amax = pad.reshape(k, -1, blk).max(axis=2)
-            step = np.repeat(amax * np.float32(INV_INT4_LEVELS), blk,
+            return np.repeat(amax * np.float32(INV_INT4_LEVELS), blk,
                              axis=1)[:, :w].astype(np.float64)
-        elif self.dtype == "bfloat16":
+        if self.dtype == "bfloat16":
             mag = np.abs(x).astype(np.float64)
-            step = np.where(mag > 0, np.exp2(np.floor(np.log2(
+            return np.where(mag > 0, np.exp2(np.floor(np.log2(
                 np.where(mag > 0, mag, 1.0))) - 7), 0.0)
-        else:
-            step = np.zeros((k, w))
+        return np.zeros((k, w))
+
+    def _record_flat(self, x):
+        step = self._code_steps(x[None])[0]
+        off = 0
+        for li, n in enumerate(self.n):
+            np.maximum(self.step[li][0], step[off:off + n],
+                       out=self.step[li][0])
+            off += n
+
+    def _record(self, x):
+        k, w = x.shape
+        s = self._send
+        step = self._code_steps(x)
         if s["thr"] is not None:
             cols = self.cols[s["leaf"]]
             rows = (s["a"] - s["off"] + np.arange(w)) // cols
@@ -207,6 +245,8 @@ class TransportSteps:
         an in-flight payload); None for a leaf that holds no transported
         value (armed, masks, counters)."""
         parts = path.split(".")
+        if self.flat and parts[-1] == "residual":
+            return np.concatenate([st.max(axis=0) for st in self.step])
         if parts[0] == "inflight":
             if parts[2] != "payload":
                 return None
@@ -225,6 +265,102 @@ class TransportSteps:
             step = self.step[li].max(axis=0)
         return np.tile(step, size // step.size)
 
+
+def _paired(got: dict, want: dict) -> list:
+    """[(path, got leaf, want leaf)] of two states of one layout; raises
+    when their leaves or dtypes differ."""
+    want_paths = dict(tree.paths(want))
+    got_paths = dict(tree.paths(got))
+    if sorted(got_paths) != sorted(want_paths):
+        raise ValueError("the two states have different leaves: "
+                         f"{sorted(set(got_paths) ^ set(want_paths))}")
+    for path, b in want_paths.items():
+        if got_paths[path].dtype != b.dtype:
+            raise ValueError(f"{path}: {got_paths[path].dtype} against "
+                             f"{b.dtype}")
+    return [(path, got_paths[path], b) for path, b in want_paths.items()]
+
+
+def _share_outside(path, a, b, tol, steps) -> float:
+    """The share of ``a``'s entries further than ``tol`` from ``b``'s (float
+    leaves, bf16 as uint16 bits); 1.0 when they disagree on being finite,
+    or, given the ``steps`` recorded over the reference run, when an entry
+    outside lies more than ``steps.allow`` code steps (``TransportSteps``)
+    beyond the tolerance."""
+    a, b = _values(a), _values(b)
+    diff = np.abs(a - b)
+    out = ~(diff <= tol)
+    if (np.isfinite(a) != np.isfinite(b)).any():
+        return 1.0
+    step = None if steps is None or not out.any() else \
+        steps.of(path, b.size)
+    if step is not None:
+        bound = np.broadcast_to(tol + steps.allow * step.reshape(b.shape),
+                                b.shape)
+        if (diff[out] > bound[out]).any():
+            return 1.0
+    return float(np.mean(out))
+
+
+# Under the mixed policy (bf16 working params and moments, float32
+# master) a worker's inner steps compute from bf16 gradients and moments;
+# an upstream last-bit difference rounds one of them one bf16 ulp (2^-8)
+# the other way, and the AdamW step m̂/(√v̂ + ε) it takes moves by about
+# that share of itself (at most ~2 early in training): the master moves
+# by up to lr·2^-6 per step, and the async run carries it into the
+# global, the outer buffers and the snapshots, arrival after arrival. So
+# the float32 leaves of a mixed-policy async run are held to an extra
+# absolute drift of MIXED_DRIFT_PER_STEP · inner lr per inner step the
+# run took (``tests/test_torch_async.py`` reads at most a sixth of it).
+MIXED_DRIFT_PER_STEP = 2.0 ** -6
+# An async run applies one outer step per arrival where a round applies
+# one per round; each carries the inner phase's last-bit differences (the
+# matmuls' and reductions' summation orders) through the outer momentum
+# into the global, so the float32 atol of a round (1e-5) is taken once per
+# application (the run's ``version``): the f32 JAX parity runs of
+# ``tests/test_torch_async*.py`` (six arrivals) read at most 1.17e-5.
+ASYNC_ATOL_PER_APPLY = 1e-5
+# Under the mixed policy the payload's upstream differences are the
+# master's drift (above), not float32 last bits, so a quantized transport
+# flips a code at an entry with a probability of about drift / step, far
+# more often: at most this share of a leaf's entries may lie outside the
+# tolerance (each still within ``TransportSteps.allow`` code steps). The
+# mixed int4 JAX parity runs of ``tests/test_torch_async*.py`` read at
+# most 5.0e-3.
+MIXED_FLIP_SHARE = 1e-2
+
+
+def async_mismatch_shares(got: dict, want: dict, *, H: int,
+                          steps: TransportSteps | None = None,
+                          drift: float = 0.0) -> dict:
+    """For two async states in ``convert.async_state_to_numpy``'s form,
+    each leaf's share of entries outside the tolerance of an async run:
+    float32 leaves (global, outer buffers, snapshots, residuals, float32
+    worker params, moments and masters) atol ``ASYNC_ATOL_PER_APPLY`` per
+    application of the reference run (its ``counters.version``, at least
+    one), rtol 1e-4; bf16 worker leaves (the mixed policy's working
+    params and moments) within H bf16 ulps of the leaf's largest
+    magnitude, as ``mismatch_shares``; the counters, versions and flags
+    exactly. ``drift`` widens the float32 leaves' atol
+    (``MIXED_DRIFT_PER_STEP``). A float leaf counts as all outside (1.0)
+    when its entries disagree on being finite or, given the ``steps``
+    recorded over the reference run, when an entry outside lies more than
+    ``steps.allow`` code steps beyond the tolerance."""
+    atol = drift + ASYNC_ATOL_PER_APPLY * max(
+        1, int(want["counters"]["version"]))
+    shares = {}
+    for path, a, b in _paired(got, want):
+        if b.dtype == np.uint16:
+            tol = H * ulp_bf16(float(np.abs(_values(b)).max(initial=0.0)))
+        elif b.dtype == np.float32:
+            tol = atol + 1e-4 * np.abs(b)
+        else:
+            shares[path] = 1.0 - float(np.mean(a == b))
+            continue
+        shares[path] = _share_outside(path, a, b, tol, steps)
+    return shares
+
+
 def _stream_value_widen(path: str, widen: list):
     """For a pending, residual or in-flight payload leaf, the widening of
     its replica leaf (by path; payloads are keyed by leaf index); None for
@@ -235,6 +371,7 @@ def _stream_value_widen(path: str, widen: list):
     if parts[0] == "inflight" and parts[2] == "payload":
         return widen[int(parts[3])][1]
     return None
+
 
 
 def stream_mismatch_shares(got: dict, want: dict, *, H: int,
@@ -252,22 +389,13 @@ def stream_mismatch_shares(got: dict, want: dict, *, H: int,
     disagree on being finite, or, given the ``steps`` recorded over the
     reference run, when an entry outside the tolerance lies further than
     ``steps.allow`` code steps beyond it (``TransportSteps``)."""
-    want_paths = dict(tree.paths(want))
-    got_paths = dict(tree.paths(got))
-    if sorted(got_paths) != sorted(want_paths):
-        raise ValueError("the two states have different leaves: "
-                         f"{sorted(set(got_paths) ^ set(want_paths))}")
-    for path, b in want_paths.items():
-        if got_paths[path].dtype != b.dtype:
-            raise ValueError(f"{path}: {got_paths[path].dtype} against "
-                             f"{b.dtype}")
+    pairs = _paired(got, want)
     tols = {f"base.{p}": t for p, t in _tolerances(
         want["base"], H=H, pure=pure).items()}
     widen = [(p, 2 * ulp_bf16(float(np.abs(_values(r)).max())))
              for p, r in tree.paths(want["base"]["replica_params"])]
     shares = {}
-    for path, b in want_paths.items():
-        a = got_paths[path]
+    for path, a, b in pairs:
         tol = tols.get(path)
         if not path.startswith("base.") and \
                 _stream_value_widen(path, widen) is not None:
@@ -276,17 +404,5 @@ def stream_mismatch_shares(got: dict, want: dict, *, H: int,
         if tol is None:
             shares[path] = 1.0 - float(np.mean(a == b))
             continue
-        a, b = _values(a), _values(b)
-        diff = np.abs(a - b)
-        out = ~(diff <= tol)
-        shares[path] = float(np.mean(out))
-        if (np.isfinite(a) != np.isfinite(b)).any():
-            shares[path] = 1.0
-        step = None if steps is None or not out.any() else \
-            steps.of(path, b.size)
-        if step is not None:
-            bound = np.broadcast_to(tol + steps.allow * step.reshape(
-                b.shape), b.shape)
-            if (diff[out] > bound[out]).any():
-                shares[path] = 1.0
+        shares[path] = _share_outside(path, a, b, tol, steps)
     return shares

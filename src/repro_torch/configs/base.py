@@ -122,7 +122,9 @@ class DiLoCoConfig:
     outer_grad_dtype: str = "float32"
     stream_overrides: tuple = ()
     error_feedback: bool = False
-    # simulated | sharded | async | gossip; only "simulated" is ported
+    # simulated | sharded | async | gossip; "simulated" runs the rounds of
+    # core/diloco.py and core/streaming.py, "async" the barrier-free
+    # engine of core/async_diloco.py; sharded and gossip are not ported
     transport: str = "simulated"
     staleness_lambda: float = 1.0
     gossip_pairing: str = "butterfly"

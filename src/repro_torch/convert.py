@@ -5,7 +5,8 @@ parameters (or a whole state) made on the JAX side and handed over as
 numpy arrays (``jax.tree.map(np.asarray, tree)``): nested dicts with the
 same key paths and shapes. The state functions read and write the
 fields of the JAX ``DiLoCoState`` (and of the streaming ``StreamState``)
-by name, so every leaf can be compared.
+by name, so every leaf can be compared; an async engine's state crosses
+in the ``state_to_tree`` layout of the JAX ``core/async_diloco.py``.
 
 numpy has no bfloat16 of its own (JAX hands its bf16 leaves over with
 ml_dtypes' ``bfloat16``, which the port does not import). So bf16 leaves
@@ -20,7 +21,7 @@ import numpy as np
 import torch
 
 from . import tree
-from .core import streaming
+from .core import async_diloco, streaming
 from .core.diloco import DiLoCoState
 from .core.outer_opt import OuterState
 from .optim.adamw import AdamWState
@@ -152,3 +153,19 @@ def stream_state_to_numpy(state: streaming.StreamState) -> dict:
                      "mask": np.asarray(slot[1], np.float32)}
             for f, slot in enumerate(state.inflight) if slot is not None}
     return out
+
+
+def async_state_from_numpy(tree_np: dict, *, device):
+    """A JAX async state in the ``async_diloco.state_to_tree`` layout, its
+    leaves numpy arrays (``jax.tree.map(np.asarray, state_to_tree(s))``)
+    -> the port's ``AsyncState`` on ``device``."""
+    t = tree.map(lambda a: tensor_from_numpy(a, device=device), tree_np)
+    return async_diloco.state_from_tree(t, t["global"])
+
+
+def async_state_to_numpy(state) -> dict:
+    """The port's ``AsyncState`` -> its ``state_to_tree`` layout as a
+    nested dict of numpy arrays (bf16 leaves as uint16 bits, the
+    counters as 0-d int32 or int64 arrays, as JAX keeps them)."""
+    return tree.map(lambda x: tensor_to_numpy(x) if torch.is_tensor(x)
+                    else np.asarray(x), async_diloco.state_to_tree(state))

@@ -306,7 +306,7 @@ def _check_ported(dcfg: DiLoCoConfig, tcfg: TrainConfig):
             f"tcfg=({tcfg.param_dtype}, {tcfg.master_dtype}); the state "
             "layout (dcfg) must match the inner step (tcfg)")
     unported = [
-        (dcfg.transport != "simulated",
+        (dcfg.transport in ("sharded", "gossip"),
          f"transport={dcfg.transport!r}", "transports"),
         (dcfg.sync_inner_state, "sync_inner_state", "DiLoCo extras"),
     ]
@@ -332,7 +332,14 @@ def make_round(loss_fn, sample_fn, dcfg: DiLoCoConfig, tcfg: TrainConfig,
     ``dcfg.streaming_fragments >= 1`` builds the streaming round
     (``core/streaming.py``), whose state is a ``streaming.StreamState``.
     """
+    if dcfg.transport == "async":
+        raise ValueError(
+            "transport='async' is barrier-free — there is no round to "
+            "build: drive it with core.async_diloco.AsyncEngine (or "
+            "run_async) and a faults.Scenario")
     _check_ported(dcfg, tcfg)
+    if dcfg.transport != "simulated":
+        raise ValueError(f"unknown transport {dcfg.transport!r}")
     if dcfg.streaming_fragments:
         from . import streaming
         return streaming.make_stream_round_body(

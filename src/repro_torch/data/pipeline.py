@@ -70,6 +70,13 @@ class MarkovMixture:
         self.shard_sizes = np.asarray(shard_sizes, np.float32)
 
     # ---- sampling ----
+    def sample_shard(self, gen, shard_id: int, batch: int, seq_len: int):
+        """tokens (batch, seq_len) int64 from shard ``shard_id``'s chain
+        (one async worker's batch)."""
+        logits = self._logits[shard_id]
+        return _sample_chain(gen, lambda tok: logits[tok], (batch,),
+                             seq_len, self.vocab_size, self.device)
+
     def sample_all_shards(self, gen, batch: int, seq_len: int):
         """tokens (k, batch, seq_len) int64: one batch per shard."""
         shard = torch.arange(self.k, device=self.device)[:, None]

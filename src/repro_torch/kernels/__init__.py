@@ -14,8 +14,10 @@ csrc/sign_prune.cu      per-row sign election and bisection threshold of
                         outer gradients (replaces the Pallas
                         kernels/sign_prune.py:sign_prune)
 csrc/quantize.cu        int4 or bf16 quantize→dequantize round trip of
-                        outer gradients (replaces the Pallas
-                        kernels/quantize.py:fake_quant)
+                        outer gradients, and the packed int4 wire's
+                        sender and receiver (replaces the Pallas
+                        kernels/quantize.py:fake_quant,
+                        quantize_pack_int4, unpack_dequantize_int4)
 fused_adamw.py,         wrappers: kernel on CUDA tensors, plain version
 outer_nesterov.py,      on CPU tensors, launch counters; flash attention's
 flash_attention.py,     is also a torch.autograd.Function

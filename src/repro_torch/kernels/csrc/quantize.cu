@@ -1,10 +1,12 @@
-// Quantize→dequantize round trip of outer gradients, for Hopper (sm_90a):
-// the simulated low-precision transport of streaming DiLoCo.
+// Low-precision outer-gradient transport for Hopper (sm_90a): the
+// quantize→dequantize round trip of streaming DiLoCo, and the packed int4
+// wire codecs of the async transport.
 //
-// Replaces the TPU kernel src/repro/kernels/quantize.py:fake_quant (body
-// _fake_quant_kernel). The operand is a contiguous float32 matrix of
-// `rows` rows of `n` entries (a replica's flattened outer gradient per
-// row), written to `out` (which may be the input). Two modes:
+// 1. fake_quant (replaces the TPU kernel src/repro/kernels/quantize.py:
+// fake_quant, body _fake_quant_kernel). The operand is a contiguous
+// float32 matrix of `rows` rows of `n` entries (a replica's flattened
+// outer gradient per row), written to `out` (which may be the input). Two
+// modes:
 //   int4  each row is cut into blocks of 128 consecutive entries, the last
 //         one ragged; per block
 //           amax  = max |x|          (a NaN anywhere makes it NaN)
@@ -25,9 +27,37 @@
 // (CUDA's fmaxf would drop it); a grid-stride loop over a bounded grid
 // takes any size in one launch. No shared memory, one pass over the data.
 //
+// 2. quantize_pack_int4 (replaces quantize.py:quantize_pack_int4, body
+// _quantize_pack_kernel) and unpack_dequantize_int4 (replaces
+// quantize.py:unpack_dequantize_int4, body _unpack_dequant_kernel): the
+// sender and receiver of ONE packed int4 wire buffer over a flat float32
+// vector of n entries, laid out as
+//   [ceil(n/2) code bytes][zero padding to 4 bytes][one f32 scale per
+//    started 128-entry block]
+// Byte b holds entry 2b in its low nibble and 2b+1 in its high one (4-bit
+// two's complement). The quantization is fake_quant's; the code of a NaN
+// quotient is 0 (JAX's float -> int cast), and codes past n are 0. The
+// sender writes the code bytes (never past ceil(n/2): the scales follow),
+// the padding and the scales straight into the wire, and, when asked, the
+// local values clip(q) * scale. The receiver sign-extends each nibble,
+// ((nib ^ 8) - 8), and multiplies by its block's scale.
+//
+// What bounds them: bytes. The sender reads 4 B and writes 0.53 B per
+// entry (4 more with the local values); the receiver reads 0.53 B and
+// writes 4. The sender's design: a thread owns 8 consecutive entries (two
+// float4 loads, one 32-bit word of codes), so sixteen lanes of a warp own
+// one 128-entry block and its max is a four-step shuffle reduction inside
+// each half-warp; the loop runs over whole warps so that every lane takes
+// part in the shuffles. The receiver's: a thread owns 4 entries (one
+// 16-bit load of codes, one float4 store), so a warp's stores cover 512
+// contiguous bytes (with 8 entries a thread, each store instruction left
+// a hole in every 32-byte sector, and the receiver reached half its
+// bound). The ragged tail and unaligned pointers take byte and scalar
+// accesses.
+//
 // Built with --fmad=false; rintf and __fdiv_rn round as torch.round and
-// IEEE division do, so the result agrees bit for bit with the plain
-// PyTorch version in kernels/ref.py (NaN payloads aside).
+// IEEE division do, so the results agree bit for bit with the plain
+// PyTorch versions in kernels/ref.py (NaN payloads aside).
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -115,6 +145,110 @@ inline unsigned grid_for(int64_t threads_needed) {
   return (unsigned)blocks;
 }
 
+// The sender: see the header. One thread per 8 entries (an "octet").
+__global__ void quantize_pack_int4_kernel(const float* __restrict__ x,
+                                          uint8_t* __restrict__ codes,
+                                          float* __restrict__ scales,
+                                          float* __restrict__ local,
+                                          int64_t n, int64_t n_oct,
+                                          int64_t cb, int pad, bool vec,
+                                          float inv_levels, float levels) {
+  const int64_t tid = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
+  const int64_t stride = (int64_t)gridDim.x * blockDim.x;
+  if (tid < pad) codes[cb + tid] = 0;
+  // whole warps: every lane of a warp runs the same iterations
+  const int64_t n_iter = (n_oct + 31) / 32 * 32;
+  for (int64_t o = tid; o < n_iter; o += stride) {
+    const int64_t e0 = o * 8;
+    float v[8];
+    if (vec && e0 + 8 <= n) {
+      const float4 a = *reinterpret_cast<const float4*>(x + e0);
+      const float4 b = *reinterpret_cast<const float4*>(x + e0 + 4);
+      v[0] = a.x; v[1] = a.y; v[2] = a.z; v[3] = a.w;
+      v[4] = b.x; v[5] = b.y; v[6] = b.z; v[7] = b.w;
+    } else {
+#pragma unroll
+      for (int j = 0; j < 8; ++j) v[j] = e0 + j < n ? x[e0 + j] : 0.0f;
+    }
+    float amax = 0.0f;
+#pragma unroll
+    for (int j = 0; j < 8; ++j) amax = nanmax(amax, fabsf(v[j]));
+    // the 16 lanes of a half-warp hold one block
+#pragma unroll
+    for (int off = 8; off > 0; off >>= 1)
+      amax = nanmax(amax, __shfl_xor_sync(FULL, amax, off));
+    if (o >= n_oct) continue;
+    const float scale = amax * inv_levels;
+    const float div = scale > 0.0f ? scale : 1.0f;
+    float q[8];
+    uint32_t word = 0;
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      q[j] = clip(rintf(__fdiv_rn(v[j], div)), levels);
+      const int c = q[j] != q[j] ? 0 : (int)q[j];
+      word |= (uint32_t)(c & 0xF) << (4 * j);
+    }
+    const int64_t b0 = 4 * o;
+    if (b0 + 4 <= cb) {
+      *reinterpret_cast<uint32_t*>(codes + b0) = word;
+    } else {
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+        if (b0 + i < cb) codes[b0 + i] = (uint8_t)(word >> (8 * i));
+    }
+    if ((o & 15) == 0) scales[o >> 4] = scale;
+    if (local != nullptr) {
+      if (vec && e0 + 8 <= n) {
+        *reinterpret_cast<float4*>(local + e0) =
+            make_float4(q[0] * scale, q[1] * scale, q[2] * scale,
+                        q[3] * scale);
+        *reinterpret_cast<float4*>(local + e0 + 4) =
+            make_float4(q[4] * scale, q[5] * scale, q[6] * scale,
+                        q[7] * scale);
+      } else {
+#pragma unroll
+        for (int j = 0; j < 8; ++j)
+          if (e0 + j < n) local[e0 + j] = q[j] * scale;
+      }
+    }
+  }
+}
+
+// The receiver: see the header. One thread per 4 entries (2 code bytes),
+// so a warp owns one 128-entry block: its stores are 512 contiguous bytes.
+__global__ void unpack_dequantize_int4_kernel(
+    const uint8_t* __restrict__ codes, const float* __restrict__ scales,
+    float* __restrict__ out, int64_t n, int64_t n_quad, int64_t cb,
+    bool vec) {
+  const int64_t stride = (int64_t)gridDim.x * blockDim.x;
+  for (int64_t t = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
+       t < n_quad; t += stride) {
+    const int64_t b0 = 2 * t;
+    uint32_t word = 0;
+    if (b0 + 2 <= cb) {
+      word = *reinterpret_cast<const uint16_t*>(codes + b0);
+    } else if (b0 < cb) {
+      word = codes[b0];
+    }
+    const float scale = scales[t >> 5];
+    float v[4];
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const int nib = (int)((word >> (4 * j)) & 0xFu);
+      v[j] = (float)((nib ^ 8) - 8) * scale;
+    }
+    const int64_t e0 = 4 * t;
+    if (vec && e0 + 4 <= n) {
+      *reinterpret_cast<float4*>(out + e0) = make_float4(v[0], v[1], v[2],
+                                                         v[3]);
+    } else {
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+        if (e0 + j < n) out[e0 + j] = v[j];
+    }
+  }
+}
+
 }  // namespace
 
 // Launches one round trip over a (rows, n) float32 matrix on `stream` of
@@ -141,5 +275,59 @@ extern "C" int repro_fake_quant_f32(const float* x, float* out,
   } else {
     return (int)cudaErrorInvalidValue;
   }
+  return (int)cudaGetLastError();
+}
+
+// The packed int4 wire's sections for n entries: code bytes, padding.
+static inline void wire_sections(long long n, int64_t* cb, int* pad) {
+  *cb = (n + 1) / 2;
+  *pad = (int)((4 - (*cb % 4)) % 4);
+}
+
+// Encodes the flat float32 vector x of n entries into `wire` (4-byte
+// aligned, (ceil(n/2) + pad + 4 * ceil(n/128)) bytes) on `stream` of
+// `device`, and writes the local values to `local` unless it is null.
+// Returns the cudaError_t of the launch (0 on success).
+extern "C" int repro_quantize_pack_int4(const float* x, uint8_t* wire,
+                                        float* local, long long n,
+                                        float inv_levels, float levels,
+                                        int device, void* stream) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return (int)err;
+  if (n <= 0) return (int)cudaSuccess;
+  if (reinterpret_cast<uintptr_t>(wire) & 3u)
+    return (int)cudaErrorMisalignedAddress;
+  int64_t cb;
+  int pad;
+  wire_sections(n, &cb, &pad);
+  const int64_t nb = (n + BLOCK - 1) / BLOCK;
+  const int64_t n_oct = nb * (BLOCK / 8);
+  const bool vec = aligned16(x) && (local == nullptr || aligned16(local));
+  quantize_pack_int4_kernel<<<grid_for((n_oct + 31) / 32 * 32), THREADS, 0,
+                              (cudaStream_t)stream>>>(
+      x, wire, reinterpret_cast<float*>(wire + cb + pad), local, n, n_oct,
+      cb, pad, vec, inv_levels, levels);
+  return (int)cudaGetLastError();
+}
+
+// Decodes the packed int4 wire of n entries (4-byte aligned) into the
+// float32 vector `out` on `stream` of `device`. Returns the cudaError_t of
+// the launch (0 on success).
+extern "C" int repro_unpack_dequantize_int4(const uint8_t* wire, float* out,
+                                            long long n, int device,
+                                            void* stream) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return (int)err;
+  if (n <= 0) return (int)cudaSuccess;
+  if (reinterpret_cast<uintptr_t>(wire) & 3u)
+    return (int)cudaErrorMisalignedAddress;
+  int64_t cb;
+  int pad;
+  wire_sections(n, &cb, &pad);
+  const int64_t n_quad = (n + 3) / 4;
+  unpack_dequantize_int4_kernel<<<grid_for(n_quad), THREADS, 0,
+                                  (cudaStream_t)stream>>>(
+      wire, reinterpret_cast<const float*>(wire + cb + pad), out, n, n_quad,
+      cb, aligned16(out));
   return (int)cudaGetLastError();
 }

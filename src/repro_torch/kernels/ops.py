@@ -19,6 +19,7 @@ from __future__ import annotations
 import math
 
 import numpy as np
+import torch
 
 from .. import tree
 from . import flash_attention as _flash
@@ -193,7 +194,7 @@ def nesterov_update_tree(params, delta, buf, *, lr, momentum=0.9,
 QUANT_BLOCK = ref.QUANT_BLOCK
 # Packed int4 wire sections are padded to this byte boundary, so that the
 # f32 scales after the nibble-packed codes stay word-aligned.
-WIRE_ALIGN = 4
+WIRE_ALIGN = ref.WIRE_ALIGN
 TRANSPORT_BYTES_PER_ELEM = {
     "float32": 4.0,
     "bfloat16": 2.0,
@@ -246,3 +247,75 @@ def transport_bytes(n_elems: int, dtype: str, *,
             return float(code_bytes + 4 * blocks)
         return n * 0.5 + 4.0 * blocks
     return n_elems * TRANSPORT_BYTES_PER_ELEM[dtype]
+
+
+# ---------------------------------------------------------------------------
+# packed wire: one buffer per payload (the async transport's transfer)
+# ---------------------------------------------------------------------------
+
+def wire_dtype(dtype: str):
+    """Element dtype of the wire buffer ``wire_encode`` builds: uint8 for
+    int4, the bf16 bits as uint16 for bfloat16 (as in the JAX package)."""
+    if dtype == "int4":
+        return torch.uint8
+    if dtype == "bfloat16":
+        return torch.uint16
+    raise ValueError(f"no packed wire for transport dtype {dtype!r}")
+
+
+def wire_elems(n_elems: int, dtype: str) -> int:
+    """Length of the wire buffer for ``n_elems`` entries, in elements of
+    ``wire_dtype`` (for int4 exactly ``transport_bytes(n, 'int4',
+    packed=True)`` bytes)."""
+    if dtype == "int4":
+        return int(transport_bytes(n_elems, dtype, packed=True))
+    if dtype == "bfloat16":
+        return int(n_elems)
+    raise ValueError(f"no packed wire for transport dtype {dtype!r}")
+
+
+def wire_encode(x, dtype: str, *, mode: str = "auto",
+                with_local: bool = True):
+    """Encode one flat float32 (n,) payload for the packed wire, as the
+    JAX ``ops.wire_encode``. Returns ``(wire, local)``: ``wire`` is what
+    the transfer ships (bf16: the bf16 bits as uint16; int4: ONE uint8
+    buffer of ceil(n/2) nibble-packed code bytes, zero padding to
+    ``WIRE_ALIGN`` and the per-128-block float32 scales' bytes), ``local``
+    the sender's value of its payload (None with ``with_local=False``,
+    which spares the int4 kernel writing it). int4 under ``auto`` or
+    ``kernel`` runs the ``quantize_pack_int4`` kernel (its plain version
+    on CPU tensors), under ``ref`` the plain version."""
+    if dtype == "bfloat16":
+        w = x.reshape(-1).to(torch.bfloat16)
+        return w.view(torch.uint16), (w.float() if with_local else None)
+    if dtype != "int4":
+        raise ValueError(f"no packed wire for transport dtype {dtype!r}")
+    flat = x.reshape(-1)
+    if not _resolve(mode, flat):
+        wire, local = ref.wire_encode_int4(flat.float())
+        return wire, (local if with_local else None)
+    wire = torch.empty((wire_elems(flat.numel(), dtype),),
+                       dtype=torch.uint8, device=flat.device)
+    local = torch.empty_like(flat) if with_local else None
+    _quant.quantize_pack_int4(flat, wire, local)
+    return wire, local
+
+
+def wire_decode(wire, n_elems: int, dtype: str, *, mode: str = "auto",
+                out=None):
+    """Decode one payload's wire back to (n,) float32, as the JAX
+    ``ops.wire_decode``: the value the sender's ``wire_encode`` reported
+    as ``local`` (up to the sign of a zero: code 0 decodes to +0.0).
+    int4 under ``auto`` or ``kernel`` runs the ``unpack_dequantize_int4``
+    kernel (its plain version on CPU tensors); writes into ``out`` when
+    given."""
+    if dtype == "bfloat16":
+        got = wire.view(torch.bfloat16).float()
+        return got if out is None else out.copy_(got)
+    if dtype != "int4":
+        raise ValueError(f"no packed wire for transport dtype {dtype!r}")
+    n = int(n_elems)
+    if not _resolve(mode, wire):
+        got = ref.wire_decode_int4(wire, n)
+        return got if out is None else out.copy_(got)
+    return _quant.unpack_dequantize_int4(wire, n, out)

@@ -145,6 +145,14 @@ INV_INT4_LEVELS = float(np.float32(1.0 / INT4_LEVELS))
 QUANT_BLOCK = 128          # elements sharing one int4 scale
 
 
+def _codes_int8(q):
+    """Integral float32 codes in [-7, 7] (NaN where the block is NaN) ->
+    int8. A NaN becomes code 0, as JAX's float -> int cast makes it;
+    PyTorch's cast of a NaN is undefined, so it is written out."""
+    return torch.where(torch.isnan(q), torch.zeros_like(q), q).to(
+        torch.int8)
+
+
 def quantize_int4(x):
     """Blockwise symmetric int4 quantization. x: (R, C), each row a block
     sharing one float32 scale. Returns (codes int8 in [-7, 7], scales
@@ -153,7 +161,7 @@ def quantize_int4(x):
     scale = xf.abs().amax(dim=-1, keepdim=True) * INV_INT4_LEVELS
     q = torch.round(xf / torch.where(scale > 0, scale,
                                      torch.ones_like(scale)))
-    return q.clamp(-INT4_LEVELS, INT4_LEVELS).to(torch.int8), scale
+    return _codes_int8(q.clamp(-INT4_LEVELS, INT4_LEVELS)), scale
 
 
 def dequantize_int4(codes, scales):
@@ -197,6 +205,106 @@ def fake_quant_rows(x, dtype: str):
     padded[:, :n] = x
     out = fake_quant(padded.view(rows * nb, QUANT_BLOCK), dtype)
     return out.view(rows, nb * QUANT_BLOCK)[:, :n].contiguous()
+
+
+# ---------------------------------------------------------------------------
+# packed int4 wire (the async transport's worker -> server payload)
+# ---------------------------------------------------------------------------
+
+# The packed int4 wire's code bytes are padded to this byte boundary, so
+# that the float32 scales after them stay word-aligned.
+WIRE_ALIGN = 4
+
+
+def pack_int4(codes):
+    """Nibble-pack int4 codes: flat (n,) int8 in [-7, 7] -> (ceil(n/2),)
+    int8 wire bytes. Byte b holds element 2b in its low nibble and element
+    2b+1 in its high nibble (4-bit two's complement); an odd tail pads one
+    zero nibble. The JAX ``ref.pack_int4``."""
+    n = codes.shape[0]
+    if n % 2:
+        codes = torch.cat([codes, codes.new_zeros(1)])
+    c = codes.reshape(-1, 2).to(torch.int32) & 0xF
+    return (c[:, 0] | (c[:, 1] << 4)).to(torch.uint8).view(torch.int8)
+
+
+def unpack_int4(packed, n: int):
+    """Inverse of ``pack_int4``: (ceil(n/2),) int8 wire bytes -> (n,) int8
+    codes in [-7, 7] (4-bit two's complement sign extension)."""
+    p = packed.view(torch.uint8).to(torch.int32)
+    nib = torch.stack([p & 0xF, (p >> 4) & 0xF], dim=-1).reshape(-1)[:n]
+    return ((nib ^ 8) - 8).to(torch.int8)
+
+
+def quantize_pack_int4(x):
+    """The fused sender's maths: (R, 128) float32 blocks -> (packed (R, 64)
+    int8 wire bytes, scales (R, 1) float32, local (R, 128) float32), the
+    JAX ``ref.quantize_pack_int4`` (``quantize_int4`` -> ``pack_int4`` ->
+    ``dequantize_int4``) with the kernel's local: ``clip(q)·scale`` from
+    the float codes, which keeps the sign of a −0.0 and is otherwise the
+    dequantized int8 codes' value (NaN where the block is NaN or
+    infinite)."""
+    xf = x.float()
+    scale = xf.abs().amax(dim=-1, keepdim=True) * INV_INT4_LEVELS
+    q = torch.round(xf / torch.where(scale > 0, scale,
+                                     torch.ones_like(scale)))
+    q = q.clamp(-INT4_LEVELS, INT4_LEVELS)
+    rows, cols = x.shape
+    packed = pack_int4(_codes_int8(q).reshape(-1)).reshape(rows, cols // 2)
+    return packed, scale, q * scale
+
+
+def unpack_dequantize_int4(packed, scales):
+    """The fused receiver's maths: (R, 64) int8 wire bytes × (R, 1) float32
+    scales -> (R, 128) float32, the JAX ``ref.unpack_dequantize_int4``
+    (``unpack_int4`` -> ``dequantize_int4``)."""
+    rows, cols = packed.shape
+    codes = unpack_int4(packed.reshape(-1), rows * cols * 2).reshape(
+        rows, cols * 2)
+    return dequantize_int4(codes, scales)
+
+
+def wire_sections(n: int):
+    """(code bytes, zero padding, blocks) of the packed int4 wire of ``n``
+    entries: ceil(n/2) code bytes, padding to ``WIRE_ALIGN``, then one
+    float32 scale per started 128-entry block."""
+    cb = -(-n // 2)
+    return cb, (-cb) % WIRE_ALIGN, -(-n // QUANT_BLOCK)
+
+
+def wire_encode_int4(x):
+    """Flat float32 (n,) -> (wire, local): ``quantize_pack_int4`` over the
+    zero-padded 128-entry blocks, laid out as ONE uint8 buffer (the
+    ``cb`` code bytes, zero padding, the scales' bytes), and the (n,)
+    local values. Codes past n quantize to 0, so an odd n's last byte has
+    a zero high nibble."""
+    n = x.shape[0]
+    cb, pad, rows = wire_sections(n)
+    blocks = torch.zeros((rows * QUANT_BLOCK,), dtype=torch.float32,
+                         device=x.device)
+    blocks[:n] = x
+    packed, scales, local = quantize_pack_int4(
+        blocks.view(rows, QUANT_BLOCK))
+    wire = torch.zeros((cb + pad + 4 * rows,), dtype=torch.uint8,
+                       device=x.device)
+    wire[:cb] = packed.reshape(-1)[:cb].view(torch.uint8)
+    wire[cb + pad:] = scales.reshape(-1).view(torch.uint8)
+    return wire, local.reshape(-1)[:n]
+
+
+def wire_decode_int4(wire, n: int):
+    """The packed int4 wire of ``n`` entries -> (n,) float32:
+    ``unpack_dequantize_int4`` over the code bytes padded with zero codes
+    to whole blocks."""
+    cb, pad, rows = wire_sections(n)
+    codes = torch.zeros((rows * QUANT_BLOCK // 2,), dtype=torch.uint8,
+                        device=wire.device)
+    codes[:cb] = wire[:cb]
+    scales = wire[cb + pad:cb + pad + 4 * rows].clone().view(
+        torch.float32).reshape(rows, 1)
+    vals = unpack_dequantize_int4(
+        codes.view(torch.int8).reshape(rows, QUANT_BLOCK // 2), scales)
+    return vals.reshape(-1)[:n]
 
 
 # ---------------------------------------------------------------------------

@@ -15,7 +15,15 @@ share of the outer-gradient entries kept. ``--stream-fragments P`` runs
 streaming DiLoCo on the simulated transport (``core/streaming.py``:
 ``--stream-tau``, ``--stream-alpha``, ``--outer-grad-dtype``,
 ``--error-feedback``); its records carry ``stream_peak_sync_bytes`` and
-``stream_round_sync_bytes``.
+``stream_round_sync_bytes``. ``--transport async`` runs barrier-free
+DiLoCo (``core/async_diloco.py``) over ``--ticks`` wall-clock ticks of a
+fault scenario (``core/faults.py``: ``--speeds``, ``--link-latency``,
+``--latency-jitter``, ``--drop-prob`` with any other fault flag,
+``--max-retries``, ``--retry-backoff``, ``--preempt``), each outer
+gradient applied at weight ``--staleness-lambda``^τ / k, shipped at
+``--outer-grad-dtype`` with or without ``--error-feedback``; it prints
+one line per event. On the round transports the same fault flags are
+projected onto the rounds' drop and active masks.
 
 Example:
   PYTHONPATH=src python -m repro_torch.launch.train \\
@@ -27,6 +35,10 @@ Example:
       --arch diloco_150m --stream-fragments 4 --stream-tau 2 \\
       --stream-alpha 0.5 --outer-grad-dtype int4 --error-feedback \\
       --k 2 --H 4 --rounds 2 --batch 8 --seq 1024
+  PYTHONPATH=src python -m repro_torch.launch.train --full \\
+      --arch diloco_150m --transport async --speeds 1,2 \\
+      --staleness-lambda 0.7 --outer-grad-dtype int4 --error-feedback \\
+      --k 2 --H 4 --rounds 2 --batch 8 --seq 1024
 """
 from __future__ import annotations
 
@@ -37,7 +49,7 @@ import numpy as np
 import torch
 
 from ..configs.base import DiLoCoConfig, TrainConfig
-from ..core import diloco, schedules, streaming
+from ..core import async_diloco, diloco, faults, schedules, streaming
 from ..data.sharding import make_regime, shard_weights
 from ..models.registry import get_arch, get_smoke_arch
 from ..obs import metrics as obs_metrics
@@ -46,16 +58,11 @@ from ..optim import adamw, precision
 # flag dest -> the ROADMAP.md port-queue item that ports it. A flag left
 # at its default passes; any other value exits with the item's name.
 UNPORTED = {
-    "pack_wire": "transports",
-    "transport": "transports", "pods": "transports",
-    "staleness_lambda": "transports", "gossip_pairing": "transports",
-    "gossip_mix": "transports", "ticks": "transports",
-    "restore": "transports",
-    "speeds": "fault scenarios", "link_latency": "fault scenarios",
-    "latency_jitter": "fault scenarios", "max_retries": "fault scenarios",
-    "retry_backoff": "fault scenarios", "preempt": "fault scenarios",
+    "pack_wire": "transports", "pods": "transports",
+    "gossip_pairing": "transports", "gossip_mix": "transports",
     "crash_at_round": "fault scenarios", "crash_at_tick": "fault scenarios",
     "nan_bomb": "fault scenarios",
+    "restore": "checkpoints and resilience",
     "checkpoint": "checkpoints and resilience",
     "checkpoint_dir": "checkpoints and resilience",
     "checkpoint_every": "checkpoints and resilience",
@@ -68,6 +75,8 @@ UNPORTED = {
     "guard_rollbacks": "checkpoints and resilience",
     "trace": "telemetry",
 }
+# transports of the JAX trainer that are not ported
+UNPORTED_TRANSPORTS = ("sharded", "gossip")
 
 
 def resolve_device(name: str) -> torch.device:
@@ -80,14 +89,74 @@ def resolve_device(name: str) -> torch.device:
     return dev
 
 
+def _int_list(spec: str, k: int, name: str) -> tuple:
+    """Parse a comma list of ints; a single value broadcasts to k."""
+    try:
+        vals = [int(x) for x in spec.split(",") if x.strip()]
+    except ValueError:
+        raise SystemExit(f"{name} wants comma-separated ints, "
+                         f"got {spec!r}")
+    if len(vals) == 1:
+        vals = vals * k
+    if len(vals) != k:
+        raise SystemExit(f"{name} needs 1 or k={k} values, "
+                         f"got {len(vals)}")
+    return tuple(vals)
+
+
+def scenario_of(args) -> faults.Scenario | None:
+    """The ``faults.Scenario`` scripted by the fault flags, or None when
+    no fault flag is set (the i.i.d. drop-mask path keeps its exact rng
+    stream), as the JAX trainer builds it.
+
+    Round transports project the scenario onto per-round masks
+    (``Scenario.round_masks``); the async engine consumes its event
+    timeline. ``--drop-prob`` alone does NOT make a scenario; combined
+    with any other fault flag it becomes the scenario's per-send drop
+    probability with retry/backoff semantics. The crash and NaN-bomb
+    injections the JAX scenario also carries are refused by
+    ``check_ported`` (ROADMAP.md, port queue: fault scenarios).
+    """
+    used = (args.speeds or args.link_latency
+            or args.latency_jitter > 0 or args.max_retries > 0
+            or args.preempt or args.transport == "async")
+    if not used:
+        return None
+    k = args.k
+    preempts = []
+    for spec in args.preempt:
+        parts = spec.split(":")
+        if len(parts) not in (2, 3):
+            raise SystemExit(
+                f"--preempt wants WORKER:LEAVE[:REJOIN], got {spec!r}")
+        w, leave = int(parts[0]), int(parts[1])
+        rejoin = int(parts[2]) if len(parts) == 3 else 0
+        preempts.append((w, leave, rejoin))
+    return faults.Scenario(
+        speeds=_int_list(args.speeds, k, "--speeds")
+        if args.speeds else (1,) * k,
+        latency=_int_list(args.link_latency, k, "--link-latency")
+        if args.link_latency else (),
+        latency_jitter=args.latency_jitter,
+        drop_prob=args.drop_prob,
+        max_retries=args.max_retries,
+        retry_backoff=args.retry_backoff,
+        preemptions=tuple(preempts),
+        seed=args.seed)
+
+
 def check_ported(args, parser=None):
+    """Refuse what the port does not run (naming its ROADMAP.md item),
+    then the JAX trainer's own validation of the flags it runs."""
     parser = parser or make_parser()
-    bad = [dest for dest, item in UNPORTED.items()
+    bad = [f"--{dest.replace('_', '-')} (ROADMAP.md, port queue: "
+           f"{item})" for dest, item in UNPORTED.items()
            if getattr(args, dest) != parser.get_default(dest)]
+    if args.transport in UNPORTED_TRANSPORTS:
+        bad.insert(0, f"--transport {args.transport} (ROADMAP.md, port "
+                      "queue: transports)")
     if bad:
-        raise SystemExit("not ported yet: " + "; ".join(
-            f"--{d.replace('_', '-')} (ROADMAP.md, port queue: "
-            f"{UNPORTED[d]})" for d in bad))
+        raise SystemExit("not ported yet: " + "; ".join(bad))
     if args.kernel_mode in ("pallas", "interpret"):
         raise SystemExit(f"--kernel-mode {args.kernel_mode} names TPU "
                          "(Pallas) machinery; the port's modes are "
@@ -95,11 +164,11 @@ def check_ported(args, parser=None):
     if args.guard_clip > 0 and not args.guard_outer:
         raise SystemExit("--guard-clip scales deltas inside the in-graph "
                          "guard; add --guard-outer")
-    if not args.stream_fragments:
+    if not args.stream_fragments and args.transport == "simulated":
         # these knobs act only on the streaming outer path: running the
         # classic float32 outer step while the command line says "int4"
         # would mislabel every reported number (the JAX driver's check;
-        # its transport knobs are refused above as not ported)
+        # its sharded-transport knobs are refused above as not ported)
         ignored = [flag for flag, on in (
             ("--outer-grad-dtype", args.outer_grad_dtype != "float32"),
             ("--stream-alpha", args.stream_alpha != 1.0),
@@ -110,6 +179,18 @@ def check_ported(args, parser=None):
                 f"{', '.join(ignored)} require(s) --stream-fragments "
                 ">= 1 (streaming outer sync); the classic outer step "
                 "would ignore them")
+    if args.transport == "async":
+        # streaming mechanics that have no meaning off the fragment-round
+        # path are rejected, not ignored (the JAX trainer's check)
+        bad = [flag for flag, on in (
+            ("--stream-fragments", args.stream_fragments != 0),
+            ("--stream-alpha", args.stream_alpha != 1.0),
+            ("--stream-tau", args.stream_tau != 0),
+            ("--legacy-loop", args.legacy_loop),
+            ("--cosine-stats", args.cosine_stats)) if on]
+        if bad:
+            raise SystemExit(f"{', '.join(bad)} do(es) not act on "
+                             f"--transport {args.transport}")
 
 
 def build(args, device):
@@ -130,7 +211,9 @@ def build(args, device):
                         stream_alpha=args.stream_alpha,
                         stream_tau=args.stream_tau,
                         outer_grad_dtype=args.outer_grad_dtype,
-                        error_feedback=args.error_feedback)
+                        error_feedback=args.error_feedback,
+                        transport=args.transport,
+                        staleness_lambda=args.staleness_lambda)
     total = args.pretrain_steps + args.rounds * args.H
     tcfg = TrainConfig(inner_lr=args.inner_lr, warmup_steps=args.warmup,
                        total_steps=total, batch_size=args.batch,
@@ -162,7 +245,7 @@ def run(args, recorder=None):
     val_gen.manual_seed(10_000)
     val = sampler.sample_validation(val_gen, args.eval_batch, args.seq)
     rec = recorder if recorder is not None else obs_metrics.RunRecorder(
-        transport="simulated", log_format=args.log_format)
+        transport=args.transport, log_format=args.log_format)
     rec.manifest.setdefault("config", dict(vars(args)))
 
     # ---- pretraining phase (paper: 24k steps before DiLoCo) ----
@@ -190,6 +273,11 @@ def run(args, recorder=None):
         del work, opt
 
     # ---- DiLoCo phase ----
+    timing = {"device": str(device), "data_setup_s": data_setup_s}
+    rec.manifest["timing"] = timing
+    if dcfg.transport == "async":
+        return _run_async_phase(args, dcfg, tcfg, loss_fn, sampler, params,
+                                ev, val, rec)
     if dcfg.streaming_fragments:
         state = streaming.init_state(params, dcfg)
         plan = streaming.sync_plan(params, dcfg)
@@ -206,14 +294,22 @@ def run(args, recorder=None):
     acts = schedules.active_masks(
         schedules.compute_schedule(args.compute_schedule, args.k,
                                    args.rounds), args.k)
+    scen = scenario_of(args)
+    if scen is not None:
+        # project the scripted fault scenario onto the barrier-paced run:
+        # scenario drops (with retry semantics) replace the i.i.d. masks;
+        # preemption spans compose with the compute schedule's masks
+        drops, s_acts = scen.round_masks(args.k, args.rounds)
+        acts = np.asarray(acts) * s_acts
+        rec.note(f"faults: barrier round = "
+                 f"{scen.sync_round_ticks(args.k)} "
+                 "tick(s) (slowest worker + slowest link)")
     weights = shard_weights(sampler, args.weighted)
     rnd = diloco.make_round(loss_fn, sampler.sample_all_shards, dcfg, tcfg,
                             total_steps=tcfg.total_steps,
                             compute_cosine=args.cosine_stats,
                             batch_size=args.batch, seq_len=args.seq)
-    timing = {"device": str(device), "data_setup_s": data_setup_s,
-              "rounds": []}
-    rec.manifest["timing"] = timing
+    timing["rounds"] = []
 
     t0 = time.time()
     for t in range(args.rounds):
@@ -240,6 +336,42 @@ def run(args, recorder=None):
     floor = sampler.entropy_floor()
     rec.note(f"done in {time.time() - t0:.1f}s; "
              f"entropy floor = {floor:.4f} (ppl {np.exp(floor):.2f})")
+    if args.out:
+        rec.dump(args.out, args=vars(args))
+        rec.note(f"wrote {args.out}")
+    return rec.records
+
+
+def _run_async_phase(args, dcfg, tcfg, loss_fn, sampler, params, ev, val,
+                     rec):
+    """Barrier-free run: the event loop replaces the round loop, as in
+    the JAX trainer. One tick = the fastest worker's phase; ``--ticks 0``
+    runs the ticks a barrier-paced run of ``--rounds`` rounds would take
+    under the same scenario. ``rec`` receives every engine event as it
+    happens and prints it. The recorder's ``manifest["timing"]["events"]``
+    holds each phase's host seconds (``AsyncEngine.timing``)."""
+    scenario = scenario_of(args) or faults.Scenario.uniform(args.k)
+    samplers = tuple(
+        (lambda i: lambda g, B, S: sampler.sample_shard(g, i, B, S))(i)
+        for i in range(args.k))
+    eng = async_diloco.AsyncEngine(
+        loss_fn, samplers, dcfg, tcfg, scenario=scenario,
+        total_steps=tcfg.total_steps, eval_fn=ev, eval_tokens=val,
+        seed=args.seed)
+    state = eng.init_state(params)
+    ticks = args.ticks or scenario.sync_round_ticks(args.k) * args.rounds
+    rec.attach_wire_plan([{"fragment": 0, "wire_bytes":
+                           float(eng.wire_bytes()),
+                           "wire_dtype": dcfg.outer_grad_dtype}])
+    rec.note(f"async transport: lambda={dcfg.staleness_lambda} "
+             f"k={args.k} {ticks} tick(s), {eng.wire_bytes()} B/apply")
+    t0 = time.time()
+    state, hist = eng.run(state, ticks=ticks, recorder=rec)
+    rec.manifest["timing"]["events"] = eng.timing
+    n_arr = sum(1 for r in hist if r["event"] == "arrival")
+    rec.note(f"done in {time.time() - t0:.1f}s; {n_arr} applications "
+             f"over {ticks} ticks; entropy floor = "
+             f"{sampler.entropy_floor():.4f}")
     if args.out:
         rec.dump(args.out, args=vars(args))
         rec.note(f"wrote {args.out}")
@@ -330,19 +462,47 @@ def make_parser():
                     help="streaming: keep each replica's transport "
                          "quantization residual and add it to its next "
                          "delta")
+    ap.add_argument("--transport", default="simulated",
+                    choices=["simulated", "sharded", "async", "gossip"],
+                    help="outer-sync backend: 'simulated' runs the rounds "
+                         "(classic or streaming); 'async' is the "
+                         "barrier-free event loop (core/async_diloco.py) "
+                         "driven by the fault flags below; 'sharded' and "
+                         "'gossip' are not ported yet (see ROADMAP.md)")
+    ap.add_argument("--staleness-lambda", type=float, default=1.0,
+                    help="async transport: an outer gradient tau outer "
+                         "steps stale is applied at weight lambda^tau/k")
+    ap.add_argument("--ticks", type=int, default=0,
+                    help="async horizon in wall-clock ticks (1 tick = "
+                         "fastest worker's phase; 0 = the ticks a "
+                         "barrier-paced run of --rounds would take "
+                         "under the same scenario)")
+    ap.add_argument("--speeds", default="",
+                    help="fault scenario: comma per-worker phase "
+                         "duration in ticks (single value broadcasts; "
+                         "e.g. 1,1,1,4 = one 4x straggler)")
+    ap.add_argument("--link-latency", default="",
+                    help="fault scenario: comma per-worker one-way "
+                         "link latency in ticks added to every send")
+    ap.add_argument("--latency-jitter", type=float, default=0.0,
+                    help="fault scenario: lognormal sigma multiplying "
+                         "each send's latency draw")
+    ap.add_argument("--max-retries", type=int, default=0,
+                    help="fault scenario: resends after a dropped "
+                         "attempt; a payload whose every attempt drops "
+                         "is permanently lost")
+    ap.add_argument("--retry-backoff", type=int, default=1,
+                    help="fault scenario: ticks between a dropped "
+                         "attempt and its resend")
+    ap.add_argument("--preempt", action="append", default=[],
+                    metavar="W:LEAVE[:REJOIN]",
+                    help="fault scenario: worker W leaves at tick "
+                         "LEAVE and rejoins at REJOIN (omit/0 = gone "
+                         "for good); repeatable")
     # ---- not ported: accepted so that they can be refused by name ----
     nyi = "not ported yet (see ROADMAP.md)"
-    ap.add_argument("--transport", default="simulated", help=nyi)
-    ap.add_argument("--staleness-lambda", type=float, default=1.0, help=nyi)
     ap.add_argument("--gossip-pairing", default="butterfly", help=nyi)
     ap.add_argument("--gossip-mix", type=float, default=0.5, help=nyi)
-    ap.add_argument("--ticks", type=int, default=0, help=nyi)
-    ap.add_argument("--speeds", default="", help=nyi)
-    ap.add_argument("--link-latency", default="", help=nyi)
-    ap.add_argument("--latency-jitter", type=float, default=0.0, help=nyi)
-    ap.add_argument("--max-retries", type=int, default=0, help=nyi)
-    ap.add_argument("--retry-backoff", type=int, default=1, help=nyi)
-    ap.add_argument("--preempt", action="append", default=[], help=nyi)
     ap.add_argument("--restore", default="", help=nyi)
     ap.add_argument("--no-pack-wire", dest="pack_wire",
                     action="store_false", default=True, help=nyi)

@@ -1,7 +1,7 @@
 """Run telemetry: the subset of the JAX ``obs/metrics.py`` that the
-synchronous trainer uses — ``RunRecorder`` with its ``pretrain`` and
-``round`` records, notes, the wire plan and ``dump``. The console lines
-and the record fields are the JAX package's.
+trainer uses — ``RunRecorder`` with its ``pretrain``, ``round`` and
+``async_event`` records, notes, the wire plan and ``dump``. The console
+lines and the record fields are the JAX package's.
 """
 from __future__ import annotations
 
@@ -38,6 +38,19 @@ def _round_text(rec, rounds) -> str:
     return (f"[round {rec['round']}/{rounds}] "
             f"inner={rec['inner_loss']:.4f} val={val_s} "
             f"active={rec['active']}")
+
+
+def _async_text(rec) -> str:
+    """The async event line (the JAX format, including the trailing space
+    of an arrival without an eval)."""
+    if rec["event"] == "arrival":
+        vs = (f"val={rec['val_loss']:.4f} ppl={rec['ppl']:.2f}"
+              if "val_loss" in rec else "")
+        return (f"[tick {rec['tick']}] worker {rec['worker']} "
+                f"stale={rec['staleness']} w={rec['weight']:.3f} "
+                f"inner={rec['inner_loss']:.4f} {vs}")
+    return (f"[tick {rec['tick']}] {rec['event']} "
+            f"worker {rec['worker']}")
 
 
 class RunRecorder:
@@ -106,6 +119,14 @@ class RunRecorder:
         if extras:
             rec.update({k: float(v) for k, v in extras.items()})
         return self._emit(rec, _round_text(rec, rounds))
+
+    def async_event(self, rec: dict) -> dict:
+        """Ingest one ``AsyncEngine`` event record (keyed by ``event``,
+        ``tick``, ``worker``), stamped with the kind, phase and
+        transport fields."""
+        rec = {"kind": "event", "phase": "diloco_async",
+               "transport": self.transport, **rec}
+        return self._emit(rec, _async_text(rec))
 
     def attach_wire_plan(self, plan):
         """Static outer-sync plan: what each round is scheduled to ship."""

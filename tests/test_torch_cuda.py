@@ -346,3 +346,96 @@ def test_cuda_stream_round_matches_cpu(cuda):
     for path, share in check.stream_mismatch_shares(got, want, H=2,
                                                     steps=steps).items():
         assert share <= check.TRANSPORT_FLIP_SHARE["int4"], path
+
+
+def _wire_input(n, kind, offset, dev):
+    gen = torch.Generator(device=dev).manual_seed(n + offset)
+    x = torch.randn(n + offset, generator=gen, device=dev)[offset:] * 1e-2
+    if kind == "special" and n > 300:
+        x[5] = float("nan")
+        x[130] = float("inf")
+        x[200] = -float("inf")
+        x[256:384] = 0.0
+        x[384::7] = -0.0
+    return x
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [1, 2, 3, 127, 128, 129, 300, 1000, 4099,
+                               (1 << 20) + 3])
+@pytest.mark.parametrize("kind", ["normal", "special"])
+@pytest.mark.parametrize("offset", [0, 1])
+def test_cuda_wire_codecs_equal_plain(cuda, n, kind, offset):
+    """``quantize_pack_int4`` and ``unpack_dequantize_int4`` against their
+    plain versions on the same card tensors: the wire byte for byte (the
+    NaN block's scale bytes too), the local values and the decode bit for
+    bit (NaN at the same places). Offset 1 misaligns the input: the
+    scalar path."""
+    x = _wire_input(n, kind, offset, cuda)
+    want_wire, want_local = tref.wire_encode_int4(x)
+    before = dict(TQ.launches)
+    wire = torch.empty(tops.wire_elems(n, "int4"), dtype=torch.uint8,
+                       device=cuda)
+    local = torch.empty(n, device=cuda)
+    TQ.quantize_pack_int4(x, wire, local)
+    got = TQ.unpack_dequantize_int4(wire, n)
+    torch.cuda.synchronize()
+    assert torch.equal(wire, want_wire)
+    assert _bits_equal(local, want_local)
+    assert _bits_equal(got, tref.wire_decode_int4(want_wire, n))
+    wire2 = torch.full_like(wire, 0xAB)
+    TQ.quantize_pack_int4(x, wire2)          # no local: the same wire
+    torch.cuda.synchronize()
+    assert torch.equal(wire2, want_wire)
+    assert TQ.launches["quantize_pack_int4"] - before[
+        "quantize_pack_int4"] == 2
+    assert TQ.launches["unpack_dequantize_int4"] - before[
+        "unpack_dequantize_int4"] == 1
+
+
+@pytest.mark.cuda
+def test_cuda_async_run_matches_cpu(cuda):
+    """Scenario B of the async parity tests (speeds (1, 2), drops at 0.3
+    with one retry, worker 1 preempted from tick 3 to 5; 8 ticks) on a
+    config whose leaves straddle int4 blocks, int4 with error feedback,
+    on the card against the CPU: every ``state_to_tree`` leaf within
+    ``check.async_mismatch_shares`` and the int4 flip share, each entry
+    outside within the code steps recorded on the CPU; one launch of each
+    wire kernel per arrival."""
+    from repro_torch.configs.base import ModelConfig
+    from repro_torch.core import async_diloco, faults
+    from repro_torch.models.registry import Arch
+
+    arch = Arch(cfg=ModelConfig(name="tiny", family="dense", n_layers=2,
+                                d_model=40, n_heads=2, n_kv_heads=2,
+                                d_ff=72, vocab_size=64, remat=False,
+                                attn_chunk=32))
+    gen = torch.Generator().manual_seed(0)
+    params = arch.init(generator=gen, device="cpu")
+    toks = torch.randint(0, 64, (64, 2, 16), generator=gen)
+    dcfg = DiLoCoConfig(k=2, H=3, transport="async", staleness_lambda=0.7,
+                        outer_grad_dtype="int4", error_feedback=True)
+    scen = faults.Scenario(speeds=(1, 2), drop_prob=0.3, max_retries=1,
+                           preemptions=((1, 3, 5),), seed=0)
+
+    def run(device):
+        it = iter(toks.to(device))
+        eng = async_diloco.AsyncEngine(
+            lambda p, b: arch.loss(p, b), lambda g, b, s: next(it), dcfg,
+            TrainConfig(inner_lr=3e-3, warmup_steps=2, total_steps=64,
+                        batch_size=2, seq_len=16), scenario=scen)
+        st = eng.init_state(tree.map(lambda t: t.to(device), params))
+        st, hist = eng.run(st, ticks=8)
+        return convert.async_state_to_numpy(st), hist
+
+    q0 = dict(TQ.launches)
+    got, hist = run(cuda)
+    arrivals = sum(r["event"] == "arrival" for r in hist)
+    for name in ("quantize_pack_int4", "unpack_dequantize_int4"):
+        assert TQ.launches[name] - q0[name] == arrivals
+    with check.TransportSteps(params, dcfg) as steps:
+        want, whist = run(torch.device("cpu"))
+    assert [r["event"] for r in hist] == [r["event"] for r in whist]
+    for path, share in check.async_mismatch_shares(got, want, H=3,
+                                                   steps=steps).items():
+        assert share <= check.TRANSPORT_FLIP_SHARE["int4"], path

@@ -81,7 +81,7 @@ def test_recorder_format_matches_jax():
                                 "--stream-fragments", "2"],
     ["--no-pack-wire", "--stream-fragments", "2"],
     ["--checkpoint-dir", "ckpt"], ["--trace", "t.json"],
-    ["--crash-at-round", "1"], ["--preempt", "0:1"]])
+    ["--crash-at-round", "1"], ["--nan-bomb", "0:1"]])
 def test_unported_flags_exit_with_roadmap_item(flags):
     args = train.make_parser().parse_args(["--device", "cpu", *flags])
     with pytest.raises(SystemExit, match="ROADMAP.md"):
