@@ -134,13 +134,55 @@ Phases, each printing one JSON line; any failure exits non-zero:
               error feedback and bf16, on the card against the CPU, with
               the tolerance of ``repro_torch.check``.
 
-Every trainer run asserts the launches of every kernel (thirteen
-counters), 0 for those its path does not run. Then the
-``{"kernels": [...]}`` line (each kernel's launches from its own path's
-run: phase 4 for the f32 optimizer kernels, phase 7 for attention, phase
-11 for the mixed AdamW and the pruning, phase 13's pure-policy run for
-the bf16 ``fused_adamw``, phase 15's runs for ``fake_quant``, phase 18
-for the wire codecs),
+ 20. codec_kernels  ``unpack_dequantize_reduce`` (the sharded transport's
+              deferred consumer) and the unfused codec pieces
+              ``quantize_int4``, ``dequantize_int4``, ``pack_int4`` and
+              ``unpack_int4`` against their plain versions, bit for bit
+              (NaN at the same places): over diloco_150m's whole flat tree
+              (k=2 gathered wires for the reduce, read in place from a
+              column slice of a wider buffer), at ragged lengths, k ∈
+              {2, 4}, misaligned operands and on blocks holding NaN,
+              ±inf, zeros and −0.0, and a NaN scale on a masked-out
+              replica; then each one's time for one whole-tree call
+              beside its plain version and the bound. No entry point runs
+              the four unfused pieces (only JAX tests call them): their
+              launches are counted over one call of each through its
+              user-facing function, counters set to 0 just before.
+ 21. train_sharded  slice 6's path at full width through the trainer:
+              ``--transport sharded --pods 2`` with phase 15's flags and
+              sizes (two pod ranks, one replica each, on the one card over
+              gloo, each collective's buffer staged through pinned host
+              memory), then float32 rounds (P=2, τ=0: the all-reduce).
+              The ranks' counters start at 0 and are read at their end:
+              per rank one ``quantize_pack_int4`` per region per send, one
+              ``unpack_dequantize_reduce`` per region per deferred apply,
+              phase 15's ``outer_nesterov`` and ``fused_adamw`` counts
+              over k=1, every other counter 0. The bytes each rank hands
+              to ``torch.distributed`` for the outer gradients must equal
+              ``sync_plan``'s packed accounting exactly, one gather per
+              fragment per sync. Prints the backend, ms per inner step per
+              rank and in aggregate, tokens/s, the outer ms per round with
+              the wait on the deferred gathers apart, and each rank's peak
+              memory.
+ 22. smoke_sharded  two sharded rounds of the smoke config (P=2, τ=1,
+              α=0.5, int4 with error feedback, the packed wire) on two
+              ranks on the card against two gloo ranks on the CPU, with
+              the flip share of ``repro_torch.check``.
+
+``python3 chip_smoke.py --cards 4`` runs only phases 22 and 21 across
+four cards: one pod rank and one replica per card, over NCCL.
+
+The Markov tables are built once per (vocab, k, regime, seed, weighting)
+and handed to every trainer run (``train.run(..., sampler=...)``): the
+trainer phases' ``data_setup_s`` is then the handing over, and the one
+build's seconds are printed on a ``data`` line. Every trainer run asserts
+the launches of every kernel (eighteen counters), 0 for those its path
+does not run. Then the ``{"kernels": [...]}`` line (each kernel's
+launches from its own path's run: phase 4 for the f32 optimizer kernels,
+phase 7 for attention, phase 11 for the mixed AdamW and the pruning,
+phase 13's pure-policy run for the bf16 ``fused_adamw``, phase 15's runs
+for ``fake_quant``, phase 18 for the wire codecs, phase 21 for the
+reduce, phase 20's calls for the unfused pieces),
 the card's line again, and the last line ``{"ok": true, "device":
 {...}}``. Without a GPU, or run from a directory that holds nothing else
 of the repository, it exits non-zero and prints no result.
@@ -193,6 +235,17 @@ QUANT_BYTES, QUANT_OPS = 8, {"int4": 7, "bfloat16": 1}
 # (8); the receiver's shift, mask, sign extension and multiply (4)
 PACK_OPS, UNPACK_OPS = 8, 4
 N_150M = 217_012_096        # entries of diloco_150m's flat tree
+# unpack_dequantize_reduce's operations per entry and replica: the nibble
+# shift and mask, the sign extension (2), the scale's and the mask's
+# multiplies, the add (6); quantize_int4's as the wire sender's (8);
+# dequantize_int4's conversion and multiply (2); pack_int4's mask and
+# shift-or per code (2); unpack_int4's shift, mask and sign extension (4)
+REDUCE_OPS, QUANT_INT4_OPS, DEQUANT_OPS = 6, 8, 2
+PACK_CODE_OPS, UNPACK_CODE_OPS = 2, 4
+QUANT_KERNELS = ("quantize_pack_int4", "unpack_dequantize_int4",
+                 "unpack_dequantize_reduce", "quantize_int4",
+                 "dequantize_int4", "pack_int4", "unpack_int4")
+_SAMPLERS: dict = {}        # (vocab, k, regime, seed, weighted) -> tables
 ASYNC_FLAGS = ["--transport", "async", "--speeds", "1,2",
                "--staleness-lambda", "0.7", "--outer-grad-dtype", "int4",
                "--error-feedback"]
@@ -261,21 +314,43 @@ def reset_launches():
     ON.launches = SP.launches = 0
 
 
+def flat_launches(counts) -> dict:
+    """``ops.launch_counts()`` (of this process or of a pod rank) as
+    {kernel name, as in the kernels line: launches}."""
+    q = counts["quantize"]
+    return {**{f"flash_{n}": c
+               for n, c in counts["flash_attention"].items()},
+            **counts["fused_adamw"],
+            "outer_nesterov": counts["outer_nesterov"],
+            "sign_prune": counts["sign_prune"],
+            "fake_quant_int4": q["int4"], "fake_quant_bf16": q["bfloat16"],
+            **{n: q[n] for n in QUANT_KERNELS}}
+
+
 def read_launches() -> dict:
     """{kernel name, as in the kernels line: launches since the last
-    ``reset_launches``}."""
-    from repro_torch.kernels import flash_attention as FK
-    from repro_torch.kernels import fused_adamw as FA
-    from repro_torch.kernels import outer_nesterov as ON
-    from repro_torch.kernels import quantize as QZ
-    from repro_torch.kernels import sign_prune as SP
-    return {**{f"flash_{n}": c for n, c in FK.launches.items()},
-            **FA.launches, "outer_nesterov": ON.launches,
-            "sign_prune": SP.launches,
-            "fake_quant_int4": QZ.launches["int4"],
-            "fake_quant_bf16": QZ.launches["bfloat16"],
-            "quantize_pack_int4": QZ.launches["quantize_pack_int4"],
-            "unpack_dequantize_int4": QZ.launches["unpack_dequantize_int4"]}
+    ``reset_launches``} of this process."""
+    from repro_torch.kernels import ops
+    return flat_launches(ops.launch_counts())
+
+
+def shared_sampler(torch, dev, args):
+    """The Markov tables of ``args`` on ``dev``, built at their first use
+    and handed to every later run with the same (vocab, k, regime, seed,
+    weighting)."""
+    from repro_torch.launch import train
+    from repro_torch.models.registry import get_arch, get_smoke_arch
+    vocab = (get_smoke_arch if args.smoke else get_arch)(
+        args.arch).cfg.vocab_size
+    key = (vocab, args.k, args.regime, args.seed, args.weighted)
+    if key not in _SAMPLERS:
+        t0 = time.perf_counter()
+        _SAMPLERS[key] = train.build(args, dev)[4]
+        torch.cuda.synchronize()
+        say({"phase": "data", "vocab": vocab, "k": args.k,
+             "regime": args.regime, "seed": args.seed,
+             "build_s": time.perf_counter() - t0})
+    return _SAMPLERS[key]
 
 
 def expect_launches(**counts) -> dict:
@@ -291,24 +366,33 @@ def ulps(torch, a, b) -> int:
     return int(d.abs().max()) if a.numel() else 0
 
 
-def run_trainer(torch, dev, argv):
-    """One run of ``repro_torch.launch.train`` with ``argv``, the launch
-    counters set to 0 just before it and read just after. Returns (round
-    records, the recorder's timing, wall s, {kernel: launches})."""
+def run_trainer(torch, dev, argv, manifest=None):
+    """One run of ``repro_torch.launch.train`` with ``argv`` on the shared
+    Markov tables, the launch counters set to 0 just before it and read
+    just after (a sharded run's pod ranks start at 0 and report theirs:
+    they are added). Returns (round records, the recorder's timing, wall
+    s, {kernel: launches}); ``manifest`` (a dict) receives the recorder's
+    manifest."""
     from repro_torch.launch import train
     from repro_torch.obs.metrics import RunRecorder
 
     args = train.make_parser().parse_args(argv)
     assert args.device == "cuda" and args.kernel_mode == "auto"
+    sampler = shared_sampler(torch, dev, args)
     rec = RunRecorder(log_format="text")
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats(dev)
     reset_launches()
     t0 = time.perf_counter()
-    records = train.run(args, recorder=rec)
+    records = train.run(args, recorder=rec, sampler=sampler)
     wall_s = time.perf_counter() - t0
     launches = read_launches()
+    for r in rec.manifest.get("ranks", ()):
+        for n, c in flat_launches(r["launches"]).items():
+            launches[n] += c
     torch.cuda.synchronize()
+    if manifest is not None:
+        manifest.update(rec.manifest)
     return records, rec.manifest["timing"], wall_s, launches
 
 
@@ -762,7 +846,8 @@ def phase_train_400m(torch, dev):
             str(SEQ)]
     args = train.make_parser().parse_args(argv)
     t0 = time.perf_counter()
-    arch, cfg, dcfg, tcfg, sampler = train.build(args, dev)
+    arch, cfg, dcfg, tcfg, sampler = train.build(
+        args, dev, sampler=shared_sampler(torch, dev, args))
     data_setup_s = time.perf_counter() - t0
     # no trainer flag sets use_pallas: a user reaches it through the loss
     cfg = cfg.replace(use_pallas=True)
@@ -1626,12 +1711,383 @@ def phase_smoke_async(torch, dev):
                                 if r["event"] == "arrival"]})
 
 
+def phase_codec_kernels(torch, dev):
+    """``unpack_dequantize_reduce`` and the four unfused codec pieces
+    against their plain versions over the whole flat tree and at edge
+    cases, then their whole-tree times. Returns their rows; the unfused
+    pieces' launches are those of one call of each through its
+    user-facing function."""
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import quantize as QZ
+    from repro_torch.kernels import ref
+
+    gen = torch.Generator(device=dev).manual_seed(8)
+    names = ("unpack_dequantize_reduce", "quantize_int4", "dequantize_int4",
+             "pack_int4", "unpack_int4")
+    err = dict.fromkeys(names, 0.0)
+    cases = 0
+
+    def note_err(name, got, want):
+        fin = torch.isfinite(want)
+        if fin.any():
+            err[name] = max(err[name], float((got[fin] - want[fin]).abs()
+                                             .max()))
+
+    def hold_reduce(wires, n, m, label):
+        nonlocal cases
+        k, W = wires.shape
+        # the path reads each region in place from a wider gathered buffer
+        wide = torch.zeros((k, W + 12), dtype=torch.uint8, device=dev)
+        wide[:, 4:4 + W] = wires
+        want = ref.wire_reduce_int4(wires, n, m)
+        for g in (wires, wide[:, 4:4 + W]):
+            got = QZ.unpack_dequantize_reduce(g, n, m)
+            torch.cuda.synchronize()
+            if not bits_equal(torch, got, want):
+                raise SystemExit(f"unpack_dequantize_reduce on {label}: the "
+                                 "kernel differs from its plain version")
+        note_err("unpack_dequantize_reduce", got, want)
+        cases += 1
+        return got
+
+    def hold_blocks(x, label):
+        nonlocal cases
+        codes, scales = QZ.quantize_int4(x)
+        wc, ws = ref.quantize_int4(x)
+        deq = QZ.dequantize_int4(wc, ws)
+        wd = ref.dequantize_int4(wc, ws)
+        packed = QZ.pack_int4(wc)
+        wp = ref.pack_int4(wc.reshape(-1)).view(-1, 64)
+        back = QZ.unpack_int4(wp)
+        torch.cuda.synchronize()
+        ok = {"quantize_int4": torch.equal(codes, wc) and torch.equal(
+                  scales.view(torch.int32), ws.view(torch.int32)),
+              "dequantize_int4": bits_equal(torch, deq, wd),
+              "pack_int4": torch.equal(packed, wp),
+              "unpack_int4": torch.equal(back, wc)}
+        bad = [n for n, good in ok.items() if not good]
+        if bad:
+            raise SystemExit(f"{bad} on {label}: the kernel differs from "
+                             "its plain version")
+        note_err("dequantize_int4", deq, wd)
+        cases += 1
+
+    def wires_of(xs):
+        return torch.stack([ref.wire_encode_int4(x)[0] for x in xs])
+
+    for n in (1, 2, 3, 127, 128, 129, 1000, 4099, 1_000_003):
+        for k in (2, 4):
+            xs = torch.randn(k, n, generator=gen, device=dev) * 1e-2
+            m = torch.rand(k, generator=gen, device=dev) + 0.1
+            m[k - 1] = 0.0
+            hold_reduce(wires_of(xs), n, m, f"n={n} k={k}")
+    n = 8 * 128 + 77
+    xs = torch.randn(2, n, generator=gen, device=dev) * 1e-2
+    xs[0, 5] = float("nan")
+    xs[0, 130] = float("inf")
+    xs[1, 300] = -float("inf")
+    xs[:, 384:512] = 0.0
+    xs[:, 512:640] = -0.0
+    xs[1, 640::3] = -0.0
+    m = torch.tensor([0.75, 0.5], device=dev)
+    got = hold_reduce(wires_of(xs), n, m, "NaN, inf, zero and -0.0 blocks")
+    if not (torch.isnan(got[:384]).all() and torch.isfinite(got[384:]).all()):
+        raise SystemExit("unpack_dequantize_reduce: a block with a NaN or an "
+                         "infinity does not reduce to NaN, or the NaN spread")
+    wires = wires_of(xs[:1].expand(2, n).contiguous())
+    cb, pad, _ = ref.wire_sections(n)
+    wires[1, cb + pad:cb + pad + 4] = torch.tensor(
+        [float("nan")], device=dev).view(torch.uint8)
+    got = hold_reduce(wires, n, torch.tensor([1.0, 0.0], device=dev),
+                      "a NaN scale on a masked-out replica")
+    if not torch.isnan(got[:128]).all():
+        raise SystemExit("unpack_dequantize_reduce: a masked-out replica's "
+                         "NaN scale does not poison its block")
+    for rows in (1, 3, 1000, 4097):
+        for offset in (0, 1):       # 1: misaligned operands, scalar paths
+            x = torch.randn(rows * 128 + offset, generator=gen,
+                            device=dev)[offset:].view(rows, 128) * 1e-2
+            hold_blocks(x, f"{rows} rows offset {offset}")
+    x = torch.randn(4, 128, generator=gen, device=dev) * 1e-2
+    x[0, 5] = float("nan")
+    x[1, 7] = float("inf")
+    x[2] = 0.0
+    x[3] = -0.0
+    hold_blocks(x, "NaN, inf, zero and -0.0 blocks")
+
+    # the whole flat tree: k=2 gathered wires, and its (R, 128) blocks
+    N, R = N_150M, N_150M // 128
+    X = torch.randn(2, N, generator=gen, device=dev) * 1e-2
+    W = ops.wire_elems(N, "int4")
+    G = torch.empty((2, W), dtype=torch.uint8, device=dev)
+    for j in range(2):
+        QZ.quantize_pack_int4(X[j], G[j])
+    mk = torch.tensor([0.5, 0.5], device=dev)
+    hold_reduce(G, N, mk, f"the flat diloco_150m tree (n={N}, k=2)")
+    X2 = X[0].view(R, 128)
+    hold_blocks(X2, f"the flat diloco_150m tree (R={R} blocks)")
+    say({"phase": "codec_kernels", "cases": cases, "max_abs_err": err,
+         "bitwise": True})
+
+    # the unfused pieces' launches: one call of each through its
+    # user-facing function (no entry point of either package runs them)
+    reset_launches()
+    codes, scales = QZ.quantize_int4(X2)
+    ops.unpack_int4(ops.pack_int4(codes.reshape(-1)), N)
+    QZ.dequantize_int4(codes, scales)
+    torch.cuda.synchronize()
+    unfused = {n: c for n, c in read_launches().items()
+               if n in names[1:]}
+    if unfused != dict.fromkeys(names[1:], 1):
+        raise SystemExit(f"codec_kernels: launches {unfused}")
+
+    out = torch.empty(N, device=dev)
+    packed = QZ.pack_int4(codes)
+    bw = bandwidth(torch.cuda.get_device_name(0))
+
+    def bound(nbytes, ops_total):
+        by_bytes, by_ops = nbytes / bw, ops_total / PEAK_F32
+        return (max(by_bytes, by_ops) * 1e3,
+                "bytes" if by_bytes >= by_ops else "operations")
+
+    plain = dict(reps=5, warmup=1)
+    timed = {
+        "unpack_dequantize_reduce": (
+            lambda: QZ.unpack_dequantize_reduce(G, N, mk, out),
+            lambda: ref.wire_reduce_int4(G, N, mk),
+            2 * W + 4 * N, 2 * N * REDUCE_OPS, 296),
+        "quantize_int4": (lambda: QZ.quantize_int4(X2),
+                          lambda: ref.quantize_int4(X2),
+                          4 * N + N + 4 * R, N * QUANT_INT4_OPS, 143),
+        "dequantize_int4": (lambda: QZ.dequantize_int4(codes, scales),
+                            lambda: ref.dequantize_int4(codes, scales),
+                            N + 4 * R + 4 * N, N * DEQUANT_OPS, 167),
+        "pack_int4": (lambda: QZ.pack_int4(codes),
+                      lambda: ref.pack_int4(codes.reshape(-1)),
+                      N + N // 2, N * PACK_CODE_OPS, 191),
+        "unpack_int4": (lambda: QZ.unpack_int4(packed),
+                        lambda: ref.unpack_int4(packed.reshape(-1), N),
+                        N // 2 + N, N * UNPACK_CODE_OPS, 215),
+    }
+    rows = []
+    for name, (kern, plain_fn, nbytes, ops_total, line) in timed.items():
+        t = {"ms": time_ms(torch, kern),
+             "plain_ms": time_ms(torch, plain_fn, **plain),
+             # no PyTorch call decodes, packs or quantizes int4 blockwise
+             "library_ms": None}
+        b_ms, b_by = bound(nbytes, ops_total)
+        row = {"name": name, "route": "cuda",
+               "source": "src/repro_torch/kernels/csrc/quantize.cu",
+               "replaces": f"src/repro/kernels/quantize.py:{line}",
+               "launches": unfused.get(name), "max_abs_err": err[name],
+               **t, "bound_ms": b_ms, "bound_by": b_by}
+        rows.append(row)
+        say({"phase": "codec_kernels", "kernel": name, "elements": N,
+             "bytes": nbytes, **{k: v for k, v in row.items()
+                                 if k.endswith("ms")},
+             "bound_by": b_by, "kernel_GBps": nbytes / t["ms"] / 1e6})
+    del X, X2, G, out, codes, scales, packed
+    torch.cuda.empty_cache()
+    return rows
+
+
+def sharded_launches(params, P, H_, tau, rounds, dtype, k_loc):
+    """Per pod rank, (quantize_pack_int4, unpack_dequantize_reduce,
+    outer_nesterov) launches of ``rounds`` sharded rounds of ``params``'
+    tree from a fresh state on the packed int4 wire (0 and 0 for the
+    other transports): one encode per local replica and region at each
+    send; one reduce per region at each apply when the consume is
+    deferred (every apply: the in-flight slots start as zero wires), at
+    the send otherwise; one outer_nesterov per region at each apply after
+    the fragment's first send."""
+    from repro_torch.core import fragments
+    part = fragments.partition_params(params, P)
+    n_regs = [len(r) for r in fragments.fragment_regions(part, params)]
+    int4, deferred = dtype == "int4", tau > 0 and dtype != "float32"
+    armed, enc, red, nest = set(), 0, 0, 0
+    for _ in range(rounds):
+        for _, events in fragments.schedule(P, H_, tau).phases:
+            for ev in events:
+                f = ev.fragment
+                if ev.kind == "send":
+                    armed.add(f)
+                    enc += k_loc * n_regs[f] * int4
+                    red += n_regs[f] * (int4 and not deferred)
+                else:
+                    red += n_regs[f] * (int4 and deferred)
+                    nest += n_regs[f] * (f in armed)
+    return enc, red, nest
+
+
+def phase_train_sharded(torch, dev, pods=2, k=K):
+    """Slice 6's path at full width through the trainer on ``pods`` ranks
+    of one replica each (``k`` replicas), then float32 rounds. Returns
+    {kernel name: launches} of unpack_dequantize_reduce."""
+    from repro_torch.models.registry import get_arch
+
+    meta = get_arch("diloco_150m").init(generator=None, device="meta")
+    sizes = ["--k", str(k), "--H", str(H), "--batch", str(BATCH), "--seq",
+             str(SEQ), "--eval-batch", "8"]
+    k_loc = k // pods
+    out = {}
+    for label, flags, rounds, P, tau, dtype in (
+            ("int4", STREAM_FLAGS, ROUNDS, 4, 2, "int4"),
+            ("float32", ["--stream-fragments", "2", "--stream-alpha", "0.5"],
+             ROUNDS, 2, 0, "float32")):
+        argv = ["--full", "--arch", "diloco_150m", "--transport",
+                "sharded", "--pods", str(pods), *flags, "--rounds",
+                str(rounds), *sizes]
+        torch.cuda.empty_cache()
+        manifest = {}
+        records, timing, wall_s, launches = run_trainer(torch, dev, argv,
+                                                        manifest)
+        enc, red, nest = sharded_launches(meta, P, H, tau, rounds, dtype,
+                                          k_loc)
+        per_rank = expect_launches(
+            quantize_pack_int4=enc, unpack_dequantize_reduce=red,
+            outer_nesterov=nest, fused_adamw=k_loc * H * rounds * N_LEAVES)
+        ranks = manifest["ranks"]
+        got = [flat_launches(r["launches"]) for r in ranks]
+        if len(ranks) != pods or any(g != per_rank for g in got) or \
+                launches != {n: c * pods for n, c in per_rank.items()}:
+            raise SystemExit(f"train_sharded {label}: launches {got}, "
+                             f"expected {per_rank} on each rank")
+        losses, _ = check_records(records, f"train_sharded {label}", 0.0,
+                                  rounds=rounds)
+        plan = manifest["wire_plan"]
+        per_round = sum(p["wire_bytes"] for p in plan)
+        want_traffic = {"wire_bytes": k_loc * rounds * per_round,
+                        "gather_wire": rounds * P * (dtype != "float32"),
+                        "all_reduce": rounds * (P * (dtype == "float32")
+                                                + 2)}
+        for r in ranks:
+            t = r["traffic"]
+            if any(t[n] != v for n, v in want_traffic.items()):
+                raise SystemExit(f"train_sharded {label}: rank {r['rank']} "
+                                 f"traffic {t}, plan {want_traffic}")
+        note = next(n["note"] for n in manifest["notes"]
+                    if n["note"].startswith("sharded transport"))
+        last = [r["timing"]["rounds"][-1] for r in ranks]
+        slowest = max(x["inner_s"] for x in last)
+        rnds = [r for r in records if r["phase"] == "diloco"]
+        say({"phase": "train_sharded", "transport": label, "pods": pods,
+             "argv": argv,
+             "note": note, "launches_per_rank": got[0],
+             "losses": losses, "data_setup_s": timing["data_setup_s"],
+             "rounds_per_rank": [r["timing"]["rounds"] for r in ranks],
+             "inner_step_ms_per_rank": [x["inner_s"] * 1e3 / (k_loc * H)
+                                        for x in last],
+             "tokens_per_s_per_rank": [k_loc * H * BATCH * SEQ / x["inner_s"]
+                                       for x in last],
+             "tokens_per_s": k * H * BATCH * SEQ / slowest,
+             "inner_step_ms_aggregate": slowest * 1e3 / (k * H),
+             "outer_ms_per_round_per_rank": [x["outer_s"] * 1e3
+                                             for x in last],
+             "gather_wait_ms_per_round_per_rank": [x["wait_s"] * 1e3
+                                                   for x in last],
+             "sample_ms_per_rank": [x["sample_s"] * 1e3 for x in last],
+             "traffic_per_rank": [r["traffic"] for r in ranks],
+             "plan_wire_bytes_per_round": per_round,
+             "stream_round_sync_bytes": rnds[-1]["stream_round_sync_bytes"],
+             "max_memory_allocated_GB_per_rank": [
+                 r["max_memory_allocated"] / 1e9 for r in ranks],
+             "parent_max_memory_allocated_GB":
+                 torch.cuda.max_memory_allocated(dev) / 1e9,
+             "wall_s": wall_s})
+        out[label] = launches
+    return {"unpack_dequantize_reduce":
+            out["int4"]["unpack_dequantize_reduce"]}
+
+
+def phase_smoke_sharded(torch, dev, pods=2):
+    """Two sharded rounds of the smoke config (P=2, τ=1, α=0.5, int4 with
+    error feedback, the packed wire) on ``pods`` ranks of one replica
+    each on the card(s) against as many gloo ranks on the CPU."""
+    import numpy as np
+    from repro_torch import check
+    from repro_torch.configs.base import DiLoCoConfig, TrainConfig
+    from repro_torch.launch import mesh
+    from repro_torch.models.registry import get_smoke_arch
+
+    k, h, b, s, rounds = pods, 2, 2, 64, 2
+    arch = get_smoke_arch("diloco_150m")
+    gen = torch.Generator().manual_seed(0)
+    params = arch.init(generator=gen, device="cpu")
+    toks = torch.randint(0, arch.cfg.vocab_size, (rounds, k, h * b, s),
+                         generator=gen)
+    dcfg = DiLoCoConfig(k=k, H=h, streaming_fragments=2, stream_tau=1,
+                        stream_alpha=0.5, outer_grad_dtype="int4",
+                        error_feedback=True, transport="sharded")
+    tcfg = TrainConfig(inner_lr=1e-3, warmup_steps=2, total_steps=8,
+                       batch_size=b, seq_len=s)
+    ones = np.ones(k, np.float32)
+    masks = [(ones, ones, ones / k)] * rounds
+    res, backend = {}, None
+    for where in ("cuda", "cpu"):
+        layout = mesh.make_pod_layout(pods, where)
+        backend = backend or mesh.describe(layout)
+        res[where] = mesh.spawn("repro_torch.launch.pod_rounds:rounds",
+                                layout, arch.cfg, dcfg, tcfg, toks, masks,
+                                params)
+    enc, red, nest = sharded_launches(
+        arch.init(generator=None, device="meta"), 2, h, 1, rounds, "int4",
+        k // pods)
+    want = expect_launches(quantize_pack_int4=enc,
+                           unpack_dequantize_reduce=red, outer_nesterov=nest,
+                           fused_adamw=(k // pods) * h * rounds * N_LEAVES)
+    counts = [flat_launches(r["launches"]) for r in res["cuda"]]
+    if any(c != want for c in counts):
+        raise SystemExit(f"smoke_sharded: launches {counts}, expected "
+                         f"{want} on each rank")
+    for where, rs in res.items():
+        if len({r["shared"] for r in rs}) != 1:
+            raise SystemExit(f"smoke_sharded: the shared state differs "
+                             f"between the {where} ranks")
+    shares = check.stream_mismatch_shares(res["cuda"][0]["state"],
+                                          res["cpu"][0]["state"], H=h)
+    path = max(shares, key=shares.get)
+    if shares[path] > check.TRANSPORT_FLIP_SHARE["int4"]:
+        raise SystemExit(f"smoke_sharded: {path}: {shares[path]:.3g} of the "
+                         "entries outside the tolerance")
+    say({"phase": "smoke_sharded", "k": k, "pods": pods, "H": h,
+         "card_backend": backend,
+         "rounds": rounds, "P": 2, "tau": 1, "alpha": 0.5,
+         "transport": "int4", "error_feedback": True, "packed": True,
+         "leaves_compared": len(shares),
+         "worst_share_outside_tolerance": shares[path], "worst_leaf": path,
+         "launches_per_card_rank": counts[0],
+         "inner_loss_cuda": [m["inner_loss"]
+                             for m in res["cuda"][0]["metrics"]],
+         "inner_loss_cpu": [m["inner_loss"]
+                            for m in res["cpu"][0]["metrics"]]})
+
+
+def main_cards(torch, dev, cards: int) -> int:
+    """``--cards N`` (N > 1): only the sharded transport across N cards,
+    one pod rank and one replica per card over NCCL: phase 22 against
+    gloo ranks on the CPU, then phase 21 at full width."""
+    if torch.cuda.device_count() < cards:
+        print(f"chip_smoke: --cards {cards} needs {cards} cards, "
+              f"{torch.cuda.device_count()} visible", file=sys.stderr)
+        return 2
+    phase_device(torch)
+    phase_smoke_sharded(torch, dev, pods=cards)
+    phase_train_sharded(torch, dev, pods=cards, k=cards)
+    print(card_line(), flush=True)
+    say({"ok": True, "device": {"platform": "gpu",
+                                "kind": torch.cuda.get_device_name(0),
+                                "count": torch.cuda.device_count()}})
+    return 0
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is visible", file=sys.stderr)
         return 2
     dev = torch.device("cuda")
+    if sys.argv[1:2] == ["--cards"]:
+        return main_cards(torch, dev, int(sys.argv[2]))
     phase_device(torch)
     rows = phase_kernels(torch, dev)
     phase_smoke(torch, dev)
@@ -1657,6 +2113,11 @@ def main() -> int:
     rows += phase_wire_kernels(torch, dev)
     launches.update(phase_train_async(torch, dev))
     phase_smoke_async(torch, dev)
+    codec_rows = phase_codec_kernels(torch, dev)
+    launches.update({r["name"]: r["launches"] for r in codec_rows[1:]})
+    rows += codec_rows
+    launches.update(phase_train_sharded(torch, dev))
+    phase_smoke_sharded(torch, dev)
     for row in rows:
         row["launches"] = launches[row["name"]]
     say({"kernels": rows})

@@ -115,7 +115,7 @@ class DiLoCoConfig:
     sync_inner_state: bool = False
     # auto | kernel | ref (see kernels/ops.py)
     kernel_mode: str = "auto"
-    # --- streaming outer sync (core/streaming.py, simulated transport) ---
+    # --- streaming outer sync (core/streaming.py) ---
     streaming_fragments: int = 0
     stream_alpha: float = 1.0
     stream_tau: int = 0
@@ -123,8 +123,9 @@ class DiLoCoConfig:
     stream_overrides: tuple = ()
     error_feedback: bool = False
     # simulated | sharded | async | gossip; "simulated" runs the rounds of
-    # core/diloco.py and core/streaming.py, "async" the barrier-free
-    # engine of core/async_diloco.py; sharded and gossip are not ported
+    # core/diloco.py and core/streaming.py, "sharded" the streaming round
+    # on a process group of pods (core/pod_collectives.py), "async" the
+    # barrier-free engine of core/async_diloco.py; gossip is not ported
     transport: str = "simulated"
     staleness_lambda: float = 1.0
     gossip_pairing: str = "butterfly"

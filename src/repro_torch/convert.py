@@ -8,6 +8,14 @@ fields of the JAX ``DiLoCoState`` (and of the streaming ``StreamState``)
 by name, so every leaf can be compared; an async engine's state crosses
 in the ``state_to_tree`` layout of the JAX ``core/async_diloco.py``.
 
+On the sharded transport (``core/pod_collectives.py``) the port's state
+holds one rank's replica band: ``sharded_state_from_numpy`` bands a full
+JAX sharded ``StreamState`` for a rank, ``pod_collectives.
+gather_stream_state`` gathers the bands back into one full state on rank
+0, and ``stream_state_to_numpy`` writes that out. A packed in-flight
+wire, (k, W) bytes, is written out decoded, as the per-leaf band payloads
+of the other transports, so that two runs are compared by value.
+
 numpy has no bfloat16 of its own (JAX hands its bf16 leaves over with
 ml_dtypes' ``bfloat16``, which the port does not import). So bf16 leaves
 cross as their bit patterns: a numpy leaf of dtype ``bfloat16`` (by name)
@@ -21,9 +29,10 @@ import numpy as np
 import torch
 
 from . import tree
-from .core import async_diloco, streaming
+from .core import async_diloco, pod_collectives, streaming
 from .core.diloco import DiLoCoState
 from .core.outer_opt import OuterState
+from .kernels import ops
 from .optim.adamw import AdamWState
 
 
@@ -106,9 +115,10 @@ def state_to_numpy(state: DiLoCoState) -> dict:
 def stream_state_from_numpy(state, dcfg, *, device) -> streaming.StreamState:
     """A JAX ``StreamState`` whose leaves are numpy arrays -> the port's on
     ``device``. ``armed`` becomes a host float32 array; ``residual`` may be
-    None. ``inflight`` is a tuple of None or (payload tuple with None
-    entries, mask): the JAX payload holds whole (k, ...) leaves, of which
-    the port keeps the fragment's band (the partition of ``dcfg``)."""
+    None. ``inflight`` is a tuple of None or (payload, mask): the JAX
+    payload holds whole (k, ...) leaves, of which the port keeps the
+    fragment's band (the partition of ``dcfg``), or, on the packed sharded
+    transport, the (k, W) wire bytes, kept as they are."""
     to = lambda t: params_from_numpy(t, device=device)
     inflight = None
     if state.inflight is not None:
@@ -119,6 +129,10 @@ def stream_state_from_numpy(state, dcfg, *, device) -> streaming.StreamState:
                 inflight.append(None)
                 continue
             payload, mask = slot
+            if isinstance(payload, np.ndarray):     # the packed wire
+                inflight.append((torch.from_numpy(np.array(payload)).to(
+                    device), np.array(mask, np.float32)))
+                continue
             band = [None] * len(payload)
             for reg in regs:
                 band[reg.leaf] = tensor_from_numpy(
@@ -134,25 +148,70 @@ def stream_state_from_numpy(state, dcfg, *, device) -> streaming.StreamState:
         inflight=inflight)
 
 
-def stream_state_to_numpy(state: streaming.StreamState) -> dict:
-    """The port's streaming state -> a nested dict of numpy arrays keyed by
-    the ``StreamState`` fields: ``base`` as ``state_to_numpy``, ``pending``,
-    ``armed``, ``residual`` when there is one, and ``inflight`` when the
-    config defers, as {fragment: {"payload": {leaf index: band}, "mask":
-    (k,)}} for the fragments that have a slot."""
+def stream_state_to_numpy(state: streaming.StreamState,
+                          dcfg=None) -> dict:
+    """The port's streaming state (a full one: on the sharded transport,
+    gathered by ``pod_collectives.gather_stream_state``) -> a nested dict
+    of numpy arrays keyed by the ``StreamState`` fields: ``base`` as
+    ``state_to_numpy``, ``pending``, ``armed``, ``residual`` when there is
+    one, and ``inflight`` when the config defers, as {fragment:
+    {"payload": {leaf index: (k, band...)}, "mask": (k,)}} for the
+    fragments that have a slot. A packed wire payload is decoded into that
+    form under ``dcfg`` (the plain decoder, every region's values)."""
     out = {"base": state_to_numpy(state.base),
            "pending": params_to_numpy(state.pending),
            "armed": np.asarray(state.armed, np.float32)}
     if state.residual is not None:
         out["residual"] = params_to_numpy(state.residual)
     if state.inflight is not None:
-        out["inflight"] = {
-            str(f): {"payload": {str(i): tensor_to_numpy(t)
-                                 for i, t in enumerate(slot[0])
-                                 if t is not None},
-                     "mask": np.asarray(slot[1], np.float32)}
-            for f, slot in enumerate(state.inflight) if slot is not None}
+        regions = None
+        out["inflight"] = {}
+        for f, slot in enumerate(state.inflight):
+            if slot is None:
+                continue
+            payload = pod_collectives.resolve(slot[0])
+            if torch.is_tensor(payload):            # the packed wire
+                if dcfg is None:
+                    raise ValueError("decoding a packed in-flight wire "
+                                     "needs the run's DiLoCoConfig")
+                if regions is None:
+                    regions = streaming._partition(
+                        state.base.global_params, dcfg)[1]
+                payload = _decode_packed(payload, regions[f],
+                                         state.base.global_params, dcfg)
+            out["inflight"][str(f)] = {
+                "payload": {str(i): tensor_to_numpy(t)
+                            for i, t in enumerate(payload) if t is not None},
+                "mask": np.asarray(slot[1], np.float32)}
     return out
+
+
+def _decode_packed(wire, regs, params, dcfg) -> tuple:
+    """A fragment's gathered (k, W) packed wire -> per leaf its (k,
+    band...) float32 values (None for a leaf it does not touch)."""
+    leaves = tree.leaves(params)
+    wire = wire.cpu()
+    out, off = [None] * len(leaves), 0
+    for reg in regs:
+        nb = pod_collectives.wire_nbytes(reg.elems, dcfg.outer_grad_dtype)
+        g = wire[:, off:off + nb]
+        off += nb
+        if dcfg.outer_grad_dtype == "bfloat16":
+            g = g.contiguous().view(torch.uint16)
+        vals = torch.stack([ops.wire_decode(w.contiguous(), reg.elems,
+                                            dcfg.outer_grad_dtype,
+                                            mode="ref") for w in g])
+        out[reg.leaf] = vals.reshape(
+            (wire.shape[0],) + streaming._band_shape(leaves[reg.leaf], reg))
+    return tuple(out)
+
+
+def sharded_state_from_numpy(state, dcfg, group) -> streaming.StreamState:
+    """A full JAX sharded ``StreamState`` (numpy leaves) -> this rank's
+    banded state on the group's device (``pod_collectives.
+    shard_stream_state``); ``gather_stream_state`` is the way back."""
+    full = stream_state_from_numpy(state, dcfg, device="cpu")
+    return pod_collectives.shard_stream_state(full, group)
 
 
 def async_state_from_numpy(tree_np: dict, *, device):

@@ -154,6 +154,38 @@ def phase_seed(seed: int, uid: int) -> int:
     return int(state[0] >> np.uint64(1))
 
 
+class _DrawTimer:
+    """Times the token draws of one phase without a host sync: on a CUDA
+    device a pair of CUDA events around each draw, read by ``seconds``
+    once the caller has synchronized (the draw's device time); on the CPU
+    the host clock around each draw."""
+
+    def __init__(self, device):
+        self.cuda = device.type == "cuda"
+        self.pairs, self.host_s = [], 0.0
+
+    def __enter__(self):
+        if self.cuda:
+            self.pairs.append((torch.cuda.Event(enable_timing=True),
+                               torch.cuda.Event(enable_timing=True)))
+            self.pairs[-1][0].record()
+        else:
+            self._t0 = time.perf_counter()
+        return self
+
+    def __exit__(self, *exc):
+        if self.cuda:
+            self.pairs[-1][1].record()
+        else:
+            self.host_s += time.perf_counter() - self._t0
+        return False
+
+    def seconds(self) -> float:
+        """The draws' seconds; on the card, after a synchronize."""
+        return self.host_s + sum(a.elapsed_time(b)
+                                 for a, b in self.pairs) / 1e3
+
+
 def _sync(device):
     if device.type == "cuda":
         torch.cuda.synchronize(device)
@@ -175,7 +207,9 @@ class AsyncEngine:
 
     ``timing`` holds, per phase event, the host seconds of its inner
     phase (``phase_s``), of that the token sampling (``sample_s``: each
-    step's draw between two device synchronizes), and of its application
+    step's draw between two CUDA events on the card, read after the
+    phase's closing synchronize, so the phase has no host sync inside its
+    H steps; the host clock on the CPU), and of its application
     (``apply_s``: the flat payload, the wire, the outer step, the
     snapshot and the re-dispatch), each closed by a device synchronize.
     """
@@ -395,8 +429,10 @@ class AsyncEngine:
     def _phase(self, state: AsyncState, ev):
         """The H inner steps of the phase ``ev`` reports, in place on the
         worker's params and moments, on tokens drawn from the phase's own
-        generator (seeded from the uid). Returns (worker, mean loss, host
-        seconds of sampling)."""
+        generator (seeded from the uid). Returns (worker, mean loss, the
+        sampling's timer): the phase makes no host sync, so on the card
+        each draw is timed by CUDA events, read by ``sample_seconds``
+        after the caller's synchronize; on the CPU by the host clock."""
         w = state.workers[ev.worker]
         assert w.active, (
             f"arrival for departed worker {ev.worker}: the timeline "
@@ -405,26 +441,24 @@ class AsyncEngine:
         gen = torch.Generator(device=dev)
         gen.manual_seed(phase_seed(self.seed, ev.uid))
         tc = self.tcfg
-        p, o, losses, sample_s = w.params, w.opt, [], 0.0
+        p, o, losses, timer = w.params, w.opt, [], _DrawTimer(dev)
         for h in range(self.cfg.H):
-            _sync(dev)
-            t0 = time.perf_counter()
-            batch = {"tokens": self._samplers[ev.worker](
-                gen, tc.batch_size, tc.seq_len)}
-            _sync(dev)
-            sample_s += time.perf_counter() - t0
+            with timer:
+                batch = {"tokens": self._samplers[ev.worker](
+                    gen, tc.batch_size, tc.seq_len)}
             p, o, m = self._inner_step(p, o, batch, state.inner_done + h)
             losses.append(m["loss"])
         w.params, w.opt = p, o
         state.inner_done += self.cfg.H
-        return w, torch.stack(losses).mean(), sample_s
+        return w, torch.stack(losses).mean(), timer
 
     def _on_arrival(self, state: AsyncState, ev):
         cfg = self.cfg
         t0 = time.perf_counter()
-        w, mloss, sample_s = self._phase(state, ev)
+        w, mloss, timer = self._phase(state, ev)
         _sync(self._device)
         t1 = time.perf_counter()
+        sample_s = timer.seconds()
         staleness = state.version - w.version
         weight = faults.staleness_weight(staleness,
                                          cfg.staleness_lambda, cfg.k)
@@ -461,11 +495,11 @@ class AsyncEngine:
         phases; the error-feedback residual is untouched (nothing was
         quantized onto the wire)."""
         t0 = time.perf_counter()
-        w, mloss, sample_s = self._phase(state, ev)
+        w, mloss, timer = self._phase(state, ev)
         _sync(self._device)
         self.timing.append({"event": "lost",
                             "phase_s": time.perf_counter() - t0,
-                            "sample_s": sample_s, "apply_s": 0.0})
+                            "sample_s": timer.seconds(), "apply_s": 0.0})
         return {"event": "lost", "tick": ev.tick, "worker": ev.worker,
                 "uid": ev.uid, "version_at_dispatch": w.version,
                 "inner_loss": float(mloss)}

@@ -306,7 +306,7 @@ def _check_ported(dcfg: DiLoCoConfig, tcfg: TrainConfig):
             f"tcfg=({tcfg.param_dtype}, {tcfg.master_dtype}); the state "
             "layout (dcfg) must match the inner step (tcfg)")
     unported = [
-        (dcfg.transport in ("sharded", "gossip"),
+        (dcfg.transport == "gossip",
          f"transport={dcfg.transport!r}", "transports"),
         (dcfg.sync_inner_state, "sync_inner_state", "DiLoCo extras"),
     ]
@@ -319,7 +319,7 @@ def _check_ported(dcfg: DiLoCoConfig, tcfg: TrainConfig):
 def make_round(loss_fn, sample_fn, dcfg: DiLoCoConfig, tcfg: TrainConfig,
                *, total_steps: int | None = None,
                compute_cosine: bool = False, batch_size: int | None = None,
-               seq_len: int | None = None):
+               seq_len: int | None = None, group=None):
     """Build the DiLoCo round.
 
     sample_fn(gen, batch, seq_len) -> (k', batch, S) tokens, one batch per
@@ -330,7 +330,9 @@ def make_round(loss_fn, sample_fn, dcfg: DiLoCoConfig, tcfg: TrainConfig,
     sampling (``sample_s``), in the inner phase (``inner_s``) and in the
     outer step (``outer_s``), each closed by a device synchronize.
     ``dcfg.streaming_fragments >= 1`` builds the streaming round
-    (``core/streaming.py``), whose state is a ``streaming.StreamState``.
+    (``core/streaming.py``), whose state is a ``streaming.StreamState``;
+    ``dcfg.transport == "sharded"`` runs it on this rank's pod ``group``
+    (``launch/mesh.py``).
     """
     if dcfg.transport == "async":
         raise ValueError(
@@ -338,14 +340,18 @@ def make_round(loss_fn, sample_fn, dcfg: DiLoCoConfig, tcfg: TrainConfig,
             "build: drive it with core.async_diloco.AsyncEngine (or "
             "run_async) and a faults.Scenario")
     _check_ported(dcfg, tcfg)
-    if dcfg.transport != "simulated":
+    if dcfg.transport not in ("simulated", "sharded"):
         raise ValueError(f"unknown transport {dcfg.transport!r}")
     if dcfg.streaming_fragments:
         from . import streaming
         return streaming.make_stream_round_body(
             loss_fn, sample_fn, dcfg, tcfg, total_steps=total_steps,
             compute_cosine=compute_cosine, batch_size=batch_size,
-            seq_len=seq_len)
+            seq_len=seq_len, group=group)
+    if dcfg.transport != "simulated":
+        raise ValueError(
+            "transport='sharded' is a streaming-path feature: set "
+            "streaming_fragments >= 1")
     if dcfg.outer_grad_dtype != "float32":
         raise NotImplementedError(
             f"outer_grad_dtype={dcfg.outer_grad_dtype!r} rides the "

@@ -34,15 +34,30 @@ band's contiguous slice, the merge and the residual write only the band.
 An int4 send quantizes the band widened to whole 128-entry blocks of the
 replica's flattened leaf, so the band gets the values a whole-leaf
 quantization gives it. The in-flight payload of a deferred send keeps
-only the band. An apply before its fragment's first send is a no-op and
-launches nothing.
+only the band. An apply before its fragment's first send updates nothing
+and launches no optimizer kernel (the packed sharded transport still
+decodes the zero in-flight wire into ``pending``, as the JAX round does).
 
-Only ``transport="simulated"`` is ported; "sharded" and its packed wire
-raise (ROADMAP.md, port queue: transports). ``pack_wire`` has no effect
-on the simulated transport, as in the JAX package.
+``transport="sharded"`` runs the same round on a process group of
+``pods`` ranks (``core/pod_collectives.py``, ``launch/mesh.py``): rank r
+holds the replica band [r·k/pods, (r+1)·k/pods), samples the full shard
+set and keeps its band (so it trains on the simulated round's tokens),
+and reduces each fragment by a real collective at its send: one
+all-reduce of the float32 partial sums, or one all-gather of the
+quantized payloads. With ``pack_wire`` (the default, bf16 and int4) a
+send encodes each region of its band into the real wire format
+(``ops.wire_encode``: int4 scale blocks start at the region, as in the
+JAX package's packed sender), coalesces the regions into one buffer and
+gathers it once; the consumer decodes and mask-reduces each region with
+``ops.wire_reduce``, one launch of ``unpack_dequantize_reduce`` per int4
+region. A deferred send (quantized, τ > 0) issues its gather with
+``async_op=True`` and parks the handle; the apply τ inner steps later
+waits for it. ``pack_wire`` has no effect on the simulated transport, as
+in the JAX package.
 """
 from __future__ import annotations
 
+import dataclasses
 import time
 from typing import Any, NamedTuple
 
@@ -52,9 +67,10 @@ import torch
 from .. import tree
 from ..configs.base import DiLoCoConfig, TrainConfig
 from ..kernels import ops as kops
+from ..kernels import ref
 from ..kernels.ref import f32
 from ..optim import precision
-from . import diloco, fragments
+from . import diloco, fragments, pod_collectives
 from .outer_opt import OuterState
 
 
@@ -72,9 +88,17 @@ class StreamState(NamedTuple):
     inflight: per fragment, None or (payload, mask) for a deferred send
     (quantized transport with τ > 0): ``payload`` holds per leaf the
     (k, band...) transported values of the fragment's band, or None for a
-    leaf the fragment does not touch; ``mask`` is the (k,) communication
-    mask snapshot taken at the send, used by the apply (also when it
-    wraps into the next round). None when the config does not defer.
+    leaf the fragment does not touch; on the packed sharded transport it
+    is the gathered (k, W) uint8 wire of all its regions instead. On the
+    sharded transport a payload may still be in flight: a
+    ``pod_collectives.Gathered`` handle (``pod_collectives.resolve``
+    waits for it). ``mask`` is the (k,) communication mask snapshot taken
+    at the send, used by the apply (also when it wraps into the next
+    round). None when the config does not defer.
+
+    On the sharded transport the per-replica leaves (replica params,
+    AdamW state, residual) hold this rank's band of k / pods replicas;
+    the rest is the same on every rank.
     """
     base: diloco.DiLoCoState
     pending: Any
@@ -117,6 +141,12 @@ def deferred_consume(dcfg: DiLoCoConfig) -> bool:
             and dcfg.outer_grad_dtype in ("bfloat16", "int4"))
 
 
+def _packed_wire(dcfg: DiLoCoConfig) -> bool:
+    """The sharded quantized transport ships the real packed wire."""
+    return (dcfg.transport == "sharded" and dcfg.pack_wire
+            and dcfg.outer_grad_dtype in ("bfloat16", "int4"))
+
+
 def _partition(params, dcfg):
     P = max(1, int(dcfg.streaming_fragments))
     part = fragments.partition_params(params, P,
@@ -153,6 +183,14 @@ def _init_inflight(params, dcfg: DiLoCoConfig):
         if not regs:
             slots.append(None)
             continue
+        if _packed_wire(dcfg):
+            W = sum(pod_collectives.wire_nbytes(r.elems,
+                                                dcfg.outer_grad_dtype)
+                    for r in regs)
+            slots.append((torch.zeros((k, W), dtype=torch.uint8,
+                                      device=leaves[0].device),
+                          np.zeros((k,), np.float32)))
+            continue
         payload = [None] * len(leaves)
         for reg in regs:
             leaf = leaves[reg.leaf]
@@ -163,18 +201,22 @@ def _init_inflight(params, dcfg: DiLoCoConfig):
     return tuple(slots)
 
 
-def init_state(params, dcfg: DiLoCoConfig) -> StreamState:
+def init_state(params, dcfg: DiLoCoConfig, *, group=None) -> StreamState:
     """Start streaming DiLoCo from float32 ``params`` (cf.
-    ``diloco.init_state``)."""
+    ``diloco.init_state``). With a pod ``group`` (the sharded transport)
+    the per-replica leaves hold only this rank's band of k / pods
+    replicas, as ``pod_collectives.shard_stream_state`` of the full state
+    would (every replica starts from ``params``)."""
     P = max(1, int(dcfg.streaming_fragments))
+    k_rep = dcfg.k // pod_collectives.pods_of(group)
     residual = None
     if dcfg.error_feedback and dcfg.outer_grad_dtype != "float32":
         residual = tree.map(
-            lambda p: torch.zeros((dcfg.k,) + tuple(p.shape),
+            lambda p: torch.zeros((k_rep,) + tuple(p.shape),
                                   dtype=torch.float32, device=p.device),
             params)
     return StreamState(
-        base=diloco.init_state(params, dcfg),
+        base=diloco.init_state(params, dataclasses.replace(dcfg, k=k_rep)),
         pending=tree.map(torch.zeros_like, params),
         armed=np.zeros((P,), np.float32),
         residual=residual,
@@ -215,16 +257,13 @@ def _send_window(leaf, reg: fragments.Region, qdtype: str, prune: bool):
 
 def _reduce(payload, m, denom):
     """The weighted mean over replicas, in the classic round's order."""
-    acc = m[0] * payload[0]
-    for i in range(1, payload.shape[0]):
-        acc = acc + m[i] * payload[i]
-    return acc / denom
+    return ref.weighted_sum(payload, m) / denom
 
 
 def make_stream_round_body(loss_fn, sample_fn, dcfg: DiLoCoConfig,
                            tcfg: TrainConfig, *, total_steps=None,
                            compute_cosine: bool = False, batch_size=None,
-                           seq_len=None):
+                           seq_len=None, group=None):
     """The streaming round, with ``diloco.make_round``'s signature:
     round(StreamState, gen, drop_mask, active_mask, weights) ->
     (StreamState, metrics). The state is updated in place and returned.
@@ -234,8 +273,13 @@ def make_stream_round_body(loss_fn, sample_fn, dcfg: DiLoCoConfig,
     segments and fires its send and apply events in between. Metrics as
     the JAX streaming round's (the stream byte counts are host floats),
     plus the host seconds spent sampling (``sample_s``), in the inner
-    segments (``inner_s``) and in the events (``outer_s``), each closed
-    by a device synchronize."""
+    segments (``inner_s``) and in the events (``outer_s``, of which
+    ``wait_s`` waiting for deferred gathers at their applies), each closed
+    by a device synchronize.
+
+    ``dcfg.transport == "sharded"`` needs this rank's pod ``group``
+    (``launch/mesh.py``): the state holds the rank's replica band, the
+    loss metrics are the mean over all replicas (``replica_mean``)."""
     P = int(dcfg.streaming_fragments)
     if P < 1:
         raise ValueError("make_stream_round_body needs "
@@ -244,10 +288,20 @@ def make_stream_round_body(loss_fn, sample_fn, dcfg: DiLoCoConfig,
         raise NotImplementedError(
             "streaming outer sync supports outer_opt='nesterov' only "
             f"(got {dcfg.outer_opt!r})")
-    if dcfg.transport != "simulated":
-        raise NotImplementedError(
-            f"transport={dcfg.transport!r} is not ported yet (ROADMAP.md, "
-            "port queue: transports)")
+    if dcfg.transport not in ("simulated", "sharded"):
+        raise ValueError(f"unknown transport {dcfg.transport!r}: expected "
+                         "'simulated' or 'sharded'")
+    sharded = dcfg.transport == "sharded"
+    if sharded:
+        pods = pod_collectives.validate_group(group, dcfg.k)
+        if compute_cosine:
+            raise NotImplementedError(
+                "compute_cosine needs cross-pod delta gathers; run it on "
+                "transport='simulated'")
+        rank = group.rank
+    else:
+        pods, rank = 1, 0
+    packed = _packed_wire(dcfg)
     defer = deferred_consume(dcfg)
     sched = fragments.schedule(P, dcfg.H, dcfg.stream_tau)
     alpha = float(dcfg.stream_alpha)
@@ -261,6 +315,8 @@ def make_stream_round_body(loss_fn, sample_fn, dcfg: DiLoCoConfig,
     inner_step = diloco.make_inner_step(loss_fn, tcfg, total_steps)
     B = batch_size or tcfg.batch_size
     S = seq_len or tcfg.seq_len
+    k_loc = dcfg.k // pods
+    r0 = pod_collectives.local_band(k_loc, rank)
 
     def round_body(sstate: StreamState, gen, drop_mask=None,
                    active_mask=None, weights=None):
@@ -283,14 +339,17 @@ def make_stream_round_body(loss_fn, sample_fn, dcfg: DiLoCoConfig,
                 "under the same DiLoCoConfig")
         inflight = list(sstate.inflight) if defer else None
         dev = tree.leaves(gp)[0].device
+        # the mask algebra is over all k replicas on every rank; only the
+        # replica-banded tensors are local (indices below are local)
         m_np = drop * act * w
         m = torch.from_numpy(m_np).to(dev)
         denom = torch.clamp(m.sum(), min=1e-9)
-        comm = [i for i in range(k) if m_np[i] > 0]
-        adopt = [i for i in range(k)
+        m_loc = m[r0:r0 + k_loc]
+        comm = [i - r0 for i in range(r0, r0 + k_loc) if m_np[i] > 0]
+        adopt = [i - r0 for i in range(r0, r0 + k_loc)
                  if max(drop[i], np.float32(1.0) - act[i]) > 0]
         part, regions = _partition(gp, dcfg)
-        wire = _fragment_wire_bytes(part, qdtype)
+        wire = _fragment_wire_bytes(part, qdtype, packed=packed)
         gl, bl, pl, rl = (tree.leaves(t) for t in (gp, buf, pending, rp))
         # the deltas' and the merge's high-precision copy
         src = tree.leaves(ist.master if mixed else rp)
@@ -301,31 +360,42 @@ def make_stream_round_body(loss_fn, sample_fn, dcfg: DiLoCoConfig,
         count = st.outer_state.count
 
         t0 = time.perf_counter()
-        toks = sample_fn(gen, H * B, S)[:k].reshape(k, H, B, S)
+        # every rank samples the full shard set and keeps its band, so the
+        # sharded round trains on the simulated round's tokens
+        toks = sample_fn(gen, H * B, S)[:k].reshape(k, H, B, S)[
+            r0:r0 + k_loc]
         diloco._sync(dev)
         sample_s = time.perf_counter() - t0
-        inner_s = outer_s = 0.0
+        inner_s = outer_s = wait_s = 0.0
         pos, seg_loss = 0, []
+
+        def delta(li, reg, window_dtype):
+            """This rank's deltas of the layers a send of region ``reg``
+            takes, pruned when asked: (the (k_loc, n) flat deltas, the
+            send window, the flat offset of the window's first layer)."""
+            win = _send_window(gl[li], reg, window_dtype, prune)
+            l0, l1 = win[:2]
+            if l0 is None:
+                d = gl[li][None] - src[li]
+            else:
+                d = gl[li][l0:l1][None] - src[li][:, l0:l1]
+            if prune:
+                rows = kops.as_rows(d, 1)
+                if rows is not None:
+                    kops.sign_prune(rows, dcfg.prune_frac, mode=mode)
+            off = 0 if l0 is None else \
+                l0 * (fragments._size(gl[li]) // gl[li].shape[0])
+            return d.reshape(k_loc, -1), win, off
 
         def send(frag):
             payload = [None] * len(gl) if defer else None
+            bands = []
             for reg in regions[frag]:
                 li = reg.leaf
-                l0, l1, a, b, bs, be = _send_window(gl[li], reg, qdtype,
-                                                    prune)
-                off = 0
-                if l0 is None:
-                    d = gl[li][None] - src[li]
-                else:
-                    d = gl[li][l0:l1][None] - src[li][:, l0:l1]
-                    off = l0 * (fragments._size(gl[li]) // gl[li].shape[0])
-                if prune:
-                    rows = kops.as_rows(d, 1)
-                    if rows is not None:
-                        kops.sign_prune(rows, dcfg.prune_frac, mode=mode)
-                flat = d.reshape(k, -1)[:, a - off:b - off]
+                flat, (_, _, a, b, bs, be), off = delta(li, reg, qdtype)
+                flat = flat[:, a - off:b - off]
                 if resl is not None:
-                    res = resl[li].view(k, -1)
+                    res = resl[li].view(k_loc, -1)
                     q, nres = quantize_with_feedback(
                         flat, res[:, a:b], qdtype, mode=mode)
                     # only replicas whose packet enters the mean consume
@@ -337,28 +407,99 @@ def make_stream_round_body(loss_fn, sample_fn, dcfg: DiLoCoConfig,
                     q = kops.quant_roundtrip(q, qdtype, mode=mode,
                                              stacked=True, out=q)
                 band = q[:, bs - a:be - a].reshape(
-                    (k,) + _band_shape(gl[li], reg))
-                if defer:
+                    (k_loc,) + _band_shape(gl[li], reg))
+                if sharded:
+                    bands.append(band)
+                elif defer:
                     payload[li] = band.contiguous()
                 else:
                     _band(pl[li], reg).copy_(_reduce(band, m, denom))
                 if compute_cosine:
                     _band(tree.leaves(deltas)[li], reg, 1).copy_(band)
-            if defer and regions[frag]:
+            if sharded and regions[frag]:
+                if qdtype == "float32":
+                    # THE cross-pod collective of f32: one all-reduce of
+                    # the rank's partial sums
+                    means = pod_collectives.fragment_mean(
+                        bands, m_loc, denom, group=group)
+                    for reg, a_ in zip(regions[frag], means):
+                        _band(pl[reg.leaf], reg).copy_(a_)
+                else:
+                    got = pod_collectives.fragment_gather(
+                        bands, dtype=qdtype, group=group, async_op=defer)
+                    per_leaf = _per_leaf(regions[frag], len(gl))
+                    if defer:
+                        inflight[frag] = (got.then(per_leaf), m_np.copy())
+                    else:
+                        full = per_leaf(got.wait())
+                        for reg in regions[frag]:
+                            _band(pl[reg.leaf], reg).copy_(
+                                _reduce(full[reg.leaf], m, denom))
+            elif defer and regions[frag]:
                 inflight[frag] = (tuple(payload), m_np.copy())
             armed[frag] = 1.0
 
+        def packed_send(frag):
+            """Encode each region of the band's deltas (+ residual) into
+            the real wire format, coalesce, and issue ONE gather."""
+            if not regions[frag]:         # override-emptied: no wire
+                armed[frag] = 1.0
+                return
+            sent = []
+            for reg in regions[frag]:
+                flat, (_, _, _, _, bs, be), off = delta(reg.leaf, reg,
+                                                        "float32")
+                d_r = flat[:, bs - off:be - off]
+                if resl is not None:
+                    d_r = d_r + resl[reg.leaf].view(k_loc, -1)[:, bs:be]
+                sent.append((reg.leaf, bs, be, d_r))
+            buf, local = pod_collectives.encode_wire(
+                [x[3] for x in sent], qdtype, mode=mode,
+                with_local=resl is not None)
+            if resl is not None:
+                # communicating replicas consume their residual; dropped
+                # or inactive ones keep accumulating
+                for (li, bs, be, d_r), loc in zip(sent, local):
+                    res = resl[li].view(k_loc, -1)
+                    for i in comm:
+                        res[i, bs:be] = d_r[i] - loc[i]
+            got = pod_collectives.gather_wire(buf, group=group,
+                                              async_op=defer)
+            if defer:
+                # park the handle and the mask snapshot; the decode runs
+                # at the apply, τ inner steps from here
+                inflight[frag] = (got, m_np.copy())
+            else:
+                packed_reduce(frag, got.wait(), m, denom)
+            armed[frag] = 1.0
+
+        def packed_reduce(frag, gathered, m_r, denom_r):
+            """Decode and mask-reduce each region of one fragment's
+            gathered (k, W) wire into ``pending``, with the mask of the
+            round that sent it."""
+            regs = regions[frag]
+            for reg, a_ in zip(regs, pod_collectives.reduce_wire(
+                    gathered, [r.elems for r in regs], qdtype, m_r,
+                    denom_r, mode=mode)):
+                fragments.region_put(pl[reg.leaf], reg, a_)
+
         def apply(frag):
-            nonlocal count
+            nonlocal count, wait_s
             if defer and inflight[frag] is not None:
                 # the reduce of the collective sent τ steps ago, with the
                 # mask snapshot of the round that sent it
                 payload, m_snap = inflight[frag]
                 ms_ = torch.from_numpy(m_snap).to(dev)
                 den = torch.clamp(ms_.sum(), min=1e-9)
-                for reg in regions[frag]:
-                    _band(pl[reg.leaf], reg).copy_(
-                        _reduce(payload[reg.leaf], ms_, den))
+                t_w = time.perf_counter()
+                payload = pod_collectives.resolve(payload)
+                wait_s += time.perf_counter() - t_w
+                if packed:
+                    packed_reduce(frag, payload, ms_, den)
+                else:
+                    for reg in regions[frag]:
+                        _band(pl[reg.leaf], reg).copy_(
+                            _reduce(payload[reg.leaf], ms_, den))
             if armed[frag] <= 0:
                 return                 # not sent yet: a no-op
             for reg in regions[frag]:
@@ -394,14 +535,20 @@ def make_stream_round_body(loss_fn, sample_fn, dcfg: DiLoCoConfig,
                 seg = toks[:, pos:pos + steps]
                 rp, ist, ms = diloco.inner_phase(
                     inner_step, rp, ist, {"tokens": seg},
-                    st.inner_steps_done + pos, active_mask=act)
+                    st.inner_steps_done + pos,
+                    active_mask=act[r0:r0 + k_loc])
                 seg_loss.append(ms["loss"])
                 pos += steps
             diloco._sync(dev)
             t2 = time.perf_counter()
             with torch.no_grad():
                 for ev in events:
-                    (send if ev.kind == "send" else apply)(ev.fragment)
+                    if ev.kind == "apply":
+                        apply(ev.fragment)
+                    elif packed:
+                        packed_send(ev.fragment)
+                    else:
+                        send(ev.fragment)
             diloco._sync(dev)
             inner_s += t2 - t1
             outer_s += time.perf_counter() - t2
@@ -411,15 +558,25 @@ def make_stream_round_body(loss_fn, sample_fn, dcfg: DiLoCoConfig,
             outer_state=OuterState(buf, st.outer_state.buf2, count),
             replica_params=rp, inner_state=ist, outer_t=st.outer_t + 1,
             inner_steps_done=st.inner_steps_done + H)
+        if sharded:
+            # the loss lives per local replica band: fold the bands into
+            # the mean over all replicas (equal bands, the JAX pmean)
+            loss_mean = pod_collectives.replica_mean(loss, group=group)
+            loss_last = pod_collectives.replica_mean(loss[:, -1],
+                                                     group=group)
+        else:
+            loss_mean, loss_last = loss.mean(), loss[:, -1].mean()
         om = {"outer_gnorm": diloco._tree_norm(pending),
               "drop_frac": float(np.float32(1.0) - drop.mean()),
-              "inner_loss": loss.mean(),
-              "inner_loss_last": loss[:, -1].mean(),
+              "inner_loss": loss_mean,
+              "inner_loss_last": loss_last,
               # wire bytes one replica sends: at the largest sync event
-              # and over the round's P syncs
+              # and over the round's P syncs (the packed wire's exact
+              # bytes on the packed sharded transport)
               "stream_peak_sync_bytes": float(max(wire)),
               "stream_round_sync_bytes": float(sum(wire)),
-              "sample_s": sample_s, "inner_s": inner_s, "outer_s": outer_s}
+              "sample_s": sample_s, "inner_s": inner_s, "outer_s": outer_s,
+              "wait_s": wait_s}
         if compute_cosine:
             om["cos_mean"], om["cos_std"] = diloco._pairwise_cosine(deltas,
                                                                     m)
@@ -430,22 +587,38 @@ def make_stream_round_body(loss_fn, sample_fn, dcfg: DiLoCoConfig,
     return round_body
 
 
-def _fragment_wire_bytes(part: fragments.Partition, dtype: str) -> list:
+def _per_leaf(regs, n_leaves: int):
+    """Maps a gathered fragment's per-region payloads to the per-leaf
+    tuple of the in-flight slot (None for a leaf it does not touch)."""
+    def to_leaves(payloads):
+        out = [None] * n_leaves
+        for reg, pay in zip(regs, payloads):
+            out[reg.leaf] = pay
+        return tuple(out)
+    return to_leaves
+
+
+def _fragment_wire_bytes(part: fragments.Partition, dtype: str, *,
+                         packed: bool = False) -> list:
     """Per fragment, the wire bytes of one sync of one replica, int4's
-    scales charged per contiguous region (the unit a sender quantizes)."""
-    return [float(sum(kops.transport_bytes(int(e), dtype) for e in regs))
+    scales charged per contiguous region (the unit a sender quantizes);
+    ``packed``: the packed wire's exact bytes."""
+    return [float(sum(kops.transport_bytes(int(e), dtype, packed=packed)
+                      for e in regs))
             for regs in part.region_sizes]
 
 
 def sync_plan(params, dcfg: DiLoCoConfig) -> tuple:
     """Per-fragment outer-sync plan of one streaming round, as the JAX
-    ``streaming.sync_plan`` on the simulated transport: send and apply
-    offsets, element count, region count and the per-replica wire bytes
-    of one sync, the charge the round's stream metrics use."""
+    ``streaming.sync_plan``: send and apply offsets, element count,
+    region count and the per-replica wire bytes of one sync (byte-exact
+    packed accounting on the packed sharded transport, the static model
+    elsewhere), the charge the round's stream metrics use."""
     P = max(1, int(dcfg.streaming_fragments))
     part, _ = _partition(params, dcfg)
     sched = fragments.schedule(P, dcfg.H, dcfg.stream_tau)
-    wire = _fragment_wire_bytes(part, dcfg.outer_grad_dtype)
+    packed = _packed_wire(dcfg)
+    wire = _fragment_wire_bytes(part, dcfg.outer_grad_dtype, packed=packed)
     plan = []
     for p in range(P):
         regs = part.region_sizes[p]
@@ -456,7 +629,7 @@ def sync_plan(params, dcfg: DiLoCoConfig) -> tuple:
             "elems": int(part.sizes[p]),
             "regions": len(regs),
             "wire_dtype": dcfg.outer_grad_dtype,
-            "packed": False,
+            "packed": packed,
             "wire_bytes": wire[p],
             "crosses_round": int(sched.apply_offsets[p]) > int(dcfg.H),
             "deferred": deferred_consume(dcfg),

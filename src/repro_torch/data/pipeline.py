@@ -65,9 +65,24 @@ class MarkovMixture:
             for i in range(k):
                 acc += torch.softmax(self._logits[i, r0:r0 + n], dim=-1)
             self._mix_logits[r0:r0 + n] = torch.log(acc / k + 1e-9)
+        # the card's index too: a process handed these tables (CUDA IPC)
+        # may have another current card
+        self.device = self._logits.device
         if shard_sizes is None:
             shard_sizes = np.ones((k,), np.float32)
         self.shard_sizes = np.asarray(shard_sizes, np.float32)
+
+    def to(self, device) -> "MarkovMixture":
+        """This sampler with its logits copied to ``device`` (itself when
+        they lie there already)."""
+        device = _resolved(torch.device(device))
+        if device == self.device:
+            return self
+        out = object.__new__(MarkovMixture)
+        out.__dict__.update(self.__dict__, device=device,
+                            _logits=self._logits.to(device),
+                            _mix_logits=self._mix_logits.to(device))
+        return out
 
     # ---- sampling ----
     def sample_shard(self, gen, shard_id: int, batch: int, seq_len: int):
@@ -107,6 +122,13 @@ class MarkovMixture:
             ent += torch.sum(pi[r0:r0 + rows, None] * pr
                              * torch.log(pr + 1e-12))
         return float(-ent)
+
+
+def _resolved(device: torch.device) -> torch.device:
+    """``device`` with the current card's index when it names none."""
+    if device.type == "cuda" and device.index is None:
+        return torch.device("cuda", torch.cuda.current_device())
+    return device
 
 
 def _sample_chain(gen, rows_of, lead, seq_len: int, vocab: int, device):

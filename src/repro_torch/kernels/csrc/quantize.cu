@@ -55,6 +55,34 @@
 // bound). The ragged tail and unaligned pointers take byte and scalar
 // accesses.
 //
+// 3. unpack_dequantize_reduce (replaces quantize.py:
+// unpack_dequantize_reduce, body _unpack_dequant_reduce_kernel): the
+// sharded transport's deferred consumer. One region of the gathered wire,
+// k rows of the layout above (row j at `wire + j * stride`), is decoded
+// and mask-reduced in one pass: out[e] = sum_j m[j] * code_j[e] *
+// scale_j[e / 128], summed in replica order, acc = m[0]*v_0, then
+// acc + m[j]*v_j, every product rounded (the plain version's order). A
+// zero mask entry still multiplies: 0 * NaN and 0 * inf are NaN, as the
+// JAX reduce's m * vals. What bounds it: bytes, 0.53 B read per entry and
+// replica, 4 B written. A thread owns 4 entries: per replica one 16-bit
+// load of codes and the block's scale, a float4 store at the end; the k
+// partial sums stay in registers.
+//
+// 4. The unfused codec pieces on the (R, 128) block layout (replace
+// quantize.py:quantize_int4, dequantize_int4, pack_int4, unpack_int4;
+// bodies _quantize_kernel, _dequantize_kernel, _pack_kernel,
+// _unpack_kernel):
+//   quantize_int4    f32 blocks -> int8 codes clip(rint(x / s), -7, 7)
+//                    and f32 scales s = amax * inv_levels (a NaN gives
+//                    code 0); one warp a block, a thread 4 entries (a
+//                    float4 load, one 32-bit store of codes);
+//   dequantize_int4  codes * the row's scale; a thread 4 entries;
+//   pack_int4        codes -> nibble-packed bytes (lane 2j low, 2j+1
+//                    high); a thread 8 codes in, one 32-bit word out;
+//   unpack_int4      the inverse, sign-extended by (nib ^ 8) - 8; a thread
+//                    4 bytes in, 8 codes out.
+// All bound by bytes; each warp's stores cover whole sectors.
+//
 // Built with --fmad=false; rintf and __fdiv_rn round as torch.round and
 // IEEE division do, so the results agree bit for bit with the plain
 // PyTorch versions in kernels/ref.py (NaN payloads aside).
@@ -249,6 +277,186 @@ __global__ void unpack_dequantize_int4_kernel(
   }
 }
 
+// The sharded transport's deferred consumer: see the header. One thread
+// per 4 entries (2 code bytes of each replica's row).
+__global__ void unpack_dequantize_reduce_kernel(
+    const uint8_t* __restrict__ wire, int64_t stride, int64_t scale_off,
+    const float* __restrict__ m, float* __restrict__ out, int k,
+    int64_t n, int64_t n_quad, int64_t cb, bool vec) {
+  const int64_t step = (int64_t)gridDim.x * blockDim.x;
+  for (int64_t t = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
+       t < n_quad; t += step) {
+    const int64_t b0 = 2 * t;
+    float acc[4];
+    for (int j = 0; j < k; ++j) {
+      const uint8_t* row = wire + j * stride;
+      uint32_t word = 0;
+      if (b0 + 2 <= cb) {
+        word = *reinterpret_cast<const uint16_t*>(row + b0);
+      } else if (b0 < cb) {
+        word = row[b0];
+      }
+      const float scale =
+          reinterpret_cast<const float*>(row + scale_off)[t >> 5];
+      const float mj = m[j];
+#pragma unroll
+      for (int q = 0; q < 4; ++q) {
+        const int nib = (int)((word >> (4 * q)) & 0xFu);
+        const float p = mj * ((float)((nib ^ 8) - 8) * scale);
+        acc[q] = j == 0 ? p : acc[q] + p;
+      }
+    }
+    const int64_t e0 = 4 * t;
+    if (vec && e0 + 4 <= n) {
+      *reinterpret_cast<float4*>(out + e0) =
+          make_float4(acc[0], acc[1], acc[2], acc[3]);
+    } else {
+#pragma unroll
+      for (int q = 0; q < 4; ++q)
+        if (e0 + q < n) out[e0 + q] = acc[q];
+    }
+  }
+}
+
+// quantize_int4: one warp per 128-entry block, a thread 4 entries.
+__global__ void quantize_int4_kernel(const float* __restrict__ x,
+                                     int8_t* __restrict__ codes,
+                                     float* __restrict__ scales,
+                                     int64_t rows, bool vec,
+                                     float inv_levels, float levels) {
+  const int lane = threadIdx.x & 31;
+  const int64_t warp =
+      ((int64_t)blockIdx.x * blockDim.x + threadIdx.x) >> 5;
+  const int64_t n_warps = ((int64_t)gridDim.x * blockDim.x) >> 5;
+  for (int64_t r = warp; r < rows; r += n_warps) {
+    const int64_t e0 = r * BLOCK + 4 * lane;
+    float v[4];
+    if (vec) {
+      const float4 a = *reinterpret_cast<const float4*>(x + e0);
+      v[0] = a.x; v[1] = a.y; v[2] = a.z; v[3] = a.w;
+    } else {
+#pragma unroll
+      for (int j = 0; j < 4; ++j) v[j] = x[e0 + j];
+    }
+    float amax = 0.0f;
+#pragma unroll
+    for (int j = 0; j < 4; ++j) amax = nanmax(amax, fabsf(v[j]));
+#pragma unroll
+    for (int o = 16; o > 0; o >>= 1)
+      amax = nanmax(amax, __shfl_xor_sync(FULL, amax, o));
+    const float scale = amax * inv_levels;
+    const float div = scale > 0.0f ? scale : 1.0f;
+    uint32_t word = 0;
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const float q = clip(rintf(__fdiv_rn(v[j], div)), levels);
+      const int c = q != q ? 0 : (int)q;
+      word |= (uint32_t)(uint8_t)(int8_t)c << (8 * j);
+    }
+    if (vec) {
+      *reinterpret_cast<uint32_t*>(codes + e0) = word;
+    } else {
+#pragma unroll
+      for (int j = 0; j < 4; ++j) codes[e0 + j] = (int8_t)(word >> (8 * j));
+    }
+    if (lane == 0) scales[r] = scale;
+  }
+}
+
+// dequantize_int4: a thread 4 entries of one row.
+__global__ void dequantize_int4_kernel(const int8_t* __restrict__ codes,
+                                       const float* __restrict__ scales,
+                                       float* __restrict__ out,
+                                       int64_t n_quad, bool vec) {
+  const int64_t step = (int64_t)gridDim.x * blockDim.x;
+  for (int64_t t = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
+       t < n_quad; t += step) {
+    const int64_t e0 = 4 * t;
+    const float s = scales[t >> 5];
+    float v[4];
+    if (vec) {
+      const uint32_t w = *reinterpret_cast<const uint32_t*>(codes + e0);
+#pragma unroll
+      for (int j = 0; j < 4; ++j) v[j] = (float)(int8_t)(w >> (8 * j)) * s;
+      *reinterpret_cast<float4*>(out + e0) = make_float4(v[0], v[1], v[2],
+                                                         v[3]);
+    } else {
+#pragma unroll
+      for (int j = 0; j < 4; ++j) out[e0 + j] = (float)codes[e0 + j] * s;
+    }
+  }
+}
+
+// pack_int4: a thread 8 codes in, 4 bytes out.
+__global__ void pack_int4_kernel(const int8_t* __restrict__ codes,
+                                 uint8_t* __restrict__ out, int64_t n_oct,
+                                 bool vec) {
+  const int64_t step = (int64_t)gridDim.x * blockDim.x;
+  for (int64_t o = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
+       o < n_oct; o += step) {
+    int c[8];
+    if (vec) {
+      const uint2 a = *reinterpret_cast<const uint2*>(codes + 8 * o);
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        c[j] = (int)(int8_t)(a.x >> (8 * j));
+        c[4 + j] = (int)(int8_t)(a.y >> (8 * j));
+      }
+    } else {
+#pragma unroll
+      for (int j = 0; j < 8; ++j) c[j] = codes[8 * o + j];
+    }
+    uint32_t word = 0;
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+      word |= (uint32_t)((c[2 * j] & 0xF) | ((c[2 * j + 1] & 0xF) << 4))
+              << (8 * j);
+    if (vec) {
+      *reinterpret_cast<uint32_t*>(out + 4 * o) = word;
+    } else {
+#pragma unroll
+      for (int j = 0; j < 4; ++j) out[4 * o + j] = (uint8_t)(word >> (8 * j));
+    }
+  }
+}
+
+// unpack_int4: a thread 4 bytes in, 8 sign-extended codes out.
+__global__ void unpack_int4_kernel(const uint8_t* __restrict__ in,
+                                   int8_t* __restrict__ out, int64_t n_quad,
+                                   bool vec) {
+  const int64_t step = (int64_t)gridDim.x * blockDim.x;
+  for (int64_t t = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
+       t < n_quad; t += step) {
+    uint32_t w = 0;
+    if (vec) {
+      w = *reinterpret_cast<const uint32_t*>(in + 4 * t);
+    } else {
+#pragma unroll
+      for (int j = 0; j < 4; ++j) w |= (uint32_t)in[4 * t + j] << (8 * j);
+    }
+    uint32_t lo = 0, hi = 0;
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      const int nib = (int)((w >> (4 * j)) & 0xFu);
+      const uint32_t c = (uint32_t)(uint8_t)(int8_t)((nib ^ 8) - 8);
+      if (j < 4) lo |= c << (8 * j); else hi |= c << (8 * (j - 4));
+    }
+    if (vec) {
+      *reinterpret_cast<uint2*>(out + 8 * t) = make_uint2(lo, hi);
+    } else {
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        out[8 * t + j] = (int8_t)(lo >> (8 * j));
+        out[8 * t + 4 + j] = (int8_t)(hi >> (8 * j));
+      }
+    }
+  }
+}
+
+inline bool aligned(const void* ptr, unsigned bytes) {
+  return (reinterpret_cast<uintptr_t>(ptr) & (bytes - 1)) == 0;
+}
+
 }  // namespace
 
 // Launches one round trip over a (rows, n) float32 matrix on `stream` of
@@ -329,5 +537,85 @@ extern "C" int repro_unpack_dequantize_int4(const uint8_t* wire, float* out,
                                   (cudaStream_t)stream>>>(
       wire, reinterpret_cast<const float*>(wire + cb + pad), out, n, n_quad,
       cb, aligned16(out));
+  return (int)cudaGetLastError();
+}
+
+// Sums the k gathered wires of one region of n entries (row j at `wire +
+// j * stride` bytes; 4-byte aligned rows) weighted by the device mask `m`
+// (k,) into the float32 vector `out` on `stream` of `device`. Returns the
+// cudaError_t of the launch (0 on success).
+extern "C" int repro_unpack_dequantize_reduce(const uint8_t* wire,
+                                              long long stride,
+                                              const float* m, float* out,
+                                              int k, long long n,
+                                              int device, void* stream) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return (int)err;
+  if (n <= 0) return (int)cudaSuccess;
+  if (k <= 0 || !aligned(wire, 4) || (stride & 3))
+    return (int)cudaErrorMisalignedAddress;
+  int64_t cb;
+  int pad;
+  wire_sections(n, &cb, &pad);
+  const int64_t n_quad = (n + 3) / 4;
+  unpack_dequantize_reduce_kernel<<<grid_for(n_quad), THREADS, 0,
+                                    (cudaStream_t)stream>>>(
+      wire, stride, cb + pad, m, out, k, n, n_quad, cb, aligned16(out));
+  return (int)cudaGetLastError();
+}
+
+// quantize_int4 over `rows` blocks of 128 float32 entries: int8 codes
+// (rows, 128) and float32 scales (rows,). Returns the launch's error.
+extern "C" int repro_quantize_int4(const float* x, int8_t* codes,
+                                   float* scales, long long rows,
+                                   float inv_levels, float levels,
+                                   int device, void* stream) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return (int)err;
+  if (rows <= 0) return (int)cudaSuccess;
+  quantize_int4_kernel<<<grid_for(rows * 32), THREADS, 0,
+                         (cudaStream_t)stream>>>(
+      x, codes, scales, rows, aligned16(x) && aligned(codes, 4), inv_levels,
+      levels);
+  return (int)cudaGetLastError();
+}
+
+// dequantize_int4 of (rows, 128) int8 codes by the rows' float32 scales.
+extern "C" int repro_dequantize_int4(const int8_t* codes,
+                                     const float* scales, float* out,
+                                     long long rows, int device,
+                                     void* stream) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return (int)err;
+  if (rows <= 0) return (int)cudaSuccess;
+  const int64_t n_quad = rows * 32;
+  dequantize_int4_kernel<<<grid_for(n_quad), THREADS, 0,
+                           (cudaStream_t)stream>>>(
+      codes, scales, out, n_quad, aligned(codes, 4) && aligned16(out));
+  return (int)cudaGetLastError();
+}
+
+// pack_int4 of (rows, 128) int8 codes into (rows, 64) bytes.
+extern "C" int repro_pack_int4(const int8_t* codes, uint8_t* out,
+                               long long rows, int device, void* stream) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return (int)err;
+  if (rows <= 0) return (int)cudaSuccess;
+  const int64_t n_oct = rows * 16;
+  pack_int4_kernel<<<grid_for(n_oct), THREADS, 0, (cudaStream_t)stream>>>(
+      codes, out, n_oct, aligned(codes, 8) && aligned(out, 4));
+  return (int)cudaGetLastError();
+}
+
+// unpack_int4 of (rows, 64) bytes into (rows, 128) int8 codes.
+extern "C" int repro_unpack_int4(const uint8_t* in, int8_t* out,
+                                 long long rows, int device, void* stream) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return (int)err;
+  if (rows <= 0) return (int)cudaSuccess;
+  const int64_t n_quad = rows * 16;
+  unpack_int4_kernel<<<grid_for(n_quad), THREADS, 0,
+                       (cudaStream_t)stream>>>(
+      in, out, n_quad, aligned(in, 4) && aligned(out, 8));
   return (int)cudaGetLastError();
 }

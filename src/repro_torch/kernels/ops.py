@@ -32,6 +32,17 @@ from . import sign_prune as _prune
 MODES = ("auto", "kernel", "ref")
 
 
+def launch_counts() -> dict:
+    """Every kernel wrapper's launch counter in this process, by module:
+    {"fused_adamw": {...}, "flash_attention": {...}, "outer_nesterov": n,
+    "sign_prune": n, "quantize": {...}} (copies)."""
+    return {"fused_adamw": dict(_adamw.launches),
+            "flash_attention": dict(_flash.launches),
+            "outer_nesterov": _nesterov.launches,
+            "sign_prune": _prune.launches,
+            "quantize": dict(_quant.launches)}
+
+
 def _resolve(mode: str, like) -> bool:
     """-> use the kernel wrapper (True) or the plain version (False)."""
     if mode in ("pallas", "interpret"):
@@ -249,8 +260,40 @@ def transport_bytes(n_elems: int, dtype: str, *,
     return n_elems * TRANSPORT_BYTES_PER_ELEM[dtype]
 
 
+def pack_int4(codes, *, mode: str = "auto"):
+    """Nibble-pack flat (n,) int8 codes in [-7, 7] -> (ceil(n/2),) int8
+    wire bytes, as the JAX ``ops.pack_int4``: under ``auto`` or ``kernel``
+    the ``pack_int4`` kernel over the codes padded with zeros to whole
+    128-entry blocks (its plain version on CPU tensors), under ``ref`` the
+    plain version."""
+    n = codes.shape[0]
+    if not _resolve(mode, codes):
+        return ref.pack_int4(codes)
+    rows = -(-n // QUANT_BLOCK)
+    padded = codes.new_zeros((rows * QUANT_BLOCK,))
+    padded[:n] = codes
+    out = _quant.pack_int4(padded.view(rows, QUANT_BLOCK))
+    return out.reshape(-1)[:-(-n // 2)]
+
+
+def unpack_int4(packed, n: int, *, mode: str = "auto"):
+    """Inverse of ``pack_int4``: (ceil(n/2),) int8 bytes -> (n,) int8
+    codes with 4-bit two's complement sign extension, as the JAX
+    ``ops.unpack_int4`` (the ``unpack_int4`` kernel under ``auto`` or
+    ``kernel``, over the bytes padded with zeros to whole blocks)."""
+    if not _resolve(mode, packed):
+        return ref.unpack_int4(packed, n)
+    rows = -(-n // QUANT_BLOCK)
+    half = QUANT_BLOCK // 2
+    padded = packed.new_zeros((rows * half,))
+    padded[:packed.shape[0]] = packed
+    out = _quant.unpack_int4(padded.view(rows, half))
+    return out.reshape(-1)[:n]
+
+
 # ---------------------------------------------------------------------------
-# packed wire: one buffer per payload (the async transport's transfer)
+# packed wire: one buffer per payload (the async transport's transfer, the
+# sharded transport's gather)
 # ---------------------------------------------------------------------------
 
 def wire_dtype(dtype: str):
@@ -319,3 +362,23 @@ def wire_decode(wire, n_elems: int, dtype: str, *, mode: str = "auto",
         got = ref.wire_decode_int4(wire, n)
         return got if out is None else out.copy_(got)
     return _quant.unpack_dequantize_int4(wire, n, out)
+
+
+def wire_reduce(gathered, n_elems: int, dtype: str, m, denom, *,
+                mode: str = "auto"):
+    """Consume one region's GATHERED wire, as the JAX ``ops.wire_reduce``:
+    decode every replica's buffer and mask-reduce to the transported mean.
+    gathered: (k, W) wire buffers in replica order (a column slice of a
+    larger gathered buffer is read in place); m: (k,) float32 mask on the
+    wire's device; denom: the mask sum. int4 under ``auto`` or ``kernel``
+    makes ONE launch of the ``unpack_dequantize_reduce`` kernel (its plain
+    version on CPU tensors), then divides by ``denom``. Every other case
+    decodes each replica with ``wire_decode`` and sums them weighted by
+    ``m`` in the kernel's order (``ref.weighted_sum``, the JAX tensordot's
+    role), so the two agree bit for bit. Returns (n,) float32."""
+    n = int(n_elems)
+    if dtype == "int4" and _resolve(mode, gathered):
+        return _quant.unpack_dequantize_reduce(gathered, n, m) / denom
+    vals = torch.stack([wire_decode(w, n, dtype, mode=mode)
+                        for w in gathered])
+    return ref.weighted_sum(vals, m) / denom

@@ -264,6 +264,30 @@ def unpack_dequantize_int4(packed, scales):
     return dequantize_int4(codes, scales)
 
 
+def weighted_sum(vals, m):
+    """sum_j m[j] * vals[j] over the leading replica dim, in replica
+    order: acc = m[0]·vals[0], then acc + m[j]·vals[j], each product and
+    sum rounded to float32. The order every reduce over replicas of the
+    port takes (the kernel of ``unpack_dequantize_reduce`` too), so the
+    paths agree bit for bit. A zero ``m[j]`` still multiplies: a NaN or
+    an infinity in ``vals[j]`` poisons the sum, as in the JAX reduce."""
+    acc = m[0] * vals[0]
+    for j in range(1, vals.shape[0]):
+        acc = acc + m[j] * vals[j]
+    return acc
+
+
+def unpack_dequantize_reduce(packed, scales, m):
+    """The fused deferred consumer's maths: packed (k, R, 64) int8 wire
+    bytes, scales (k, R, 1) float32 and the mask m (k,) float32 -> the
+    (R, 128) float32 masked sum Σ_k m_k · codes_k · scale_k (the caller
+    divides by the mask sum), the JAX ``ref.unpack_dequantize_reduce``
+    summed in replica order (``weighted_sum``)."""
+    vals = torch.stack([unpack_dequantize_int4(p, s)
+                        for p, s in zip(packed, scales)])
+    return weighted_sum(vals, m.float())
+
+
 def wire_sections(n: int):
     """(code bytes, zero padding, blocks) of the packed int4 wire of ``n``
     entries: ceil(n/2) code bytes, padding to ``WIRE_ALIGN``, then one
@@ -305,6 +329,24 @@ def wire_decode_int4(wire, n: int):
     vals = unpack_dequantize_int4(
         codes.view(torch.int8).reshape(rows, QUANT_BLOCK // 2), scales)
     return vals.reshape(-1)[:n]
+
+
+def wire_reduce_int4(gathered, n: int, m):
+    """The k packed int4 wires of one region of ``n`` entries, gathered
+    as the rows of ``gathered`` (k, W) uint8, decoded and summed weighted
+    by ``m`` (k,): ``unpack_dequantize_reduce`` over the code bytes padded
+    with zero codes to whole blocks (as the JAX ``ops.wire_reduce`` pads
+    them). Returns (n,) float32."""
+    k = gathered.shape[0]
+    cb, pad, rows = wire_sections(n)
+    codes = torch.zeros((k, rows * QUANT_BLOCK // 2), dtype=torch.uint8,
+                        device=gathered.device)
+    codes[:, :cb] = gathered[:, :cb]
+    scales = gathered[:, cb + pad:cb + pad + 4 * rows].contiguous().view(
+        torch.float32).reshape(k, rows, 1)
+    red = unpack_dequantize_reduce(
+        codes.view(torch.int8).reshape(k, rows, QUANT_BLOCK // 2), scales, m)
+    return red.reshape(-1)[:n]
 
 
 # ---------------------------------------------------------------------------
@@ -420,3 +462,4 @@ def flash_bwd(q, k, v, o, lse, do, *, causal=True, window=0, scale=None,
                 q_offset=q_offset)
     return (flash_bwd_dq(q, k, v, lse, do, delta, **opts),
             *flash_bwd_dkv(q, k, v, lse, do, delta, **opts))
+

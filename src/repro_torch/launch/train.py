@@ -15,7 +15,11 @@ share of the outer-gradient entries kept. ``--stream-fragments P`` runs
 streaming DiLoCo on the simulated transport (``core/streaming.py``:
 ``--stream-tau``, ``--stream-alpha``, ``--outer-grad-dtype``,
 ``--error-feedback``); its records carry ``stream_peak_sync_bytes`` and
-``stream_round_sync_bytes``. ``--transport async`` runs barrier-free
+``stream_round_sync_bytes``. ``--transport sharded --pods N`` runs the
+same streaming rounds on N pod ranks that the trainer starts itself
+(``launch/mesh.py``, ``core/pod_collectives.py``), each fragment reduced
+by a real ``torch.distributed`` collective (the packed int4 or bf16 wire
+unless ``--no-pack-wire``). ``--transport async`` runs barrier-free
 DiLoCo (``core/async_diloco.py``) over ``--ticks`` wall-clock ticks of a
 fault scenario (``core/faults.py``: ``--speeds``, ``--link-latency``,
 ``--latency-jitter``, ``--drop-prob`` with any other fault flag,
@@ -36,6 +40,11 @@ Example:
       --stream-alpha 0.5 --outer-grad-dtype int4 --error-feedback \\
       --k 2 --H 4 --rounds 2 --batch 8 --seq 1024
   PYTHONPATH=src python -m repro_torch.launch.train --full \\
+      --arch diloco_150m --transport sharded --pods 2 \\
+      --stream-fragments 4 --stream-tau 2 --stream-alpha 0.5 \\
+      --outer-grad-dtype int4 --error-feedback \\
+      --k 2 --H 4 --rounds 2 --batch 8 --seq 1024
+  PYTHONPATH=src python -m repro_torch.launch.train --full \\
       --arch diloco_150m --transport async --speeds 1,2 \\
       --staleness-lambda 0.7 --outer-grad-dtype int4 --error-feedback \\
       --k 2 --H 4 --rounds 2 --batch 8 --seq 1024
@@ -49,16 +58,18 @@ import numpy as np
 import torch
 
 from ..configs.base import DiLoCoConfig, TrainConfig
-from ..core import async_diloco, diloco, faults, schedules, streaming
+from ..core import (async_diloco, diloco, faults, pod_collectives,
+                    schedules, streaming)
 from ..data.sharding import make_regime, shard_weights
+from ..kernels import ops as kops
 from ..models.registry import get_arch, get_smoke_arch
 from ..obs import metrics as obs_metrics
 from ..optim import adamw, precision
+from . import mesh
 
 # flag dest -> the ROADMAP.md port-queue item that ports it. A flag left
 # at its default passes; any other value exits with the item's name.
 UNPORTED = {
-    "pack_wire": "transports", "pods": "transports",
     "gossip_pairing": "transports", "gossip_mix": "transports",
     "crash_at_round": "fault scenarios", "crash_at_tick": "fault scenarios",
     "nan_bomb": "fault scenarios",
@@ -76,7 +87,7 @@ UNPORTED = {
     "trace": "telemetry",
 }
 # transports of the JAX trainer that are not ported
-UNPORTED_TRANSPORTS = ("sharded", "gossip")
+UNPORTED_TRANSPORTS = ("gossip",)
 
 
 def resolve_device(name: str) -> torch.device:
@@ -145,6 +156,21 @@ def scenario_of(args) -> faults.Scenario | None:
         seed=args.seed)
 
 
+def eval_rounds(rounds: int, eval_every: int, *, legacy_loop: bool,
+                rounds_per_call: int) -> list:
+    """Per round (0-based), whether the JAX trainer reports a val loss
+    for it: every round under ``--legacy-loop`` (one eval per dispatch,
+    ``repro/launch/train.py:554-566``); else, in chunks of
+    ``--rounds-per-call`` rounds (0: all rounds in one call), the rounds
+    g = t + 1 with g % eval_every == 0 and the last round of every chunk
+    (``repro/core/diloco.py:513-517``)."""
+    if legacy_loop:
+        return [True] * rounds
+    rpc = max(1, min(rounds_per_call or rounds, rounds))
+    return [(t + 1) % eval_every == 0 or (t + 1) % rpc == 0
+            or t == rounds - 1 for t in range(rounds)]
+
+
 def check_ported(args, parser=None):
     """Refuse what the port does not run (naming its ROADMAP.md item),
     then the JAX trainer's own validation of the flags it runs."""
@@ -164,16 +190,19 @@ def check_ported(args, parser=None):
     if args.guard_clip > 0 and not args.guard_outer:
         raise SystemExit("--guard-clip scales deltas inside the in-graph "
                          "guard; add --guard-outer")
-    if not args.stream_fragments and args.transport == "simulated":
+    if not args.stream_fragments and args.transport in ("simulated",
+                                                        "sharded"):
         # these knobs act only on the streaming outer path: running the
         # classic float32 outer step while the command line says "int4"
-        # would mislabel every reported number (the JAX driver's check;
-        # its sharded-transport knobs are refused above as not ported)
+        # would mislabel every reported number (the JAX driver's check)
         ignored = [flag for flag, on in (
             ("--outer-grad-dtype", args.outer_grad_dtype != "float32"),
             ("--stream-alpha", args.stream_alpha != 1.0),
             ("--stream-tau", args.stream_tau != 0),
-            ("--error-feedback", args.error_feedback)) if on]
+            ("--error-feedback", args.error_feedback),
+            ("--transport", args.transport != "simulated"),
+            ("--no-pack-wire", not args.pack_wire),
+            ("--pods", args.pods != 0)) if on]
         if ignored:
             raise SystemExit(
                 f"{', '.join(ignored)} require(s) --stream-fragments "
@@ -186,14 +215,25 @@ def check_ported(args, parser=None):
             ("--stream-fragments", args.stream_fragments != 0),
             ("--stream-alpha", args.stream_alpha != 1.0),
             ("--stream-tau", args.stream_tau != 0),
+            ("--no-pack-wire", not args.pack_wire),
+            ("--pods", args.pods != 0),
             ("--legacy-loop", args.legacy_loop),
             ("--cosine-stats", args.cosine_stats)) if on]
         if bad:
             raise SystemExit(f"{', '.join(bad)} do(es) not act on "
                              f"--transport {args.transport}")
+    if args.pods and args.transport != "sharded":
+        # --pods only shapes the sharded transport's pod group; accepting
+        # it on the simulated path would fake a multi-pod layout
+        raise SystemExit("--pods requires --transport sharded")
+    if args.transport == "sharded" and args.cosine_stats:
+        raise SystemExit("--cosine-stats (compute_cosine) needs cross-pod "
+                         "delta gathers; run it on --transport simulated")
 
 
-def build(args, device):
+def build(args, device, sampler=None):
+    """(arch, its config, DiLoCoConfig, TrainConfig, sampler) of ``args``;
+    the Markov sampler is built on ``device`` unless one is given."""
     arch = (get_smoke_arch if args.smoke else get_arch)(args.arch)
     cfg = arch.cfg
     dcfg = DiLoCoConfig(k=args.k, H=args.H, outer_opt=args.outer_opt,
@@ -213,6 +253,7 @@ def build(args, device):
                         outer_grad_dtype=args.outer_grad_dtype,
                         error_feedback=args.error_feedback,
                         transport=args.transport,
+                        pack_wire=args.pack_wire,
                         staleness_lambda=args.staleness_lambda)
     total = args.pretrain_steps + args.rounds * args.H
     tcfg = TrainConfig(inner_lr=args.inner_lr, warmup_steps=args.warmup,
@@ -221,21 +262,39 @@ def build(args, device):
                        kernel_mode=args.kernel_mode,
                        param_dtype=args.param_dtype,
                        master_dtype=args.master_dtype)
-    sampler = make_regime(args.regime, k=args.k,
-                          vocab_size=cfg.vocab_size, seed=args.seed,
-                          imbalanced=args.weighted, device=device)
+    if sampler is None:
+        sampler = make_regime(args.regime, k=args.k,
+                              vocab_size=cfg.vocab_size, seed=args.seed,
+                              imbalanced=args.weighted, device=device)
     return arch, cfg, dcfg, tcfg, sampler
 
 
-def run(args, recorder=None):
+def run(args, recorder=None, *, sampler=None):
     """Drive the configured run end-to-end. Returns the record history;
     ``recorder.manifest["timing"]`` holds the host seconds of the data
-    set-up and of each round's sampling, inner phase and outer step."""
+    set-up and of each round's sampling, inner phase and outer step.
+    ``sampler``: Markov tables already built for these arguments (the
+    same regime, k, vocabulary, seed and weighting), used instead of
+    building them again; on the device, or copied there.
+    ``--transport sharded`` starts its pod ranks itself (``run_sharded``)."""
     check_ported(args)
     device = resolve_device(args.device)
+    if args.transport == "sharded":
+        return run_sharded(args, device, recorder, sampler=sampler)
+    return _train(args, device, recorder,
+                  sampler=None if sampler is None else sampler.to(device))
+
+
+def _train(args, device, recorder=None, *, group=None, sampler=None,
+           data_setup_s=None, note=None):
+    """The run on ``device``; on the sharded transport, one pod rank's
+    part of it (``group``; the sampler and its set-up seconds come from
+    the parent). Only the lead process (rank 0) evaluates."""
     t_setup = time.perf_counter()
-    arch, cfg, dcfg, tcfg, sampler = build(args, device)
-    data_setup_s = time.perf_counter() - t_setup
+    arch, cfg, dcfg, tcfg, sampler = build(args, device, sampler=sampler)
+    if data_setup_s is None:
+        data_setup_s = time.perf_counter() - t_setup
+    lead = group is None or group.rank == 0
     loss_fn = lambda p, b: arch.loss(p, b)
     gen = torch.Generator(device=device)
     gen.manual_seed(args.seed)
@@ -247,6 +306,8 @@ def run(args, recorder=None):
     rec = recorder if recorder is not None else obs_metrics.RunRecorder(
         transport=args.transport, log_format=args.log_format)
     rec.manifest.setdefault("config", dict(vars(args)))
+    evaluate = (lambda p: float(ev(p, val))) if lead else \
+        (lambda p: float("nan"))
 
     # ---- pretraining phase (paper: 24k steps before DiLoCo) ----
     if args.pretrain_steps:
@@ -263,7 +324,7 @@ def run(args, recorder=None):
             work, opt, m = step(work, opt, batch, i)
             if (i + 1) % args.log_every == 0:
                 rec.pretrain(step=i + 1, loss=float(m["loss"]),
-                             val_loss=float(ev(work, val)))
+                             val_loss=evaluate(work))
         # hand the master-precision params to the DiLoCo phase (the
         # working copy is a rounded view under a mixed policy); the upcast
         # keeps the globals and outer state float32 under the pure-bf16
@@ -279,7 +340,7 @@ def run(args, recorder=None):
         return _run_async_phase(args, dcfg, tcfg, loss_fn, sampler, params,
                                 ev, val, rec)
     if dcfg.streaming_fragments:
-        state = streaming.init_state(params, dcfg)
+        state = streaming.init_state(params, dcfg, group=group)
         plan = streaming.sync_plan(params, dcfg)
         round_wire = sum(row["wire_bytes"] for row in plan)
     else:
@@ -289,6 +350,8 @@ def run(args, recorder=None):
                  "wire_bytes": float(round_wire),
                  "wire_dtype": dcfg.outer_grad_dtype}]
     rec.attach_wire_plan(plan)
+    if note:
+        rec.note(note)
     rng = np.random.default_rng(args.seed)
     drops = schedules.drop_masks(rng, args.drop_prob, args.k, args.rounds)
     acts = schedules.active_masks(
@@ -308,14 +371,18 @@ def run(args, recorder=None):
     rnd = diloco.make_round(loss_fn, sampler.sample_all_shards, dcfg, tcfg,
                             total_steps=tcfg.total_steps,
                             compute_cosine=args.cosine_stats,
-                            batch_size=args.batch, seq_len=args.seq)
+                            batch_size=args.batch, seq_len=args.seq,
+                            group=group)
     timing["rounds"] = []
+    evals = eval_rounds(args.rounds, args.eval_every,
+                        legacy_loop=args.legacy_loop,
+                        rounds_per_call=args.rounds_per_call)
 
     t0 = time.time()
     for t in range(args.rounds):
         state, m = rnd(state, gen, drops[t], acts[t], weights)
-        evaled = (t + 1) % args.eval_every == 0 or t == args.rounds - 1
-        val_loss = float(ev(state.global_params, val)) if evaled \
+        evaled = evals[t]
+        val_loss = evaluate(state.global_params) if evaled \
             else float("nan")
         extras = {kk: float(m[kk]) for kk in (
             "inner_loss_last", "drop_frac", "prune_density",
@@ -330,16 +397,85 @@ def run(args, recorder=None):
                   active=int(np.asarray(acts[t]).sum()),
                   dropped=int(args.k - np.asarray(drops[t]).sum()),
                   wire_bytes=round_wire, extras=extras, evaled=evaled)
-        timing["rounds"].append({kk: m[kk] for kk in
-                                 ("sample_s", "inner_s", "outer_s")})
+        timing["rounds"].append({kk: m[kk] for kk in (
+            "sample_s", "inner_s", "outer_s", "wait_s") if kk in m})
 
     floor = sampler.entropy_floor()
     rec.note(f"done in {time.time() - t0:.1f}s; "
              f"entropy floor = {floor:.4f} (ppl {np.exp(floor):.2f})")
+    if args.out and group is None:
+        rec.dump(args.out, args=vars(args))
+        rec.note(f"wrote {args.out}")
+    return rec.records
+
+
+def run_sharded(args, device, recorder=None, *, sampler=None):
+    """``--transport sharded``: lay ``--pods`` ranks over the visible
+    cards (or the CPU), build the Markov tables once, here, and hand them
+    to the ranks (shared memory on the CPU, CUDA IPC on a card; a rank on
+    another card copies them), then run ``sharded_rank`` on every rank
+    (``launch/mesh.spawn``). Rank 0 prints and records; its records are
+    returned and land in ``recorder``, whose ``manifest["ranks"]`` holds
+    every rank's device, kernel launches, collective traffic, timing and
+    peak device memory. A failure in any rank fails the run."""
+    n_dev = mesh.visible_devices(device.type)
+    pods = args.pods or mesh.default_pods(args.k, n_dev)
+    if pods < 2:
+        raise SystemExit(
+            "--transport sharded needs >= 2 pods, but no pod count >= 2 "
+            f"divides k={args.k} and tiles the {n_dev} visible device(s) "
+            "— a 1-pod group would run zero real cross-pod collectives")
+    pod_collectives.check_bands(args.k, pods)
+    layout = mesh.make_pod_layout(pods, device.type)
+    where = (f"{mesh.chips_of(layout)} card(s)" if device.type == "cuda"
+             else "the CPU")
+    note = (f"sharded transport: {pods} pods × {args.k // pods} "
+            f"replicas/pod on {where}"
+            + (", every rank on the one card" if device.type == "cuda"
+               and mesh.chips_of(layout) == 1 else "")
+            + f"; {mesh.describe(layout)}")
+    t0 = time.perf_counter()
+    first = torch.device(layout.devices[0])
+    sampler = build(args, first)[4] if sampler is None else sampler.to(first)
+    setup_s = time.perf_counter() - t0
+    results = mesh.spawn("repro_torch.launch.train:sharded_rank", layout,
+                         args, sampler, setup_s, note)
+    if device.type == "cuda":
+        torch.cuda.ipc_collect()       # the ranks' handles on the tables
+    # rank 0 printed the run's lines; this recorder takes its records
+    rec = recorder if recorder is not None else obs_metrics.RunRecorder(
+        transport=args.transport, log_format=args.log_format)
+    rec.records[:] = results[0]["records"]
+    rec.manifest.update(results[0]["manifest"])
+    rec.manifest["ranks"] = [{kk: r[kk] for kk in (
+        "rank", "device", "launches", "traffic", "timing",
+        "max_memory_allocated")} for r in results]
     if args.out:
         rec.dump(args.out, args=vars(args))
         rec.note(f"wrote {args.out}")
     return rec.records
+
+
+def sharded_rank(group, args, sampler, setup_s, note):
+    """One pod rank of ``run_sharded`` (``launch/mesh.spawn`` calls it in
+    the rank's process): the run's rounds on this rank's replica band.
+    Rank 0 prints; every rank returns its counts."""
+    dev = group.device
+    sampler = sampler.to(dev)
+    lead = group.rank == 0
+    rec = obs_metrics.RunRecorder(
+        transport=args.transport, log_format=args.log_format,
+        printer=print if lead else (lambda *a, **kw: None))
+    _train(args, dev, rec, group=group, sampler=sampler,
+           data_setup_s=setup_s, note=note)
+    return {"rank": group.rank, "device": str(dev),
+            "records": rec.records if lead else None,
+            "manifest": rec.manifest if lead else None,
+            "launches": kops.launch_counts(),
+            "traffic": dict(group.traffic),
+            "timing": rec.manifest["timing"],
+            "max_memory_allocated": torch.cuda.max_memory_allocated(dev)
+            if dev.type == "cuda" else None}
 
 
 def _run_async_phase(args, dcfg, tcfg, loss_fn, sampler, params, ev, val,
@@ -415,11 +551,13 @@ def make_parser():
                          "tensors, plain PyTorch on the CPU; kernel = CUDA "
                          "kernels or an error; ref = the legacy tree maps")
     ap.add_argument("--rounds-per-call", type=int, default=0,
-                    help="accepted for the JAX driver's command lines; the "
-                         "port runs one round per call")
+                    help="the JAX driver's scan chunk (0 = all rounds): "
+                         "the port runs one round per call and evaluates "
+                         "where the JAX driver does, on the --eval-every "
+                         "rounds and the last round of every chunk")
     ap.add_argument("--legacy-loop", action="store_true",
-                    help="accepted for the JAX driver's command lines; the "
-                         "port's loop is the per-round loop")
+                    help="the JAX driver's per-round loop: the port "
+                         "evaluates every round, as it does")
     ap.add_argument("--eval-every", type=int, default=1,
                     help="eval cadence in rounds (the last round is always "
                          "evaluated)")
@@ -457,7 +595,7 @@ def make_parser():
     ap.add_argument("--outer-grad-dtype", default="float32",
                     choices=["float32", "bfloat16", "int4"],
                     help="transport precision of outer gradients on the "
-                         "simulated wire")
+                         "wire")
     ap.add_argument("--error-feedback", action="store_true",
                     help="streaming: keep each replica's transport "
                          "quantization residual and add it to its next "
@@ -465,10 +603,12 @@ def make_parser():
     ap.add_argument("--transport", default="simulated",
                     choices=["simulated", "sharded", "async", "gossip"],
                     help="outer-sync backend: 'simulated' runs the rounds "
-                         "(classic or streaming); 'async' is the "
+                         "(classic or streaming); 'sharded' the streaming "
+                         "rounds on --pods ranks with real "
+                         "torch.distributed collectives; 'async' is the "
                          "barrier-free event loop (core/async_diloco.py) "
-                         "driven by the fault flags below; 'sharded' and "
-                         "'gossip' are not ported yet (see ROADMAP.md)")
+                         "driven by the fault flags below; 'gossip' is not "
+                         "ported yet (see ROADMAP.md)")
     ap.add_argument("--staleness-lambda", type=float, default=1.0,
                     help="async transport: an outer gradient tau outer "
                          "steps stale is applied at weight lambda^tau/k")
@@ -499,14 +639,21 @@ def make_parser():
                     help="fault scenario: worker W leaves at tick "
                          "LEAVE and rejoins at REJOIN (omit/0 = gone "
                          "for good); repeatable")
+    ap.add_argument("--pods", type=int, default=0,
+                    help="sharded transport: pod ranks, each holding k/pods "
+                         "replicas (0 = the largest count >= 2 dividing k "
+                         "that tiles the visible cards; on one card every "
+                         "rank shares it over gloo)")
+    ap.add_argument("--no-pack-wire", dest="pack_wire",
+                    action="store_false", default=True,
+                    help="sharded quantized transport: gather the "
+                         "fake-quantized float payloads instead of the "
+                         "packed int4 codes + scales (or bf16) wire")
     # ---- not ported: accepted so that they can be refused by name ----
     nyi = "not ported yet (see ROADMAP.md)"
     ap.add_argument("--gossip-pairing", default="butterfly", help=nyi)
     ap.add_argument("--gossip-mix", type=float, default=0.5, help=nyi)
     ap.add_argument("--restore", default="", help=nyi)
-    ap.add_argument("--no-pack-wire", dest="pack_wire",
-                    action="store_false", default=True, help=nyi)
-    ap.add_argument("--pods", type=int, default=0, help=nyi)
     ap.add_argument("--trace", default="", help=nyi)
     ap.add_argument("--checkpoint", default="", help=nyi)
     ap.add_argument("--checkpoint-dir", default="", help=nyi)

@@ -407,7 +407,7 @@ def test_async_cli_validation_matches_jax(flags, named):
 
 
 @pytest.mark.parametrize("flags,named", [
-    (["--transport", "sharded", "--stream-fragments", "2"], "transports"),
+    (["--gossip-pairing", "random"], "transports"),
     (["--transport", "gossip"], "transports"),
     (["--transport", "async", "--crash-at-tick", "2"], "fault scenarios"),
     (["--nan-bomb", "0:1"], "fault scenarios"),

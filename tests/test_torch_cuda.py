@@ -439,3 +439,97 @@ def test_cuda_async_run_matches_cpu(cuda):
     for path, share in check.async_mismatch_shares(got, want, H=3,
                                                    steps=steps).items():
         assert share <= check.TRANSPORT_FLIP_SHARE["int4"], path
+
+
+def _gathered_wires(k, n, kind, device):
+    """(k, W) uint8 int4 wires of k random payloads (the kind's special
+    entries in replica 1; "special": NaN, ±inf, zero and −0.0 blocks and
+    a NaN scale on the masked-out last replica) and a (k,) mask with a
+    zero, on ``device``."""
+    gen = torch.Generator().manual_seed(n * 10 + k)
+    xs = torch.randn(k, n, generator=gen) * 1e-2
+    if kind == "special":
+        xs[1, 5 % n] = float("nan")
+        xs[1, min(130, n - 1)] = float("inf")
+        xs[0, n // 3] = -float("inf")
+        xs[0, :min(n, 128)] = -0.0
+        xs[1, n // 2:] = 0.0
+    wires = torch.stack([tref.wire_encode_int4(x)[0] for x in xs])
+    if kind == "special":
+        cb, pad, _ = tref.wire_sections(n)
+        wires[k - 1, cb + pad:cb + pad + 4] = torch.tensor(
+            [float("nan")]).view(torch.uint8)
+    m = torch.rand(k, generator=gen) + 0.1
+    m[k - 1] = 0.0
+    return wires.to(device), m.to(device)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [1, 127, 129, 4099, (1 << 20) + 3])
+@pytest.mark.parametrize("k", [2, 4])
+@pytest.mark.parametrize("kind", ["normal", "special"])
+def test_cuda_unpack_dequantize_reduce_equal_plain(cuda, n, k, kind):
+    """``unpack_dequantize_reduce`` against its plain version on the same
+    card tensors, bit for bit (NaN at the same places), read in place
+    from a column slice of a wider gathered buffer; one launch each."""
+    wires, m = _gathered_wires(k, n, kind, cuda)
+    wide = torch.zeros((k, wires.shape[1] + 12), dtype=torch.uint8,
+                       device=cuda)
+    wide[:, 4:4 + wires.shape[1]] = wires
+    before = TQ.launches["unpack_dequantize_reduce"]
+    for g in (wires, wide[:, 4:4 + wires.shape[1]]):
+        got = TQ.unpack_dequantize_reduce(g, n, m)
+        torch.cuda.synchronize()
+        want = tref.wire_reduce_int4(wires, n, m)
+        assert _bits_equal(got, want)
+    assert TQ.launches["unpack_dequantize_reduce"] - before == 2
+    denom = torch.clamp(m.sum(), min=1e-9)
+    a = tops.wire_reduce(wires, n, "int4", m, denom, mode="kernel")
+    b = tops.wire_reduce(wires, n, "int4", m, denom, mode="ref")
+    torch.cuda.synchronize()
+    assert _bits_equal(a, b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rows", [1, 3, 1000, 4097])
+@pytest.mark.parametrize("kind", ["normal", "special"])
+@pytest.mark.parametrize("offset", [0, 1])
+def test_cuda_unfused_codecs_equal_plain(cuda, rows, kind, offset):
+    """``quantize_int4``, ``dequantize_int4``, ``pack_int4`` and
+    ``unpack_int4`` against their plain versions on the same card
+    tensors, bit for bit; offset 1 misaligns the operands (the scalar
+    paths); one launch each."""
+    gen = torch.Generator().manual_seed(rows)
+    flat = torch.randn(rows * 128 + offset, generator=gen) * 1e-2
+    x = flat[offset:].view(rows, 128)
+    if kind == "special":
+        x[0, 5] = float("nan")
+        x[-1, 7] = float("inf")
+        x[rows // 2, 9] = -float("inf")
+        if rows > 2:
+            x[1] = -0.0
+            x[2] = 0.0
+    xd = torch.empty(rows * 128 + offset, device=cuda)[offset:].view(
+        rows, 128)
+    xd.copy_(x)
+    before = dict(TQ.launches)
+    codes, scales = TQ.quantize_int4(xd)
+    wc, ws = tref.quantize_int4(xd)
+    deq = TQ.dequantize_int4(codes, scales)
+    cbuf = torch.empty(rows * 128 + offset, dtype=torch.int8,
+                       device=cuda)[offset:].view(rows, 128)
+    cbuf.copy_(wc)
+    packed = TQ.pack_int4(cbuf)
+    pbuf = torch.empty(rows * 64 + offset, dtype=torch.int8,
+                       device=cuda)[offset:].view(rows, 64)
+    pbuf.copy_(packed)
+    back = TQ.unpack_int4(pbuf)
+    torch.cuda.synchronize()
+    assert torch.equal(codes, wc)
+    assert torch.equal(scales.view(torch.int32), ws.view(torch.int32))
+    assert _bits_equal(deq, tref.dequantize_int4(wc, ws))
+    assert torch.equal(packed, tref.pack_int4(wc.reshape(-1)).view(rows, 64))
+    assert torch.equal(back, wc)
+    assert {n: TQ.launches[n] - before[n] for n in before} == {
+        **dict.fromkeys(before, 0), "quantize_int4": 1,
+        "dequantize_int4": 1, "pack_int4": 1, "unpack_int4": 1}

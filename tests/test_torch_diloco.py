@@ -196,15 +196,23 @@ def test_outer_wire_bytes_and_eval_match_jax():
 
 def test_unported_features_raise():
     """Features still unported raise and name their ROADMAP.md item;
-    pruning, both bf16 policies and streaming (ported) build a round; a
-    quantized outer gradient off the streaming round is refused; a state
-    layout that disagrees with the inner step's policy is refused."""
+    pruning, both bf16 policies and streaming (ported) build a round, the
+    sharded transport (ported) only on a pod group and on the streaming
+    round; a quantized outer gradient off the streaming round is refused;
+    a state layout that disagrees with the inner step's policy is
+    refused."""
     loss = lambda p, b: (0.0, {})
     for dcfg in (DiLoCoConfig(transport="gossip"),
-                 DiLoCoConfig(streaming_fragments=2, transport="sharded"),
                  DiLoCoConfig(sync_inner_state=True)):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             TD.make_round(loss, None, dcfg, TrainConfig())
+    with pytest.raises(ValueError, match="pod group"):
+        TD.make_round(loss, None, DiLoCoConfig(streaming_fragments=2,
+                                               transport="sharded"),
+                      TrainConfig())
+    with pytest.raises(ValueError, match="streaming-path feature"):
+        TD.make_round(loss, None, DiLoCoConfig(transport="sharded"),
+                      TrainConfig())
     with pytest.raises(NotImplementedError, match="streaming_fragments"):
         TD.make_round(loss, None, DiLoCoConfig(outer_grad_dtype="int4"),
                       TrainConfig())

@@ -63,6 +63,7 @@ from repro_torch.configs.base import DiLoCoConfig, ModelConfig  # noqa: E402
 from repro_torch.configs.base import TrainConfig  # noqa: E402
 from repro_torch.core import diloco as TD  # noqa: E402
 from repro_torch.core import fragments as TF  # noqa: E402
+from repro_torch.core import pod_collectives  # noqa: E402
 from repro_torch.core import streaming as TS  # noqa: E402
 from repro_torch.models import registry as treg  # noqa: E402
 
@@ -400,10 +401,18 @@ def test_streaming_round_refusals():
         TD.make_round(loss, None, DiLoCoConfig(streaming_fragments=2,
                                                outer_opt="adam"),
                       TrainConfig())
-    with pytest.raises(NotImplementedError, match="transports"):
-        TD.make_round(loss, None, DiLoCoConfig(streaming_fragments=2,
-                                               transport="sharded"),
-                      TrainConfig())
+    # the sharded transport needs this rank's pod group, pods dividing
+    # k, and no cosine statistics (the JAX round's refusals)
+    sharded = DiLoCoConfig(streaming_fragments=2, transport="sharded", k=4)
+    with pytest.raises(ValueError, match="pod group"):
+        TD.make_round(loss, None, sharded, TrainConfig())
+    pods3 = pod_collectives.PodGroup(0, 3, device="cpu", backend="gloo")
+    with pytest.raises(ValueError, match="cannot be banded over 3 pods"):
+        TD.make_round(loss, None, sharded, TrainConfig(), group=pods3)
+    pods2 = pod_collectives.PodGroup(0, 2, device="cpu", backend="gloo")
+    with pytest.raises(NotImplementedError, match="cross-pod"):
+        TD.make_round(loss, None, sharded, TrainConfig(), group=pods2,
+                      compute_cosine=True)
     with pytest.raises(ValueError, match="P <= H"):
         TD.make_round(loss, None, DiLoCoConfig(streaming_fragments=5, H=4),
                       TrainConfig())

@@ -77,9 +77,8 @@ def test_recorder_format_matches_jax():
 
 
 @pytest.mark.parametrize("flags", [
-    ["--transport", "gossip"], ["--transport", "sharded",
-                                "--stream-fragments", "2"],
-    ["--no-pack-wire", "--stream-fragments", "2"],
+    ["--transport", "gossip"], ["--gossip-pairing", "random"],
+    ["--gossip-mix", "0.3", "--stream-fragments", "2"],
     ["--checkpoint-dir", "ckpt"], ["--trace", "t.json"],
     ["--crash-at-round", "1"], ["--nan-bomb", "0:1"]])
 def test_unported_flags_exit_with_roadmap_item(flags):
@@ -89,16 +88,19 @@ def test_unported_flags_exit_with_roadmap_item(flags):
 
 
 @pytest.mark.parametrize("flags,named", [
-    (["--transport", "sharded"], "transports"),
-    (["--pods", "2", "--stream-fragments", "2"], "transports"),
+    pytest.param(["--transport", "sharded"], "--transport require",
+                 id="flags0-transports"),
+    pytest.param(["--pods", "2", "--stream-fragments", "2"],
+                 "--pods requires --transport sharded",
+                 id="flags1-transports"),
     (["--outer-grad-dtype", "int4"], "--outer-grad-dtype require"),
     (["--stream-alpha", "0.5", "--stream-tau", "1", "--error-feedback"],
      "--stream-alpha, --stream-tau, --error-feedback require"),
 ])
 def test_streaming_knobs_need_stream_fragments(flags, named):
-    """Without ``--stream-fragments`` the streaming knobs exit with the JAX
-    driver's message; the sharded transport exits naming its ROADMAP.md
-    item."""
+    """Without ``--stream-fragments`` the streaming knobs (the sharded
+    transport among them) exit with the JAX driver's message, and
+    ``--pods`` without the sharded transport with its own."""
     args = train.make_parser().parse_args(["--device", "cpu", *flags])
     with pytest.raises(SystemExit, match=named):
         train.run(args)
