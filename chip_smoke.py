@@ -30,11 +30,15 @@ Phases, each printing one JSON line; any failure exits non-zero:
               versions (o and lse within 2e-5, dq, dk, dv within 5e-4,
               as atol = rtol) at diloco_400m's layer shape (B 8, H = G =
               12, S 1024, d 128, causal) and at GQA, sliding-window,
-              bidirectional and non-block-aligned cases at d 64 and 128;
-              then each kernel's time at the layer shape beside its plain
+              bidirectional and non-block-aligned cases at d 64 and 128,
+              scores of std 8 (the forward held to its plain version run
+              in float64) and a ragged key range (Sq 333, Sk 1000); then
+              each kernel's time at the layer shape beside its plain
               version, one PyTorch library call (the yardstick, which the
-              port never calls: ``scaled_dot_product_attention``) and the
-              bound.
+              port never calls: ``scaled_dot_product_attention``, whose
+              device kernels are named from ``torch.profiler``) and the
+              bound (the forward's on the tensor cores as three TF32
+              products, ``bound_tc_ms``, beside its f32 CUDA-core one).
   7. train_400m  slice 2's path at full width: diloco_400m with
               ``use_pallas=True`` (the flash branch), k=2, H=4, 2 rounds,
               batch 8, seq 1024, through ``core.diloco.make_round`` and
@@ -204,18 +208,24 @@ K, H, ROUNDS, BATCH, SEQ = 2, 4, 2, 8, 1024
 N_LEAVES = 12
 FWD_TOL, BWD_TOL = 2e-5, 5e-4     # the JAX package's kernel tolerances
 # B, H, G, S, d, causal, window: the 400m layer, then GQA, window,
-# bidirectional and non-block-aligned cases at d 64 and 128
+# bidirectional and non-block-aligned cases at d 64 and 128; then, with S =
+# (Sq, Sk) and q, k scaled by a last element amp, the forward's hard cases:
+# scores of std 8 (amp = 8 ** 0.5) and a key range that is no multiple of
+# its 32-key tile with Sq != Sk (the queries start at Sk - Sq)
 FLASH_LAYER = (BATCH, 12, 12, SEQ, 128, True, 0)
 FLASH_CASES = [FLASH_LAYER] + [
     (b, h, g, s, d, c, w) for d in (64, 128)
     for b, h, g, s, c, w in ((2, 8, 2, 512, True, 0),
                              (1, 4, 4, 640, True, 256),
                              (2, 4, 2, 384, False, 0),
-                             (2, 4, 2, 1000, True, 0))]
+                             (2, 4, 2, 1000, True, 0))] + [
+    (2, 4, 2, 512, 128, True, 0, 8 ** 0.5),
+    (2, 4, 2, (333, 1000), 128, True, 0)]
 # H100 device-memory rates (NVIDIA data sheets), bytes/s, by card name
 BANDWIDTH = (("H100 PCIe", 2.0e12), ("H100 NVL", 3.9e12), ("H200", 4.8e12),
              ("H100", 3.35e12))
 PEAK_F32 = 67e12       # f32 FLOP/s outside the tensor cores, H100 SXM
+PEAK_TF32 = 495e12     # dense TF32 FLOP/s of the tensor cores, H100 SXM
 ADAMW_FLOPS, NESTEROV_FLOPS = 16, 6      # per element, kernels/csrc
 ADAMW_BYTES, NESTEROV_BYTES = 28, 20     # 4 reads + 3 writes; 3 + 2
 # bf16 p, g, m, v read and p, m, v written; bf16 g, m, v + f32 master read,
@@ -712,9 +722,13 @@ def phase_flash(torch, dev):
     err = dict.fromkeys(names, 0.0)
     gen = torch.Generator(device=dev).manual_seed(2)
 
-    def inputs(B, Hh, G, S, d):
-        return [torch.randn(shape, generator=gen, device=dev) for shape in
-                ((B, Hh, S, d), (B, G, S, d), (B, G, S, d), (B, Hh, S, d))]
+    def inputs(B, Hh, G, S, d, Sk=None, amp=1.0):
+        """q, k, v, dO; q and k times ``amp``."""
+        Sk = S if Sk is None else Sk
+        q, k, v, do = (torch.randn(shape, generator=gen, device=dev)
+                       for shape in ((B, Hh, S, d), (B, G, Sk, d),
+                                     (B, G, Sk, d), (B, Hh, S, d)))
+        return q * amp, k * amp, v, do
 
     def check(name, got, want, tol):
         """max |got - want|; fails unless within tol·(1 + |want|)."""
@@ -727,21 +741,36 @@ def phase_flash(torch, dev):
         return worst
 
     for case in FLASH_CASES:
-        B, Hh, G, S, d, causal, window = case
-        q, k, v, do = inputs(B, Hh, G, S, d)
+        B, Hh, G, S, d, causal, window, *amp = case
+        amp = amp[0] if amp else 1.0
+        Sq, Sk = S if isinstance(S, tuple) else (S, S)
+        q, k, v, do = inputs(B, Hh, G, Sq, d, Sk, amp)
         opts = dict(causal=causal, window=window)
         o_nolse = FK.flash_fwd(q, k, v, **opts)
         o, lse = FK.flash_fwd_lse(q, k, v, **opts)
         dq, dk, dv = FK.flash_bwd(q, k, v, o, lse, do, **opts)
         torch.cuda.synchronize()
-        # the plain backward from the kernels' own residuals (o, lse)
         want_o, want_lse = ref.flash_fwd_lse(q, k, v, **opts)
+        extra = {}
+        if amp != 1.0:
+            # scores of std 8: float32's own rounding puts the plain
+            # version ~1.5e-5 from its float64 result, which is the one
+            # the forward is held to
+            o64, lse64 = ref.flash_fwd_lse(q.double(), k.double(),
+                                           v.double(), **opts)
+            extra["plain_f32_vs_f64"] = max(
+                float((want_o - o64).abs().max()),
+                float((want_lse - lse64).abs().max()))
+            want_o, want_lse = o64.float(), lse64.float()
+            del o64, lse64
+        # the plain backward from the kernels' own residuals (o, lse)
         delta = (do * o).sum(-1)
         want_dq = ref.flash_bwd_dq(q, k, v, lse, do, delta, **opts)
         want_dk, want_dv = ref.flash_bwd_dkv(q, k, v, lse, do, delta,
                                              **opts)
-        say({"phase": "flash", "case": dict(zip(
-            ("B", "H", "G", "S", "d", "causal", "window"), case)),
+        say({"phase": "flash", "case": dict(
+                B=B, H=Hh, G=G, Sq=Sq, Sk=Sk, d=d, causal=causal,
+                window=window, amp=amp), **extra,
              "max_abs_err": {
                  "fwd": check("fwd", o_nolse, want_o, FWD_TOL),
                  "fwd_lse": max(check("fwd_lse", o, want_o, FWD_TOL),
@@ -785,6 +814,17 @@ def phase_flash(torch, dev):
         out, leaves, do, retain_graph=True))
     library = {"fwd": lib_fwd, "fwd_lse": lib_fwd, "bwd_dq": lib_bwd,
                "bwd_dkv": lib_bwd}
+    # which device kernels the yardstick runs, from one profiled call
+    from torch.profiler import ProfilerActivity, profile
+    from torch.autograd import DeviceType
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        sdpa(q, k, v, is_causal=causal)
+        torch.cuda.synchronize()
+    sdpa_kernels = sorted({e.key for e in prof.key_averages()
+                           if e.device_type == DeviceType.CUDA}) \
+        or "not measured"
+    say({"phase": "flash", "sdpa_fwd_device_kernels": sdpa_kernels})
     flash_leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
     both = {"kernels": lambda: torch.autograd.grad(FK.flash_attention(
                 *flash_leaves, **opts), flash_leaves, do),
@@ -795,7 +835,10 @@ def phase_flash(torch, dev):
     # the bound: visible (query, key) pairs of this run's mask; flops per
     # pair and head: 2·d for each product a kernel computes (forward s and
     # p·v; dq s, dp and ds·k; dk/dv s, dp, pᵀ·dO and dsᵀ·q); bytes: each
-    # input read once, each output written once
+    # input read once, each output written once. The backward runs its
+    # flops on f32 CUDA cores; the forward runs each as three TF32 products
+    # on the tensor cores (bound_tc_ms, its bound_ms; bound_f32_ms is what
+    # the same flops would take on the CUDA cores)
     pairs = int(ref.flash_visible(S, S, causal=causal, window=window,
                                   device=dev).sum()) * B * Hh
     nq, nkv, nrow = 4 * q.numel(), 4 * k.numel(), 4 * lse.numel()
@@ -811,7 +854,14 @@ def phase_flash(torch, dev):
     rows = []
     for n in names:
         flops, nbytes = work[n]
-        by_ops, by_bytes = flops / PEAK_F32, nbytes / bw
+        by_bytes = nbytes / bw
+        # printed in this phase's line only; the kernels line has bound_ms
+        bounds = {"bound_f32_ms": max(flops / PEAK_F32, by_bytes) * 1e3}
+        if n in ("fwd", "fwd_lse"):
+            bounds["bound_tc_ms"] = max(3 * flops / PEAK_TF32,
+                                        by_bytes) * 1e3
+        by_ops = (3 * flops / PEAK_TF32 if "bound_tc_ms" in bounds
+                  else flops / PEAK_F32)
         t = {"ms": time_ms(torch, kernel[n]),
              "plain_ms": time_ms(torch, plain[n])}
         rows.append({"name": f"flash_{n}", "route": "cuda",
@@ -825,7 +875,8 @@ def phase_flash(torch, dev):
         say({"phase": "flash", "kernel": n, "shape": list(FLASH_LAYER),
              "flops": flops, "bytes": nbytes, **t,
              "bound_ms": rows[-1]["bound_ms"],
-             "bound_by": rows[-1]["bound_by"], "library_ms": library[n],
+             "bound_by": rows[-1]["bound_by"], **bounds,
+             "library_ms": library[n],
              "kernel_TFLOPs": flops / t["ms"] / 1e9})
     say({"phase": "flash", "fwd_plus_bwd_ms": fwd_bwd_ms,
          "shape": list(FLASH_LAYER)})
@@ -1579,13 +1630,15 @@ def phase_wire_kernels(torch, dev):
                "replaces": f"src/repro/kernels/quantize.py:{line}",
                "launches": None, "max_abs_err": err[name], **t,
                "bound_ms": b_ms, "bound_by": b_by}
-        if nbytes_local is not None:
-            row["bound_ms_with_local"] = bound(nbytes_local, ops_per)[0]
+        # printed in this phase's line only; the kernels line has bound_ms
+        local_bound = {} if nbytes_local is None else {
+            "bound_ms_with_local": bound(nbytes_local, ops_per)[0]}
         rows.append(row)
         say({"phase": "wire_kernels", "kernel": name, "elements": n,
              "wire_bytes": wire_b, "bytes": nbytes,
              **{k: v for k, v in row.items() if k.endswith("ms")},
-             "bound_by": b_by, "kernel_GBps": nbytes / t["ms"] / 1e6})
+             **local_bound, "bound_by": b_by,
+             "kernel_GBps": nbytes / t["ms"] / 1e6})
     del X, wire, local, out
     torch.cuda.empty_cache()
     return rows

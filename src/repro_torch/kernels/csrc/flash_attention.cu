@@ -21,13 +21,43 @@
 // backward; tiles with no visible key are skipped. Rows past Sq and Sk
 // are masked, never padded by a copy.
 //
-// What bounds it: operations. A (64 x 64) tile pair does 2 * 64 * 64 * D
-// flops per product against 2 * 64 * D floats loaded, so at D = 128 the
-// forward does ~50 flops per byte of device memory it reads, far above
-// the card's f32 ridge (67 TFLOP/s over 3.35 TB/s = 20). The scores never
-// reach device memory in either pass. This first version keeps to
-// float32 CUDA cores (no tensor cores, so no TF32 rounding, as the rest of
-// the port) with a simple tiled design:
+// The forward, flash_fwd_kernel: what bounds it is operations. At
+// diloco_400m's layer (B 8, H = G = 12, S 1024, d 128, causal) it does 4 d
+// flops per visible (query, key) pair, 25.8 GFLOP, against ~201 MB of
+// device memory (0.060 ms at 3.35 TB/s). On f32 CUDA cores those flops
+// take 0.385 ms at 67 TFLOP/s; this kernel runs them on the tensor cores
+// as three TF32 products each, 77.4 GFLOP: 0.156 ms at the card's 495
+// TFLOP/s, ~0.25 ms at the ~311 TFLOP/s that mma.sync reaches on an H100.
+// The design:
+//   * split TF32: each f32 operand x = big + small, big = rna(x), small =
+//     rna(x - big) (rna: cvt.rna.tf32.f32's rounding), and each m16n8k8
+//     product is three MMAs, big.small + small.big + big.big, into f32:
+//     ~2^-22 of the product, where one TF32 pass (2^-11) misses the
+//     kernels' 2e-5 tolerance 30-400 times over;
+//   * the tensor cores round each MMA's sum toward zero, so S sums each
+//     16-wide slice of d from zero and adds the slices in f32, and P V
+//     sums each key tile from zero and folds it into O with the softmax
+//     correction in one fmaf (one long accumulator chain drifted to 2e-5
+//     from the plain version with scores of std 8;
+//     tests/test_torch_flash_tf32.py emulates both on the CPU);
+//   * 8 warps, each owning 16 rows of a 128-row query tile: the online
+//     softmax runs on the MMA accumulators with quad shuffles, and P goes
+//     from the S accumulators into the A fragments of P V in registers,
+//     never through shared memory;
+//   * K and V stream through a two-stage cp.async ring of 32-key tiles
+//     (zero-filled past Sk): tile j + 1 loads while tile j is computed;
+//     q is staged once per block, pre-scaled; rows are padded so that the
+//     16-byte fragment reads are free of bank conflicts;
+//   * the q-tiles with the most live key tiles are launched first.
+// On the card it issues its MMAs at ~40 % of the TF32 rate that mma.sync
+// reaches (tools/flash_probe.py; PERF.md). ptxas (-Xptxas -v, sm_90a),
+// d 128: 255 registers, 20 bytes of spill stores and loads; d 64: 189
+// registers, no spills;
+// 144,384 (d 128) or 78,848 (d 64) bytes of dynamic shared memory, one
+// block per SM.
+//
+// The backward kernels (dq, dk/dv) keep the first, simple tiled design on
+// f32 CUDA cores (no TF32 rounding):
 //   * 256 threads as a 16 x 16 grid; a thread owns 4 rows of the tile
 //     (ty * 4 + i) and, of a score tile, the 4 columns tx + 16 * j, of an
 //     output tile the D / 16 columns tx * 4 + 64 * jj + e;
@@ -35,21 +65,18 @@
 //     for the whole block; the other operand's tiles stream through shared
 //     memory, rows padded to D + 4 floats so that the 16-byte reads of a
 //     score product and of an output product are free of bank conflicts;
-//   * the online softmax runs in registers; row maxima and sums are
-//     shuffles across the 16 threads of a row group;
-//   * probabilities (or dS) go through shared memory to the second
-//     product of the tile.
+//   * p and dS go through shared memory to the second product of the
+//     tile.
 // dk and dv are summed over the GQA group inside dkv: a block owns one kv
 // tile and loops over the group's query heads, so no per-query-head
-// (B, H, Sk, D) intermediates are written. Later work: wgmma, TMA and a
-// pipeline of tiles.
+// (B, H, Sk, D) intermediates are written.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace {
 
-constexpr int BQ = 64;         // query rows per tile
-constexpr int BK = 64;         // key rows per tile
+constexpr int BQ = 64;         // query rows per backward tile
+constexpr int BK = 64;         // key rows per backward tile
 constexpr int THREADS = 256;   // 16 x 16
 constexpr int PLD = 64 + 4;    // row stride of a (64 x 64) score tile
 constexpr float NEG_INF = -1e30f;
@@ -82,10 +109,11 @@ __device__ __forceinline__ bool visible(const Attn& a, int qp, int kp) {
 
 // Tile-level skip of the Pallas kernels: a (query tile, key tile) pair is
 // live unless causality or the window masks all of it.
-__device__ __forceinline__ bool live(const Attn& a, int q0, int k0) {
-  const int q_first = a.q_off + q0, q_last = q_first + BQ - 1;
+__device__ __forceinline__ bool live(const Attn& a, int q0, int k0,
+                                     int bq = BQ, int bk = BK) {
+  const int q_first = a.q_off + q0, q_last = q_first + bq - 1;
   if (a.causal && k0 > q_last) return false;
-  if (a.window > 0 && k0 + BK - 1 <= q_first - a.window) return false;
+  if (a.window > 0 && k0 + bk - 1 <= q_first - a.window) return false;
   return true;
 }
 
@@ -174,20 +202,6 @@ __device__ __forceinline__ void mm_nn(float (&acc)[4][D / 16],
   }
 }
 
-// Reductions over the 16 threads of a row group (lanes 0-15 or 16-31).
-__device__ __forceinline__ float row_max(float x) {
-#pragma unroll
-  for (int o = 8; o > 0; o >>= 1)
-    x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, o));
-  return x;
-}
-
-__device__ __forceinline__ float row_sum(float x) {
-#pragma unroll
-  for (int o = 8; o > 0; o >>= 1) x += __shfl_xor_sync(0xffffffffu, x, o);
-  return x;
-}
-
 // Rows ra .. ra + 3 of acc (columns as in mm_nn) times `mul[i]` into the
 // (rows x D) tensor at `dst` (row stride ld), rows at or past n_rows
 // dropped.
@@ -213,84 +227,301 @@ __device__ __forceinline__ void store_rows(float* dst, long long ld,
 }
 
 // ---------------------------------------------------------------------------
-// forward: grid (ceil(Sq / 64), H, B)
+// forward: a 1-d grid of ceil(Sq / FBQ) * H * B blocks, q-tile major and
+// the last q-tile first (under the causal mask it has the most live key
+// tiles); 8 warps, each owning 16 query rows
 // ---------------------------------------------------------------------------
 
-template <int D, bool LSE>
-__global__ void __launch_bounds__(THREADS)
-flash_fwd_kernel(Attn a) {
-  extern __shared__ float4 smem4[];
-  float* Qs = reinterpret_cast<float*>(smem4);   // [BQ][D + 4], scaled
-  float* Ks = Qs + BQ * (D + 4);                  // [BK][D + 4]
-  float* Vs = Ks + BK * (D + 4);                  // [BK][D + 4]
-  float* Ps = Vs + BK * (D + 4);                  // [BQ][PLD]
-  const int ty = threadIdx.x / 16, tx = threadIdx.x % 16, ra = ty * 4;
-  const int q0 = blockIdx.x * BQ, h = blockIdx.y, b = blockIdx.z;
-  const int g = h / (a.H / a.G);
-  const float* k = a.k + b * a.sk.b + g * a.sk.h;
-  const float* v = a.v + b * a.sv.b + g * a.sv.h;
-  load_tile<D>(Qs, a.q + b * a.sq.b + h * a.sq.h, a.sq.s, q0, a.Sq,
-               a.scale);
+constexpr int FBQ = 128;       // query rows per forward block, 16 a warp
+constexpr int FBK = 32;        // key rows per pipeline stage
+constexpr int STAGES = 2;      // K/V tiles in the cp.async ring
+static_assert(FBQ / 16 * 32 == THREADS, "a warp per 16 query rows");
 
-  float m[4], l[4], acc[4][D / 16];
+// Row strides of the staged tiles (floats). q and K rows are read as
+// 16-byte (g, 4t) fragments, which a stride of 16 mod 32 keeps free of
+// bank conflicts; V rows as 16-byte (2t, 4g) fragments, which a stride of
+// 4 mod 32 keeps free of them.
+template <int D> constexpr int FWD_LDK = D + 16;
+template <int D> constexpr int FWD_LDV = D + 4;
+
+// cvt.rna.tf32.f32's rounding (to the nearest tf32, ties away from zero)
+// as the add and mask that the PTX conversion compiles to; the conversion
+// adds a select that keeps a NaN or infinity's low bits, which an MMA
+// ignores anyway (2 instructions instead of 4). An f32 register handed
+// straight to a tf32 MMA would be truncated instead.
+__device__ __forceinline__ uint32_t tf32_rna(float x) {
+  return (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
+}
+
+// x = big + small to about 2^-22 |x|: big its tf32 rounding, small the
+// tf32 rounding of the (exact) remainder.
+template <int N>
+struct Split {
+  uint32_t big[N], small[N];
+  __device__ __forceinline__ explicit Split(const float (&x)[N]) {
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    m[i] = NEG_INF;
-    l[i] = 0.f;
-#pragma unroll
-    for (int c = 0; c < D / 16; ++c) acc[i][c] = 0.f;
+    for (int i = 0; i < N; ++i) {
+      big[i] = tf32_rna(x[i]);
+      small[i] = tf32_rna(x[i] - __uint_as_float(big[i]));
+    }
   }
-  const int n_kv = (a.Sk + BK - 1) / BK;
-  for (int kb = 0; kb < n_kv; ++kb) {
-    const int k0 = kb * BK;
-    if (!live(a, q0, k0)) continue;
-    __syncthreads();      // the previous tile's readers are done
-    load_tile<D>(Ks, k, a.sk.s, k0, a.Sk, 1.f);
-    load_tile<D>(Vs, v, a.sv.s, k0, a.Sk, 1.f);
-    __syncthreads();
-    float s[4][4];
+};
+
+__device__ __forceinline__ void mma_tf32(float (&c)[4],
+                                         const uint32_t (&a)[4],
+                                         const uint32_t (&b)[2]) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+// c += a . b in split TF32: three MMAs into the f32 accumulator, the small
+// terms first (the small . small term, ~2^-22 of the product, is dropped).
+__device__ __forceinline__ void mma3(float (&c)[4], const Split<4>& a,
+                                     const Split<2>& b) {
+  mma_tf32(c, a.big, b.small);
+  mma_tf32(c, a.small, b.big);
+  mma_tf32(c, a.big, b.big);
+}
+
+__device__ __forceinline__ void cp_async16(float* dst, const float* src,
+                                           bool full) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;"
+               :: "r"(s), "l"(src), "r"(full ? 16 : 0) : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;" :: "n"(N) : "memory");
+}
+
+// Stage key rows k0 .. k0 + FBK - 1 of k and v; rows at or past Sk are
+// zero-filled (src-size 0), never read.
+template <int D>
+__device__ __forceinline__ void load_kv(float* Kt, float* Vt, const float* k,
+                                        const float* v, const Attn& a,
+                                        int k0) {
+  constexpr int V4 = D / 4;
+  static_assert(FBK * V4 % THREADS == 0, "whole rounds of 16-byte chunks");
 #pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) s[i][j] = 0.f;
-    mm_nt<D>(s, Qs, Ks, ra, tx);
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int qp = a.q_off + q0 + ra + i;
-      float mx = NEG_INF;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        if (!visible(a, qp, k0 + tx + 16 * j)) s[i][j] = NEG_INF;
-        mx = fmaxf(mx, s[i][j]);
+  for (int it = 0; it < FBK * V4 / THREADS; ++it) {
+    const int idx = threadIdx.x + it * THREADS;
+    const int r = idx / V4, c = (idx % V4) * 4;
+    const bool in = k0 + r < a.Sk;
+    const long long row = in ? k0 + r : 0;
+    cp_async16(Kt + r * FWD_LDK<D> + c, k + row * a.sk.s + c, in);
+    cp_async16(Vt + r * FWD_LDV<D> + c, v + row * a.sv.s + c, in);
+  }
+}
+
+// Fragment layout (PTX m16n8k8 tf32; lane = 4 g + t): A (row, col) at
+// (g | g + 8, t | t + 4), B (k, n) at (t | t + 4, g), C at (g | g + 8,
+// 2t | 2t + 1). The order of a dot product's terms is free, so each
+// product reads its k index through a permutation:
+//   S = (q scale) K^T, k = head dim: k-step pair kp covers d = 16 kp + 4t
+//   + {0, 1} (first step) and + {2, 3} (second), one float4 of q and of K
+//   per thread;
+//   O += P V, k = key: logical t, t + 4 is key 2t, 2t + 1 of the 8-key
+//   group, exactly the columns of the S accumulator, so P goes from the
+//   accumulator into the A fragment in registers; V's B fragment reads
+//   rows 2t and 2t + 1. Output n-tile 4 mm + r, column g holds d = 32 mm +
+//   4 g + r, so one float4 of a V row feeds four n-tiles and a thread's
+//   accumulators cover d = 32 mm + 8 t .. + 7 of its rows.
+template <int D, bool LSE>
+__global__ void __launch_bounds__(THREADS, 1)
+flash_fwd_kernel(Attn a) {
+  constexpr int LDK = FWD_LDK<D>, LDV = FWD_LDV<D>;
+  constexpr int NKP = D / 16, NJ = FBK / 8, NM = D / 32;
+  extern __shared__ float4 smem4[];
+  float* Qs = reinterpret_cast<float*>(smem4);   // [FBQ][LDK], scaled
+  float* Ks = Qs + FBQ * LDK;                     // [STAGES][FBK][LDK]
+  float* Vs = Ks + STAGES * FBK * LDK;            // [STAGES][FBK][LDV]
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int g = lane / 4, t = lane % 4;
+  const int n_q = (a.Sq + FBQ - 1) / FBQ, bh_n = gridDim.x / n_q;
+  const int bh = blockIdx.x % bh_n;
+  const int q0 = (n_q - 1 - (int)blockIdx.x / bh_n) * FBQ;
+  const int h = bh % a.H, b = bh / a.H;
+  const int gk = h / (a.H / a.G);
+  const float* k = a.k + b * a.sk.b + gk * a.sk.h;
+  const float* v = a.v + b * a.sv.b + gk * a.sv.h;
+  const int r0 = q0 + 16 * warp;                 // the warp's first row
+  const int qa = a.q_off + r0, qb = qa + 15;     // its absolute positions
+
+  // the q tile, scaled, rows at or past Sq zero (visible to every warp
+  // after the first barrier of the loop)
+  {
+    constexpr int V4 = D / 4;
+    const float* q = a.q + b * a.sq.b + h * a.sq.h;
+    for (int idx = threadIdx.x; idx < FBQ * V4; idx += THREADS) {
+      const int r = idx / V4, c = (idx % V4) * 4;
+      float4 x = make_float4(0.f, 0.f, 0.f, 0.f);
+      if (q0 + r < a.Sq) {
+        x = *reinterpret_cast<const float4*>(
+            q + (long long)(q0 + r) * a.sq.s + c);
+        x.x *= a.scale;
+        x.y *= a.scale;
+        x.z *= a.scale;
+        x.w *= a.scale;
       }
-      const float m_new = fmaxf(m[i], row_max(mx));
-      const float corr = expf(m[i] - m_new);
+      *reinterpret_cast<float4*>(Qs + r * LDK + c) = x;
+    }
+  }
+  const float* Qw = Qs + (16 * warp + g) * LDK + 4 * t;
+
+  // the live key tiles form one range
+  const int n_kv = (a.Sk + FBK - 1) / FBK;
+  int lo = 0, hi = n_kv - 1;
+  while (lo <= hi && !live(a, q0, lo * FBK, FBQ, FBK)) ++lo;
+  while (hi >= lo && !live(a, q0, hi * FBK, FBQ, FBK)) --hi;
+
+  float o[D / 8][4], m[2] = {NEG_INF, NEG_INF}, l[2] = {0.f, 0.f};
+#pragma unroll
+  for (int c = 0; c < D / 8; ++c)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) o[c][e] = 0.f;
+
+#pragma unroll
+  for (int i = 0; i < STAGES - 1; ++i) {
+    if (lo + i <= hi)
+      load_kv<D>(Ks + i * FBK * LDK, Vs + i * FBK * LDV, k, v, a,
+                 (lo + i) * FBK);
+    cp_async_commit();
+  }
+  for (int kb = lo; kb <= hi; ++kb) {
+    cp_async_wait<STAGES - 2>();
+    __syncthreads();     // tile kb landed; every warp is done with kb - 1
+    {
+      const int nb = kb + STAGES - 1, st = (nb - lo) % STAGES;
+      if (nb <= hi)
+        load_kv<D>(Ks + st * FBK * LDK, Vs + st * FBK * LDV, k, v, a,
+                   nb * FBK);
+      cp_async_commit();
+    }
+    const int k0 = kb * FBK;
+    // a warp whose rows are past Sq, or see none of this tile
+    if (r0 >= a.Sq || (a.causal && k0 > qb) ||
+        (a.window > 0 && k0 + FBK - 1 <= qa - a.window))
+      continue;
+    const float* Kt = Ks + ((kb - lo) % STAGES) * FBK * LDK + g * LDK + 4 * t;
+    const float* Vt = Vs + ((kb - lo) % STAGES) * FBK * LDV + 2 * t * LDV
+                      + 4 * g;
+
+    // S = (q scale) K^T
+    float s[NJ][4];
+#pragma unroll
+    for (int kp = 0; kp < NKP; ++kp) {
+      const float4 x0 = *reinterpret_cast<const float4*>(Qw + 16 * kp);
+      const float4 x1 = *reinterpret_cast<const float4*>(Qw + 8 * LDK
+                                                         + 16 * kp);
+      const Split<4> qa0({x0.x, x1.x, x0.y, x1.y});
+      const Split<4> qa1({x0.z, x1.z, x0.w, x1.w});
+#pragma unroll
+      for (int j = 0; j < NJ; ++j) {
+        const float4 y = *reinterpret_cast<const float4*>(
+            Kt + 8 * j * LDK + 16 * kp);
+        float c[4] = {0.f, 0.f, 0.f, 0.f};
+        mma3(c, qa0, Split<2>({y.x, y.y}));
+        mma3(c, qa1, Split<2>({y.z, y.w}));
+#pragma unroll
+        for (int e = 0; e < 4; ++e) s[j][e] = kp ? s[j][e] + c[e] : c[e];
+      }
+    }
+
+    // masks, only where this warp's rows see part of the tile
+    if (!(k0 + FBK <= a.Sk && (!a.causal || k0 + FBK - 1 <= qa) &&
+          (a.window <= 0 || k0 > qb - a.window))) {
+#pragma unroll
+      for (int j = 0; j < NJ; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          if (!visible(a, qa + g + 8 * (e >> 1), k0 + 8 * j + 2 * t + (e & 1)))
+            s[j][e] = NEG_INF;
+    }
+
+    // online softmax on the accumulators; a row's 4 threads share a quad.
+    // l stays a per-thread partial sum until the end.
+    float corr[2];
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      float mx = m[i];
+#pragma unroll
+      for (int j = 0; j < NJ; ++j)
+        mx = fmaxf(mx, fmaxf(s[j][2 * i], s[j][2 * i + 1]));
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+      corr[i] = expf(m[i] - mx);
+      m[i] = mx;
       float rs = 0.f;
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const float p = expf(s[i][j] - m_new);
-        rs += p;
-        Ps[(ra + i) * PLD + tx + 16 * j] = p;
-      }
-      l[i] = l[i] * corr + row_sum(rs);
-      m[i] = m_new;
+      for (int j = 0; j < NJ; ++j)
 #pragma unroll
-      for (int c = 0; c < D / 16; ++c) acc[i][c] *= corr;
+        for (int e = 2 * i; e < 2 * i + 2; ++e) {
+          s[j][e] = expf(s[j][e] - mx);
+          rs += s[j][e];
+        }
+      l[i] = l[i] * corr[i] + rs;
     }
-    __syncthreads();
-    mm_nn<D>(acc, Ps, Vs, ra, tx);
-  }
-  float inv[4];
+
+    // O = O corr + P V, P straight from the S accumulators: the tile's
+    // P V from zero in all D / 8 n-tiles at once (independent MMA chains),
+    // then folded into O
+    float c[D / 8][4];
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const float li = fmaxf(l[i], 1e-30f);
-    inv[i] = 1.f / li;
-    const int row = q0 + ra + i;
-    if (LSE && tx == 0 && row < a.Sq)
-      a.lse_out[((long long)b * a.H + h) * a.Sq + row] = m[i] + logf(li);
+    for (int n = 0; n < D / 8; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) c[n][e] = 0.f;
+#pragma unroll
+    for (int j = 0; j < NJ; ++j) {
+      const Split<4> pj({s[j][0], s[j][2], s[j][1], s[j][3]});
+#pragma unroll
+      for (int mm = 0; mm < NM; ++mm) {
+        const float4 v0 = *reinterpret_cast<const float4*>(
+            Vt + 8 * j * LDV + 32 * mm);
+        const float4 v1 = *reinterpret_cast<const float4*>(
+            Vt + (8 * j + 1) * LDV + 32 * mm);
+        mma3(c[4 * mm + 0], pj, Split<2>({v0.x, v1.x}));
+        mma3(c[4 * mm + 1], pj, Split<2>({v0.y, v1.y}));
+        mma3(c[4 * mm + 2], pj, Split<2>({v0.z, v1.z}));
+        mma3(c[4 * mm + 3], pj, Split<2>({v0.w, v1.w}));
+      }
+    }
+#pragma unroll
+    for (int n = 0; n < D / 8; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        o[n][e] = fmaf(o[n][e], corr[e >> 1], c[n][e]);
   }
-  store_rows<D>(a.out + b * a.sout.b + h * a.sout.h, a.sout.s, acc, inv,
-                q0, ra, tx, a.Sq);
+
+  float* out = a.out + b * a.sout.b + h * a.sout.h;
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    float li = l[i];
+    li += __shfl_xor_sync(0xffffffffu, li, 1);
+    li += __shfl_xor_sync(0xffffffffu, li, 2);
+    li = fmaxf(li, 1e-30f);
+    const float inv = 1.f / li;
+    const int row = r0 + g + 8 * i;
+    if (row >= a.Sq) continue;
+    if (LSE && t == 0)
+      a.lse_out[((long long)b * a.H + h) * a.Sq + row] = m[i] + logf(li);
+    float* dst = out + (long long)row * a.sout.s + 8 * t;
+#pragma unroll
+    for (int mm = 0; mm < NM; ++mm) {
+      *reinterpret_cast<float4*>(dst + 32 * mm) = make_float4(
+          o[4 * mm][2 * i] * inv, o[4 * mm + 1][2 * i] * inv,
+          o[4 * mm + 2][2 * i] * inv, o[4 * mm + 3][2 * i] * inv);
+      *reinterpret_cast<float4*>(dst + 32 * mm + 4) = make_float4(
+          o[4 * mm][2 * i + 1] * inv, o[4 * mm + 1][2 * i + 1] * inv,
+          o[4 * mm + 2][2 * i + 1] * inv, o[4 * mm + 3][2 * i + 1] * inv);
+    }
+  }
 }
 
 // ---------------------------------------------------------------------------
@@ -445,8 +676,10 @@ constexpr size_t smem_bytes(Kind kind) {
   return sizeof(float) *
          (kind == BWD_DKV ? 4 * 64 * (D + 4) + 2 * 64 * PLD + 2 * BQ
           : kind == BWD_DQ ? 4 * 64 * (D + 4) + 64 * PLD
-                           : 3 * 64 * (D + 4) + 64 * PLD);
+                           : (FBQ + STAGES * FBK) * FWD_LDK<D>
+                                 + STAGES * FBK * FWD_LDV<D>);
 }
+static_assert(smem_bytes<128>(FWD) <= 232448, "forward stages overflow");
 
 template <typename K>
 cudaError_t launch(K kernel, dim3 grid, size_t smem, cudaStream_t stream,
@@ -461,12 +694,13 @@ cudaError_t launch(K kernel, dim3 grid, size_t smem, cudaStream_t stream,
 template <int D>
 cudaError_t run(Kind kind, const Attn& a, int B, cudaStream_t stream) {
   const dim3 rows((a.Sq + BQ - 1) / BQ, a.H, B);
+  const dim3 fwd(((a.Sq + FBQ - 1) / FBQ) * a.H * B);
   const size_t smem = smem_bytes<D>(kind);
   switch (kind) {
     case FWD:
-      return launch(flash_fwd_kernel<D, false>, rows, smem, stream, a);
+      return launch(flash_fwd_kernel<D, false>, fwd, smem, stream, a);
     case FWD_LSE:
-      return launch(flash_fwd_kernel<D, true>, rows, smem, stream, a);
+      return launch(flash_fwd_kernel<D, true>, fwd, smem, stream, a);
     case BWD_DQ:
       return launch(flash_dq_kernel<D>, rows, smem, stream, a);
     case BWD_DKV:

@@ -388,29 +388,32 @@ def flash_visible(Sq, Sk, *, causal, window, q_offset=0, device=None):
     return ok
 
 
-def _per_query_head(t, rep):
+def _per_query_head(t, rep, dtype=torch.float32):
     """(B, G, S, d) -> (B, G * rep, S, d): query head h reads kv head
     h // rep."""
-    return t.repeat_interleave(rep, dim=1).float()
+    return t.repeat_interleave(rep, dim=1).to(dtype)
 
 
 def flash_fwd_lse(q, k, v, *, causal=True, window=0, scale=None,
                   q_offset=0):
     """The forward kernels' maths in the kernel layout: q (B, H, Sq, d),
     k/v (B, G, Sk, d). Returns o (B, H, Sq, d) as q.dtype and the per-row
-    logsumexp lse = m + log(max(l, 1e-30)) (B, H, Sq) float32."""
+    logsumexp lse = m + log(max(l, 1e-30)) (B, H, Sq) float32. Float64
+    inputs are computed in float64 (lse too): the kernels' tests take it
+    as the truth where float32's own rounding nears their tolerance."""
     B, H, Sq, d = q.shape
     G, Sk = k.shape[1], k.shape[2]
     scale = d ** -0.5 if scale is None else scale
+    dt = torch.float64 if q.dtype == torch.float64 else torch.float32
     ok = flash_visible(Sq, Sk, causal=causal, window=window,
                        q_offset=q_offset, device=q.device)
-    s = (q.float() * f32(scale)) @ _per_query_head(k, H // G).transpose(
+    s = (q.to(dt) * f32(scale)) @ _per_query_head(k, H // G, dt).transpose(
         -1, -2)
     s = torch.where(ok, s, NEG_INF)
     m = s.amax(-1, keepdim=True)
     p = torch.exp(s - m)
     l = torch.clamp(p.sum(-1, keepdim=True), min=1e-30)
-    o = (p @ _per_query_head(v, H // G)) / l
+    o = (p @ _per_query_head(v, H // G, dt)) / l
     return o.to(q.dtype), (m + torch.log(l))[..., 0]
 
 

@@ -166,28 +166,56 @@ def test_cuda_round_matches_cpu(cuda):
 
 
 # B, H, G, S, d, causal, window: the JAX ATTN_CASES kinds (GQA, sliding
-# window, bidirectional, not block-aligned), each at d 64 and 128
+# window, bidirectional, not block-aligned), each at d 64 and 128; then,
+# with S = (Sq, Sk) and q, k scaled by ``amp``, the forward kernel's hard
+# cases: large logits (scores of std 8) and a ragged key range (Sk not a
+# multiple of the forward's 32-key pipeline tile, Sq != Sk, so the queries
+# start at Sk - Sq)
 FLASH_CASES = [(b, h, g, s, d, c, w) for d in (64, 128)
                for b, h, g, s, c, w in ((2, 4, 2, 128, True, 0),
                                         (1, 2, 1, 192, True, 64),
                                         (1, 4, 2, 256, False, 0),
-                                        (2, 8, 2, 96, True, 0))]
+                                        (2, 8, 2, 96, True, 0))] + [
+    (2, 4, 2, 256, 128, True, 0, 8 ** 0.5),
+    (1, 4, 2, (100, 357), 64, True, 0),
+    (1, 4, 2, (200, 1000), 128, True, 0)]
 
 
-def _flash_inputs(dev, B, H, G, S, d, seed):
+def _flash_case(case):
+    """(B, H, G, Sq, Sk, d, causal, window, amp) of a FLASH_CASES entry."""
+    B, H, G, S, d, causal, window, *amp = case
+    Sq, Sk = S if isinstance(S, tuple) else (S, S)
+    return B, H, G, Sq, Sk, d, causal, window, amp[0] if amp else 1.0
+
+
+def _flash_id(case):
+    B, H, G, Sq, Sk, d, causal, window, amp = _flash_case(case)
+    S = Sq if Sq == Sk else f"{Sq}x{Sk}"
+    tail = "" if amp == 1.0 else f"-amp{amp:.3g}"
+    return f"{B}-{H}-{G}-{S}-{d}-{causal}-{window}{tail}"
+
+
+def _flash_inputs(dev, B, H, G, S, d, seed, Sk=None, amp=1.0):
+    """q, k, v, dO: q and k times ``amp`` (scores of std ``amp``**2)."""
+    Sk = S if Sk is None else Sk
     gen = torch.Generator(device=dev).manual_seed(seed)
-    shapes = ((B, H, S, d), (B, G, S, d), (B, G, S, d), (B, H, S, d))
-    return [torch.randn(s, generator=gen, device=dev) for s in shapes]
+    shapes = ((B, H, S, d), (B, G, Sk, d), (B, G, Sk, d), (B, H, S, d))
+    q, k, v, do = (torch.randn(s, generator=gen, device=dev) for s in shapes)
+    return q * amp, k * amp, v, do
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("B,H,G,S,d,causal,window", FLASH_CASES)
-def test_cuda_flash_kernels_match_plain(cuda, B, H, G, S, d, causal,
-                                        window):
+@pytest.mark.parametrize("case", FLASH_CASES, ids=_flash_id)
+def test_cuda_flash_kernels_match_plain(cuda, case):
     """Each of the four kernels against its plain version. Tolerances
     atol = rtol = 2e-5 forward and 5e-4 backward, the JAX package's for
-    its kernels: sums run in another order (tiles of 64, FMA)."""
-    q, k, v, do = _flash_inputs(cuda, B, H, G, S, d, S + d)
+    its kernels: sums run in another order (tiles, FMA, the forward's
+    split-TF32 products). With large scores the forward's plain version
+    runs in float64: float32's own rounding of scores of std 8 puts it
+    ~1.5e-5 from that (tests/test_torch_flash_tf32.py)."""
+    B, H, G, S, Sk, d, causal, window, amp = _flash_case(case)
+    seed = S + d + (0 if Sk == S else Sk)
+    q, k, v, do = _flash_inputs(cuda, B, H, G, S, d, seed, Sk=Sk, amp=amp)
     opts = dict(causal=causal, window=window)
     before = dict(TFK.launches)
     o_plain = TFK.flash_fwd(q, k, v, **opts)
@@ -196,7 +224,9 @@ def test_cuda_flash_kernels_match_plain(cuda, B, H, G, S, d, causal,
     torch.cuda.synchronize()
     assert {n: TFK.launches[n] - before[n] for n in before} == {
         "fwd": 1, "fwd_lse": 1, "bwd_dq": 1, "bwd_dkv": 1}
-    want_o, want_lse = tref.flash_fwd_lse(q, k, v, **opts)
+    want_o, want_lse = tref.flash_fwd_lse(
+        *(t.double() if amp != 1.0 else t for t in (q, k, v)), **opts)
+    want_o, want_lse = want_o.float(), want_lse.float()
     want_grads = tref.flash_bwd(q, k, v, o, lse, do, **opts)
     close = lambda a, b, tol: torch.testing.assert_close(
         a, b, rtol=tol, atol=tol)
