@@ -32,13 +32,16 @@ Phases, each printing one JSON line; any failure exits non-zero:
               12, S 1024, d 128, causal) and at GQA, sliding-window,
               bidirectional and non-block-aligned cases at d 64 and 128,
               scores of std 8 (the forward held to its plain version run
-              in float64) and a ragged key range (Sq 333, Sk 1000); then
-              each kernel's time at the layer shape beside its plain
-              version, one PyTorch library call (the yardstick, which the
-              port never calls: ``scaled_dot_product_attention``, whose
-              device kernels are named from ``torch.profiler``) and the
-              bound (the forward's on the tensor cores as three TF32
-              products, ``bound_tc_ms``, beside its f32 CUDA-core one).
+              in float64), ranges that are multiples of none of the
+              kernels' tiles (Sq 333, Sk 1000; Sq 461, Sk 777) and GQA
+              with 4 query heads a kv head under a window; then each
+              kernel's time at the layer shape beside its plain version,
+              one PyTorch library call (the yardstick, which the port
+              never calls: ``scaled_dot_product_attention``, whose device
+              kernels are named from ``torch.profiler``; its backward
+              against dq + dk/dv) and the bound (on the tensor cores as
+              three TF32 products per f32 product, beside the f32
+              CUDA-core one, ``bound_f32_ms``).
   7. train_400m  slice 2's path at full width: diloco_400m with
               ``use_pallas=True`` (the flash branch), k=2, H=4, 2 rounds,
               batch 8, seq 1024, through ``core.diloco.make_round`` and
@@ -209,9 +212,12 @@ N_LEAVES = 12
 FWD_TOL, BWD_TOL = 2e-5, 5e-4     # the JAX package's kernel tolerances
 # B, H, G, S, d, causal, window: the 400m layer, then GQA, window,
 # bidirectional and non-block-aligned cases at d 64 and 128; then, with S =
-# (Sq, Sk) and q, k scaled by a last element amp, the forward's hard cases:
-# scores of std 8 (amp = 8 ** 0.5) and a key range that is no multiple of
-# its 32-key tile with Sq != Sk (the queries start at Sk - Sq)
+# (Sq, Sk) and q, k scaled by a last element amp, the kernels' hard cases:
+# scores of std 8 (amp = 8 ** 0.5); ranges that are multiples of none of
+# the tiles (128 query and 32 key rows in the forward and dq, 64 key and
+# 32 query rows in dk/dv) with Sq != Sk, causal (the queries start at Sk -
+# Sq) and bidirectional; GQA with 4 query heads a kv head at d 128 under a
+# window that crosses the tile edges
 FLASH_LAYER = (BATCH, 12, 12, SEQ, 128, True, 0)
 FLASH_CASES = [FLASH_LAYER] + [
     (b, h, g, s, d, c, w) for d in (64, 128)
@@ -220,7 +226,9 @@ FLASH_CASES = [FLASH_LAYER] + [
                              (2, 4, 2, 384, False, 0),
                              (2, 4, 2, 1000, True, 0))] + [
     (2, 4, 2, 512, 128, True, 0, 8 ** 0.5),
-    (2, 4, 2, (333, 1000), 128, True, 0)]
+    (2, 4, 2, (333, 1000), 128, True, 0),
+    (1, 4, 2, (461, 777), 64, False, 0),
+    (2, 8, 2, 700, 128, True, 200)]
 # H100 device-memory rates (NVIDIA data sheets), bytes/s, by card name
 BANDWIDTH = (("H100 PCIe", 2.0e12), ("H100 NVL", 3.9e12), ("H200", 4.8e12),
              ("H100", 3.35e12))
@@ -835,10 +843,9 @@ def phase_flash(torch, dev):
     # the bound: visible (query, key) pairs of this run's mask; flops per
     # pair and head: 2·d for each product a kernel computes (forward s and
     # p·v; dq s, dp and ds·k; dk/dv s, dp, pᵀ·dO and dsᵀ·q); bytes: each
-    # input read once, each output written once. The backward runs its
-    # flops on f32 CUDA cores; the forward runs each as three TF32 products
-    # on the tensor cores (bound_tc_ms, its bound_ms; bound_f32_ms is what
-    # the same flops would take on the CUDA cores)
+    # input read once, each output written once. Every kernel runs each
+    # product as three TF32 products on the tensor cores (bound_ms;
+    # bound_f32_ms is what the same flops would take on the f32 CUDA cores)
     pairs = int(ref.flash_visible(S, S, causal=causal, window=window,
                                   device=dev).sum()) * B * Hh
     nq, nkv, nrow = 4 * q.numel(), 4 * k.numel(), 4 * lse.numel()
@@ -856,12 +863,8 @@ def phase_flash(torch, dev):
         flops, nbytes = work[n]
         by_bytes = nbytes / bw
         # printed in this phase's line only; the kernels line has bound_ms
+        by_ops = 3 * flops / PEAK_TF32
         bounds = {"bound_f32_ms": max(flops / PEAK_F32, by_bytes) * 1e3}
-        if n in ("fwd", "fwd_lse"):
-            bounds["bound_tc_ms"] = max(3 * flops / PEAK_TF32,
-                                        by_bytes) * 1e3
-        by_ops = (3 * flops / PEAK_TF32 if "bound_tc_ms" in bounds
-                  else flops / PEAK_F32)
         t = {"ms": time_ms(torch, kernel[n]),
              "plain_ms": time_ms(torch, plain[n])}
         rows.append({"name": f"flash_{n}", "route": "cuda",
@@ -878,7 +881,9 @@ def phase_flash(torch, dev):
              "bound_by": rows[-1]["bound_by"], **bounds,
              "library_ms": library[n],
              "kernel_TFLOPs": flops / t["ms"] / 1e9})
+    pair = sum(r["ms"] for r in rows if r["name"].startswith("flash_bwd"))
     say({"phase": "flash", "fwd_plus_bwd_ms": fwd_bwd_ms,
+         "bwd_dq_plus_dkv_ms": pair, "library_bwd_ms": lib_bwd,
          "shape": list(FLASH_LAYER)})
     del q, k, v, do, o, lse, delta, dq, dk, dv, leaves, out, flash_leaves
     torch.cuda.empty_cache()

@@ -8,7 +8,8 @@ csrc/fused_adamw.cu     inner AdamW step, one pass, f32 or bf16 storage,
 csrc/outer_nesterov.cu  outer Nesterov step, one pass (replaces the
                         Pallas kernels/outer_nesterov.py:outer_nesterov)
 csrc/flash_attention.cu flash attention forward (with and without the
-                        logsumexp), dq and dk/dv (replaces the Pallas
+                        logsumexp), dq and dk/dv, all on the tensor
+                        cores in split TF32 (replaces the Pallas
                         kernels/flash_attention.py)
 csrc/sign_prune.cu      per-row sign election and bisection threshold of
                         outer gradients (replaces the Pallas

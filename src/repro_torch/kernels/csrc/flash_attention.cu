@@ -56,29 +56,53 @@
 // 144,384 (d 128) or 78,848 (d 64) bytes of dynamic shared memory, one
 // block per SM.
 //
-// The backward kernels (dq, dk/dv) keep the first, simple tiled design on
-// f32 CUDA cores (no TF32 rounding):
-//   * 256 threads as a 16 x 16 grid; a thread owns 4 rows of the tile
-//     (ty * 4 + i) and, of a score tile, the 4 columns tx + 16 * j, of an
-//     output tile the D / 16 columns tx * 4 + 64 * jj + e;
-//   * the q tile (or, in dk/dv, the k and v tiles) stays in shared memory
-//     for the whole block; the other operand's tiles stream through shared
-//     memory, rows padded to D + 4 floats so that the 16-byte reads of a
-//     score product and of an output product are free of bank conflicts;
-//   * p and dS go through shared memory to the second product of the
-//     tile.
-// dk and dv are summed over the GQA group inside dkv: a block owns one kv
-// tile and loops over the group's query heads, so no per-query-head
-// (B, H, Sk, D) intermediates are written.
+// The backward kernels, flash_dq_kernel and flash_dkv_kernel: bound by
+// operations too. At the 400m layer dq does 6 d flops per visible pair
+// (S, dP, dS K: 38.7 GFLOP) and dk/dv 8 d (S^T, dP^T, P^T dO, dS^T q:
+// 51.6 GFLOP), against ~0.25 and ~0.30 GB of device memory (0.075, 0.090
+// ms at 3.35 TB/s); as three TF32 products each they take 0.234 and
+// 0.313 ms at 495 TFLOP/s. They keep the JAX package's split (dq over key
+// tiles; dk/dv over the group's query heads and query tiles, the GQA sum
+// inside the block; no atomics, so both are deterministic) and take the
+// forward's pieces:
+//   * all five products in split TF32, three mma.sync m16n8k8 each; small
+//     is x - big as it is (SplitT: truncated by the MMA, where the
+//     forward's Split rounds it), which the backward's 5e-4 tolerance
+//     leaves room for and which saves an add and a mask per operand;
+//   * the score products (S, dP, S^T, dP^T) sum each 16-wide slice of d
+//     from a fresh accumulator and add the slices in f32, and each query
+//     or key tile's dS K, P^T dO and dS^T q is summed from zero and added
+//     to the running f32 sum once;
+//   * dq has the forward's shape: 8 warps x 16 query rows of a 128-row
+//     block, K and V streaming through a two-stage cp.async ring of
+//     32-key tiles; P and dS = P (dP - delta) are made on the S and dP
+//     accumulators and go into the A fragments of dS K in registers;
+//   * dk/dv: a block of 64 keys and two warpgroups over the same keys,
+//     16 a warp, q, dO, lse and delta streaming through a two-stage ring
+//     of 32-query tiles (q scaled in place once landed). With key rows as
+//     the MMA's M dimension, S^T and dP^T come out in the accumulator
+//     layout that the A fragments of P^T dO and dS^T q read. Warpgroup 0
+//     computes S^T, P^T and dV; warpgroup 1 computes dP^T and, with P^T
+//     handed over through shared memory behind a named barrier, dS^T and
+//     dK. Each warp holds one 16 x D accumulator (64 registers at d 128)
+//     and issues two of the four products; no product is computed twice;
+//   * the staged tiles are unpadded and swizzled (swz): K (dq), q and dO
+//     (dk/dv) are read both as (g, 4t) and as (2t, 4g) fragments, which
+//     no row padding keeps free of bank conflicts at once;
+//   * p = __expf(s - lse): the tolerance leaves room for its few ulp,
+//     and expf cost dk/dv 4 % (tools/flash_ab.py);
+//   * the heaviest tiles first: the last q-tiles for dq, the first
+//     kv-tiles for dk/dv; tiles that the mask hides are skipped.
+// On the card the pair issues its MMAs at ~42 % of the TF32 rate that
+// mma.sync reaches, as the forward does (PERF.md). ptxas (-Xptxas -v, sm_90a), no spills: dq 239 registers
+// (d 128) or 187 (d 64), dk/dv 252 or 176; dynamic shared memory: dq
+// 196,608 or 98,304 bytes, dk/dv 139,776 or 74,240; one block per SM.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace {
 
-constexpr int BQ = 64;         // query rows per backward tile
-constexpr int BK = 64;         // key rows per backward tile
-constexpr int THREADS = 256;   // 16 x 16
-constexpr int PLD = 64 + 4;    // row stride of a (64 x 64) score tile
+constexpr int THREADS = 256;   // 8 warps
 constexpr float NEG_INF = -1e30f;
 
 struct Strides {
@@ -110,120 +134,11 @@ __device__ __forceinline__ bool visible(const Attn& a, int qp, int kp) {
 // Tile-level skip of the Pallas kernels: a (query tile, key tile) pair is
 // live unless causality or the window masks all of it.
 __device__ __forceinline__ bool live(const Attn& a, int q0, int k0,
-                                     int bq = BQ, int bk = BK) {
+                                     int bq, int bk) {
   const int q_first = a.q_off + q0, q_last = q_first + bq - 1;
   if (a.causal && k0 > q_last) return false;
   if (a.window > 0 && k0 + bk - 1 <= q_first - a.window) return false;
   return true;
-}
-
-// dst[64][D + 4] <- rows row0 .. row0 + 63 of src (row stride `ld`) times
-// `mul`; rows at or past `n_rows` are zero.
-template <int D>
-__device__ __forceinline__ void load_tile(float* dst, const float* src,
-                                          long long ld, int row0,
-                                          int n_rows, float mul) {
-  constexpr int V4 = D / 4;
-  for (int idx = threadIdx.x; idx < 64 * V4; idx += THREADS) {
-    const int r = idx / V4, c = (idx % V4) * 4;
-    float4 x = make_float4(0.f, 0.f, 0.f, 0.f);
-    if (row0 + r < n_rows) {
-      x = *reinterpret_cast<const float4*>(src + (long long)(row0 + r) * ld
-                                           + c);
-      x.x *= mul;
-      x.y *= mul;
-      x.z *= mul;
-      x.w *= mul;
-    }
-    *reinterpret_cast<float4*>(dst + r * (D + 4) + c) = x;
-  }
-}
-
-// acc[i][j] += A[ra + i] . B[rb + 16 j], rows of D floats (stride D + 4).
-template <int D>
-__device__ __forceinline__ void mm_nt(float (&acc)[4][4], const float* A,
-                                      const float* B, int ra, int rb) {
-#pragma unroll 4
-  for (int kk = 0; kk < D; kk += 4) {
-    float4 x[4], y[4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-      x[i] = *reinterpret_cast<const float4*>(A + (ra + i) * (D + 4) + kk);
-#pragma unroll
-    for (int j = 0; j < 4; ++j)
-      y[j] = *reinterpret_cast<const float4*>(B + (rb + 16 * j) * (D + 4)
-                                              + kk);
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        float s = acc[i][j];
-        s = fmaf(x[i].x, y[j].x, s);
-        s = fmaf(x[i].y, y[j].y, s);
-        s = fmaf(x[i].z, y[j].z, s);
-        s = fmaf(x[i].w, y[j].w, s);
-        acc[i][j] = s;
-      }
-  }
-}
-
-// acc[i][4 jj + e] += sum_kk P[ra + i][kk] * M[kk][tx * 4 + 64 jj + e]:
-// P a (64 x 64) tile of stride PLD, M a (64 x D) tile of stride D + 4.
-template <int D>
-__device__ __forceinline__ void mm_nn(float (&acc)[4][D / 16],
-                                      const float* P, const float* M,
-                                      int ra, int tx) {
-#pragma unroll 2
-  for (int kk = 0; kk < 64; kk += 4) {
-    float p[4][4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const float4 t = *reinterpret_cast<const float4*>(P + (ra + i) * PLD
-                                                        + kk);
-      p[i][0] = t.x;
-      p[i][1] = t.y;
-      p[i][2] = t.z;
-      p[i][3] = t.w;
-    }
-#pragma unroll
-    for (int u = 0; u < 4; ++u)
-#pragma unroll
-      for (int jj = 0; jj < D / 64; ++jj) {
-        const float4 m = *reinterpret_cast<const float4*>(
-            M + (kk + u) * (D + 4) + tx * 4 + 64 * jj);
-#pragma unroll
-        for (int i = 0; i < 4; ++i) {
-          acc[i][4 * jj + 0] = fmaf(p[i][u], m.x, acc[i][4 * jj + 0]);
-          acc[i][4 * jj + 1] = fmaf(p[i][u], m.y, acc[i][4 * jj + 1]);
-          acc[i][4 * jj + 2] = fmaf(p[i][u], m.z, acc[i][4 * jj + 2]);
-          acc[i][4 * jj + 3] = fmaf(p[i][u], m.w, acc[i][4 * jj + 3]);
-        }
-      }
-  }
-}
-
-// Rows ra .. ra + 3 of acc (columns as in mm_nn) times `mul[i]` into the
-// (rows x D) tensor at `dst` (row stride ld), rows at or past n_rows
-// dropped.
-template <int D>
-__device__ __forceinline__ void store_rows(float* dst, long long ld,
-                                           const float (&acc)[4][D / 16],
-                                           const float (&mul)[4], int row0,
-                                           int ra, int tx, int n_rows) {
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int row = row0 + ra + i;
-    if (row >= n_rows) continue;
-#pragma unroll
-    for (int jj = 0; jj < D / 64; ++jj) {
-      float4 x = make_float4(acc[i][4 * jj] * mul[i],
-                             acc[i][4 * jj + 1] * mul[i],
-                             acc[i][4 * jj + 2] * mul[i],
-                             acc[i][4 * jj + 3] * mul[i]);
-      *reinterpret_cast<float4*>(dst + (long long)row * ld + tx * 4
-                                 + 64 * jj) = x;
-    }
-  }
 }
 
 // ---------------------------------------------------------------------------
@@ -525,144 +440,500 @@ flash_fwd_kernel(Attn a) {
 }
 
 // ---------------------------------------------------------------------------
-// dq: grid (ceil(Sq / 64), H, B); kv tiles sequential inside the block
+// backward: the pieces shared by dq and dk/dv
 // ---------------------------------------------------------------------------
 
+constexpr int BKV = 64;        // key rows per dk/dv block, 16 a warp
+constexpr int BQT = 32;        // query rows per dk/dv pipeline stage
+constexpr int P_BAR = 1;       // named barrier: P^T handed to warpgroup 1
+static_assert(BKV / 16 * 2 * 32 == THREADS, "two warpgroups over the keys");
+
+// Backward tiles are staged unpadded, D floats a row, with the 16-byte
+// chunk c of row r at chunk c ^ swz(r). Staged operands are read in two
+// patterns (K in dq, q and dO in dk/dv in both), and this swizzle keeps
+// both free of bank conflicts (no padding does: (g, 4t) reads need a row
+// stride of 16 mod 32 floats, (2t, 4g) reads one that is not 0 or 16 mod
+// 32):
+//   (g, 4t): lane g t reads chunk 4 kp + t of row g; rows g and g ^ 1 have
+//            swz values that differ in bit 2, so a quarter-warp (g = 2i,
+//            2i + 1) covers the 8 bank quads once;
+//   (2t, 4g): lane g t reads chunk 8 mm + g of row 2t (or 2t + 1); the
+//            four even (odd) rows have swz values that differ in bits 1-2.
+__device__ __forceinline__ int swz(int r) {
+  return (r & 6) ^ ((r & 1) * 6);
+}
+
+// Float offset of chunk `c` (16-byte index) of staged row `r`.
 template <int D>
-__global__ void __launch_bounds__(THREADS)
-flash_dq_kernel(Attn a) {
-  extern __shared__ float4 smem4[];
-  float* Qs = reinterpret_cast<float*>(smem4);   // [BQ][D + 4], scaled
-  float* dOs = Qs + BQ * (D + 4);                 // [BQ][D + 4]
-  float* Ks = dOs + BQ * (D + 4);                 // [BK][D + 4]
-  float* Vs = Ks + BK * (D + 4);                  // [BK][D + 4]
-  float* Ss = Vs + BK * (D + 4);                  // [BQ][PLD]: dS
-  const int ty = threadIdx.x / 16, tx = threadIdx.x % 16, ra = ty * 4;
-  const int q0 = blockIdx.x * BQ, h = blockIdx.y, b = blockIdx.z;
-  const int g = h / (a.H / a.G);
-  const float* k = a.k + b * a.sk.b + g * a.sk.h;
-  const float* v = a.v + b * a.sv.b + g * a.sv.h;
-  load_tile<D>(Qs, a.q + b * a.sq.b + h * a.sq.h, a.sq.s, q0, a.Sq,
-               a.scale);
-  load_tile<D>(dOs, a.dout + b * a.sdo.b + h * a.sdo.h, a.sdo.s, q0, a.Sq,
-               1.f);
-  const long long row_base = ((long long)b * a.H + h) * a.Sq;
-  float lse[4], dl[4], acc[4][D / 16];
+__device__ __forceinline__ int at(int r, int c) {
+  return r * D + ((c ^ swz(r)) << 2);
+}
+
+// Stage rows row0 .. row0 + R - 1 of src (row stride ld) into dst; rows
+// at or past n_rows are zero-filled, never read.
+template <int D, int R>
+__device__ __forceinline__ void stage_rows(float* dst, const float* src,
+                                           long long ld, int row0,
+                                           int n_rows) {
+  constexpr int V4 = D / 4;
+  static_assert(R * V4 % THREADS == 0, "whole rounds of 16-byte chunks");
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int row = q0 + ra + i;
-    lse[i] = row < a.Sq ? a.lse[row_base + row] : 0.f;
-    dl[i] = row < a.Sq ? a.delta[row_base + row] : 0.f;
-#pragma unroll
-    for (int c = 0; c < D / 16; ++c) acc[i][c] = 0.f;
+  for (int it = 0; it < R * V4 / THREADS; ++it) {
+    const int idx = threadIdx.x + it * THREADS;
+    const int r = idx / V4, c = idx % V4;
+    const bool in = row0 + r < n_rows;
+    const long long row = in ? row0 + r : 0;
+    cp_async16(dst + at<D>(r, c), src + row * ld + 4 * c, in);
   }
-  const int n_kv = (a.Sk + BK - 1) / BK;
-  for (int kb = 0; kb < n_kv; ++kb) {
-    const int k0 = kb * BK;
-    if (!live(a, q0, k0)) continue;
-    __syncthreads();
-    load_tile<D>(Ks, k, a.sk.s, k0, a.Sk, 1.f);
-    load_tile<D>(Vs, v, a.sv.s, k0, a.Sk, 1.f);
-    __syncthreads();
-    float s[4][4], dp[4][4];
+}
+
+// The chunks this thread staged with stage_rows<D, R>, times `mul`, once
+// they have landed (its own copies: visible to it after the wait).
+template <int D, int R>
+__device__ __forceinline__ void scale_rows(float* dst, float mul) {
+  constexpr int V4 = D / 4;
 #pragma unroll
-    for (int i = 0; i < 4; ++i)
+  for (int it = 0; it < R * V4 / THREADS; ++it) {
+    const int idx = threadIdx.x + it * THREADS;
+    float4* p = reinterpret_cast<float4*>(dst + at<D>(idx / V4, idx % V4));
+    float4 x = *p;
+    x.x *= mul;
+    x.y *= mul;
+    x.z *= mul;
+    x.w *= mul;
+    *p = x;
+  }
+}
+
+// The backward's split: big = rna(x) as in Split, small = x - big as it
+// is (exact in f32): an MMA reads a tf32 operand's top 19 bits, so small
+// is truncated to tf32, ~2^-21 |x| (Split rounds it, ~2^-22; its extra
+// add and mask per element cost the pair 6 % at the 400m layer,
+// tools/flash_ab.py).
+template <int N>
+struct SplitT {
+  uint32_t big[N], small[N];
+  __device__ __forceinline__ explicit SplitT(const float (&x)[N]) {
 #pragma unroll
-      for (int j = 0; j < 4; ++j) s[i][j] = dp[i][j] = 0.f;
-    mm_nt<D>(s, Qs, Ks, ra, tx);
-    mm_nt<D>(dp, dOs, Vs, ra, tx);
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int qp = a.q_off + q0 + ra + i;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const float p = visible(a, qp, k0 + tx + 16 * j)
-                            ? expf(s[i][j] - lse[i]) : 0.f;
-        Ss[(ra + i) * PLD + tx + 16 * j] = p * (dp[i][j] - dl[i]);
-      }
+    for (int i = 0; i < N; ++i) {
+      big[i] = tf32_rna(x[i]);
+      small[i] = __float_as_uint(x[i] - __uint_as_float(big[i]));
     }
-    __syncthreads();
-    mm_nn<D>(acc, Ss, Ks, ra, tx);
   }
-  const float mul[4] = {a.scale, a.scale, a.scale, a.scale};
-  store_rows<D>(a.out + b * a.sout.b + h * a.sout.h, a.sout.s, acc, mul,
-                q0, ra, tx, a.Sq);
+};
+
+// c += a . b in split TF32: big.small, small.big, big.big.
+__device__ __forceinline__ void mma3(float (&c)[4], const SplitT<4>& a,
+                                     const SplitT<2>& b) {
+  mma_tf32(c, a.big, b.small);
+  mma_tf32(c, a.small, b.big);
+  mma_tf32(c, a.big, b.big);
+}
+
+__device__ __forceinline__ void cp_async4(float* dst, const float* src,
+                                          bool full) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;"
+               :: "r"(s), "l"(src), "r"(full ? 4 : 0) : "memory");
+}
+
+// A thread's two row pointers for (g, 4t) reads of staged row r: chunk
+// 4 kp + t sits at p[kp & 1] + 32 (kp >> 1) (and row r + 8 at + 8 D).
+template <int D>
+struct RowA {
+  const float* p[2];
+  __device__ __forceinline__ RowA(const float* tile, int r, int t) {
+    const int c = t ^ swz(r);
+    p[0] = tile + r * D + 4 * c;
+    p[1] = tile + r * D + 4 * (c ^ 4);
+  }
+  __device__ __forceinline__ float4 operator()(int kp, int row_off) const {
+    return *reinterpret_cast<const float4*>(p[kp & 1] + 32 * (kp >> 1)
+                                            + row_off * D);
+  }
+};
+
+// A thread's two row pointers for (2t, 4g) reads: rows 2t and 2t + 1 of
+// the tile, chunk g; row 8 j + 2t, d 32 mm + 4 g at p[0] + 8 j D + 32 mm.
+template <int D>
+struct RowB {
+  const float* p[2];
+  __device__ __forceinline__ RowB(const float* tile, int g, int t) {
+    p[0] = tile + 2 * t * D + 4 * (g ^ swz(2 * t));
+    p[1] = tile + (2 * t + 1) * D + 4 * (g ^ swz(2 * t + 1));
+  }
+};
+
+// s[j] = A B^T over d for the warp's 16 rows (A: rows r, r + 8 through
+// `ra`) and the 8 rows 8 j + g of a 32-row tile (through `rb`): the
+// forward's S product. Each 16-wide slice of d is summed from a fresh
+// accumulator and the slices are added in f32. The loop over pairs of
+// slices stays rolled: unrolled, dq spilled 72 bytes and ran 17 % slower
+// (tools/flash_ab.py).
+template <int D>
+__device__ __forceinline__ void score(float (&s)[4][4], const RowA<D>& ra,
+                                      const RowA<D>& rb) {
+#pragma unroll
+  for (int j = 0; j < 4; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) s[j][e] = 0.f;
+#pragma unroll 1
+  for (int k2 = 0; k2 < D / 32; ++k2)
+#pragma unroll
+  for (int p = 0; p < 2; ++p) {
+    const int kp = 2 * k2 + p;
+    const float4 x0 = ra(kp, 0), x1 = ra(kp, 8);
+    const SplitT<4> a0({x0.x, x1.x, x0.y, x1.y});
+    const SplitT<4> a1({x0.z, x1.z, x0.w, x1.w});
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const float4 y = rb(kp, 8 * j);
+      float c[4] = {0.f, 0.f, 0.f, 0.f};
+      mma3(c, a0, SplitT<2>({y.x, y.y}));
+      mma3(c, a1, SplitT<2>({y.z, y.w}));
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[j][e] += c[e];
+    }
+  }
+}
+
+// acc += X B over the tile's 32 rows: X a 16 x 32 tile in accumulator
+// layout (x[j] covers columns 8 j .. 8 j + 7), B the tile's (32 x D)
+// operand read through `rb`. As the forward's P V: accumulator column 2t |
+// 2t + 1 of x[j] is logical k t | t + 4, so x goes into the A fragments in
+// registers, split once; n-tile 4 mm + r, column g is d = 32 mm + 4 g + r,
+// so one float4 of a B row feeds four n-tiles, and acc[4 mm + r] holds d
+// = 32 mm + 8 t + r (+ 4) of the warp's rows g (g + 8). Each group of four
+// n-tiles sums the whole tile from zero and is added to acc in f32.
+template <int D>
+__device__ __forceinline__ void accumulate(float (&acc)[D / 8][4],
+                                           const float (&x)[4][4],
+                                           const RowB<D>& rb) {
+  const SplitT<4> xa[4] = {
+      SplitT<4>({x[0][0], x[0][2], x[0][1], x[0][3]}),
+      SplitT<4>({x[1][0], x[1][2], x[1][1], x[1][3]}),
+      SplitT<4>({x[2][0], x[2][2], x[2][1], x[2][3]}),
+      SplitT<4>({x[3][0], x[3][2], x[3][1], x[3][3]})};
+#pragma unroll
+  for (int mm = 0; mm < D / 32; ++mm) {
+    float c[4][4];
+#pragma unroll
+    for (int r = 0; r < 4; ++r)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) c[r][e] = 0.f;
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const float4 v0 = *reinterpret_cast<const float4*>(
+          rb.p[0] + 8 * j * D + 32 * mm);
+      const float4 v1 = *reinterpret_cast<const float4*>(
+          rb.p[1] + 8 * j * D + 32 * mm);
+      mma3(c[0], xa[j], SplitT<2>({v0.x, v1.x}));
+      mma3(c[1], xa[j], SplitT<2>({v0.y, v1.y}));
+      mma3(c[2], xa[j], SplitT<2>({v0.z, v1.z}));
+      mma3(c[3], xa[j], SplitT<2>({v0.w, v1.w}));
+    }
+#pragma unroll
+    for (int r = 0; r < 4; ++r)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[4 * mm + r][e] += c[r][e];
+  }
+}
+
+// Rows `row` (accumulator e = 0, 1) and `row + 8` (e = 2, 3) of acc times
+// `mul` into dst (row stride ld), rows at or past n_rows dropped.
+template <int D>
+__device__ __forceinline__ void store_acc(float* dst, long long ld,
+                                          const float (&acc)[D / 8][4],
+                                          float mul, int row, int t,
+                                          int n_rows) {
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    if (row + 8 * i >= n_rows) continue;
+    float* p = dst + (long long)(row + 8 * i) * ld + 8 * t;
+#pragma unroll
+    for (int mm = 0; mm < D / 32; ++mm) {
+      *reinterpret_cast<float4*>(p + 32 * mm) = make_float4(
+          acc[4 * mm][2 * i] * mul, acc[4 * mm + 1][2 * i] * mul,
+          acc[4 * mm + 2][2 * i] * mul, acc[4 * mm + 3][2 * i] * mul);
+      *reinterpret_cast<float4*>(p + 32 * mm + 4) = make_float4(
+          acc[4 * mm][2 * i + 1] * mul, acc[4 * mm + 1][2 * i + 1] * mul,
+          acc[4 * mm + 2][2 * i + 1] * mul,
+          acc[4 * mm + 3][2 * i + 1] * mul);
+    }
+  }
 }
 
 // ---------------------------------------------------------------------------
-// dk, dv: grid (ceil(Sk / 64), G, B); the group's query heads and the query
-// tiles sequential inside the block
+// dq: a 1-d grid of ceil(Sq / FBQ) * H * B blocks, the last q-tile first,
+// as the forward; 8 warps, each owning 16 query rows; K and V stream
+// through a cp.async ring of FBK-key tiles
 // ---------------------------------------------------------------------------
 
 template <int D>
-__global__ void __launch_bounds__(THREADS)
-flash_dkv_kernel(Attn a) {
+__global__ void __launch_bounds__(THREADS, 1)
+flash_dq_kernel(Attn a) {
   extern __shared__ float4 smem4[];
-  float* Ks = reinterpret_cast<float*>(smem4);   // [BK][D + 4]
-  float* Vs = Ks + BK * (D + 4);                  // [BK][D + 4]
-  float* Qs = Vs + BK * (D + 4);                  // [BQ][D + 4], scaled
-  float* dOs = Qs + BQ * (D + 4);                 // [BQ][D + 4]
-  float* Ps = dOs + BQ * (D + 4);                 // [BK][PLD]: p^T
-  float* Ss = Ps + BK * PLD;                      // [BK][PLD]: dS^T
-  float* lse_s = Ss + BK * PLD;                   // [BQ]
-  float* dl_s = lse_s + BQ;                       // [BQ]
-  const int ty = threadIdx.x / 16, tx = threadIdx.x % 16, ra = ty * 4;
-  const int k0 = blockIdx.x * BK, g = blockIdx.y, b = blockIdx.z;
-  const int rep = a.H / a.G;
-  load_tile<D>(Ks, a.k + b * a.sk.b + g * a.sk.h, a.sk.s, k0, a.Sk, 1.f);
-  load_tile<D>(Vs, a.v + b * a.sv.b + g * a.sv.h, a.sv.s, k0, a.Sk, 1.f);
-  float dk[4][D / 16], dv[4][D / 16];
+  float* Qs = reinterpret_cast<float*>(smem4);   // [FBQ][D], scaled
+  float* dOs = Qs + FBQ * D;                      // [FBQ][D]
+  float* Ks = dOs + FBQ * D;                      // [STAGES][FBK][D]
+  float* Vs = Ks + STAGES * FBK * D;              // [STAGES][FBK][D]
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int g = lane / 4, t = lane % 4;
+  const int n_q = (a.Sq + FBQ - 1) / FBQ, bh_n = gridDim.x / n_q;
+  const int bh = blockIdx.x % bh_n;
+  const int q0 = (n_q - 1 - (int)blockIdx.x / bh_n) * FBQ;
+  const int h = bh % a.H, b = bh / a.H;
+  const int gk = h / (a.H / a.G);
+  const float* k = a.k + b * a.sk.b + gk * a.sk.h;
+  const float* v = a.v + b * a.sv.b + gk * a.sv.h;
+  const int r0 = q0 + 16 * warp;                 // the warp's first row
+  const int qa = a.q_off + r0, qb = qa + 15;     // its absolute positions
+
+  // the live key tiles form one range; their first loads go out first
+  const int n_kv = (a.Sk + FBK - 1) / FBK;
+  int lo = 0, hi = n_kv - 1;
+  while (lo <= hi && !live(a, q0, lo * FBK, FBQ, FBK)) ++lo;
+  while (hi >= lo && !live(a, q0, hi * FBK, FBQ, FBK)) --hi;
 #pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int c = 0; c < D / 16; ++c) dk[i][c] = dv[i][c] = 0.f;
-  const int n_q = (a.Sq + BQ - 1) / BQ;
-  for (int r = 0; r < rep; ++r) {
-    const int h = g * rep + r;
+  for (int i = 0; i < STAGES - 1; ++i) {
+    if (lo + i <= hi) {
+      stage_rows<D, FBK>(Ks + i * FBK * D, k, a.sk.s, (lo + i) * FBK, a.Sk);
+      stage_rows<D, FBK>(Vs + i * FBK * D, v, a.sv.s, (lo + i) * FBK, a.Sk);
+    }
+    cp_async_commit();
+  }
+
+  // q (scaled) and dO, rows at or past Sq zero (visible to every warp
+  // after the first barrier of the loop)
+  {
+    constexpr int V4 = D / 4;
     const float* q = a.q + b * a.sq.b + h * a.sq.h;
     const float* dout = a.dout + b * a.sdo.b + h * a.sdo.h;
-    const long long row_base = ((long long)b * a.H + h) * a.Sq;
-    for (int qb = 0; qb < n_q; ++qb) {
-      const int q0 = qb * BQ;
-      if (!live(a, q0, k0)) continue;
-      __syncthreads();
-      load_tile<D>(Qs, q, a.sq.s, q0, a.Sq, a.scale);
-      load_tile<D>(dOs, dout, a.sdo.s, q0, a.Sq, 1.f);
-      if (threadIdx.x < BQ) {
-        const int row = q0 + threadIdx.x;
-        lse_s[threadIdx.x] = row < a.Sq ? a.lse[row_base + row] : 0.f;
-        dl_s[threadIdx.x] = row < a.Sq ? a.delta[row_base + row] : 0.f;
+    for (int idx = threadIdx.x; idx < FBQ * V4; idx += THREADS) {
+      const int r = idx / V4, c = idx % V4;
+      float4 x = make_float4(0.f, 0.f, 0.f, 0.f), y = x;
+      if (q0 + r < a.Sq) {
+        x = *reinterpret_cast<const float4*>(
+            q + (long long)(q0 + r) * a.sq.s + 4 * c);
+        y = *reinterpret_cast<const float4*>(
+            dout + (long long)(q0 + r) * a.sdo.s + 4 * c);
+        x.x *= a.scale;
+        x.y *= a.scale;
+        x.z *= a.scale;
+        x.w *= a.scale;
       }
-      __syncthreads();
-      float s[4][4], dp[4][4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) s[i][j] = dp[i][j] = 0.f;
-      mm_nt<D>(s, Ks, Qs, ra, tx);     // s^T: key rows x query columns
-      mm_nt<D>(dp, Vs, dOs, ra, tx);   // dp^T
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int qc = tx + 16 * j, row = q0 + qc;
-        const int qp = a.q_off + row;
-#pragma unroll
-        for (int i = 0; i < 4; ++i) {
-          const bool ok = row < a.Sq && visible(a, qp, k0 + ra + i);
-          const float p = ok ? expf(s[i][j] - lse_s[qc]) : 0.f;
-          Ps[(ra + i) * PLD + qc] = p;
-          Ss[(ra + i) * PLD + qc] = p * (dp[i][j] - dl_s[qc]);
-        }
-      }
-      __syncthreads();
-      mm_nn<D>(dv, Ps, dOs, ra, tx);   // dv += p^T . dO
-      mm_nn<D>(dk, Ss, Qs, ra, tx);    // dk += dS^T . (q * scale)
+      *reinterpret_cast<float4*>(Qs + at<D>(r, c)) = x;
+      *reinterpret_cast<float4*>(dOs + at<D>(r, c)) = y;
     }
   }
-  const float one[4] = {1.f, 1.f, 1.f, 1.f};
-  store_rows<D>(a.dk + b * a.sdk.b + g * a.sdk.h, a.sdk.s, dk, one, k0, ra,
-                tx, a.Sk);
-  store_rows<D>(a.dv + b * a.sdv.b + g * a.sdv.h, a.sdv.s, dv, one, k0, ra,
-                tx, a.Sk);
+  const RowA<D> qr(Qs, 16 * warp + g, t), dor(dOs, 16 * warp + g, t);
+  float lse[2], dl[2];
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int row = r0 + g + 8 * i;
+    const long long at_row = ((long long)b * a.H + h) * a.Sq + row;
+    lse[i] = row < a.Sq ? a.lse[at_row] : 0.f;
+    dl[i] = row < a.Sq ? a.delta[at_row] : 0.f;
+  }
+
+  float acc[D / 8][4];
+#pragma unroll
+  for (int c = 0; c < D / 8; ++c)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[c][e] = 0.f;
+
+  for (int kb = lo; kb <= hi; ++kb) {
+    cp_async_wait<STAGES - 2>();
+    __syncthreads();     // tile kb landed; every warp is done with kb - 1
+    {
+      const int nb = kb + STAGES - 1, st = (nb - lo) % STAGES;
+      if (nb <= hi) {
+        stage_rows<D, FBK>(Ks + st * FBK * D, k, a.sk.s, nb * FBK, a.Sk);
+        stage_rows<D, FBK>(Vs + st * FBK * D, v, a.sv.s, nb * FBK, a.Sk);
+      }
+      cp_async_commit();
+    }
+    const int k0 = kb * FBK;
+    // a warp whose rows are past Sq, or see none of this tile
+    if (r0 >= a.Sq || (a.causal && k0 > qb) ||
+        (a.window > 0 && k0 + FBK - 1 <= qa - a.window))
+      continue;
+    const float* Kt = Ks + ((kb - lo) % STAGES) * FBK * D;
+    const float* Vt = Vs + ((kb - lo) % STAGES) * FBK * D;
+
+    // S = (q scale) K^T and dP = dO V^T
+    float s[4][4], dp[4][4];
+    score<D>(s, qr, RowA<D>(Kt, g, t));
+    score<D>(dp, dor, RowA<D>(Vt, g, t));
+
+    // dS = P (dP - delta), P = exp(S - lse) where visible, else 0
+    const bool full = k0 + FBK <= a.Sk && (!a.causal || k0 + FBK - 1 <= qa)
+                      && (a.window <= 0 || k0 > qb - a.window);
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int i = e >> 1;
+        const bool ok = full || visible(a, qa + g + 8 * i,
+                                        k0 + 8 * j + 2 * t + (e & 1));
+        const float p = ok ? __expf(s[j][e] - lse[i]) : 0.f;
+        s[j][e] = p * (dp[j][e] - dl[i]);
+      }
+
+    // dQ += dS K, dS straight from the accumulators
+    accumulate<D>(acc, s, RowB<D>(Kt, g, t));
+  }
+  cp_async_wait<0>();
+
+  store_acc<D>(a.out + b * a.sout.b + h * a.sout.h, a.sout.s, acc, a.scale,
+               r0 + g, t, a.Sq);
+}
+
+// ---------------------------------------------------------------------------
+// dk, dv: a 1-d grid of ceil(Sk / BKV) * G * B blocks, kv-tile major and
+// the first kv-tile first (under the causal mask it has the most live
+// query tiles); the group's query heads and their query tiles stream
+// through a cp.async ring of BQT-row tiles. Two warpgroups over the same
+// 64 keys, 16 a warp: warpgroup 0 computes S^T = K (q scale)^T, P^T =
+// exp(S^T - lse) and dV += P^T dO; warpgroup 1 computes dP^T = V dO^T,
+// takes P^T from warpgroup 0 through shared memory (named barrier P_BAR),
+// and computes dS^T = P^T (dP^T - delta) and dK += dS^T (q scale). With
+// key rows as the MMA's M dimension, P^T and dS^T come out in the
+// accumulator layout that the A fragments of the second products read.
+// ---------------------------------------------------------------------------
+
+template <int D>
+__global__ void __launch_bounds__(THREADS, 1)
+flash_dkv_kernel(Attn a) {
+  extern __shared__ float4 smem4[];
+  float* Ks = reinterpret_cast<float*>(smem4);   // [BKV][D]
+  float* Vs = Ks + BKV * D;                       // [BKV][D]
+  float* Qs = Vs + BKV * D;                       // [STAGES][BQT][D], scaled
+  float* dOs = Qs + STAGES * BQT * D;             // [STAGES][BQT][D]
+  float* Ls = dOs + STAGES * BQT * D;             // [STAGES][2][BQT]
+  float4* Ps = reinterpret_cast<float4*>(Ls + STAGES * 2 * BQT);
+                                                  // [4 warps][4][32 lanes]
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int g = lane / 4, t = lane % 4;
+  const int wg = warp / 4, w = warp % 4;
+  const int n_kv = (a.Sk + BKV - 1) / BKV, gb_n = gridDim.x / n_kv;
+  const int gb = blockIdx.x % gb_n;
+  const int k0 = ((int)blockIdx.x / gb_n) * BKV;
+  const int gk = gb % a.G, b = gb / a.G;
+  const int rep = a.H / a.G;
+  const int kw = k0 + 16 * w;                    // the warp's first key
+
+  // the live query tiles of each head form one range; the ring walks the
+  // group's heads, each over that range
+  const int n_qt = (a.Sq + BQT - 1) / BQT;
+  int lo = 0, hi = n_qt - 1;
+  while (lo <= hi && !live(a, lo * BQT, k0, BQT, BKV)) ++lo;
+  while (hi >= lo && !live(a, hi * BQT, k0, BQT, BKV)) --hi;
+  const int nq = hi - lo + 1, n_it = rep * nq;
+  auto stage = [&](int it, int st) {
+    const int h = gk * rep + it / nq, q0 = (lo + it % nq) * BQT;
+    stage_rows<D, BQT>(Qs + st * BQT * D, a.q + b * a.sq.b + h * a.sq.h,
+                       a.sq.s, q0, a.Sq);
+    stage_rows<D, BQT>(dOs + st * BQT * D,
+                       a.dout + b * a.sdo.b + h * a.sdo.h, a.sdo.s, q0,
+                       a.Sq);
+    if (threadIdx.x < 2 * BQT) {
+      const int r = threadIdx.x % BQT, row = q0 + r;
+      const float* src = threadIdx.x < BQT ? a.lse : a.delta;
+      const bool in = row < a.Sq;
+      cp_async4(Ls + st * 2 * BQT + threadIdx.x,
+                src + ((long long)b * a.H + h) * a.Sq + (in ? row : 0), in);
+    }
+  };
+
+  // K and V (rows at or past Sk zero) land with the first group
+  stage_rows<D, BKV>(Ks, a.k + b * a.sk.b + gk * a.sk.h, a.sk.s, k0, a.Sk);
+  stage_rows<D, BKV>(Vs, a.v + b * a.sv.b + gk * a.sv.h, a.sv.s, k0, a.Sk);
+#pragma unroll
+  for (int i = 0; i < STAGES - 1; ++i) {
+    if (i < n_it) stage(i, i);
+    cp_async_commit();
+  }
+  const RowA<D> ar(wg ? Vs : Ks, 16 * w + g, t);
+
+  float acc[D / 8][4];       // dV (warpgroup 0) or dK (warpgroup 1)
+#pragma unroll
+  for (int c = 0; c < D / 8; ++c)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[c][e] = 0.f;
+
+  for (int it = 0; it < n_it; ++it) {
+    const int st = it % STAGES;
+    float* Qt = Qs + st * BQT * D;
+    cp_async_wait<STAGES - 2>();
+    scale_rows<D, BQT>(Qt, a.scale);
+    __syncthreads();     // tile it landed, scaled; all done with it - 1
+    {
+      const int nb = it + STAGES - 1;
+      if (nb < n_it) stage(nb, nb % STAGES);
+      cp_async_commit();
+    }
+    const float* dOt = dOs + st * BQT * D;
+    const float* L = Ls + st * 2 * BQT;
+    const int q0 = (lo + it % nq) * BQT;
+    const int qa = a.q_off + q0, qz = qa + BQT - 1;
+    // the warp's keys see none of this tile / all of it
+    const bool skip = kw >= a.Sk || (a.causal && kw > qz) ||
+                      (a.window > 0 && kw + 15 <= qa - a.window);
+    const bool full = kw + 16 <= a.Sk && q0 + BQT <= a.Sq &&
+                      (!a.causal || kw + 15 <= qa) &&
+                      (a.window <= 0 || kw > qz - a.window);
+    float4* Pw = Ps + w * 4 * 32 + lane;
+    float x[4][4];
+    if (wg == 0) {
+      if (!skip) {
+        score<D>(x, ar, RowA<D>(Qt, g, t));      // S^T
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          const float2 l2 = *reinterpret_cast<const float2*>(
+              L + 8 * j + 2 * t);
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int col = 8 * j + 2 * t + (e & 1);
+            const bool ok = full || (q0 + col < a.Sq &&
+                                     visible(a, qa + col,
+                                             kw + g + 8 * (e >> 1)));
+            x[j][e] = ok ? __expf(x[j][e] - ((e & 1) ? l2.y : l2.x)) : 0.f;
+          }
+          Pw[32 * j] = make_float4(x[j][0], x[j][1], x[j][2], x[j][3]);
+        }
+      }
+      __threadfence_block();
+      asm volatile("bar.arrive %0, %1;" :: "n"(P_BAR), "n"(THREADS)
+                   : "memory");
+      if (!skip) accumulate<D>(acc, x, RowB<D>(dOt, g, t));   // dV
+    } else {
+      if (!skip) score<D>(x, ar, RowA<D>(dOt, g, t));        // dP^T
+      asm volatile("bar.sync %0, %1;" :: "n"(P_BAR), "n"(THREADS)
+                   : "memory");
+      if (!skip) {
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          const float4 p = Pw[32 * j];
+          const float2 d2 = *reinterpret_cast<const float2*>(
+              L + BQT + 8 * j + 2 * t);
+          x[j][0] = p.x * (x[j][0] - d2.x);
+          x[j][1] = p.y * (x[j][1] - d2.y);
+          x[j][2] = p.z * (x[j][2] - d2.x);
+          x[j][3] = p.w * (x[j][3] - d2.y);
+        }
+        accumulate<D>(acc, x, RowB<D>(Qt, g, t));            // dK
+      }
+    }
+  }
+  cp_async_wait<0>();
+
+  if (wg == 0)
+    store_acc<D>(a.dv + b * a.sdv.b + gk * a.sdv.h, a.sdv.s, acc, 1.f,
+                 kw + g, t, a.Sk);
+  else
+    store_acc<D>(a.dk + b * a.sdk.b + gk * a.sdk.h, a.sdk.s, acc, 1.f,
+                 kw + g, t, a.Sk);
 }
 
 // ---------------------------------------------------------------------------
@@ -674,12 +945,15 @@ enum Kind { FWD = 0, FWD_LSE = 1, BWD_DQ = 2, BWD_DKV = 3 };
 template <int D>
 constexpr size_t smem_bytes(Kind kind) {
   return sizeof(float) *
-         (kind == BWD_DKV ? 4 * 64 * (D + 4) + 2 * 64 * PLD + 2 * BQ
-          : kind == BWD_DQ ? 4 * 64 * (D + 4) + 64 * PLD
+         (kind == BWD_DKV ? (2 * BKV + 2 * STAGES * BQT) * D
+                                + STAGES * 2 * BQT + 4 * 4 * 32 * 4
+          : kind == BWD_DQ ? (2 * FBQ + 2 * STAGES * FBK) * D
                            : (FBQ + STAGES * FBK) * FWD_LDK<D>
                                  + STAGES * FBK * FWD_LDV<D>);
 }
 static_assert(smem_bytes<128>(FWD) <= 232448, "forward stages overflow");
+static_assert(smem_bytes<128>(BWD_DQ) <= 232448, "dq stages overflow");
+static_assert(smem_bytes<128>(BWD_DKV) <= 232448, "dk/dv stages overflow");
 
 template <typename K>
 cudaError_t launch(K kernel, dim3 grid, size_t smem, cudaStream_t stream,
@@ -693,19 +967,18 @@ cudaError_t launch(K kernel, dim3 grid, size_t smem, cudaStream_t stream,
 
 template <int D>
 cudaError_t run(Kind kind, const Attn& a, int B, cudaStream_t stream) {
-  const dim3 rows((a.Sq + BQ - 1) / BQ, a.H, B);
-  const dim3 fwd(((a.Sq + FBQ - 1) / FBQ) * a.H * B);
+  const dim3 rows(((a.Sq + FBQ - 1) / FBQ) * a.H * B);
+  const dim3 keys(((a.Sk + BKV - 1) / BKV) * a.G * B);
   const size_t smem = smem_bytes<D>(kind);
   switch (kind) {
     case FWD:
-      return launch(flash_fwd_kernel<D, false>, fwd, smem, stream, a);
+      return launch(flash_fwd_kernel<D, false>, rows, smem, stream, a);
     case FWD_LSE:
-      return launch(flash_fwd_kernel<D, true>, fwd, smem, stream, a);
+      return launch(flash_fwd_kernel<D, true>, rows, smem, stream, a);
     case BWD_DQ:
       return launch(flash_dq_kernel<D>, rows, smem, stream, a);
     case BWD_DKV:
-      return launch(flash_dkv_kernel<D>, dim3((a.Sk + BK - 1) / BK, a.G, B),
-                    smem, stream, a);
+      return launch(flash_dkv_kernel<D>, keys, smem, stream, a);
   }
   return cudaErrorInvalidValue;
 }

@@ -167,10 +167,12 @@ def test_cuda_round_matches_cpu(cuda):
 
 # B, H, G, S, d, causal, window: the JAX ATTN_CASES kinds (GQA, sliding
 # window, bidirectional, not block-aligned), each at d 64 and 128; then,
-# with S = (Sq, Sk) and q, k scaled by ``amp``, the forward kernel's hard
-# cases: large logits (scores of std 8) and a ragged key range (Sk not a
-# multiple of the forward's 32-key pipeline tile, Sq != Sk, so the queries
-# start at Sk - Sq)
+# with S = (Sq, Sk) and q, k scaled by ``amp``, the kernels' hard cases:
+# large logits (scores of std 8); ragged ranges, Sq and Sk multiples of
+# none of the tiles (the forward's and dq's 128 query and 32 key rows,
+# dk/dv's 64 key and 32 query rows), Sq != Sk, causal (the queries start
+# at Sk - Sq) and bidirectional; GQA with 4 query heads a kv head at d 128
+# under a window that crosses the tile edges
 FLASH_CASES = [(b, h, g, s, d, c, w) for d in (64, 128)
                for b, h, g, s, c, w in ((2, 4, 2, 128, True, 0),
                                         (1, 2, 1, 192, True, 64),
@@ -178,7 +180,10 @@ FLASH_CASES = [(b, h, g, s, d, c, w) for d in (64, 128)
                                         (2, 8, 2, 96, True, 0))] + [
     (2, 4, 2, 256, 128, True, 0, 8 ** 0.5),
     (1, 4, 2, (100, 357), 64, True, 0),
-    (1, 4, 2, (200, 1000), 128, True, 0)]
+    (1, 4, 2, (200, 1000), 128, True, 0),
+    (2, 4, 4, (150, 421), 128, True, 0),
+    (1, 4, 2, (77, 201), 64, False, 0),
+    (1, 8, 2, 300, 128, True, 100)]
 
 
 def _flash_case(case):
@@ -209,10 +214,10 @@ def _flash_inputs(dev, B, H, G, S, d, seed, Sk=None, amp=1.0):
 def test_cuda_flash_kernels_match_plain(cuda, case):
     """Each of the four kernels against its plain version. Tolerances
     atol = rtol = 2e-5 forward and 5e-4 backward, the JAX package's for
-    its kernels: sums run in another order (tiles, FMA, the forward's
-    split-TF32 products). With large scores the forward's plain version
-    runs in float64: float32's own rounding of scores of std 8 puts it
-    ~1.5e-5 from that (tests/test_torch_flash_tf32.py)."""
+    its kernels: sums run in another order (tiles, the split-TF32
+    products). With large scores the forward's plain version runs in
+    float64: float32's own rounding of scores of std 8 puts it ~1.5e-5
+    from that (tests/test_torch_flash_tf32.py)."""
     B, H, G, S, Sk, d, causal, window, amp = _flash_case(case)
     seed = S + d + (0 if Sk == S else Sk)
     q, k, v, do = _flash_inputs(cuda, B, H, G, S, d, seed, Sk=Sk, amp=amp)
@@ -235,6 +240,20 @@ def test_cuda_flash_kernels_match_plain(cuda, case):
     close(lse, want_lse, 2e-5)
     for got, want in zip((dq, dk, dv), want_grads):
         close(got, want, 5e-4)
+
+
+@pytest.mark.cuda
+def test_cuda_flash_bwd_deterministic(cuda):
+    """The backward kernels sum in a fixed order (no atomics): two runs on
+    the same inputs give bit-identical dq, dk and dv."""
+    q, k, v, do = _flash_inputs(cuda, 2, 8, 2, 333, 128, 11)
+    opts = dict(causal=True, window=0)
+    o, lse = TFK.flash_fwd_lse(q, k, v, **opts)
+    first = TFK.flash_bwd(q, k, v, o, lse, do, **opts)
+    second = TFK.flash_bwd(q, k, v, o, lse, do, **opts)
+    torch.cuda.synchronize()
+    for a, b in zip(first, second):
+        assert torch.equal(a, b)
 
 
 @pytest.mark.cuda

@@ -41,38 +41,13 @@ import pytest
 torch = pytest.importorskip("torch")
 import jax.numpy as jnp  # noqa: E402
 
+from flash_tf32 import f32_rz, mma, tf32_rna  # noqa: E402
 from repro.kernels import ref as jref  # noqa: E402
 from repro_torch.kernels import ref  # noqa: E402
 
 TOL = 2e-5        # the forward kernels' tolerance (tests/test_torch_cuda.py)
 BK = 32           # the kernel's key tile: its online normalisation steps
 MMA_K = 8         # the products one m16n8k8 MMA sums
-
-
-def tf32_rna(x):
-    """Round float32 ``x`` to the nearest tf32, ties away from zero."""
-    bits = x.contiguous().view(torch.int32)
-    return ((bits + 0x1000) & ~0x1FFF).view(torch.float32)
-
-
-def f32_rz(x):
-    """Float64 ``x`` rounded toward zero to float32."""
-    y = x.float()
-    over = y.double().abs() > x.abs()
-    return torch.where(over, torch.nextafter(y, torch.zeros_like(y)), y)
-
-
-def mma(c, a, b, passes=3):
-    """c + a @ b (c float32 (.., m, n), a (.., m, 8), b (.., 8, n)) as the
-    kernel's MMAs on split operands: big·small, small·big, big·big, each
-    summed exactly with the accumulator and rounded toward zero; or one
-    TF32 pass (big·big)."""
-    ab, bb = tf32_rna(a), tf32_rna(b)
-    terms = [(ab, bb)] if passes == 1 else [
-        (ab, tf32_rna(b - bb)), (tf32_rna(a - ab), bb), (ab, bb)]
-    for x, y in terms:
-        c = f32_rz(c.double() + x.double() @ y.double())
-    return c
 
 
 def emulated_fwd_lse(q, k, v, *, causal, window, passes=3, chains="tile"):

@@ -1,0 +1,171 @@
+#!/usr/bin/env python3
+"""The flash-attention backward kernels against variants of themselves on
+one NVIDIA GPU, in turns.
+
+    python3 tools/flash_ab.py [variant ...]      (default: all of VARIANTS)
+
+Imports nothing of JAX. Needs the CUDA toolkit's nvcc (as the port's
+kernel build does). Builds ``kernels/csrc/flash_attention.cu`` as it is
+("base") and with each named text patch of ``VARIANTS`` applied, all at
+once, under ``build/flash_ab/``; prints each build's registers and spills
+of the two backward kernels (ptxas); holds each build's dq, dk and dv to
+the plain versions (5e-4·(1 + |want|)) on three cases; then times dq and
+dk/dv at diloco_400m's layer (B 8, H = G = 12, S 1024, d 128, causal),
+every build in each of ``REPS`` rounds, the order reversed every other
+round, and prints the medians beside SDPA's backward. Prints the card's
+name and power limit first and last.
+"""
+from __future__ import annotations
+
+import ctypes
+import json
+import subprocess
+import sys
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parents[1]
+sys.path.insert(0, str(ROOT / "src"))
+OUT = ROOT / "build" / "flash_ab"
+REPS = 5
+# name: (what the variant undoes, [(text in the source, its replacement)])
+VARIANTS = {
+    "rna_small": ("the backward's small part rounded to the nearest tf32 "
+                  "(the forward's Split) instead of truncated by the MMA",
+                  [("small[i] = __float_as_uint(x[i] - __uint_as_float("
+                    "big[i]));",
+                    "small[i] = tf32_rna(x[i] - __uint_as_float(big[i]));")]),
+    "unrolled_score": ("the score products' loop over pairs of 16-wide "
+                       "slices of d unrolled",
+                       [("#pragma unroll 1\n  for (int k2",
+                         "#pragma unroll\n  for (int k2")]),
+    "expf": ("p = expf(s - lse) instead of __expf",
+             [("__expf(", "expf(")]),
+}
+CASES = [(8, 12, 12, 1024, 128, True, 0), (2, 8, 2, 700, 128, True, 200),
+         (1, 4, 2, (461, 777), 64, False, 0)]
+
+
+def source(name: str, base: str) -> str:
+    text = base
+    for old, new in ([] if name == "base" else VARIANTS[name][1]):
+        if old not in text:
+            raise SystemExit(f"variant {name}: {old!r} is not in the source")
+        text = text.replace(old, new)
+    return text
+
+
+def build_all(names, build):
+    """{name: ctypes library}, one nvcc per build, all started together;
+    prints each one's ptxas lines for the d 128 backward kernels."""
+    OUT.mkdir(parents=True, exist_ok=True)
+    base = (build.CSRC / "flash_attention.cu").read_text()
+    procs = {}
+    for n in names:
+        cu, so = OUT / f"{n}.cu", OUT / f"{n}.so"
+        cu.write_text(source(n, base))
+        procs[n] = (so, subprocess.Popen(
+            [build.nvcc(), *build.flags("flash_attention"), "-o", str(so),
+             str(cu)], stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+            text=True))
+    libs = {}
+    for n, (so, proc) in procs.items():
+        out, _ = proc.communicate()
+        if proc.returncode:
+            raise SystemExit(f"build {n} failed:\n{out}")
+        lines = out.splitlines()
+        for i, line in enumerate(lines):
+            for kernel in ("flash_dq_kernelILi128", "flash_dkv_kernelILi128"):
+                if "Compiling entry" in line and kernel in line:
+                    print(json.dumps({"build": n, "kernel": kernel[:-6],
+                                      "d": 128, "ptxas": " | ".join(
+                                          l.strip() for l in
+                                          lines[i + 2:i + 4])}), flush=True)
+        libs[n] = ctypes.CDLL(str(so))
+    return libs
+
+
+def entry_points(lib):
+    fns = {}
+    for name in ("bwd_dq", "bwd_dkv"):
+        fn = getattr(lib, f"repro_flash_{name}_f32")
+        fn.restype = ctypes.c_int
+        fn.argtypes = ([ctypes.c_void_p] * 11 + [ctypes.c_int] * 6
+                       + [ctypes.c_float] + [ctypes.c_int] * 4
+                       + [ctypes.c_void_p])
+        fns[name] = fn
+    return fns
+
+
+def main() -> int:
+    import torch
+    if not torch.cuda.is_available():
+        print("flash_ab: no CUDA device is visible", file=sys.stderr)
+        return 2
+    sys.path.insert(0, str(ROOT))
+    import chip_smoke as CS
+    from repro_torch.kernels import build, ref
+    from repro_torch.kernels import flash_attention as FK
+
+    names = ["base"] + (sys.argv[1:] or list(VARIANTS))
+    torch.backends.cuda.matmul.allow_tf32 = False
+    print(CS.card_line(), flush=True)
+    fns = {n: entry_points(lib) for n, lib in build_all(names, build).items()}
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(2)
+    for case in CASES:
+        B, H, G, S, d, causal, window = case
+        Sq, Sk = S if isinstance(S, tuple) else (S, S)
+        q, k, v, do = (torch.randn(shape, generator=gen, device=dev)
+                       for shape in ((B, H, Sq, d), (B, G, Sk, d),
+                                     (B, G, Sk, d), (B, H, Sq, d)))
+        opts = dict(causal=causal, window=window)
+        o, lse = FK.flash_fwd_lse(q, k, v, **opts)
+        delta = (do * o).sum(-1).contiguous()
+        want = (ref.flash_bwd_dq(q, k, v, lse, do, delta, **opts),
+                *ref.flash_bwd_dkv(q, k, v, lse, do, delta, **opts))
+        dq, dk, dv = (torch.empty_like(t) for t in (q, k, v))
+        launch = dict(do=do, lse=lse, delta=delta, scale=d ** -0.5,
+                      q_offset=0, **opts)
+        run = {"bwd_dq": lambda: FK._launch("bwd_dq", q, k, v, out=dq,
+                                            **launch),
+               "bwd_dkv": lambda: FK._launch("bwd_dkv", q, k, v, out=None,
+                                             dk=dk, dv=dv, **launch)}
+        for n in names:
+            FK._fns.update(fns[n])
+            run["bwd_dq"]()
+            run["bwd_dkv"]()
+            torch.cuda.synchronize()
+            err = max(float(((g - w).abs() / (1 + w.abs())).max())
+                      for g, w in zip((dq, dk, dv), want))
+            if err > 5e-4:
+                raise SystemExit(f"{n} differs from the plain version on "
+                                 f"{case}: {err}")
+            print(json.dumps({"build": n, "case": case,
+                              "max_rel_err": err}), flush=True)
+        if case != CASES[0]:
+            continue
+        times = {n: {k_: [] for k_ in run} for n in names}
+        for r in range(REPS):
+            for n in (names if r % 2 == 0 else names[::-1]):
+                FK._fns.update(fns[n])
+                for k_, fn in run.items():
+                    times[n][k_].append(CS.time_ms(torch, fn))
+        leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
+        out = torch.nn.functional.scaled_dot_product_attention(
+            *leaves, is_causal=causal)
+        sdpa_bwd = CS.time_ms(torch, lambda: torch.autograd.grad(
+            out, leaves, do, retain_graph=True))
+        for n in names:
+            med = {k_: sorted(ts)[REPS // 2] for k_, ts in times[n].items()}
+            print(json.dumps({"build": n, "undoes": VARIANTS[n][0]
+                              if n in VARIANTS else None,
+                              "ms": times[n], "median_ms": med,
+                              "pair_ms": sum(med.values()),
+                              "sdpa_bwd_ms": sdpa_bwd}), flush=True)
+        FK._fns.clear()
+    print(CS.card_line(), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

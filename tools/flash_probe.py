@@ -1,14 +1,16 @@
 #!/usr/bin/env python3
-"""The ceiling of the flash-attention forward kernel's products on one
-NVIDIA GPU.
+"""The ceiling of the flash-attention kernels' products on one NVIDIA GPU.
 
     python3 tools/flash_probe.py
 
 Imports nothing of JAX. Needs the CUDA toolkit's nvcc (as the port's
 kernel build does). Prints the card's name and power limit, then one JSON
 line per measurement: the rate of mma.sync m16n8k8 TF32 products (the
-only product the forward issues) with independent accumulator chains, by
-warps per block, blocks per SM and chains per warp.
+only product the forward, dq and dk/dv kernels issue) with independent
+accumulator chains, by warps per block, blocks per SM and chains per
+warp; then, for each kernel, the best of those rates at its own launch
+shape (``LAUNCH``), the ceiling that PERF.md gives each kernel's MMA
+rate a share of.
 """
 from __future__ import annotations
 
@@ -21,6 +23,11 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parents[1]
 sys.path.insert(0, str(ROOT / "src"))
 OUT = ROOT / "build" / "flash_probe"
+# each kernel's launch shape (csrc/flash_attention.cu): 256 threads a
+# block, and one block per SM (the shared memory and ptxas's registers
+# leave room for no second one)
+LAUNCH = {"flash_fwd_kernel": (8, 1), "flash_dq_kernel": (8, 1),
+          "flash_dkv_kernel": (8, 1)}
 
 MMA_PEAK_CU = r"""
 #include <cuda_runtime.h>
@@ -80,6 +87,7 @@ def main() -> int:
     sms = torch.cuda.get_device_properties(0).multi_processor_count
     out = torch.empty(sms * 2 * 512, device="cuda")
     iters = 4096
+    rates = {}
     for warps in (4, 8, 16):
         for per_sm in (1, 2):
             for chains in (4, 8, 16):
@@ -88,10 +96,17 @@ def main() -> int:
                     out.data_ptr(), blocks, 32 * warps, iters, chains),
                     reps=5, warmup=2)
                 flops = 2 * 16 * 8 * 8 * iters * chains * warps * blocks
+                rate = flops / ms / 1e9
+                rates[warps, per_sm] = max(rates.get((warps, per_sm), 0.0),
+                                           rate)
                 print(json.dumps({"probe": "mma_peak", "warps_per_block":
                                   warps, "blocks_per_sm": per_sm,
                                   "chains": chains, "ms": ms,
-                                  "TFLOPs": flops / ms / 1e9}), flush=True)
+                                  "TFLOPs": rate}), flush=True)
+    for kernel, (warps, per_sm) in LAUNCH.items():
+        print(json.dumps({"probe": "launch_shape", "kernel": kernel,
+                          "warps_per_block": warps, "blocks_per_sm": per_sm,
+                          "mma_TFLOPs": rates[warps, per_sm]}), flush=True)
 
     print(CS.card_line(), flush=True)
     return 0
