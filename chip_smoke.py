@@ -60,7 +60,9 @@ Phases, each printing one JSON line; any failure exits non-zero:
               threshold of every row bit for bit); then each one's time
               for one whole-tree call (the pruning in place, as the outer
               step runs it, from fresh deltas each time) beside its plain
-              version, a library call where one exists, and the bound.
+              version, a library call where one exists, and the bound;
+              the pruning's resident-row and long-row leaves also timed
+              apart, with their GB/s beside the card's memory rate.
  10. smoke_mixed  a k=2, H=2 round of the diloco_150m smoke config on the
               card against the CPU under (bf16, f32) with prune_frac 0.5
               and under (bf16, bf16), with the tolerances of
@@ -72,9 +74,9 @@ Phases, each printing one JSON line; any failure exits non-zero:
               fused_adamw_mixed k·H·rounds·12 = 192, fused_adamw (f32 and
               bf16) 0, outer_nesterov rounds·12 = 24, sign_prune rounds ·
               Σ over the leaves of its launches for (k·R, C) (1 for a row
-              of at most RESIDENT_MAX_COLS, 28 for a longer one:
+              of at most RESIDENT_MAX_COLS, 5 for a longer one:
               diloco_150m has five short-row and seven long-row leaves,
-              2·(5 + 7·28) = 402).
+              2·(5 + 7·5) = 80).
  12. profile_mixed  one profiled inner step under the mixed policy, as
               phase 5.
  13. train_bf16  the pure (bf16, bf16) policy, and ``--pretrain-steps``
@@ -83,7 +85,7 @@ Phases, each printing one JSON line; any failure exits non-zero:
               k=2, H=2 round (the mixed run with ``--prune-frac 0.5``);
               counters set to 0 just before and read just after each run:
               (2 + k·H)·12 = 72 launches of the policy's AdamW kernel,
-              12 outer_nesterov, one round's sign_prune (201) or 0.
+              12 outer_nesterov, one round's sign_prune (40) or 0.
  14. quant_kernels  ``fake_quant`` (int4 and bf16) against its plain
               version, bit for bit (NaN at the same places), at every
               diloco_150m leaf shape stacked k=2, at misaligned and
@@ -240,8 +242,12 @@ ADAMW_BYTES, NESTEROV_BYTES = 28, 20     # 4 reads + 3 writes; 3 + 2
 # f32 master + bf16 m, v, p written
 BF16_ADAMW_BYTES, MIXED_ADAMW_BYTES = 14, 20
 # sign_prune per element of the f32 deltas: read once, written once; its
-# operations: |x|, two selects and adds and the max (4), 26 bisection
-# steps of a compare and an add (52), the mask (4)
+# operations, at most 60 an entry, those of a warp row: |x|, two selects
+# and adds and the max (4), 26 bisection steps of a compare and an add
+# (52), the mask (4) (a long row's entry takes fewer: the statistics,
+# three count passes of a compare or two, the first also binning it, the
+# mask). 60 at 67 TFLOP/s is below the bytes at 3.35 TB/s: the bound is
+# bytes.
 PRUNE_BYTES, PRUNE_OPS = 8, 60
 PRUNE_FRAC = 0.5
 # fake_quant per element: read once, written once; int4's operations: |x|,
@@ -1077,6 +1083,25 @@ def phase_mixed_kernels(torch, dev):
         # no PyTorch call computes it (torch.topk or kthvalue per row
         # would select by magnitude only, without the sign election)
         "library_ms": None}
+    # the two regimes apart: leaves of rows up to RESIDENT_MAX_COLS, and
+    # the long ones
+    regimes = {}
+    for regime in ("resident", "long"):
+        part = {key: d for key, d in D.items()
+                if (ops.as_rows(d, 1).shape[1] <= SP.RESIDENT_MAX_COLS)
+                == (regime == "resident")}
+        ms = time_ms(torch, lambda: ops.sign_prune_tree(
+            part, PRUNE_FRAC, stacked=True, mode="kernel"), setup=fresh)
+        nbytes = sum(d.numel() for d in part.values()) * PRUNE_BYTES
+        regimes[regime] = {
+            "leaves": len(part), "ms": ms, "bytes": nbytes,
+            "GBps": nbytes / ms / 1e6,
+            "launches": sum(SP.launches_for(*ops.as_rows(d, 1).shape)
+                            for d in part.values())}
+    say({"phase": "mixed_kernels", "kernel": "sign_prune",
+         "ms_resident": regimes["resident"]["ms"],
+         "ms_long": regimes["long"]["ms"], "regimes": regimes,
+         "card_GBps": bandwidth(torch.cuda.get_device_name(0)) / 1e9})
     del D, D0
     torch.cuda.empty_cache()
     work = {"fused_adamw_mixed": (n, MIXED_ADAMW_BYTES, ADAMW_FLOPS,

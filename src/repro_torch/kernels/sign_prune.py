@@ -5,12 +5,17 @@ The wrapper prunes in place (``sign_prune_``), running the kernels on CUDA
 tensors and the plain PyTorch version (``ref.sign_prune``) on CPU tensors;
 a CUDA tensor goes to the kernels or raises. ``sign_prune_parts`` also
 returns each row's elected sign and threshold, the quantities the kernels
-are held to. A matrix of rows up to ``RESIDENT_MAX_COLS`` long is pruned with
-each row held in one block's shared memory: one launch. Longer rows are
-shared by blocks of ``CHUNK`` entries each and pruned in ``LONG_LAUNCHES``
-= 28 launches (statistics, 26 bisection counts, mask), for at most
-``MAX_GRID_ROWS`` rows. ``launches`` counts these CUDA launches and
-nothing else.
+are held to, bit for bit.
+
+A matrix of rows up to ``RESIDENT_MAX_COLS`` long is pruned in one launch:
+rows of up to 1024 entries a warp each, the row in registers; longer ones
+a block each, the row in shared memory. Longer rows are shared by blocks
+of ``CHUNK`` entries each and pruned in ``LONG_LAUNCHES`` = 5 launches,
+for at most ``MAX_GRID_ROWS`` rows: the statistics, three count passes
+that each resolve several of the 26 bisection steps at once (9, 9 and 8:
+every block bins its entries by the tree of thresholds those steps can
+visit, into a per-row histogram), and the mask. ``launches`` counts these CUDA launches and nothing else;
+``launches_for`` says how many one pruning takes.
 """
 from __future__ import annotations
 
@@ -22,24 +27,34 @@ from . import build, ref
 
 launches = 0
 RESIDENT_MAX_COLS = 49152        # 192 KB of float32 in one block's smem
-CHUNK = 16384                    # entries of a long row per block
-LONG_LAUNCHES = ref.PRUNE_ITERS + 2
+CHUNK = 32768                    # entries of a long row per block
+LONG_LAUNCHES = 5                # statistics, 3 count passes, mask
 MAX_GRID_ROWS = 65535            # the grid's y dim
+MAX_COLS = 2**31 - 1             # the per-row counts are 32-bit
 _fns: dict = {}
 
 
 def _kernel(entry: str):
     if entry not in _fns:
-        fn = getattr(build.load("sign_prune"), entry)
+        lib = build.load("sign_prune")
+        if "workspace" not in _fns:
+            made = lib.repro_sign_prune_long_launches()
+            if made != LONG_LAUNCHES:
+                raise RuntimeError(f"csrc/sign_prune.cu makes {made} "
+                                   f"launches a long row, LONG_LAUNCHES "
+                                   f"says {LONG_LAUNCHES}")
+            work = lib.repro_sign_prune_long_workspace
+            work.restype = ctypes.c_longlong
+            work.argtypes = [ctypes.c_longlong] * 3
+            _fns["workspace"] = work
+        fn = getattr(lib, entry)
         fn.restype = ctypes.c_int
         head = [ctypes.c_void_p] * 2 + [ctypes.c_longlong] * 3 \
             + [ctypes.c_float] * 2
-        if entry == "repro_sign_prune_resident_f32":
-            mid = [ctypes.c_int]
-        else:
-            mid = [ctypes.c_longlong] + [ctypes.c_void_p] * 3
-        fn.argtypes = head + mid + [ctypes.c_void_p] * 2 + [ctypes.c_int,
-                                                             ctypes.c_void_p]
+        if entry == "repro_sign_prune_long_f32":
+            head += [ctypes.c_longlong, ctypes.c_void_p]
+        fn.argtypes = head + [ctypes.c_void_p] * 2 + [ctypes.c_int,
+                                                      ctypes.c_void_p]
         _fns[entry] = fn
     return _fns[entry]
 
@@ -63,24 +78,21 @@ def _launch(x, out, keep, sign, hi):
     stream = torch.cuda.current_stream(dev).cuda_stream
     common = (keep, ref.HI_SCALE, ref.HI_FLOOR)
     if C <= RESIDENT_MAX_COLS:
-        threads = min(1024, 32 * -(-C // 256))     # ~8 entries per thread
         err = _kernel("repro_sign_prune_resident_f32")(
-            x.data_ptr(), out.data_ptr(), R, C, *common, threads,
+            x.data_ptr(), out.data_ptr(), R, C, *common,
             *_row_ptrs(sign, hi), dev.index or 0, stream)
         _raise(err)
         launches += 1
         return
-    if R > MAX_GRID_ROWS:
+    if R > MAX_GRID_ROWS or C > MAX_COLS:
         raise ValueError(f"sign_prune takes at most {MAX_GRID_ROWS} rows of "
-                         f"more than {RESIDENT_MAX_COLS} columns, got {R}")
-    chunks = -(-C // CHUNK)
-    stats = torch.empty(R * chunks * 3, dtype=torch.float32, device=dev)
-    cnt = torch.empty(2 * R * chunks, dtype=torch.int32, device=dev)
-    lohi = torch.empty(2 * R * 2, dtype=torch.float32, device=dev)
-    err = _kernel("repro_sign_prune_long_f32")(
-        x.data_ptr(), out.data_ptr(), R, C, *common, CHUNK, stats.data_ptr(),
-        cnt.data_ptr(), lohi.data_ptr(), *_row_ptrs(sign, hi),
-        dev.index or 0, stream)
+                         f"more than {RESIDENT_MAX_COLS} and at most "
+                         f"{MAX_COLS} columns, got {R} × {C}")
+    fn = _kernel("repro_sign_prune_long_f32")
+    work = torch.empty(_fns["workspace"](R, C, CHUNK), dtype=torch.uint8,
+                       device=dev)
+    err = fn(x.data_ptr(), out.data_ptr(), R, C, *common, CHUNK,
+             work.data_ptr(), *_row_ptrs(sign, hi), dev.index or 0, stream)
     _raise(err)
     launches += LONG_LAUNCHES
 

@@ -17,6 +17,7 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+from prune_levels import table  # noqa: E402
 from repro_torch import check, convert, tree  # noqa: E402
 from repro_torch.configs.base import DiLoCoConfig, TrainConfig  # noqa: E402
 from repro_torch.core import diloco, streaming  # noqa: E402
@@ -102,23 +103,77 @@ def test_cuda_low_precision_adamw_equal_plain(cuda, n, offset):
         assert a.dtype == b.dtype and _ulps(a, b) <= 2
 
 
+# (shape, frac, rows): the regimes and their boundaries (warp rows up to
+# 1024 columns, rows in shared memory up to RESIDENT_MAX_COLS = 49152,
+# with 24,576 to 32,772 columns around the head's 32,000, long rows past
+# it; 917,507 is no multiple of 4), pointers one entry off (the scalar
+# paths), and rows made to break the resolve
+PRUNE_CASES = [
+    *[(shape, frac, "randn") for shape, frac in (
+        ((64, 896), 0.5), ((9, 32000), 0.25), ((3, 60001), 0.5),
+        ((4, 200_000), 0.9), ((1, 1), 0.5), ((5, 1000), 0.9),
+        ((6, 1024), 0.5), ((6, 1025), 0.5), ((3, 49152), 0.5),
+        ((3, 49153), 0.5), ((2, 917_507), 0.5), ((200, 24576), 0.5),
+        ((200, 24580), 0.5), ((300, 32768), 0.5), ((3, 32772), 0.5))],
+    *[(shape, 0.5, "offset") for shape in (
+        (5, 1000), (3, 2000), (4, 200_000), (2, 917_504))],
+    *[(shape, frac, "adversarial") for shape in ((8, 896), (8, 4000),
+                                                  (8, 60001))
+      for frac in (0.5, 0.9999, 1e-6)],
+    *[(shape, frac, "nodes") for shape in ((4, 4000), (4, 60001))
+      for frac in (0.5, 0.25)]]
+
+
+def _prune_input(shape, rows, gen, dev):
+    """randn of ``shape``; "offset": the matrix starts one entry into its
+    storage; "adversarial": rows 0-5 hold a NaN, ±inf, one value, zeros,
+    many duplicates and subnormals; "nodes": each row's entries sit on the
+    thresholds that its first count pass bins by."""
+    R, C = shape
+    off = 1 if rows == "offset" else 0
+    x = torch.randn(R * C + off, generator=gen, device=dev)[off:].view(R, C)
+    if rows == "nodes":
+        # max 1, then the first pass's nodes and their neighbours (an ulp
+        # to either side) with random signs: where the kernels' index
+        # estimate must not take its floor
+        x.clamp_(-0.999, 0.999)[:, 0] = 1.0
+        hi0 = torch.tensor(1.0) * tref.HI_SCALE + tref.HI_FLOOR
+        nodes = table(torch.tensor(0.0), hi0, 9)[1:-1]
+        mag = torch.cat([nodes, torch.nextafter(nodes, hi0),
+                         torch.nextafter(nodes, torch.tensor(0.0))])
+        sign = torch.randint(0, 2, mag.shape, generator=torch.Generator()
+                             .manual_seed(R)) * 2 - 1
+        x[:, 1:1 + mag.numel()] = (mag * sign).clamp(-1, 1).to(dev)
+    if rows == "adversarial":
+        x[0, C // 3] = float("nan")
+        x[1, C // 2], x[1, 0] = float("inf"), float("-inf")
+        x[2] = 0.37
+        x[3] = 0.0
+        x[4] = (x[4] * 2).round() / 4
+        x[5] *= 1e-40
+    return x
+
+
+def _same_bits(a, b):
+    """Equal bit for bit, or NaN at the same places."""
+    return bool(((a.view(torch.int32) == b.view(torch.int32))
+                 | (a.isnan() & b.isnan())).all())
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("shape,frac", [
-    ((64, 896), 0.5), ((9, 32000), 0.25), ((3, 60001), 0.5),
-    ((4, 200_000), 0.9), ((1, 1), 0.5), ((5, 1000), 0.9)])
-def test_cuda_sign_prune_equal_plain(cuda, shape, frac):
-    """Both regimes (rows in shared memory up to RESIDENT_MAX_COLS, longer
-    rows shared by blocks): the output, each row's elected sign and its
-    threshold bit for bit; the launches the regime takes."""
+@pytest.mark.parametrize("shape,frac,rows", PRUNE_CASES)
+def test_cuda_sign_prune_equal_plain(cuda, shape, frac, rows):
+    """Every regime: the output, each row's elected sign and its threshold
+    bit for bit; the launches ``launches_for`` says the regime takes."""
     gen = torch.Generator(device=cuda).manual_seed(shape[1])
-    x = torch.randn(shape, generator=gen, device=cuda)
+    x = _prune_input(shape, rows, gen, cuda)
     before = TSP.launches
     sign, hi, out = TSP.sign_prune_parts(x, frac)
     torch.cuda.synchronize()
     assert TSP.launches - before == TSP.launches_for(*shape)
     wsign, whi, wout = tref.sign_prune_parts(x, frac)
-    assert torch.equal(sign, wsign) and torch.equal(hi, whi)
-    assert torch.equal(out.view(torch.int32), wout.view(torch.int32))
+    assert torch.equal(sign, wsign) and _same_bits(hi, whi)
+    assert _same_bits(out, wout) and not out.isnan().any()
     y = x.clone()
     TSP.sign_prune_(y, frac)
     assert torch.equal(y, out)

@@ -159,7 +159,7 @@ def test_prune_wrapper_checks_and_counts():
     # the launches the kernels take, by regime
     assert TSP.launches_for(64000, 896) == 1
     assert TSP.launches_for(1792, 32000) == 1
-    assert TSP.launches_for(24, 917_504) == 28
+    assert TSP.launches_for(24, 917_504) == 5
     assert TSP.launches_for(0, 10) == 0
 
 
