@@ -178,6 +178,35 @@ Phases, each printing one JSON line; any failure exits non-zero:
               ranks on the card against two gloo ranks on the CPU, with
               the flip share of ``repro_torch.check``.
 
+ 23. resume   slice 10's path (``core.diloco.make_run`` in chunks, the
+              resilience hooks at their boundaries) on diloco_60m at full
+              width (d_model 896, 16 × 64 heads, 3 layers, vocab 32000;
+              k=2, H=4, 6 rounds, batch 8, seq 1024): an uncut run with
+              ``--rounds-per-call 2 --checkpoint-dir D --checkpoint-every
+              2 --retain 2`` (retention leaves the snapshots after rounds
+              4 and 6), the same run resumed with ``--resume 4``, and the
+              per-round loop (``--legacy-loop``) with no snapshots: the
+              three ``--state-hash-out`` digests must be equal (else the
+              leaves that differ are named). Prints the snapshot's bytes,
+              ms to save (with its device-to-host copy), to verify and to
+              load, and the disk left; D is deleted at the end.
+ 24. guard    the same width, 4 rounds, ``--nan-bomb 1:2 --guard
+              --checkpoint-dir D --checkpoint-every 1``: exactly one
+              anomaly and one rollback (round index 2), the replay with the
+              in-graph guard armed (``guard_rejected`` 1 on the bombed
+              round, 0 after), finite losses, and the same guard events as
+              a CPU run of the same flags at smoke width.
+ 25. milestone  diloco_60m at full width, k=2, H=8, 12 rounds,
+              ``--warmup 20 --rounds-per-call 4 --eval-every 2`` (192
+              replica-steps): every round's inner and val loss beside the
+              entropy floor, the last val loss below the first; then ten
+              rounds of its smoke config through one ``make_run`` call on
+              the card and on the CPU, on the same Markov tokens: every
+              round's inner and val loss within ``MILESTONE_CARD_TOL``.
+              Every trainer run of phases 23-25 asserts the launches of
+              every kernel (k·H·rounds·12 ``fused_adamw``, rounds·12
+              ``outer_nesterov``, the guard's replayed round counted).
+
 ``python3 chip_smoke.py --cards 4`` runs only phases 22 and 21 across
 four cards: one pod rank and one replica per card, over NCCL.
 
@@ -2144,6 +2173,246 @@ def phase_smoke_sharded(torch, dev, pods=2):
          "inner_loss_cpu": [m["inner_loss"]
                             for m in res["cpu"][0]["metrics"]]})
 
+# ---------------------------------------------------------------------------
+# slice 10: the chunked round driver, snapshots, resume, the guard and the
+# first milestone, on diloco_60m at full width
+# ---------------------------------------------------------------------------
+
+ARGV_60M = ["--full", "--arch", "diloco_60m", "--k", str(K), "--batch",
+            str(BATCH), "--seq", str(SEQ), "--eval-batch", "8"]
+CKPT_DIR = ROOT / "build" / "chip_smoke_ckpt"
+# the milestone's card-against-CPU bound on every round's inner and val
+# loss (absolute): over its ten smoke-width rounds the card (TF32 off)
+# and the CPU differ by at most 9.5e-7 in both (NVIDIA H100 80GB HBM3,
+# 700 W); the bound is 20 times that, as the CPU test's bound against JAX
+MILESTONE_CARD_TOL = 2e-5
+
+
+def leaves_60m() -> int:
+    from repro_torch import tree
+    from repro_torch.models.registry import get_arch
+    return len(tree.leaves(get_arch("diloco_60m").init(generator=None,
+                                                      device="meta")))
+
+
+def sync_launches(rounds, h=H, k=K) -> dict:
+    """The launches of ``rounds`` classic f32 rounds of diloco_60m."""
+    n = leaves_60m()
+    return expect_launches(fused_adamw=k * h * rounds * n,
+                           outer_nesterov=rounds * n)
+
+
+def read_hash(path) -> dict:
+    with open(path) as f:
+        return json.load(f)
+
+
+def phase_resume(torch, dev):
+    """Phase 23: an uncut run with snapshots, the same run resumed from its
+    snapshot after round 4, and the per-round loop with no snapshots:
+    one final state (sha256)."""
+    import shutil
+
+    shutil.rmtree(CKPT_DIR, ignore_errors=True)
+    CKPT_DIR.mkdir(parents=True)
+    try:
+        argv = ARGV_60M + ["--H", str(H), "--rounds", "6",
+                           "--rounds-per-call", "2"]
+        snap = ["--checkpoint-dir", str(CKPT_DIR / "d"),
+                "--checkpoint-every", "2", "--retain", "2"]
+        out = {}
+        for name, extra, rounds in (
+                ("uncut", snap, 6), ("resumed", snap + ["--resume", "4"], 2),
+                ("legacy", ["--legacy-loop"], 6)):
+            path = str(CKPT_DIR / f"{name}.json")
+            man = {}
+            records, timing, wall_s, launches = run_trainer(
+                torch, dev, argv + extra + ["--state-hash-out", path], man)
+            if launches != sync_launches(rounds):
+                raise SystemExit(f"resume: {name}: launches {launches}, "
+                                 f"expected {sync_launches(rounds)}")
+            check_records(records, f"resume {name}", 0.0, rounds=rounds)
+            if name == "uncut":
+                kept = sorted(p.name for p in (CKPT_DIR / "d").glob("*.npz"))
+                if kept != ["ckpt_00000004.npz", "ckpt_00000006.npz"]:
+                    raise SystemExit(f"resume: --retain 2 left {kept}")
+            out[name] = (read_hash(path), timing, wall_s)
+        want = out["uncut"][0]
+        for name in ("resumed", "legacy"):
+            got = out[name][0]
+            if got["state_sha256"] != want["state_sha256"]:
+                diff = sorted(k for k, v in got["leaf_sha256"].items()
+                              if want["leaf_sha256"][k] != v)
+                raise SystemExit(f"resume: {name} state differs from the "
+                                 f"uncut run's in {len(diff)} leaves: "
+                                 f"{diff[:8]}")
+        snaps = out["uncut"][1]["snapshots"]
+        res = out["resumed"][1]
+        last = out["uncut"][1]["rounds"][-1]
+        say({"phase": "resume", "argv": argv + snap,
+             "state_sha256": want["state_sha256"],
+             "resumed_from_step": out["resumed"][0]["resumed_from_step"],
+             "ingest_calls": {n: o[0]["ingest_calls"]
+                              for n, o in out.items()},
+             "snapshot_bytes": snaps[0]["bytes"],
+             "save_ms": [x["save_s"] * 1e3 for x in snaps],
+             "save_parts_ms": [{p: x[f"{p}_s"] * 1e3 for p in (
+                 "copy", "write", "manifest")} for x in snaps],
+             "verify_ms": res["resume"]["verify_s"] * 1e3,
+             "load_ms": res["loads"][0]["load_s"] * 1e3,
+             "disk_free_GB": shutil.disk_usage(CKPT_DIR).free / 1e9,
+             "inner_step_ms": last["inner_s"] * 1e3 / (K * H),
+             "tokens_per_s": K * H * BATCH * SEQ / last["inner_s"],
+             "wall_s": {n: o[2] for n, o in out.items()}})
+    finally:
+        shutil.rmtree(CKPT_DIR, ignore_errors=True)
+
+
+def guard_argv(d) -> list:
+    return ["--H", str(H), "--rounds", "4", "--nan-bomb", "1:2", "--guard",
+            "--checkpoint-dir", str(d), "--checkpoint-every", "1"]
+
+
+def guard_events(records) -> list:
+    return [(r["event"], r["round"]) for r in records
+            if r["kind"] == "event"]
+
+
+def phase_guard(torch, dev):
+    """Phase 24: worker 1's outer gradient poisoned in round 3 (index 2):
+    the guard sees the NaN val loss, rolls back to the snapshot after
+    round 2 and replays round 3 with the in-graph guard armed, which
+    rejects the poisoned replica; the same guard events as a CPU run of
+    the same flags at smoke width."""
+    import shutil
+
+    from repro_torch.launch import train
+    from repro_torch.obs.metrics import RunRecorder
+
+    shutil.rmtree(CKPT_DIR, ignore_errors=True)
+    try:
+        man = {}
+        records, timing, wall_s, launches = run_trainer(
+            torch, dev, ARGV_60M + guard_argv(CKPT_DIR / "card"), man)
+        events = guard_events(records)
+        rnds = [r for r in records if r["phase"] == "diloco"]
+        replay = [r for r in rnds if "guard_rejected" in r]
+        notes = [n["note"] for n in man.get("notes", ())]
+        if launches != sync_launches(5):          # round 3 ran twice
+            raise SystemExit(f"guard: launches {launches}, expected "
+                             f"{sync_launches(5)}")
+        if events != [("anomaly", 2), ("rollback", 2)] or not any(
+                "in-graph guard armed" in n for n in notes):
+            raise SystemExit(f"guard: events {events}, notes {notes}")
+        if [(r["round"], r["guard_rejected"]) for r in replay] != [
+                (3, 1.0), (4, 0.0)]:
+            raise SystemExit(f"guard: replayed rounds {replay}")
+        if not all(math.isfinite(r["inner_loss"])
+                   and math.isfinite(r["val_loss"]) for r in replay):
+            raise SystemExit(f"guard: the replay is not finite: {replay}")
+        args = train.make_parser().parse_args(
+            ["--device", "cpu", "--arch", "diloco_60m", "--k", str(K),
+             "--batch", "2", "--seq", "32", "--eval-batch", "2",
+             *guard_argv(CKPT_DIR / "cpu")])
+        cpu = guard_events(train.run(args, recorder=RunRecorder(
+            printer=lambda *a, **kw: None)))
+        if cpu != events:
+            raise SystemExit(f"guard: card events {events}, CPU {cpu}")
+        say({"phase": "guard", "argv": ARGV_60M + guard_argv("D"),
+             "events": events, "cpu_events": cpu,
+             "rounds": [(r["round"], str(r["val_loss"]),
+                         r.get("guard_rejected")) for r in rnds],
+             "launches": launches, "snapshot_save_ms": [
+                 x["save_s"] * 1e3 for x in timing["snapshots"]],
+             "rollback_load_ms": timing["loads"][0]["load_s"] * 1e3,
+             "wall_s": wall_s})
+    finally:
+        shutil.rmtree(CKPT_DIR, ignore_errors=True)
+
+
+def smoke_milestone(torch, device, params, toks, val, rounds, k, h):
+    """``rounds`` rounds of diloco_60m's smoke config through one
+    ``make_run`` call on ``device``, on the given tokens. Returns the
+    per-round (inner losses, val losses) as lists."""
+    from repro_torch import tree
+    from repro_torch.configs.base import DiLoCoConfig, TrainConfig
+    from repro_torch.core import diloco
+    from repro_torch.models.registry import get_smoke_arch
+
+    arch = get_smoke_arch("diloco_60m")
+    toks = toks.to(device)
+    drawn = iter(range(rounds))
+    b, s = toks.shape[2] // h, toks.shape[3]
+    dcfg = DiLoCoConfig(k=k, H=h)
+    run = diloco.make_run(
+        lambda p, bt: arch.loss(p, bt), lambda g, bb, ss: toks[next(drawn)],
+        dcfg, TrainConfig(inner_lr=1e-3, warmup_steps=4,
+                          total_steps=rounds * h),
+        rounds_per_call=rounds, batch_size=b, seq_len=s,
+        eval_tokens=val.to(device), eval_every=1)
+    st = diloco.init_state(tree.map(lambda t: t.to(device), params), dcfg)
+    st, m = run(st, None)
+    return m["inner_loss"].tolist(), m["val_loss"].tolist()
+
+
+def phase_milestone(torch, dev):
+    """Phase 25: diloco_60m at full width for 12 rounds of H=8 (192
+    replica-steps), every round's losses beside the entropy floor; then
+    ten rounds of its smoke config through ``make_run`` on the card and
+    on the CPU, every round's inner and val loss within
+    MILESTONE_CARD_TOL."""
+    from repro_torch.data.sharding import make_regime
+    from repro_torch.models.registry import get_smoke_arch
+
+    argv = ARGV_60M + ["--H", "8", "--rounds", "12", "--warmup", "20",
+                       "--rounds-per-call", "4", "--eval-every", "2"]
+    records, timing, wall_s, launches = run_trainer(torch, dev, argv)
+    if launches != sync_launches(12, h=8):
+        raise SystemExit(f"milestone: launches {launches}, expected "
+                         f"{sync_launches(12, h=8)}")
+    rnds = [r for r in records if r["phase"] == "diloco"]
+    vals = [r["val_loss"] for r in rnds if r["val_loss"] is not None]
+    if len(rnds) != 12 or not all(math.isfinite(r["inner_loss"])
+                                  for r in rnds) \
+            or not all(math.isfinite(v) for v in vals) \
+            or not vals[-1] < vals[0]:
+        raise SystemExit(f"milestone: rounds {rnds}")
+    from repro_torch.launch import train
+    floor = shared_sampler(torch, dev, train.make_parser().parse_args(
+        argv)).entropy_floor()
+
+    rounds, k, h, b, s = 10, 2, 4, 2, 64
+    arch = get_smoke_arch("diloco_60m")
+    gen = torch.Generator().manual_seed(0)
+    params = arch.init(generator=gen, device="cpu")
+    markov = make_regime("non_iid", k=k, vocab_size=arch.cfg.vocab_size,
+                         device="cpu")
+    toks = torch.stack([markov.sample_all_shards(gen, h * b, s)[:k]
+                        for _ in range(rounds)])
+    val = markov.sample_validation(gen, 4, s)
+    got = smoke_milestone(torch, dev, params, toks, val, rounds, k, h)
+    want = smoke_milestone(torch, torch.device("cpu"), params, toks, val,
+                           rounds, k, h)
+    diffs = [max(abs(x - y) for x, y in zip(g, w))
+             for g, w in zip(got, want)]
+    if not max(diffs) <= MILESTONE_CARD_TOL:
+        raise SystemExit(f"milestone: card against CPU {diffs} beyond "
+                         f"{MILESTONE_CARD_TOL}: {got} {want}")
+    last = timing["rounds"][-1]
+    say({"phase": "milestone", "argv": argv, "entropy_floor": floor,
+         "inner_loss": [r["inner_loss"] for r in rnds],
+         "val_loss": [r["val_loss"] for r in rnds],
+         "launches": launches,
+         "inner_step_ms": last["inner_s"] * 1e3 / (K * 8),
+         "tokens_per_s": K * 8 * BATCH * SEQ / last["inner_s"],
+         "wall_s": wall_s,
+         "smoke": {"rounds": rounds, "k": k, "H": h, "batch": b, "seq": s,
+                   "max_abs_diff_inner": diffs[0],
+                   "max_abs_diff_val": diffs[1],
+                   "tol": MILESTONE_CARD_TOL,
+                   "inner_loss_cuda": got[0], "val_loss_cuda": got[1],
+                   "inner_loss_cpu": want[0], "val_loss_cpu": want[1]}})
+
 
 def main_cards(torch, dev, cards: int) -> int:
     """``--cards N`` (N > 1): only the sharded transport across N cards,
@@ -2201,6 +2470,9 @@ def main() -> int:
     rows += codec_rows
     launches.update(phase_train_sharded(torch, dev))
     phase_smoke_sharded(torch, dev)
+    phase_resume(torch, dev)
+    phase_guard(torch, dev)
+    phase_milestone(torch, dev)
     for row in rows:
         row["launches"] = launches[row["name"]]
     say({"kernels": rows})

@@ -170,13 +170,16 @@ def inner_phase(inner_step, replica_params, inner_state, batches, step0,
 
 def outer_step(state: DiLoCoState, dcfg: DiLoCoConfig, *, drop_mask=None,
                active_mask=None, weights=None,
-               compute_cosine: bool = False):
+               compute_cosine: bool = False, bomb_mask=None):
     """Average outer gradients and update the global copy (in place).
 
     drop_mask (k,): 1 = outer grad communicated, 0 = dropped (the replica
     keeps its own params for the next phase — Fig 8). active_mask (k,):
     0 = replica not in the pool this round. weights (k,): shard-size
-    weights (uniform if None). With ``dcfg.prune_frac > 0`` each
+    weights (uniform if None). bomb_mask (k,), fault injection: 1 poisons
+    the replica's delta to NaN before the pruning, the guard and the
+    reduce (``faults.Scenario.nan_masks`` rows; a corrupted-gradient
+    stand-in the guard must catch). With ``dcfg.prune_frac > 0`` each
     replica's delta is sign-pruned (Table 6) before the guard and the
     reduce, and ``metrics["prune_density"]`` is the share of its entries
     kept. Returns (new_state, metrics).
@@ -197,6 +200,10 @@ def outer_step(state: DiLoCoState, dcfg: DiLoCoConfig, *, drop_mask=None,
     masters = state.inner_state.master
     deltas = tree.map(lambda g, r: g[None] - r, gp,
                       state.replica_params if masters is None else masters)
+    if bomb_mask is not None:
+        for i in np.flatnonzero(np.asarray(bomb_mask) > 0):
+            for d in tree.leaves(deltas):
+                d[i] = float("nan")
     prune_metrics = {}
     if dcfg.prune_frac > 0:
         # the k replicas' rows stacked: one pruning per leaf
@@ -319,7 +326,7 @@ def _check_ported(dcfg: DiLoCoConfig, tcfg: TrainConfig):
 def make_round(loss_fn, sample_fn, dcfg: DiLoCoConfig, tcfg: TrainConfig,
                *, total_steps: int | None = None,
                compute_cosine: bool = False, batch_size: int | None = None,
-               seq_len: int | None = None, group=None):
+               seq_len: int | None = None, group=None, nan_bombs=None):
     """Build the DiLoCo round.
 
     sample_fn(gen, batch, seq_len) -> (k', batch, S) tokens, one batch per
@@ -332,8 +339,18 @@ def make_round(loss_fn, sample_fn, dcfg: DiLoCoConfig, tcfg: TrainConfig,
     ``dcfg.streaming_fragments >= 1`` builds the streaming round
     (``core/streaming.py``), whose state is a ``streaming.StreamState``;
     ``dcfg.transport == "sharded"`` runs it on this rank's pod ``group``
-    (``launch/mesh.py``).
+    (``launch/mesh.py``). ``nan_bombs`` ((rounds, k) mask, the classic
+    simulated round only) poisons the outer deltas of the masked (round,
+    replica) cells (``outer_step``'s ``bomb_mask``), its rows indexed by
+    the state's own ``outer_t``, so that a resumed run finds its place in
+    the schedule.
     """
+    if nan_bombs is not None and (dcfg.transport != "simulated"
+                                  or dcfg.streaming_fragments):
+        raise ValueError(
+            "nan_bombs poison the classic outer reduce "
+            "(transport='simulated', streaming_fragments=0); other "
+            "transports would silently ignore the injection")
     if dcfg.transport == "async":
         raise ValueError(
             "transport='async' is barrier-free — there is no round to "
@@ -360,6 +377,7 @@ def make_round(loss_fn, sample_fn, dcfg: DiLoCoConfig, tcfg: TrainConfig,
     inner_step = make_inner_step(loss_fn, tcfg, total_steps)
     B = batch_size or tcfg.batch_size
     S = seq_len or tcfg.seq_len
+    bombs = None if nan_bombs is None else np.asarray(nan_bombs, np.float32)
 
     def round_body(state: DiLoCoState, gen, drop_mask=None,
                    active_mask=None, weights=None):
@@ -377,9 +395,12 @@ def make_round(loss_fn, sample_fn, dcfg: DiLoCoConfig, tcfg: TrainConfig,
                                inner_steps_done=state.inner_steps_done + H)
         _sync(dev)
         t2 = time.perf_counter()
+        bomb = None if bombs is None else \
+            bombs[min(state.outer_t, len(bombs) - 1)]
         state, om = outer_step(state, dcfg, drop_mask=drop_mask,
                                active_mask=active_mask, weights=weights,
-                               compute_cosine=compute_cosine)
+                               compute_cosine=compute_cosine,
+                               bomb_mask=bomb)
         _sync(dev)
         om["inner_loss"] = ms["loss"].mean()
         om["inner_loss_last"] = ms["loss"][:, -1].mean()
@@ -388,6 +409,73 @@ def make_round(loss_fn, sample_fn, dcfg: DiLoCoConfig, tcfg: TrainConfig,
         return state, om
 
     return round_body
+
+
+def make_run(loss_fn, sample_fn, dcfg: DiLoCoConfig, tcfg: TrainConfig,
+             *, rounds_per_call: int, total_steps: int | None = None,
+             compute_cosine: bool = False, batch_size: int | None = None,
+             seq_len: int | None = None, eval_tokens=None,
+             eval_every: int = 1, donate: bool = True, group=None,
+             nan_bombs=None):
+    """Build the multi-round driver (the JAX ``make_run``): R =
+    ``rounds_per_call`` rounds of ``make_round``'s round body per call,
+    every metric returned stacked along a leading (R,) dim.
+
+    Returns ``run(state, gen, drop_masks, active_masks, weights,
+    round_offset=0) -> (state, metrics)``; drop and active masks are (R,
+    k) arrays (or None for all ones). The rounds draw from ``gen`` in
+    place, so one ``run`` call is bit-identical to R ``make_round`` calls
+    on the same generator (the JAX ``split_chain``/``next_key`` chain has
+    no counterpart: the generator's state is the carry).
+
+    ``eval_tokens`` (B, S) enables the periodic eval: the rounds whose
+    global index ``round_offset + t + 1`` divides by ``eval_every``, and
+    the last round of the call, report ``val_loss`` (a device scalar, the
+    global params' loss); the others report NaN and pay no eval. Chunked
+    callers pass ``round_offset`` = rounds already done so that the
+    cadence stays aligned across calls.
+
+    Metrics stay on the device (tensors stacked on it; the host floats as
+    numpy arrays) until the caller copies them
+    (``RunRecorder.ingest_chunk``): the call adds no host sync of its
+    own. ``donate`` is accepted and ignored: the port's state is already
+    updated in place.
+    """
+    del donate
+    round_body = make_round(
+        loss_fn, sample_fn, dcfg, tcfg, total_steps=total_steps,
+        compute_cosine=compute_cosine, batch_size=batch_size,
+        seq_len=seq_len, group=group, nan_bombs=nan_bombs)
+    R = int(rounds_per_call)
+    ev = make_eval(loss_fn)
+
+    def run_fn(state, gen, drop_masks=None, active_masks=None,
+               weights=None, round_offset: int = 0):
+        per_round = []
+        for t in range(R):
+            state, m = round_body(
+                state, gen, None if drop_masks is None else drop_masks[t],
+                None if active_masks is None else active_masks[t], weights)
+            if eval_tokens is not None:
+                gp = state.global_params
+                if (round_offset + t + 1) % eval_every == 0 or t == R - 1:
+                    m["val_loss"] = ev(gp, eval_tokens).float()
+                else:
+                    m["val_loss"] = torch.full(
+                        (), float("nan"), device=tree.leaves(gp)[0].device)
+            per_round.append(m)
+        return state, {k: _stack([m[k] for m in per_round])
+                       for k in per_round[0]}
+
+    return run_fn
+
+
+def _stack(values: list):
+    """R rounds' values of one metric: device scalars stacked on their
+    device, host numbers as a numpy array."""
+    if torch.is_tensor(values[0]):
+        return torch.stack(values)
+    return np.asarray(values)
 
 
 def make_eval(loss_fn):

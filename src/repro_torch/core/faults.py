@@ -22,9 +22,9 @@ consumes through the view that fits its execution model:
 
 Determinism is the point: a Scenario is a pure function of its fields
 (the rng is seeded per scenario), so a run replays the *same* timeline.
-The crash and NaN-bomb fields are kept so that the type is the JAX one;
-the port's trainer refuses the flags that set them (ROADMAP.md, port
-queue: checkpoints and resilience).
+The crash and NaN-bomb fields are the JAX ones: the trainer's
+``--crash-at-round``/``--crash-at-tick`` and ``--nan-bomb`` set them
+(``launch/train.scenario_of``).
 
 Time is measured in abstract wall-clock *ticks*: 1 tick = the fastest
 worker's phase (H inner steps).

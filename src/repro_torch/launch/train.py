@@ -29,6 +29,22 @@ gradient applied at weight ``--staleness-lambda``^τ / k, shipped at
 one line per event. On the round transports the same fault flags are
 projected onto the rounds' drop and active masks.
 
+The rounds run in chunks of ``--rounds-per-call`` through
+``core.diloco.make_run`` (all rounds in one chunk by default), whose
+metrics reach the host once per chunk (``RunRecorder.ingest_chunk``);
+``--legacy-loop`` runs one ``make_round`` call and one eval per round,
+with the same numbers. At the chunk boundaries sit the resilience hooks
+(``resilience/``), as in the JAX driver: durable snapshots
+(``--checkpoint-dir``, ``--checkpoint-every``, ``--retain``; ``--resume
+auto|N`` picks one up, ``--state-hash-out`` writes the final state's
+digest), the scripted SIGKILL (``--crash-at-round``), NaN-poisoned outer
+gradients (``--nan-bomb W:ROUND``) and the anomaly guard (``--guard``:
+on a non-finite or spiking loss, roll back to the last good snapshot and
+replay with the in-graph guard armed). Chunks are cut at the snapshot
+cadence and at the crash round. The async transport takes a snapshot
+every ``--checkpoint-every`` events, ``--crash-at-tick``, and the full
+engine state through ``--checkpoint``/``--restore``.
+
 Example:
   PYTHONPATH=src python -m repro_torch.launch.train \\
       --full --arch diloco_150m --k 2 --H 4 --rounds 2 --batch 8 --seq 1024
@@ -48,15 +64,26 @@ Example:
       --arch diloco_150m --transport async --speeds 1,2 \\
       --staleness-lambda 0.7 --outer-grad-dtype int4 --error-feedback \\
       --k 2 --H 4 --rounds 2 --batch 8 --seq 1024
+  PYTHONPATH=src python -m repro_torch.launch.train --device cpu \\
+      --k 2 --H 2 --rounds 6 --batch 2 --seq 32 --rounds-per-call 2 \\
+      --checkpoint-dir /tmp/ckpt --checkpoint-every 2 --crash-at-round 3
+  PYTHONPATH=src python -m repro_torch.launch.train --device cpu \\
+      --k 2 --H 2 --rounds 6 --batch 2 --seq 32 --rounds-per-call 2 \\
+      --checkpoint-dir /tmp/ckpt --checkpoint-every 2 --resume auto
 """
 from __future__ import annotations
 
 import argparse
+import dataclasses
+import os
+import signal
 import time
 
 import numpy as np
 import torch
 
+from .. import resilience, tree
+from ..checkpoint import checkpoint as ckpt
 from ..configs.base import DiLoCoConfig, TrainConfig
 from ..core import (async_diloco, diloco, faults, pod_collectives,
                     schedules, streaming)
@@ -69,25 +96,16 @@ from . import mesh
 
 # flag dest -> the ROADMAP.md port-queue item that ports it. A flag left
 # at its default passes; any other value exits with the item's name.
-UNPORTED = {
-    "gossip_pairing": "transports", "gossip_mix": "transports",
-    "crash_at_round": "fault scenarios", "crash_at_tick": "fault scenarios",
-    "nan_bomb": "fault scenarios",
-    "restore": "checkpoints and resilience",
-    "checkpoint": "checkpoints and resilience",
-    "checkpoint_dir": "checkpoints and resilience",
-    "checkpoint_every": "checkpoints and resilience",
-    "resume": "checkpoints and resilience",
-    "retain": "checkpoints and resilience",
-    "state_hash_out": "checkpoints and resilience",
-    "guard": "checkpoints and resilience",
-    "guard_window": "checkpoints and resilience",
-    "guard_spike": "checkpoints and resilience",
-    "guard_rollbacks": "checkpoints and resilience",
-    "trace": "telemetry",
-}
+UNPORTED = {"gossip_pairing": "transports", "gossip_mix": "transports",
+            "trace": "telemetry"}
 # transports of the JAX trainer that are not ported
 UNPORTED_TRANSPORTS = ("gossip",)
+# flags the sharded transport does not run yet: its snapshots would have
+# to gather every rank's replica band first
+SHARDED_UNPORTED = ("checkpoint_dir", "checkpoint_every", "resume",
+                    "retain", "checkpoint", "state_hash_out", "guard",
+                    "guard_window", "guard_spike", "guard_rollbacks",
+                    "crash_at_round")
 
 
 def resolve_device(name: str) -> torch.device:
@@ -125,12 +143,15 @@ def scenario_of(args) -> faults.Scenario | None:
     timeline. ``--drop-prob`` alone does NOT make a scenario; combined
     with any other fault flag it becomes the scenario's per-send drop
     probability with retry/backoff semantics. The crash and NaN-bomb
-    injections the JAX scenario also carries are refused by
-    ``check_ported`` (ROADMAP.md, port queue: fault scenarios).
+    injections ride the scenario too: the round-domain flags convert
+    through the barrier pacing T (one round = T ticks), so that
+    ``Scenario.crash_round`` and ``nan_masks`` project them back.
     """
     used = (args.speeds or args.link_latency
             or args.latency_jitter > 0 or args.max_retries > 0
-            or args.preempt or args.transport == "async")
+            or args.preempt or args.transport == "async"
+            or args.crash_at_tick >= 0 or args.crash_at_round >= 0
+            or args.nan_bomb)
     if not used:
         return None
     k = args.k
@@ -143,7 +164,7 @@ def scenario_of(args) -> faults.Scenario | None:
         w, leave = int(parts[0]), int(parts[1])
         rejoin = int(parts[2]) if len(parts) == 3 else 0
         preempts.append((w, leave, rejoin))
-    return faults.Scenario(
+    scen = faults.Scenario(
         speeds=_int_list(args.speeds, k, "--speeds")
         if args.speeds else (1,) * k,
         latency=_int_list(args.link_latency, k, "--link-latency")
@@ -154,42 +175,77 @@ def scenario_of(args) -> faults.Scenario | None:
         retry_backoff=args.retry_backoff,
         preemptions=tuple(preempts),
         seed=args.seed)
+    T = scen.sync_round_ticks(k)
+    crash_tick = args.crash_at_tick
+    if args.crash_at_round >= 0:
+        crash_tick = args.crash_at_round * T
+    bombs = []
+    for spec in args.nan_bomb:
+        parts = spec.split(":")
+        if len(parts) != 2:
+            raise SystemExit(f"--nan-bomb wants WORKER:ROUND, got {spec!r}")
+        bombs.append((int(parts[0]), int(parts[1]) * T))
+    if crash_tick >= 0 or bombs:
+        scen = dataclasses.replace(scen, crash_tick=crash_tick,
+                                   nan_bombs=tuple(bombs))
+    return scen
+
+
+def chunk_len(t: int, rounds: int, rounds_per_call: int, *,
+              checkpoint_every: int = 0, crash_round: int = -1) -> int:
+    """Rounds of the chunk that starts after round ``t`` (0-based): at
+    most ``--rounds-per-call`` (0: all), cut so that it ends on the
+    snapshot cadence and on the crash round, as the JAX driver cuts it."""
+    rpc = max(1, min(rounds_per_call or rounds, rounds))
+    n = min(rpc, rounds - t)
+    if checkpoint_every:
+        n = min(n, checkpoint_every - t % checkpoint_every)
+    if 0 <= crash_round and t <= crash_round:
+        n = min(n, crash_round + 1 - t)
+    return n
 
 
 def eval_rounds(rounds: int, eval_every: int, *, legacy_loop: bool,
-                rounds_per_call: int) -> list:
-    """Per round (0-based), whether the JAX trainer reports a val loss
-    for it: every round under ``--legacy-loop`` (one eval per dispatch,
-    ``repro/launch/train.py:554-566``); else, in chunks of
-    ``--rounds-per-call`` rounds (0: all rounds in one call), the rounds
-    g = t + 1 with g % eval_every == 0 and the last round of every chunk
-    (``repro/core/diloco.py:513-517``)."""
+                rounds_per_call: int, checkpoint_every: int = 0,
+                crash_round: int = -1) -> list:
+    """Per round (0-based), whether the trainer reports a val loss for it,
+    as the JAX trainer does: every round under ``--legacy-loop`` (one eval
+    per dispatch); else, over the chunks of ``chunk_len``, the rounds g =
+    t + 1 with g % eval_every == 0 and the last round of every chunk
+    (``make_run``'s rule)."""
     if legacy_loop:
         return [True] * rounds
-    rpc = max(1, min(rounds_per_call or rounds, rounds))
-    return [(t + 1) % eval_every == 0 or (t + 1) % rpc == 0
-            or t == rounds - 1 for t in range(rounds)]
+    out, t = [], 0
+    while t < rounds:
+        n = chunk_len(t, rounds, rounds_per_call,
+                      checkpoint_every=checkpoint_every,
+                      crash_round=crash_round)
+        out += [(t + i + 1) % eval_every == 0 or i == n - 1
+                for i in range(n)]
+        t += n
+    return out
 
 
 def check_ported(args, parser=None):
     """Refuse what the port does not run (naming its ROADMAP.md item),
     then the JAX trainer's own validation of the flags it runs."""
     parser = parser or make_parser()
+    changed = lambda dest: getattr(args, dest) != parser.get_default(dest)
     bad = [f"--{dest.replace('_', '-')} (ROADMAP.md, port queue: "
-           f"{item})" for dest, item in UNPORTED.items()
-           if getattr(args, dest) != parser.get_default(dest)]
+           f"{item})" for dest, item in UNPORTED.items() if changed(dest)]
     if args.transport in UNPORTED_TRANSPORTS:
         bad.insert(0, f"--transport {args.transport} (ROADMAP.md, port "
                       "queue: transports)")
+    if args.transport == "sharded":
+        bad += [f"--{dest.replace('_', '-')} on --transport sharded "
+                "(ROADMAP.md, port queue: checkpoints and resilience)"
+                for dest in SHARDED_UNPORTED if changed(dest)]
     if bad:
         raise SystemExit("not ported yet: " + "; ".join(bad))
     if args.kernel_mode in ("pallas", "interpret"):
         raise SystemExit(f"--kernel-mode {args.kernel_mode} names TPU "
                          "(Pallas) machinery; the port's modes are "
                          "auto|kernel|ref")
-    if args.guard_clip > 0 and not args.guard_outer:
-        raise SystemExit("--guard-clip scales deltas inside the in-graph "
-                         "guard; add --guard-outer")
     if not args.stream_fragments and args.transport in ("simulated",
                                                         "sharded"):
         # these knobs act only on the streaming outer path: running the
@@ -229,6 +285,44 @@ def check_ported(args, parser=None):
     if args.transport == "sharded" and args.cosine_stats:
         raise SystemExit("--cosine-stats (compute_cosine) needs cross-pod "
                          "delta gathers; run it on --transport simulated")
+    if args.restore and args.transport != "async":
+        raise SystemExit("--restore resumes a full async engine state; "
+                         "round transports resume from --checkpoint-dir "
+                         "snapshots (--resume auto) instead")
+    # ---- resilience flags (the JAX trainer's validation) ----
+    if not args.checkpoint_dir:
+        need_dir = [flag for flag, on in (
+            ("--resume", bool(args.resume)),
+            ("--checkpoint-every", args.checkpoint_every > 0)) if on]
+        if need_dir:
+            raise SystemExit(f"{', '.join(need_dir)} require(s) "
+                             "--checkpoint-dir")
+    if args.legacy_loop and (args.checkpoint_dir or args.guard
+                             or args.crash_at_round >= 0
+                             or args.nan_bomb):
+        raise SystemExit("--checkpoint-dir/--guard/--crash-at-round/"
+                         "--nan-bomb need the chunked driver's chunk "
+                         "boundaries; drop --legacy-loop")
+    if args.crash_at_tick >= 0 and args.crash_at_round >= 0:
+        raise SystemExit("--crash-at-tick and --crash-at-round are "
+                         "exclusive (tick = async domain, round = "
+                         "barrier domain)")
+    if args.crash_at_tick >= 0 and args.transport != "async":
+        raise SystemExit("--crash-at-tick addresses the async event "
+                         "timeline; round transports use "
+                         "--crash-at-round")
+    if args.nan_bomb and (args.transport != "simulated"
+                          or args.stream_fragments):
+        raise SystemExit("--nan-bomb injects into the classic outer "
+                         "reduce (--transport simulated, no "
+                         "--stream-fragments)")
+    if args.guard_clip > 0 and not args.guard_outer:
+        raise SystemExit("--guard-clip scales deltas inside the in-graph "
+                         "guard; add --guard-outer")
+    if args.resume and args.resume != "auto" \
+            and not args.resume.isdigit():
+        raise SystemExit(f"--resume wants 'auto' or a snapshot step, "
+                         f"got {args.resume!r}")
 
 
 def build(args, device, sampler=None):
@@ -285,6 +379,26 @@ def run(args, recorder=None, *, sampler=None):
                   sampler=None if sampler is None else sampler.to(device))
 
 
+def _check_snapshot_rng(path: str, example_key: np.ndarray, step: int):
+    """Refuse a snapshot whose generator state cannot seed this run: one
+    the JAX package wrote (a (2,) uint32 ``jax.random`` key) or one of
+    another device's generator."""
+    with np.load(path) as data:
+        key = data["rng//key"] if "rng//key" in data.files else None
+        if key is None or key.dtype != np.uint8:
+            raise SystemExit(
+                f"--resume {step}: {path} was written by the JAX package "
+                "(its rng/key is a jax.random key, not a torch.Generator "
+                "state): the port resumes only its own snapshots. Its "
+                "state subtree still loads through "
+                "repro_torch.checkpoint.checkpoint.restore")
+        if key.shape != example_key.shape:
+            raise SystemExit(
+                f"--resume {step}: {path} holds the state of a generator "
+                f"of {key.size} bytes, this run's has "
+                f"{example_key.size}: resume on the device that wrote it")
+
+
 def _train(args, device, recorder=None, *, group=None, sampler=None,
            data_setup_s=None, note=None):
     """The run on ``device``; on the sharded transport, one pod rank's
@@ -308,9 +422,30 @@ def _train(args, device, recorder=None, *, group=None, sampler=None,
     rec.manifest.setdefault("config", dict(vars(args)))
     evaluate = (lambda p: float(ev(p, val))) if lead else \
         (lambda p: float("nan"))
+    timing = {"device": str(device), "data_setup_s": data_setup_s}
+
+    # ---- resilience: durable snapshots and the resume picker ----
+    mgr = (resilience.CheckpointManager(args.checkpoint_dir,
+                                        retain=args.retain)
+           if args.checkpoint_dir else None)
+    resume_step = None
+    if args.resume and mgr is not None and args.transport != "async":
+        resume_step = (mgr.latest_good() if args.resume == "auto"
+                       else int(args.resume))
+        if resume_step is None:
+            rec.note("resume: no verified snapshot, starting fresh")
+        else:
+            t0 = time.perf_counter()
+            ok = mgr.verify(resume_step)
+            timing["resume"] = {"step": resume_step,
+                                "verify_s": time.perf_counter() - t0}
+            if not ok:
+                raise SystemExit(f"--resume {resume_step}: snapshot fails "
+                                 "integrity verification")
 
     # ---- pretraining phase (paper: 24k steps before DiLoCo) ----
-    if args.pretrain_steps:
+    # a resumed run skips it: the snapshot's state and generator carry it
+    if args.pretrain_steps and resume_step is None:
         step = diloco.make_single_worker_step(loss_fn, tcfg,
                                               total_steps=tcfg.total_steps)
         pol = precision.policy_of(tcfg)
@@ -334,7 +469,6 @@ def _train(args, device, recorder=None, *, group=None, sampler=None,
         del work, opt
 
     # ---- DiLoCo phase ----
-    timing = {"device": str(device), "data_setup_s": data_setup_s}
     rec.manifest["timing"] = timing
     if dcfg.transport == "async":
         return _run_async_phase(args, dcfg, tcfg, loss_fn, sampler, params,
@@ -349,9 +483,33 @@ def _train(args, device, recorder=None, *, group=None, sampler=None,
         plan = [{"fragment": 0, "send_step": args.H, "apply_step": args.H,
                  "wire_bytes": float(round_wire),
                  "wire_dtype": dcfg.outer_grad_dtype}]
+    del params
     rec.attach_wire_plan(plan)
     if note:
         rec.note(note)
+
+    def load_snapshot(step):
+        """Snapshot ``step`` restored into the live state (in place) and
+        the generator; returns (state, rounds done)."""
+        example = resilience.wrap(state, gen, 0)
+        _check_snapshot_rng(mgr.path_of(step), example["rng"]["key"], step)
+        t0 = time.perf_counter()
+        st, key, done = resilience.unwrap(mgr.load(step, example,
+                                                   in_place=True))
+        gen.set_state(key)
+        diloco._sync(device)
+        timing.setdefault("loads", []).append(
+            {"step": step, "load_s": time.perf_counter() - t0})
+        return st, done
+
+    rounds_done = 0
+    if resume_step is not None:
+        state, rounds_done = load_snapshot(resume_step)
+        rec.note(f"resumed snapshot {resume_step}: "
+                 f"{rounds_done} round(s) done")
+
+    # masks of every round from one stream, indexed by round (a resumed
+    # run takes its rows from rounds_done on)
     rng = np.random.default_rng(args.seed)
     drops = schedules.drop_masks(rng, args.drop_prob, args.k, args.rounds)
     acts = schedules.active_masks(
@@ -367,38 +525,122 @@ def _train(args, device, recorder=None, *, group=None, sampler=None,
         rec.note(f"faults: barrier round = "
                  f"{scen.sync_round_ticks(args.k)} "
                  "tick(s) (slowest worker + slowest link)")
+    drops, acts = np.asarray(drops), np.asarray(acts)
     weights = shard_weights(sampler, args.weighted)
-    rnd = diloco.make_round(loss_fn, sampler.sample_all_shards, dcfg, tcfg,
-                            total_steps=tcfg.total_steps,
-                            compute_cosine=args.cosine_stats,
-                            batch_size=args.batch, seq_len=args.seq,
-                            group=group)
+    nan_masks = None
+    if scen is not None and scen.nan_bombs:
+        nan_masks = scen.nan_masks(args.k, args.rounds)
+        rec.note(f"nan bombs armed: {int(nan_masks.sum())} "
+                 "(worker, round) cell(s)")
+    crash_round = scen.crash_round(args.k) if scen is not None else -1
+    guard = None
+    if args.guard:
+        guard = resilience.AnomalyGuard(
+            resilience.GuardConfig(window=args.guard_window,
+                                   spike=args.guard_spike,
+                                   max_rollbacks=args.guard_rollbacks),
+            recorder=rec)
     timing["rounds"] = []
-    evals = eval_rounds(args.rounds, args.eval_every,
-                        legacy_loop=args.legacy_loop,
-                        rounds_per_call=args.rounds_per_call)
 
-    t0 = time.time()
-    for t in range(args.rounds):
-        state, m = rnd(state, gen, drops[t], acts[t], weights)
-        evaled = evals[t]
-        val_loss = evaluate(state.global_params) if evaled \
-            else float("nan")
-        extras = {kk: float(m[kk]) for kk in (
+    def emit_round(t, m, i=None, evaled=True):
+        """Round t's record from metrics ``m``: scalars (the per-round
+        loop) or (R,) arrays read at index ``i`` (a chunk). ``evaled``
+        False marks a round the eval cadence skipped."""
+        pick = float if i is None else (lambda x: float(x[i]))
+        extras = {kk: pick(m[kk]) for kk in (
             "inner_loss_last", "drop_frac", "prune_density",
-            "stream_peak_sync_bytes", "stream_round_sync_bytes") if kk in m}
+            "guard_rejected", "guard_clipped", "stream_peak_sync_bytes",
+            "stream_round_sync_bytes") if kk in m}
         if args.cosine_stats:
-            extras["cos_mean"] = float(m["cos_mean"])
-            extras["cos_std"] = float(m["cos_std"])
+            extras["cos_mean"] = pick(m["cos_mean"])
+            extras["cos_std"] = pick(m["cos_std"])
         rec.round(round=t + 1, rounds=args.rounds,
                   inner_steps=args.pretrain_steps + (t + 1) * args.H,
-                  inner_loss=float(m["inner_loss"]), val_loss=val_loss,
-                  outer_gnorm=float(m["outer_gnorm"]),
-                  active=int(np.asarray(acts[t]).sum()),
-                  dropped=int(args.k - np.asarray(drops[t]).sum()),
+                  inner_loss=pick(m["inner_loss"]),
+                  val_loss=pick(m["val_loss"]) if "val_loss" in m
+                  else float("nan"),
+                  outer_gnorm=pick(m["outer_gnorm"]),
+                  active=int(acts[t].sum()),
+                  dropped=int(args.k - drops[t].sum()),
                   wire_bytes=round_wire, extras=extras, evaled=evaled)
-        timing["rounds"].append({kk: m[kk] for kk in (
+        timing["rounds"].append({kk: pick(m[kk]) for kk in (
             "sample_s", "inner_s", "outer_s", "wait_s") if kk in m})
+
+    t0 = time.time()
+    if args.legacy_loop:
+        # one round per call and one eval per round, on the host
+        rnd = diloco.make_round(loss_fn, sampler.sample_all_shards, dcfg,
+                                tcfg, total_steps=tcfg.total_steps,
+                                compute_cosine=args.cosine_stats,
+                                batch_size=args.batch, seq_len=args.seq,
+                                group=group)
+        for t in range(args.rounds):
+            state, m = rnd(state, gen, drops[t], acts[t], weights)
+            m["val_loss"] = evaluate(state.global_params)
+            emit_round(t, m)
+    else:
+        # the chunked driver: chunks of make_run rounds, the metrics
+        # copied to the host once per chunk; the snapshots, the scripted
+        # crash and the guard live at the chunk boundaries
+        ckpt_every = args.checkpoint_every if mgr is not None else 0
+        guarded = False       # after a guard rollback the replay runs
+        #                       with the in-graph guard armed
+        t = rounds_done
+        while t < args.rounds:
+            n = chunk_len(t, args.rounds, args.rounds_per_call,
+                          checkpoint_every=ckpt_every,
+                          crash_round=crash_round)
+            run_n = diloco.make_run(
+                loss_fn, sampler.sample_all_shards,
+                dataclasses.replace(dcfg, guard_outer=True) if guarded
+                else dcfg, tcfg, rounds_per_call=n,
+                total_steps=tcfg.total_steps,
+                compute_cosine=args.cosine_stats, batch_size=args.batch,
+                seq_len=args.seq, eval_tokens=val if lead else None,
+                eval_every=args.eval_every, group=group,
+                nan_bombs=nan_masks)
+            state, ms = run_n(state, gen, drops[t:t + n], acts[t:t + n],
+                              weights, round_offset=t)
+            ms = rec.ingest_chunk(ms)
+            evaled = [(t + i + 1) % args.eval_every == 0 or i == n - 1
+                      for i in range(n)]
+            for i in range(n):
+                emit_round(t + i, ms, i, evaled=evaled[i])
+            t += n
+            # (1) the scripted kill, BEFORE this boundary's snapshot: the
+            # resume replays the crashed rounds from the last snapshot
+            if 0 <= crash_round < t:
+                rec.note(f"crash: SIGKILL at round boundary {t}")
+                os.kill(os.getpid(), signal.SIGKILL)
+            # (2) the guard judges the chunk from the metrics on the host;
+            # on an anomaly, roll back to the last good snapshot and
+            # replay with the in-graph guard armed
+            if guard is not None:
+                losses = [ms["val_loss"][i] if evaled[i] and "val_loss" in ms
+                          else ms["inner_loss"][i] for i in range(n)]
+                bad = guard.observe_chunk(t - n, losses)
+                if bad and mgr is not None and guard.can_rollback():
+                    back = mgr.latest_good()
+                    if back is not None and back < t:
+                        state, t = load_snapshot(back)
+                        guard.rolled_back(to_round=back,
+                                          skip_round=bad[0]["round"])
+                        guarded = True
+                        rec.note(f"guard: restored snapshot {back}; "
+                                 "replaying with the in-graph guard armed")
+                        continue
+            # (3) the durable snapshot at the cadence
+            if ckpt_every and (t % ckpt_every == 0 or t == args.rounds):
+                diloco._sync(device)
+                t_s = time.perf_counter()
+                stats = mgr.save(t, resilience.wrap(state, gen, t),
+                                 metadata={"transport": args.transport,
+                                           "k": args.k, "H": args.H,
+                                           "rounds_done": t})
+                stats.pop("path")
+                timing.setdefault("snapshots", []).append(
+                    {"step": t, **stats,
+                     "save_s": time.perf_counter() - t_s})
 
     floor = sampler.entropy_floor()
     rec.note(f"done in {time.time() - t0:.1f}s; "
@@ -406,6 +648,28 @@ def _train(args, device, recorder=None, *, group=None, sampler=None,
     if args.out and group is None:
         rec.dump(args.out, args=vars(args))
         rec.note(f"wrote {args.out}")
+    if args.checkpoint:
+        ckpt.save(args.checkpoint,
+                  {"params": state.global_params,
+                   "outer_buf": state.outer_state.buf},
+                  metadata={"rounds": args.rounds, "k": args.k,
+                            "H": args.H})
+        rec.note(f"checkpoint: {args.checkpoint}")
+    if args.state_hash_out:
+        rrecs = rec.round_records()
+        vals = [r["val_loss"] for r in rrecs if r["val_loss"] is not None]
+        ckpt.atomic_write_json(args.state_hash_out, {
+            "state_sha256": resilience.tree_sha256(state),
+            "leaf_sha256": resilience.leaf_hashes(state),
+            "final_val_loss": vals[-1] if vals else None,
+            "final_inner_loss": rrecs[-1]["inner_loss"] if rrecs else None,
+            "resumed_from_step": (-1 if resume_step is None
+                                  else int(resume_step)),
+            "rounds_done": args.rounds,
+            "ingest_calls": rec.ingest_calls,
+            "rollbacks": 0 if guard is None else guard.rollbacks_used},
+            indent=2)
+        rec.note(f"state hash: {args.state_hash_out}")
     return rec.records
 
 
@@ -485,7 +749,14 @@ def _run_async_phase(args, dcfg, tcfg, loss_fn, sampler, params, ev, val,
     runs the ticks a barrier-paced run of ``--rounds`` rounds would take
     under the same scenario. ``rec`` receives every engine event as it
     happens and prints it. The recorder's ``manifest["timing"]["events"]``
-    holds each phase's host seconds (``AsyncEngine.timing``)."""
+    holds each phase's host seconds (``AsyncEngine.timing``).
+
+    With ``--checkpoint-dir`` and ``--checkpoint-every N`` the event loop
+    runs in slices of N events and takes a snapshot of the whole engine
+    state (``state_to_tree``) after each, keyed by the events done;
+    ``--resume`` restarts from one, ``--restore`` from a ``--checkpoint``
+    file. Each phase draws its tokens from a generator seeded from (seed,
+    the timeline's uid), so a restored run replays the same suffix."""
     scenario = scenario_of(args) or faults.Scenario.uniform(args.k)
     samplers = tuple(
         (lambda i: lambda g, B, S: sampler.sample_shard(g, i, B, S))(i)
@@ -494,15 +765,61 @@ def _run_async_phase(args, dcfg, tcfg, loss_fn, sampler, params, ev, val,
         loss_fn, samplers, dcfg, tcfg, scenario=scenario,
         total_steps=tcfg.total_steps, eval_fn=ev, eval_tokens=val,
         seed=args.seed)
-    state = eng.init_state(params)
+    device = tree.leaves(params)[0].device
+    mgr = (resilience.CheckpointManager(args.checkpoint_dir,
+                                        retain=args.retain)
+           if args.checkpoint_dir else None)
+    resumed_from = -1
+    state = None
+    if args.resume and mgr is not None:
+        step = (mgr.latest_good() if args.resume == "auto"
+                else int(args.resume))
+        if step is None:
+            rec.note("resume: no verified snapshot, starting fresh")
+        else:
+            state = async_diloco.state_from_tree(
+                mgr.load_tree(step, device=device), params)
+            resumed_from = step
+            rec.note(f"resumed async snapshot {step}: "
+                     f"version={state.version} "
+                     f"events_done={state.events_done}")
+    elif args.restore:
+        state = async_diloco.state_from_tree(
+            ckpt.restore_tree(args.restore, device=device), params)
+        rec.note(f"restored async state: version={state.version} "
+                 f"events_done={state.events_done}")
+    if state is None:
+        state = eng.init_state(params)
     ticks = args.ticks or scenario.sync_round_ticks(args.k) * args.rounds
+    eng._bind(state)
     rec.attach_wire_plan([{"fragment": 0, "wire_bytes":
                            float(eng.wire_bytes()),
                            "wire_dtype": dcfg.outer_grad_dtype}])
     rec.note(f"async transport: lambda={dcfg.staleness_lambda} "
              f"k={args.k} {ticks} tick(s), {eng.wire_bytes()} B/apply")
+    on_crash = None
+    if scenario.crash_tick >= 0:
+        def on_crash(_state):
+            rec.note(f"crash: SIGKILL at tick {scenario.crash_tick}")
+            os.kill(os.getpid(), signal.SIGKILL)
     t0 = time.time()
-    state, hist = eng.run(state, ticks=ticks, recorder=rec)
+    if mgr is not None and args.checkpoint_every > 0:
+        # the event loop in slices, a durable snapshot after each: the
+        # engine's events_done cursor is the resume point
+        hist = []
+        while True:
+            state, h = eng.run(state, ticks=ticks,
+                               max_events=args.checkpoint_every,
+                               recorder=rec, on_crash=on_crash)
+            hist.extend(h)
+            mgr.save(state.events_done, async_diloco.state_to_tree(state),
+                     metadata={"transport": "async", "k": args.k,
+                               "events_done": state.events_done})
+            if len(h) < args.checkpoint_every:
+                break
+    else:
+        state, hist = eng.run(state, ticks=ticks, recorder=rec,
+                              on_crash=on_crash)
     rec.manifest["timing"]["events"] = eng.timing
     n_arr = sum(1 for r in hist if r["event"] == "arrival")
     rec.note(f"done in {time.time() - t0:.1f}s; {n_arr} applications "
@@ -511,6 +828,25 @@ def _run_async_phase(args, dcfg, tcfg, loss_fn, sampler, params, ev, val,
     if args.out:
         rec.dump(args.out, args=vars(args))
         rec.note(f"wrote {args.out}")
+    if args.checkpoint:
+        # the whole engine state: a later --restore replays the same
+        # event suffix
+        ckpt.save(args.checkpoint, async_diloco.state_to_tree(state),
+                  metadata={"transport": "async", "k": args.k,
+                            "H": args.H, "ticks": ticks,
+                            "events_done": state.events_done})
+        rec.note(f"checkpoint: {args.checkpoint}")
+    if args.state_hash_out:
+        vals = [r["val_loss"] for r in hist if "val_loss" in r]
+        ckpt.atomic_write_json(args.state_hash_out, {
+            "state_sha256": resilience.tree_sha256(
+                async_diloco.state_to_tree(state)),
+            "final_val_loss": vals[-1] if vals else None,
+            "resumed_from_step": resumed_from,
+            "events_done": int(state.events_done),
+            "ingest_calls": rec.ingest_calls,
+            "rollbacks": 0}, indent=2)
+        rec.note(f"state hash: {args.state_hash_out}")
     return rec.records
 
 
@@ -551,13 +887,11 @@ def make_parser():
                          "tensors, plain PyTorch on the CPU; kernel = CUDA "
                          "kernels or an error; ref = the legacy tree maps")
     ap.add_argument("--rounds-per-call", type=int, default=0,
-                    help="the JAX driver's scan chunk (0 = all rounds): "
-                         "the port runs one round per call and evaluates "
-                         "where the JAX driver does, on the --eval-every "
-                         "rounds and the last round of every chunk")
+                    help="rounds of one make_run chunk (0 = all rounds); "
+                         "the metrics reach the host once per chunk")
     ap.add_argument("--legacy-loop", action="store_true",
-                    help="the JAX driver's per-round loop: the port "
-                         "evaluates every round, as it does")
+                    help="one make_round call and one eval per round "
+                         "instead of the chunked driver")
     ap.add_argument("--eval-every", type=int, default=1,
                     help="eval cadence in rounds (the last round is always "
                          "evaluated)")
@@ -649,25 +983,57 @@ def make_parser():
                     help="sharded quantized transport: gather the "
                          "fake-quantized float payloads instead of the "
                          "packed int4 codes + scales (or bf16) wire")
+    ap.add_argument("--restore", default="",
+                    help="async transport: resume from a full engine state "
+                         "written by --checkpoint (replays the same event "
+                         "suffix)")
+    ap.add_argument("--checkpoint", default="",
+                    help="write the final global params and outer momentum "
+                         "(async: the whole engine state) to this npz")
+    # ---- resilience (src/repro_torch/resilience/) ----
+    ap.add_argument("--checkpoint-dir", default="",
+                    help="durable snapshot directory (atomic npz + sha256 "
+                         "manifest per snapshot, retention, resume picker)")
+    ap.add_argument("--checkpoint-every", type=int, default=0,
+                    help="snapshot cadence: every N rounds (round "
+                         "transports) / every N events (async)")
+    ap.add_argument("--resume", default="",
+                    help="'auto' resumes from the newest snapshot in "
+                         "--checkpoint-dir that verifies (falling back past "
+                         "corrupt ones); a number resumes that step")
+    ap.add_argument("--retain", type=int, default=3,
+                    help="snapshots kept in --checkpoint-dir (oldest "
+                         "deleted first)")
+    ap.add_argument("--crash-at-round", type=int, default=-1,
+                    help="fault injection: SIGKILL this process at the "
+                         "chunk boundary right after the given round, "
+                         "before that boundary's snapshot")
+    ap.add_argument("--crash-at-tick", type=int, default=-1,
+                    help="fault injection: a crash event in the async "
+                         "timeline at this tick (SIGKILL when reached)")
+    ap.add_argument("--nan-bomb", action="append", default=[],
+                    metavar="W:ROUND",
+                    help="fault injection: poison worker W's outer gradient "
+                         "to NaN in the given round (repeatable; classic "
+                         "simulated transport)")
+    ap.add_argument("--guard", action="store_true",
+                    help="host-side anomaly guard at chunk boundaries: on a "
+                         "non-finite or spiking loss, roll back to the last "
+                         "good snapshot and replay with --guard-outer armed")
+    ap.add_argument("--guard-window", type=int, default=8,
+                    help="guard rolling-statistics window (rounds)")
+    ap.add_argument("--guard-spike", type=float, default=4.0,
+                    help="guard spike threshold in rolling std devs")
+    ap.add_argument("--guard-rollbacks", type=int, default=2,
+                    help="guard rollbacks allowed per run")
+    ap.add_argument("--state-hash-out", default="",
+                    help="write a JSON with the final state's sha256, the "
+                         "final losses and the resume provenance")
     # ---- not ported: accepted so that they can be refused by name ----
     nyi = "not ported yet (see ROADMAP.md)"
     ap.add_argument("--gossip-pairing", default="butterfly", help=nyi)
     ap.add_argument("--gossip-mix", type=float, default=0.5, help=nyi)
-    ap.add_argument("--restore", default="", help=nyi)
     ap.add_argument("--trace", default="", help=nyi)
-    ap.add_argument("--checkpoint", default="", help=nyi)
-    ap.add_argument("--checkpoint-dir", default="", help=nyi)
-    ap.add_argument("--checkpoint-every", type=int, default=0, help=nyi)
-    ap.add_argument("--resume", default="", help=nyi)
-    ap.add_argument("--retain", type=int, default=3, help=nyi)
-    ap.add_argument("--crash-at-round", type=int, default=-1, help=nyi)
-    ap.add_argument("--crash-at-tick", type=int, default=-1, help=nyi)
-    ap.add_argument("--nan-bomb", action="append", default=[], help=nyi)
-    ap.add_argument("--guard", action="store_true", help=nyi)
-    ap.add_argument("--guard-window", type=int, default=8, help=nyi)
-    ap.add_argument("--guard-spike", type=float, default=4.0, help=nyi)
-    ap.add_argument("--guard-rollbacks", type=int, default=2, help=nyi)
-    ap.add_argument("--state-hash-out", default="", help=nyi)
     return ap
 
 

@@ -1,13 +1,15 @@
 """Run telemetry: the subset of the JAX ``obs/metrics.py`` that the
-trainer uses — ``RunRecorder`` with its ``pretrain``, ``round`` and
-``async_event`` records, notes, the wire plan and ``dump``. The console
-lines and the record fields are the JAX package's.
+trainer uses — ``RunRecorder`` with its ``pretrain``, ``round``,
+``guard_event`` and ``async_event`` records, notes, the chunk boundary
+(``ingest_chunk``), the wire plan and ``dump``. The console lines and the
+record fields are the JAX package's.
 """
 from __future__ import annotations
 
 import json
 
 import numpy as np
+import torch
 
 SCHEMA_VERSION = 1
 
@@ -42,13 +44,16 @@ def _round_text(rec, rounds) -> str:
 
 def _async_text(rec) -> str:
     """The async event line (the JAX format, including the trailing space
-    of an arrival without an eval)."""
+    of an arrival without an eval). A crash record has no worker: its line
+    is ``[tick T] crash`` (the JAX recorder raises a KeyError on it)."""
     if rec["event"] == "arrival":
         vs = (f"val={rec['val_loss']:.4f} ppl={rec['ppl']:.2f}"
               if "val_loss" in rec else "")
         return (f"[tick {rec['tick']}] worker {rec['worker']} "
                 f"stale={rec['staleness']} w={rec['weight']:.3f} "
                 f"inner={rec['inner_loss']:.4f} {vs}")
+    if "worker" not in rec:
+        return f"[tick {rec['tick']}] {rec['event']}"
     return (f"[tick {rec['tick']}] {rec['event']} "
             f"worker {rec['worker']}")
 
@@ -71,6 +76,7 @@ class RunRecorder:
             self.manifest.update(manifest)
         self.records: list = []
         self.wire_bytes_total: float = 0.0
+        self.ingest_calls: int = 0
 
     def _say(self, text: str, rec: dict | None = None):
         if self.log_format == "json":
@@ -120,6 +126,16 @@ class RunRecorder:
             rec.update({k: float(v) for k, v in extras.items()})
         return self._emit(rec, _round_text(rec, rounds))
 
+    def guard_event(self, *, action: str, round: int, **fields) -> dict:
+        """One anomaly-guard verdict (``resilience.guard``): a spike or
+        non-finite detection, or a rollback. Host-side bookkeeping only."""
+        rec = {"kind": "event", "phase": "guard",
+               "transport": self.transport, "event": action,
+               "round": int(round), **fields}
+        detail = " ".join(f"{k}={v}" for k, v in fields.items())
+        return self._emit(
+            rec, f"[guard] {action} round={int(round)} {detail}".rstrip())
+
     def async_event(self, rec: dict) -> dict:
         """Ingest one ``AsyncEngine`` event record (keyed by ``event``,
         ``tick``, ``worker``), stamped with the kind, phase and
@@ -128,9 +144,39 @@ class RunRecorder:
                "transport": self.transport, **rec}
         return self._emit(rec, _async_text(rec))
 
+    def ingest_chunk(self, stacked_metrics: dict) -> dict:
+        """One chunk's stacked metrics (``diloco.make_run``: (R,) tensors
+        on the device, or host arrays) as numpy arrays — the recorder's
+        only contact with device values. The device tensors are stacked
+        and copied to the host in one transfer per dtype (one in practice:
+        every metric is float32). ``ingest_calls`` counts the calls."""
+        self.ingest_calls += 1
+        out = {k: np.asarray(v) for k, v in stacked_metrics.items()
+               if not torch.is_tensor(v)}
+        by_dtype: dict = {}
+        for k, v in stacked_metrics.items():
+            if torch.is_tensor(v):
+                by_dtype.setdefault(v.dtype, []).append(k)
+        for keys in by_dtype.values():
+            host = torch.stack([stacked_metrics[k].detach()
+                                for k in keys]).cpu().numpy()
+            out.update(zip(keys, host))
+        return out
+
     def attach_wire_plan(self, plan):
         """Static outer-sync plan: what each round is scheduled to ship."""
         self.manifest["wire_plan"] = [dict(p) for p in plan]
+
+    @property
+    def history(self) -> list:
+        return self.records
+
+    def round_records(self) -> list:
+        return [r for r in self.records if r["kind"] == "round"
+                and r["phase"] != "pretrain"]
+
+    def event_records(self) -> list:
+        return [r for r in self.records if r["kind"] == "event"]
 
     def payload(self, *, args: dict | None = None) -> dict:
         return to_jsonable({"args": args, "manifest": self.manifest,

@@ -4,6 +4,12 @@
 leaves (the global grad norm, the outer-gradient norm) are taken in that
 order here too, so the port adds the same terms in the same sequence as
 the reference.
+
+``flatten_with_path`` and ``unflatten_like`` also walk the NamedTuple
+states, tuples, lists and None (no leaves) as ``jax.tree_util`` does; a
+path is a tuple of ("key", dict key), ("attr", field name) and ("idx",
+position) entries, which the checkpoint files and the state hashes render
+as the JAX package does.
 """
 from __future__ import annotations
 
@@ -41,3 +47,45 @@ def map(fn, tree, *rest):
         return {key: map(fn, tree[key], *(r[key] for r in rest))
                 for key in tree}
     return fn(tree, *rest)
+
+
+def _children(t):
+    """[(path entry, child), ...] of an inner node, or None for a leaf."""
+    if isinstance(t, dict):
+        return [(("key", k), t[k]) for k in sorted(t)]
+    if isinstance(t, tuple) and hasattr(t, "_fields"):
+        return [(("attr", f), getattr(t, f)) for f in t._fields]
+    if isinstance(t, (tuple, list)):
+        return [(("idx", i), x) for i, x in enumerate(t)]
+    return None
+
+
+def flatten_with_path(t, prefix: tuple = ()) -> list:
+    """``[(path, leaf), ...]`` of dicts, NamedTuples, tuples and lists in
+    the ``jax.tree_util`` order; None holds no leaf."""
+    if t is None:
+        return []
+    kids = _children(t)
+    if kids is None:
+        return [(prefix, t)]
+    return [pl for entry, x in kids
+            for pl in flatten_with_path(x, prefix + (entry,))]
+
+
+def unflatten_like(example, flat):
+    """A tree shaped like ``example`` (dicts, NamedTuples, tuples, lists,
+    None) holding ``flat`` in ``flatten_with_path`` order."""
+    it = iter(flat)
+
+    def build(t):
+        if t is None:
+            return None
+        if isinstance(t, dict):
+            return {k: build(t[k]) for k in sorted(t)}
+        if isinstance(t, tuple) and hasattr(t, "_fields"):
+            return type(t)(*(build(x) for x in t))
+        if isinstance(t, (tuple, list)):
+            return type(t)(build(x) for x in t)
+        return next(it)
+
+    return build(example)

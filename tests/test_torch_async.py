@@ -406,15 +406,24 @@ def test_async_cli_validation_matches_jax(flags, named):
         train.run(args)
 
 
+SHARDED = ["--transport", "sharded", "--pods", "2", "--stream-fragments",
+           "2"]
+
+
+# the crash, NaN-bomb and snapshot flags are ported on the other
+# transports: the cases that named "fault scenarios" and "checkpoints and
+# resilience" now hold their refusal on the sharded transport (ids kept)
 @pytest.mark.parametrize("flags,named", [
     (["--gossip-pairing", "random"], "transports"),
     (["--transport", "gossip"], "transports"),
-    (["--transport", "async", "--crash-at-tick", "2"], "fault scenarios"),
-    (["--nan-bomb", "0:1"], "fault scenarios"),
-    (["--transport", "async", "--checkpoint-dir", "c"],
+    pytest.param(SHARDED + ["--crash-at-round", "1"],
+                 "checkpoints and resilience",
+                 id="flags2-fault scenarios"),
+    pytest.param(SHARDED + ["--guard"], "checkpoints and resilience",
+                 id="flags3-fault scenarios"),
+    (SHARDED + ["--state-hash-out", "h.json"],
      "checkpoints and resilience"),
-    (["--transport", "async", "--restore", "c.npz"],
-     "checkpoints and resilience"),
+    (SHARDED + ["--checkpoint", "c.npz"], "checkpoints and resilience"),
     (["--transport", "async", "--trace", "t.json"], "telemetry"),
 ])
 def test_still_unported_flags_name_their_item(flags, named):

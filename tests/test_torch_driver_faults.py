@@ -64,6 +64,24 @@ def test_val_rounds_match_jax_trainer(flags):
                if r["val_loss"] is not None)
 
 
+def test_val_rounds_match_jax_trainer_with_snapshots(tmp_path):
+    """Under ``--checkpoint-every`` both trainers cut their chunks at the
+    snapshot cadence (and ``eval_rounds`` follows): the same rounds carry
+    a val loss."""
+    flags = ["--rounds", "5", "--rounds-per-call", "3", "--eval-every", "4",
+             "--checkpoint-every", "2"]
+    silent = lambda *a, **kw: None
+    want = _evaled(jtrain.run(jtrain.make_parser().parse_args(
+        BASE + flags + ["--checkpoint-dir", str(tmp_path / "j")]),
+        recorder=jmetrics.RunRecorder(printer=silent)))
+    got = _evaled(train.run(train.make_parser().parse_args(
+        ["--device", "cpu", *BASE, *flags, "--checkpoint-dir",
+         str(tmp_path / "t")]), recorder=tmetrics.RunRecorder(printer=silent)))
+    assert got == want == [False, True, False, True, True]
+    assert train.eval_rounds(5, 4, legacy_loop=False, rounds_per_call=3,
+                             checkpoint_every=2) == want
+
+
 def test_eval_rounds_rule():
     """The JAX driver's rule in every mode (``repro/core/diloco.py``
     make_run: g % eval_every == 0 or the chunk's last round)."""
@@ -74,6 +92,11 @@ def test_eval_rounds_rule():
     assert rule(7, 5, legacy_loop=False, rounds_per_call=3) == [
         False, False, True, False, True, True, True]
     assert rule(3, 9, legacy_loop=False, rounds_per_call=1) == [True] * 3
+    # chunks cut at the snapshot cadence and at the crash round
+    assert rule(6, 9, legacy_loop=False, rounds_per_call=4,
+                checkpoint_every=3) == [False, False, True] * 2
+    assert rule(6, 9, legacy_loop=False, rounds_per_call=0,
+                crash_round=1) == [False, True, False, False, False, True]
 
 
 def test_async_phase_makes_no_host_sync(monkeypatch):

@@ -6,6 +6,7 @@ package's ``RunRecorder`` fed the same numbers.
 """
 from __future__ import annotations
 
+import ast
 import json
 import math
 import os
@@ -76,11 +77,16 @@ def test_recorder_format_matches_jax():
     assert recs["torch"].records == recs["jax"].records
 
 
+SHARDED = ["--transport", "sharded", "--pods", "2", "--stream-fragments",
+           "2"]
+
+
 @pytest.mark.parametrize("flags", [
     ["--transport", "gossip"], ["--gossip-pairing", "random"],
     ["--gossip-mix", "0.3", "--stream-fragments", "2"],
-    ["--checkpoint-dir", "ckpt"], ["--trace", "t.json"],
-    ["--crash-at-round", "1"], ["--nan-bomb", "0:1"]])
+    SHARDED + ["--checkpoint-dir", "ckpt"], ["--trace", "t.json"],
+    SHARDED + ["--checkpoint-dir", "ckpt", "--resume", "auto"],
+    ["--transport", "gossip", "--checkpoint-dir", "ckpt"]])
 def test_unported_flags_exit_with_roadmap_item(flags):
     args = train.make_parser().parse_args(["--device", "cpu", *flags])
     with pytest.raises(SystemExit, match="ROADMAP.md"):
@@ -167,10 +173,26 @@ def test_port_imports_no_jax():
         "             if m.split('.')[0] in ('jax', 'jaxlib', 'repro'))\n"
         "assert not bad, bad\n"
         "assert len(names) > 25, names\n"
+        "new = {'repro_torch.checkpoint.checkpoint',\n"
+        "       'repro_torch.resilience.guard',\n"
+        "       'repro_torch.resilience.harness',\n"
+        "       'repro_torch.resilience.manager',\n"
+        "       'repro_torch.resilience.state_codec'}\n"
+        "assert new <= set(names), new - set(names)\n"
         "print(len(names))\n")
     proc = subprocess.run([sys.executable, "-c", code], env=_env(),
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stderr
+    # the card's script and the torch quickstart import neither either
+    root = Path(SRC).parent
+    for script in ("chip_smoke.py", "examples/quickstart_torch.py"):
+        mods = set()
+        for node in ast.walk(ast.parse((root / script).read_text())):
+            if isinstance(node, ast.Import):
+                mods |= {a.name.split(".")[0] for a in node.names}
+            elif isinstance(node, ast.ImportFrom) and node.module:
+                mods.add(node.module.split(".")[0])
+        assert not mods & {"jax", "jaxlib", "repro"}, (script, mods)
 
 
 def test_pretrain_phase_then_diloco():
