@@ -181,10 +181,10 @@ Phases, each printing one JSON line; any failure exits non-zero:
  23. resume   slice 10's path (``core.diloco.make_run`` in chunks, the
               resilience hooks at their boundaries) on diloco_60m at full
               width (d_model 896, 16 × 64 heads, 3 layers, vocab 32000;
-              k=2, H=4, 6 rounds, batch 8, seq 1024): an uncut run with
+              k=2, H=4, 4 rounds, batch 8, seq 1024): an uncut run with
               ``--rounds-per-call 2 --checkpoint-dir D --checkpoint-every
-              2 --retain 2`` (retention leaves the snapshots after rounds
-              4 and 6), the same run resumed with ``--resume 4``, and the
+              2 --retain 2`` (the snapshots after rounds 2 and 4), the
+              same run resumed with ``--resume 2``, and the
               per-round loop (``--legacy-loop``) with no snapshots: the
               three ``--state-hash-out`` digests must be equal (else the
               leaves that differ are named). Prints the snapshot's bytes,
@@ -206,6 +206,40 @@ Phases, each printing one JSON line; any failure exits non-zero:
               Every trainer run of phases 23-25 asserts the launches of
               every kernel (k·H·rounds·12 ``fused_adamw``, rounds·12
               ``outer_nesterov``, the guard's replayed round counted).
+
+ 26. resume_sharded  slice 11's sharded snapshots at full width:
+              diloco_60m, k=2, ``--transport sharded --pods 2`` with phase
+              15's streaming flags, H=4, 4 rounds, ``--rounds-per-call 2
+              --checkpoint-every 2 --retain 1``: the uncut run with
+              ``--state-hash-out``; the same run with ``--crash-at-round
+              2`` in a trainer subprocess (started first, so that its own
+              Markov tables build on the host while the uncut run trains),
+              which must die by SIGKILL with no rank process left; then
+              ``--resume auto`` of its snapshot, whose ``state_sha256``
+              must equal the uncut run's (else the leaves that differ are
+              named). Each rank's launches asserted (the resumed run's
+              fragments all armed). Prints the snapshot's bytes and the ms
+              to gather it onto rank 0, save, verify, load and band it.
+ 27. elastic_sharded  smoke width, k=4, int4 with error feedback, P=2,
+              τ=1: a ``--pods 2`` run with a snapshot every 2 rounds, and
+              ``--resume 2 --pods 4`` (four gloo ranks on the card), whose
+              final state must equal the uncut run's bit for bit (the CPU
+              tests find pods 2 and 4 bit-identical); the round-2 snapshot
+              banded over four ranks and gathered again with no round must
+              equal the file bit for bit; then the sharded guard rollback
+              (``--inner-lr 1e30``: round 2's loss is NaN, two rollbacks)
+              on the card and on CPU ranks: the same guard events.
+ 28. train_gossip  the gossip transport at full width through the
+              trainer: diloco_150m, k=2, H=4, 2 rounds, batch 8, seq 1024,
+              ``--transport gossip --gossip-pairing butterfly --gossip-mix
+              0.5 --stream-fragments 2 --outer-grad-dtype bfloat16``:
+              exactly k·H·rounds·12 ``fused_adamw``, 12 ``outer_nesterov``
+              (on the stacked k leaves) and 12 ``fake_quant`` bf16 a round,
+              0 for every other counter; prints tokens/s, ms per inner
+              step, the outer ms per round and ``gossip_spread``. Then
+              three k=4 smoke-width rounds (random pairing, drops at 0.3)
+              on the card against the CPU within ``check.py``'s bf16
+              exchange tolerance, with the same edges.
 
 ``python3 chip_smoke.py --cards 4`` runs only phases 22 and 21 across
 four cards: one pod rank and one replica per card, over NCCL.
@@ -2003,20 +2037,23 @@ def phase_codec_kernels(torch, dev):
     return rows
 
 
-def sharded_launches(params, P, H_, tau, rounds, dtype, k_loc):
+def sharded_launches(params, P, H_, tau, rounds, dtype, k_loc,
+                     resumed=False):
     """Per pod rank, (quantize_pack_int4, unpack_dequantize_reduce,
     outer_nesterov) launches of ``rounds`` sharded rounds of ``params``'
-    tree from a fresh state on the packed int4 wire (0 and 0 for the
-    other transports): one encode per local replica and region at each
-    send; one reduce per region at each apply when the consume is
-    deferred (every apply: the in-flight slots start as zero wires), at
-    the send otherwise; one outer_nesterov per region at each apply after
-    the fragment's first send."""
+    tree from a fresh state (``resumed``: from one whose every fragment
+    has been sent) on the packed int4 wire (0 and 0 for the other
+    transports): one encode per local replica and region at each send;
+    one reduce per region at each apply when the consume is deferred
+    (every apply: the in-flight slots start as zero wires), at the send
+    otherwise; one outer_nesterov per region at each apply after the
+    fragment's first send."""
     from repro_torch.core import fragments
     part = fragments.partition_params(params, P)
     n_regs = [len(r) for r in fragments.fragment_regions(part, params)]
     int4, deferred = dtype == "int4", tau > 0 and dtype != "float32"
-    armed, enc, red, nest = set(), 0, 0, 0
+    armed = set(range(P)) if resumed else set()
+    enc, red, nest = 0, 0, 0
     for _ in range(rounds):
         for _, events in fragments.schedule(P, H_, tau).phases:
             for ev in events:
@@ -2209,21 +2246,21 @@ def read_hash(path) -> dict:
 
 def phase_resume(torch, dev):
     """Phase 23: an uncut run with snapshots, the same run resumed from its
-    snapshot after round 4, and the per-round loop with no snapshots:
+    snapshot after round 2, and the per-round loop with no snapshots:
     one final state (sha256)."""
     import shutil
 
     shutil.rmtree(CKPT_DIR, ignore_errors=True)
     CKPT_DIR.mkdir(parents=True)
     try:
-        argv = ARGV_60M + ["--H", str(H), "--rounds", "6",
+        argv = ARGV_60M + ["--H", str(H), "--rounds", "4",
                            "--rounds-per-call", "2"]
         snap = ["--checkpoint-dir", str(CKPT_DIR / "d"),
                 "--checkpoint-every", "2", "--retain", "2"]
         out = {}
         for name, extra, rounds in (
-                ("uncut", snap, 6), ("resumed", snap + ["--resume", "4"], 2),
-                ("legacy", ["--legacy-loop"], 6)):
+                ("uncut", snap, 4), ("resumed", snap + ["--resume", "2"], 2),
+                ("legacy", ["--legacy-loop"], 4)):
             path = str(CKPT_DIR / f"{name}.json")
             man = {}
             records, timing, wall_s, launches = run_trainer(
@@ -2234,7 +2271,7 @@ def phase_resume(torch, dev):
             check_records(records, f"resume {name}", 0.0, rounds=rounds)
             if name == "uncut":
                 kept = sorted(p.name for p in (CKPT_DIR / "d").glob("*.npz"))
-                if kept != ["ckpt_00000004.npz", "ckpt_00000006.npz"]:
+                if kept != ["ckpt_00000002.npz", "ckpt_00000004.npz"]:
                     raise SystemExit(f"resume: --retain 2 left {kept}")
             out[name] = (read_hash(path), timing, wall_s)
         want = out["uncut"][0]
@@ -2414,6 +2451,348 @@ def phase_milestone(torch, dev):
                    "inner_loss_cpu": want[0], "val_loss_cpu": want[1]}})
 
 
+# ---------------------------------------------------------------------------
+# slice 11: snapshots, the crash, the guard and the elastic resume on the
+# sharded transport; the gossip transport
+# ---------------------------------------------------------------------------
+
+# phase 27's guard: the loss goes non-finite in round 2 under a huge inner
+# lr, and rank 0's guard rolls every rank back twice (its budget)
+GUARD_NAN = ["--inner-lr", "1e30", "--warmup", "4", "--guard",
+             "--checkpoint-every", "1"]
+
+
+def npz_equal(a, b) -> list:
+    """The entries in which two npz files differ (bytes, dtype, shape or
+    presence); empty when they are equal bit for bit."""
+    import numpy as np
+    with np.load(a) as x, np.load(b) as y:
+        keys = sorted(set(x.files) | set(y.files))
+        return [k for k in keys if k not in x.files or k not in y.files
+                or x[k].dtype != y[k].dtype or x[k].shape != y[k].shape
+                or x[k].tobytes() != y[k].tobytes()]
+
+
+def leaves_differ(got, want) -> list:
+    return sorted(k for k, v in got["leaf_sha256"].items()
+                  if want["leaf_sha256"].get(k) != v)
+
+
+def phase_resume_sharded(torch, dev):
+    """Phase 26: diloco_60m at full width on two sharded ranks with
+    snapshots: the uncut run, the same run killed by ``--crash-at-round
+    2`` in a trainer subprocess (started first: its own Markov tables
+    build on the host while the uncut run trains), and ``--resume auto``
+    of the killed run's snapshot: one final state (sha256)."""
+    import shutil
+    import uuid
+
+    from repro_torch.models.registry import get_arch
+    from repro_torch.resilience import CheckpointManager, harness
+
+    torch.cuda.empty_cache()
+    shutil.rmtree(CKPT_DIR, ignore_errors=True)
+    CKPT_DIR.mkdir(parents=True)
+    argv = ARGV_60M + ["--H", str(H), "--rounds", "4", "--transport",
+                       "sharded", "--pods", "2", *STREAM_FLAGS,
+                       "--rounds-per-call", "2", "--checkpoint-every", "2",
+                       "--retain", "1"]
+    tag = uuid.uuid4().hex
+    logs = [open(CKPT_DIR / f"crash.{x}", "w+") for x in ("out", "err")]
+    crash = subprocess.Popen(
+        harness.train_cmd(argv + ["--checkpoint-dir", str(CKPT_DIR / "c"),
+                                  "--crash-at-round", "2"]),
+        env=harness.train_env({"REPRO_CRASH_RUN": tag}),
+        stdout=logs[0], stderr=logs[1], text=True)
+    try:
+        meta = get_arch("diloco_60m").init(generator=None, device="meta")
+        n = leaves_60m()
+        out = {}
+        for name, extra, rounds, resumed in (
+                ("uncut", ["--checkpoint-dir", str(CKPT_DIR / "u")], 4,
+                 False),
+                ("resumed", ["--checkpoint-dir", str(CKPT_DIR / "c"),
+                             "--resume", "auto"], 2, True)):
+            if resumed:
+                t_c = time.perf_counter()
+                crash.wait(timeout=600)
+                crash_wait_s = time.perf_counter() - t_c
+                so, se = (f.seek(0) or f.read() for f in logs)
+                left = harness.processes_with("REPRO_CRASH_RUN", tag)
+                if crash.returncode != harness.SIGKILL_RC or \
+                        "crash: SIGKILL at round boundary 3" not in so or left:
+                    raise SystemExit(
+                        f"resume_sharded: the crash run exited with "
+                        f"{crash.returncode}, ranks left {left}\n"
+                        f"{so[-2000:]}\n{se[-4000:]}")
+                kept = CheckpointManager(str(CKPT_DIR / "c")).steps()
+                if kept != [2]:
+                    raise SystemExit(f"resume_sharded: the crash left "
+                                     f"snapshots {kept}")
+            path = str(CKPT_DIR / f"{name}.json")
+            man = {}
+            records, timing, wall_s, launches = run_trainer(
+                torch, dev, argv + extra + ["--state-hash-out", path], man)
+            enc, red, nest = sharded_launches(meta, 4, H, 2, rounds, "int4",
+                                              1, resumed=resumed)
+            per_rank = expect_launches(
+                quantize_pack_int4=enc, unpack_dequantize_reduce=red,
+                outer_nesterov=nest, fused_adamw=H * rounds * n)
+            got = [flat_launches(r["launches"]) for r in man["ranks"]]
+            if any(g != per_rank for g in got):
+                raise SystemExit(f"resume_sharded {name}: launches {got}, "
+                                 f"expected {per_rank} on each rank")
+            check_records(records, f"resume_sharded {name}", 0.0,
+                          rounds=rounds)
+            out[name] = (read_hash(path), man, wall_s, got[0])
+        want, got = out["uncut"][0], out["resumed"][0]
+        if got["state_sha256"] != want["state_sha256"]:
+            diff = leaves_differ(got, want)
+            raise SystemExit(f"resume_sharded: the resumed state differs "
+                             f"from the uncut run's in {len(diff)} leaves: "
+                             f"{diff[:8]}")
+        res = out["resumed"][1]
+        r0 = res["ranks"][0]["timing"]
+        snaps = {n: o[1]["timing"]["snapshots"] for n, o in out.items()}
+        say({"phase": "resume_sharded", "argv": argv,
+             "state_sha256": want["state_sha256"],
+             "resumed_from_step": got["resumed_from_step"],
+             "crash_rc": crash.returncode, "crash_wait_s": crash_wait_s,
+             "snapshot_bytes": snaps["resumed"][0]["bytes"],
+             "gather_ms": {n: [x["gather_s"] * 1e3 for x in s]
+                           for n, s in snaps.items()},
+             "save_ms": {n: [x["save_s"] * 1e3 for x in s]
+                         for n, s in snaps.items()},
+             "verify_ms": res["timing"]["resume"]["verify_s"] * 1e3,
+             "load_ms_per_rank": [r["timing"]["loads"][0]["load_s"] * 1e3
+                                  for r in res["ranks"]],
+             "band_ms_per_rank": [r["timing"]["loads"][0]["band_s"] * 1e3
+                                  for r in res["ranks"]],
+             "launches_per_rank": {n: o[3] for n, o in out.items()},
+             "traffic_per_rank": [r["traffic"] for r in res["ranks"]],
+             "inner_step_ms_per_rank": [
+                 x["timing"]["rounds"][-1]["inner_s"] * 1e3 / H
+                 for x in res["ranks"]],
+             "rank0_rounds": r0["rounds"],
+             "wall_s": {n: o[2] for n, o in out.items()}})
+    finally:
+        if crash.poll() is None:
+            crash.kill()
+            crash.wait()
+        for f in logs:
+            f.close()
+        shutil.rmtree(CKPT_DIR, ignore_errors=True)
+
+
+def phase_elastic_sharded(torch, dev):
+    """Phase 27, smoke width, k=4: a pods=2 run with a snapshot every 2
+    rounds; the round-2 snapshot resumed with ``--pods 4`` (four gloo
+    ranks on the card) ends bit for bit at the uncut run's state, and the
+    snapshot banded over 4 ranks and gathered back is the file bit for
+    bit; then the sharded guard rollback on the card against the CPU."""
+    import shutil
+
+    from repro_torch import tree
+    from repro_torch.configs.base import DiLoCoConfig
+    from repro_torch.launch import mesh, train
+    from repro_torch.models.registry import get_smoke_arch
+    from repro_torch.obs.metrics import RunRecorder
+
+    shutil.rmtree(CKPT_DIR, ignore_errors=True)
+    CKPT_DIR.mkdir(parents=True)
+    try:
+        flags = ["--arch", "diloco_60m", "--k", "4", "--H", "2", "--batch",
+                 "2", "--seq", "64", "--eval-batch", "2", "--transport",
+                 "sharded", "--stream-fragments", "2", "--stream-tau", "1",
+                 "--stream-alpha", "0.5", "--outer-grad-dtype", "int4",
+                 "--error-feedback", "--rounds-per-call", "2"]
+        d = str(CKPT_DIR / "e")
+        argv = flags + ["--rounds", "4", "--checkpoint-dir", d,
+                        "--checkpoint-every", "2"]
+        arch = get_smoke_arch("diloco_60m")
+        meta = arch.init(generator=None, device="meta")
+        n = len(tree.leaves(meta))
+
+        def per_rank(k_loc, fresh, resumed):
+            """The launches on each rank of ``fresh`` rounds from a fresh
+            state and then ``resumed`` rounds with every fragment sent."""
+            counts = [sharded_launches(meta, 2, 2, 1, r, "int4", k_loc,
+                                       resumed=res)
+                      for r, res in ((fresh, False), (resumed, True))]
+            enc, red, nest = (sum(c) for c in zip(*counts))
+            return expect_launches(
+                quantize_pack_int4=enc, unpack_dequantize_reduce=red,
+                outer_nesterov=nest,
+                fused_adamw=k_loc * 2 * (fresh + resumed) * n)
+
+        def trainer(label, argv_, want):
+            man = {}
+            records, _, wall_s, _ = run_trainer(torch, dev, argv_, man)
+            got = [flat_launches(r["launches"]) for r in man["ranks"]]
+            if any(g != want for g in got):
+                raise SystemExit(f"elastic_sharded {label}: launches "
+                                 f"{got}, expected {want} on each rank")
+            return records, man, wall_s
+
+        hashes, walls = {}, {}
+        for name, extra, pods, fresh, resumed in (
+                ("pods2", ["--pods", "2"], 2, 4, 0),
+                ("pods4_resumed", ["--pods", "4", "--resume", "2"], 4, 0,
+                 2)):
+            path = str(CKPT_DIR / f"{name}.json")
+            records, man, walls[name] = trainer(
+                name, argv + extra + ["--state-hash-out", path],
+                per_rank(4 // pods, fresh, resumed))
+            check_records(records, f"elastic_sharded {name}", 0.0,
+                          rounds=fresh + resumed)
+            if len(man["ranks"]) != pods:
+                raise SystemExit(f"elastic_sharded {name}: "
+                                 f"{len(man['ranks'])} ranks")
+            hashes[name] = read_hash(path)
+        want, got = hashes["pods2"], hashes["pods4_resumed"]
+        if got["state_sha256"] != want["state_sha256"]:
+            diff = leaves_differ(got, want)
+            raise SystemExit(f"elastic_sharded: pods 4 resumed differs "
+                             f"from pods 2 in {len(diff)} leaves: "
+                             f"{diff[:8]}")
+        dcfg = DiLoCoConfig(k=4, H=2, streaming_fragments=2, stream_tau=1,
+                            stream_alpha=0.5, outer_grad_dtype="int4",
+                            error_feedback=True, transport="sharded")
+        snap = str(CKPT_DIR / "e" / "ckpt_00000002.npz")
+        back = str(CKPT_DIR / "back.npz")
+        t0 = time.perf_counter()
+        bands = mesh.spawn("repro_torch.launch.pod_rounds:reband",
+                           mesh.make_pod_layout(4, "cuda"), arch.cfg, dcfg,
+                           snap, back)
+        reband_s = time.perf_counter() - t0
+        diff = npz_equal(snap, back)
+        if bands != [1, 1, 1, 1] or diff:
+            raise SystemExit(f"elastic_sharded: rebanded over 4 ranks "
+                             f"({bands}) the snapshot differs in {diff}")
+        # the guard: card ranks against CPU ranks, the same events
+        g = flags[:2] + ["--k", "2"] + flags[4:] + ["--rounds", "4",
+                                                    "--pods", "2"]
+        events = {}
+        # round 1 fresh, then rounds 2-4 with round 2 run three times
+        records, _, walls["guard"] = trainer(
+            "guard", g + GUARD_NAN + ["--checkpoint-dir",
+                                      str(CKPT_DIR / "gc")],
+            per_rank(1, 1, 5))
+        events["cuda"] = guard_events(records)
+        args = train.make_parser().parse_args(
+            ["--device", "cpu", *g, *GUARD_NAN, "--checkpoint-dir",
+             str(CKPT_DIR / "gh")])
+        events["cpu"] = guard_events(train.run(args, recorder=RunRecorder(
+            printer=lambda *a, **kw: None)))
+        want_ev = [("anomaly", 1), ("rollback", 1)] * 2 + [
+            ("anomaly", 1), ("anomaly", 2), ("anomaly", 3)]
+        if events["cuda"] != want_ev or events["cpu"] != want_ev:
+            raise SystemExit(f"elastic_sharded: guard events {events}")
+        say({"phase": "elastic_sharded", "argv": argv,
+             "state_sha256": want["state_sha256"], "bit_equal": True,
+             "reband_s": reband_s, "guard_events": events["cuda"],
+             "guard_argv": g + GUARD_NAN, "wall_s": walls})
+    finally:
+        shutil.rmtree(CKPT_DIR, ignore_errors=True)
+
+
+def gossip_rounds(torch, device, params, toks, drops, rounds, k, h):
+    """``rounds`` gossip rounds (random pairing, mix 0.5, P=2, bf16
+    exchange) of diloco_60m's smoke config on ``device`` on the given
+    tokens and drop masks. Returns (its DiLoCoConfig, the state in
+    ``convert``'s numpy form, the edges of each round's partner map)."""
+    from repro_torch import convert, tree
+    from repro_torch.configs.base import DiLoCoConfig, TrainConfig
+    from repro_torch.core import gossip
+    from repro_torch.models.registry import get_smoke_arch
+
+    arch = get_smoke_arch("diloco_60m")
+    dcfg = DiLoCoConfig(k=k, H=h, transport="gossip",
+                        gossip_pairing="random", streaming_fragments=2,
+                        outer_grad_dtype="bfloat16")
+    b, s = toks.shape[2] // h, toks.shape[3]
+    tcfg = TrainConfig(inner_lr=1e-3, warmup_steps=2, total_steps=rounds * h,
+                       batch_size=b, seq_len=s)
+    edges = []
+
+    def partner_fn(t):
+        pm = gossip.partner_map(k, t, "random", seed=tcfg.seed)
+        edges.append(gossip.edges_of(pm))
+        return pm
+
+    rnd = gossip.make_gossip_round_body(
+        lambda p, bt: arch.loss(p, bt), lambda r, bb, ss: toks[r].to(device),
+        dcfg, tcfg, partner_fn=partner_fn)
+    st = gossip.init_state(tree.map(lambda t: t.to(device), params), dcfg)
+    for r in range(rounds):
+        st, _ = rnd(st, r, drops[r], None, None)
+    return dcfg, convert.gossip_state_to_numpy(st), edges
+
+
+def phase_train_gossip(torch, dev):
+    """Phase 28: the gossip transport at full width through the trainer
+    (diloco_150m, butterfly, mix 0.5, P=2, bf16 exchange), every launch
+    counted; then k=4 smoke-width rounds (random pairing, drops) on the
+    card against the CPU."""
+    import numpy as np
+    from repro_torch import check
+    from repro_torch.core import schedules
+    from repro_torch.models.registry import get_smoke_arch
+
+    rounds = ROUNDS
+    argv = ["--full", "--arch", "diloco_150m", "--k", str(K), "--H", str(H),
+            "--rounds", str(rounds), "--batch", str(BATCH), "--seq",
+            str(SEQ), "--eval-batch", "8", "--transport", "gossip",
+            "--gossip-pairing", "butterfly", "--gossip-mix", "0.5",
+            "--stream-fragments", "2", "--outer-grad-dtype", "bfloat16"]
+    records, timing, wall_s, launches = run_trainer(torch, dev, argv)
+    want = expect_launches(fused_adamw=K * H * rounds * N_LEAVES,
+                           outer_nesterov=rounds * N_LEAVES,
+                           fake_quant_bf16=rounds * N_LEAVES)
+    if launches != want:
+        raise SystemExit(f"train_gossip: launches {launches}, expected "
+                         f"{want}")
+    losses, _ = check_records(records, "train_gossip", 0.0, rounds=rounds)
+    rnds = [r for r in records if r["phase"] == "diloco"]
+    if [r["gossip_edges"] for r in rnds] != [[[0, 1]]] * rounds:
+        raise SystemExit(f"train_gossip: edges {rnds}")
+    last = timing["rounds"][-1]
+
+    k, h, b, s, n = 4, 2, 2, 64, 3
+    arch = get_smoke_arch("diloco_60m")
+    gen = torch.Generator().manual_seed(0)
+    params = arch.init(generator=gen, device="cpu")
+    toks = torch.randint(0, arch.cfg.vocab_size, (n, k, h * b, s),
+                         generator=gen)
+    drops = schedules.drop_masks(np.random.default_rng(0), 0.3, k, n)
+    dcfg, got, e_card = gossip_rounds(torch, dev, params, toks, drops, n,
+                                      k, h)
+    _, ref, e_cpu = gossip_rounds(torch, torch.device("cpu"), params, toks,
+                                  drops, n, k, h)
+    shares = check.gossip_mismatch_shares(got, ref, H=h, dcfg=dcfg)
+    path = max(shares, key=shares.get)
+    if shares[path] > check.TRANSPORT_FLIP_SHARE["bfloat16"] or \
+            e_card != e_cpu:
+        raise SystemExit(f"train_gossip smoke: {path}: {shares[path]:.3g} "
+                         f"outside; edges {e_card} against {e_cpu}")
+    say({"phase": "train_gossip", "argv": argv, "launches": launches,
+         "losses": losses, "rounds": timing["rounds"],
+         "tokens_per_s": K * H * BATCH * SEQ / last["inner_s"],
+         "inner_step_ms": last["inner_s"] * 1e3 / (K * H),
+         "outer_ms_per_round": last["outer_s"] * 1e3,
+         "sample_ms": last["sample_s"] * 1e3,
+         "gossip_spread": [r["gossip_spread"] for r in rnds],
+         "exchange_bytes": [r["wire_bytes"] for r in rnds],
+         "max_memory_allocated_GB": torch.cuda.max_memory_allocated(dev)
+         / 1e9, "wall_s": wall_s,
+         "smoke": {"k": k, "H": h, "rounds": n, "drop_prob": 0.3,
+                   "pairing": "random", "edges": e_card,
+                   "drops": np.asarray(drops).tolist(),
+                   "leaves_compared": len(shares),
+                   "worst_share_outside_tolerance": shares[path],
+                   "worst_leaf": path}})
+
+
 def main_cards(torch, dev, cards: int) -> int:
     """``--cards N`` (N > 1): only the sharded transport across N cards,
     one pod rank and one replica per card over NCCL: phase 22 against
@@ -2473,6 +2852,9 @@ def main() -> int:
     phase_resume(torch, dev)
     phase_guard(torch, dev)
     phase_milestone(torch, dev)
+    phase_resume_sharded(torch, dev)
+    phase_elastic_sharded(torch, dev)
+    phase_train_gossip(torch, dev)
     for row in rows:
         row["launches"] = launches[row["name"]]
     say({"kernels": rows})

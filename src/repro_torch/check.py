@@ -22,6 +22,13 @@ def ulp_bf16(x: float) -> float:
     return 2.0 ** (math.floor(math.log2(x)) - 7) if x > 0 else 0.0
 
 
+def bf16_steps(x) -> np.ndarray:
+    """One bf16 ulp at each entry's magnitude (0 at 0), float64."""
+    mag = np.abs(np.asarray(x, np.float64))
+    return np.where(mag > 0, np.exp2(np.floor(np.log2(
+        np.where(mag > 0, mag, 1.0))) - 7), 0.0)
+
+
 def _values(x: np.ndarray) -> np.ndarray:
     """A leaf's values: bf16 bits (uint16) widened to float32."""
     return bf16_to_f32(x) if x.dtype == np.uint16 else x
@@ -212,9 +219,7 @@ class TransportSteps:
             return np.repeat(amax * np.float32(INV_INT4_LEVELS), blk,
                              axis=1)[:, :w].astype(np.float64)
         if self.dtype == "bfloat16":
-            mag = np.abs(x).astype(np.float64)
-            return np.where(mag > 0, np.exp2(np.floor(np.log2(
-                np.where(mag > 0, mag, 1.0))) - 7), 0.0)
+            return bf16_steps(x)
         return np.zeros((k, w))
 
     def _record_flat(self, x):
@@ -405,4 +410,43 @@ def stream_mismatch_shares(got: dict, want: dict, *, H: int,
             shares[path] = 1.0 - float(np.mean(a == b))
             continue
         shares[path] = _share_outside(path, a, b, tol, steps)
+    return shares
+
+
+def gossip_mismatch_shares(got: dict, want: dict, *, H: int, dcfg) -> dict:
+    """For two gossip states of ``convert.gossip_state_to_numpy``'s form,
+    each leaf's share of entries outside the round's tolerance
+    (``mismatch_shares``': float32 atol 1e-5, rtol 1e-4; bf16 policy
+    leaves within H bf16 ulps; counters exactly).
+
+    Under ``dcfg``'s bf16 exchange an upstream last-bit difference can
+    round a partner's estimate to the other bf16 neighbour: the mixed
+    estimate then moves by mix bf16 steps of the estimate, and the
+    replica adopts it. So each entry outside the tolerance must lie
+    within 1 + outer_lr·(1 + momentum) bf16 steps of the reference's
+    estimate at its position beyond it (the local outer step carries a
+    flip as ``TransportSteps.allow`` states), else the leaf counts as all
+    outside (1.0), as it does when its entries disagree on being
+    finite. A float32 exchange allows no step."""
+    allow = 0.0 if dcfg.outer_grad_dtype == "float32" else 1.0 + float(
+        dcfg.outer_lr) * (1.0 + float(dcfg.outer_momentum))
+    tols = _tolerances(want, H=H, pure=False)
+    est = {p: bf16_steps(_values(v))
+           for p, v in tree.paths(want["global_est"])}
+    suffixes = sorted(est, key=len, reverse=True)
+    shares = {}
+    for path, a, b in _paired(got, want):
+        tol = tols[path]
+        if tol is None:
+            shares[path] = 1.0 - float(np.mean(a == b))
+            continue
+        a, b = _values(a), _values(b)
+        diff = np.abs(a - b)
+        out = ~(diff <= tol)
+        step = est[next(p for p in suffixes if path.endswith("." + p))]
+        if (np.isfinite(a) != np.isfinite(b)).any() or (
+                diff[out] > (tol + allow * step)[out]).any():
+            shares[path] = 1.0
+            continue
+        shares[path] = float(np.mean(out))
     return shares

@@ -210,7 +210,10 @@ def reshape_like(t, example):
     ``example`` (NamedTuples, tuples, lists): a dict key ``"[0]"`` and a
     position 0 give the same flat key, so the leaves move by key. Leaves
     keep the view's dtype (the example supplies structure and shapes);
-    where the example holds a Python int, the leaf becomes one."""
+    where the example holds a Python int, the leaf becomes one, and where
+    it holds a numpy array, a numpy array of the example's dtype (the
+    port's host counters and masks). The example's tensors may lie on
+    the ``meta`` device: only their shapes are read."""
     by_key = {key_of(p): x for p, x in tree.flatten_with_path(t)}
     leaves = []
     for p, ex in tree.flatten_with_path(example):
@@ -221,8 +224,12 @@ def reshape_like(t, example):
         if _shape(x) != _shape(ex):
             raise ValueError(f"shape mismatch for {key}: restored "
                              f"{_shape(x)} vs example {_shape(ex)}")
-        leaves.append(int(x) if isinstance(ex, int)
-                      and not isinstance(ex, bool) else x)
+        if isinstance(ex, int) and not isinstance(ex, bool):
+            x = int(x)
+        elif isinstance(ex, np.ndarray):
+            x = np.asarray(x.cpu() if torch.is_tensor(x) else x,
+                           dtype=ex.dtype)
+        leaves.append(x)
     return tree.unflatten_like(example, leaves)
 
 

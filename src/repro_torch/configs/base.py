@@ -125,7 +125,8 @@ class DiLoCoConfig:
     # simulated | sharded | async | gossip; "simulated" runs the rounds of
     # core/diloco.py and core/streaming.py, "sharded" the streaming round
     # on a process group of pods (core/pod_collectives.py), "async" the
-    # barrier-free engine of core/async_diloco.py; gossip is not ported
+    # barrier-free engine of core/async_diloco.py, "gossip" the pairwise
+    # partial averaging of core/gossip.py
     transport: str = "simulated"
     staleness_lambda: float = 1.0
     gossip_pairing: str = "butterfly"

@@ -4,8 +4,8 @@ The port cannot reproduce ``jax.random``, so parity runs start from
 parameters (or a whole state) made on the JAX side and handed over as
 numpy arrays (``jax.tree.map(np.asarray, tree)``): nested dicts with the
 same key paths and shapes. The state functions read and write the
-fields of the JAX ``DiLoCoState`` (and of the streaming ``StreamState``)
-by name, so every leaf can be compared; an async engine's state crosses
+fields of the JAX ``DiLoCoState`` (and of the streaming ``StreamState``
+and the gossip ``GossipState``) by name, so every leaf can be compared; an async engine's state crosses
 in the ``state_to_tree`` layout of the JAX ``core/async_diloco.py``.
 
 On the sharded transport (``core/pod_collectives.py``) the port's state
@@ -29,7 +29,7 @@ import numpy as np
 import torch
 
 from . import tree
-from .core import async_diloco, pod_collectives, streaming
+from .core import async_diloco, gossip, pod_collectives, streaming
 from .core.diloco import DiLoCoState
 from .core.outer_opt import OuterState
 from .kernels import ops
@@ -183,6 +183,35 @@ def stream_state_to_numpy(state: streaming.StreamState,
                 "payload": {str(i): tensor_to_numpy(t)
                             for i, t in enumerate(payload) if t is not None},
                 "mask": np.asarray(slot[1], np.float32)}
+    return out
+
+
+def gossip_state_from_numpy(state, *, device) -> gossip.GossipState:
+    """A JAX ``GossipState`` whose leaves are numpy arrays -> the port's on
+    ``device`` (the (k,) outer counts as an int32 host array)."""
+    base = state_from_numpy(DiLoCoState(
+        state.global_est, state.outer_state._replace(count=0),
+        state.replica_params, state.inner_state, state.outer_t,
+        state.inner_steps_done), device=device)
+    return gossip.GossipState(
+        global_est=base.global_params,
+        outer_state=base.outer_state._replace(
+            count=np.asarray(state.outer_state.count, np.int32).copy()),
+        replica_params=base.replica_params, inner_state=base.inner_state,
+        outer_t=base.outer_t, inner_steps_done=base.inner_steps_done)
+
+
+def gossip_state_to_numpy(state: gossip.GossipState) -> dict:
+    """The port's gossip state -> a nested dict of numpy arrays keyed by
+    the ``GossipState`` fields, as ``state_to_numpy`` writes a
+    ``DiLoCoState``."""
+    out = state_to_numpy(DiLoCoState(
+        state.global_est, state.outer_state._replace(count=0),
+        state.replica_params, state.inner_state, state.outer_t,
+        state.inner_steps_done))
+    out["global_est"] = out.pop("global_params")
+    out["outer_state"]["count"] = np.asarray(state.outer_state.count,
+                                             np.int32)
     return out
 
 

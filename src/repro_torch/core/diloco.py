@@ -312,15 +312,10 @@ def _check_ported(dcfg: DiLoCoConfig, tcfg: TrainConfig):
             f"dcfg=({dcfg.param_dtype}, {dcfg.master_dtype}) vs "
             f"tcfg=({tcfg.param_dtype}, {tcfg.master_dtype}); the state "
             "layout (dcfg) must match the inner step (tcfg)")
-    unported = [
-        (dcfg.transport == "gossip",
-         f"transport={dcfg.transport!r}", "transports"),
-        (dcfg.sync_inner_state, "sync_inner_state", "DiLoCo extras"),
-    ]
-    for bad, what, item in unported:
-        if bad:
-            raise NotImplementedError(
-                f"{what} is not ported yet (ROADMAP.md, port queue: {item})")
+    if dcfg.sync_inner_state:
+        raise NotImplementedError(
+            "sync_inner_state is not ported yet (ROADMAP.md, port queue: "
+            "DiLoCo extras)")
 
 
 def make_round(loss_fn, sample_fn, dcfg: DiLoCoConfig, tcfg: TrainConfig,
@@ -339,7 +334,9 @@ def make_round(loss_fn, sample_fn, dcfg: DiLoCoConfig, tcfg: TrainConfig,
     ``dcfg.streaming_fragments >= 1`` builds the streaming round
     (``core/streaming.py``), whose state is a ``streaming.StreamState``;
     ``dcfg.transport == "sharded"`` runs it on this rank's pod ``group``
-    (``launch/mesh.py``). ``nan_bombs`` ((rounds, k) mask, the classic
+    (``launch/mesh.py``); ``dcfg.transport == "gossip"`` builds the gossip
+    round (``core/gossip.py``), whose state is a ``gossip.GossipState``
+    and which refuses a ``group``. ``nan_bombs`` ((rounds, k) mask, the classic
     simulated round only) poisons the outer deltas of the masked (round,
     replica) cells (``outer_step``'s ``bomb_mask``), its rows indexed by
     the state's own ``outer_t``, so that a resumed run finds its place in
@@ -357,6 +354,14 @@ def make_round(loss_fn, sample_fn, dcfg: DiLoCoConfig, tcfg: TrainConfig,
             "build: drive it with core.async_diloco.AsyncEngine (or "
             "run_async) and a faults.Scenario")
     _check_ported(dcfg, tcfg)
+    if dcfg.transport == "gossip":
+        # gossip reuses streaming_fragments as its partial-averaging
+        # schedule, so it is routed before the streaming round
+        from . import gossip
+        return gossip.make_gossip_round_body(
+            loss_fn, sample_fn, dcfg, tcfg, total_steps=total_steps,
+            compute_cosine=compute_cosine, batch_size=batch_size,
+            seq_len=seq_len, group=group)
     if dcfg.transport not in ("simulated", "sharded"):
         raise ValueError(f"unknown transport {dcfg.transport!r}")
     if dcfg.streaming_fragments:

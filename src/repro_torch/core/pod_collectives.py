@@ -41,6 +41,8 @@ sites, the collectives and the bytes this rank hands to them.
 """
 from __future__ import annotations
 
+import hashlib
+
 import numpy as np
 import torch
 import torch.distributed as dist
@@ -59,7 +61,9 @@ class PodGroup:
     ``device``. ``staged``: collectives take host copies of CUDA tensors
     (gloo). ``traffic`` counts the collective calls by kind and the bytes
     this rank contributes: ``wire_bytes`` for the outer gradients'
-    collectives, ``metric_bytes`` for the round metrics' means."""
+    collectives, ``metric_bytes`` for the round metrics' means; the
+    resilience layer's agreements (barriers, rank 0's decisions, digest
+    checks) count as ``control`` calls and ``control_bytes``."""
 
     def __init__(self, rank: int, pods: int, *, device, backend: str,
                  staged: bool = False, group=None):
@@ -68,7 +72,7 @@ class PodGroup:
         self.backend, self.staged, self.group = backend, bool(staged), group
         self.traffic = dict.fromkeys(
             ("all_reduce", "all_gather", "gather_wire", "wire_bytes",
-             "metric_bytes"), 0)
+             "metric_bytes", "control", "control_bytes"), 0)
 
     def _host(self, x):
         if not (self.staged and x.device.type == "cuda"):
@@ -87,19 +91,45 @@ class PodGroup:
             x.copy_(src)
         return x
 
-    def all_gather(self, x, *, async_op: bool = False, kind="all_gather"):
+    def all_gather(self, x, *, async_op: bool = False, kind="all_gather",
+                   bill: str = "wire_bytes"):
         """Gather the (k_loc, ...) band ``x`` of every rank into one (k,
         ...) tensor in replica order: a ``Gathered`` handle whose
-        ``wait()`` returns it (already complete unless ``async_op``)."""
+        ``wait()`` returns it (already complete unless ``async_op``).
+        Counted as one ``kind`` call and its bytes under ``bill``."""
         x = x.contiguous()
         self.traffic[kind] += 1
-        self.traffic["wire_bytes"] += x.numel() * x.element_size()
+        self.traffic[bill] += x.numel() * x.element_size()
         src = self._host(x)
         out = torch.empty((self.pods * x.shape[0],) + tuple(x.shape[1:]),
                           dtype=x.dtype, device=src.device,
                           pin_memory=src is not x)
         work = _GATHER(out, src, group=self.group, async_op=async_op)
         return Gathered(work, out, x.device)
+
+
+    def barrier(self):
+        """Wait until every rank has reached this call."""
+        self.traffic["control"] += 1
+        dist.barrier(group=self.group)
+
+    def decide(self, value: int) -> int:
+        """Rank 0's ``value`` (an int), on every rank: one broadcast."""
+        self.traffic["control"] += 1
+        self.traffic["control_bytes"] += 8
+        x = torch.tensor([int(value)], dtype=torch.int64, device=self.device)
+        src = self._host(x)
+        dist.broadcast(src, src=0, group=self.group)
+        return int(src[0])
+
+    def agree(self, data: bytes) -> bool:
+        """Whether ``data`` is the same on every rank: one all-gather of
+        its sha256 digest."""
+        digest = torch.frombuffer(bytearray(hashlib.sha256(data).digest()),
+                                  dtype=torch.uint8).to(self.device)
+        got = self.all_gather(digest[None], kind="control",
+                              bill="control_bytes").wait()
+        return bool((got == got[0]).all())
 
 
 # the single-tensor all-gather of this PyTorch: ``all_gather_single``

@@ -18,6 +18,7 @@ from __future__ import annotations
 import importlib
 import os
 import pickle
+import signal
 import tempfile
 from typing import NamedTuple
 
@@ -126,6 +127,11 @@ def _rank_main(rank, target, layout, tmp, settings, args):
     os.replace(path + ".tmp", path)
 
 
+class RanksKilled(RuntimeError):
+    """A rank of ``spawn`` died by SIGKILL (every other rank has been
+    stopped and reaped)."""
+
+
 def spawn(target: str, layout: Layout, *args) -> list:
     """Run ``target(group, *args)`` on every rank of ``layout``, each in a
     process of its own (``torch.multiprocessing``, spawn), and return the
@@ -133,16 +139,35 @@ def spawn(target: str, layout: Layout, *args) -> list:
     package as "module:function" (a spawned child imports its module).
     Tensors in ``args`` reach the ranks through shared memory (CPU) or
     CUDA IPC (a card): one copy for all ranks. A rank that raises fails
-    the call, and the other ranks are stopped. The children take the
-    caller's TF32 settings and an even share of its CPU threads."""
+    the call, and the other ranks are stopped. A rank that dies by
+    SIGKILL (the trainer's scripted crash kills every rank at one
+    boundary) raises ``RanksKilled`` once every rank has been stopped and
+    reaped, so that no rank outlives the call, even one blocked in a
+    collective whose peer is gone; the temporary directory is removed
+    on the way out. The children take the caller's TF32 settings and an
+    even share of its CPU threads."""
     settings = (max(1, torch.get_num_threads() // layout.pods),
                 (torch.backends.cuda.matmul.allow_tf32,
                  torch.backends.cudnn.allow_tf32))
     with tempfile.TemporaryDirectory(prefix="repro_pods_") as tmp:
-        mp.start_processes(_rank_main,
-                           args=(target, layout, tmp, settings, args),
-                           nprocs=layout.pods, join=True,
-                           start_method="spawn")
+        ctx = mp.start_processes(_rank_main,
+                                 args=(target, layout, tmp, settings, args),
+                                 nprocs=layout.pods, join=False,
+                                 start_method="spawn")
+        try:
+            while not ctx.join():
+                pass
+        except Exception as err:
+            codes = [p.exitcode for p in ctx.processes]
+            if -signal.SIGKILL in codes:
+                raise RanksKilled(f"pod ranks died by SIGKILL (exit codes "
+                                  f"{codes})") from err
+            raise
+        finally:
+            for p in ctx.processes:
+                if p.is_alive():
+                    p.kill()
+                p.join()
         results = []
         for r in range(layout.pods):
             with open(os.path.join(tmp, f"rank{r}.pkl"), "rb") as f:

@@ -16,7 +16,16 @@ metrics, its collective traffic and kernel launches over the rounds, the
 count of deferred gathers not yet waited for at the end (those whose
 apply falls in the next round), and a digest of the state every rank
 holds in full (global params, outer state, pending, armed, in-flight),
-which must agree across the ranks.
+which must agree across the ranks. With ``snapshot`` (a path) rank 0
+also writes the gathered state there as the trainer writes a snapshot
+(``resilience.wrap``: the envelope's generator state is that of a CPU
+generator seeded 0, its cursor the rounds run).
+
+``reband`` is the elastic resume's placement alone: every rank loads a
+snapshot at host placement, takes its band for this group's pod count
+and the ranks gather it again, with no round between; rank 0 writes the
+result where it is asked to, to be held against the snapshot bit for
+bit.
 """
 from __future__ import annotations
 
@@ -25,7 +34,8 @@ import hashlib
 import numpy as np
 import torch
 
-from .. import convert, tree
+from .. import convert, resilience, tree
+from ..checkpoint import checkpoint as ckpt
 from ..core import diloco, pod_collectives, streaming
 from ..kernels import ops as kops
 from ..models.registry import Arch
@@ -53,7 +63,7 @@ def shared_digest(state) -> str:
 
 
 def rounds(group, model_cfg, dcfg, tcfg, tokens, masks, params=None,
-           state=None):
+           state=None, snapshot=None):
     """``len(masks)`` sharded rounds on this rank, from the full
     ``state`` (a port ``StreamState``, banded here) or, without one, from
     ``params`` (``streaming.init_state``). See the module's doc."""
@@ -81,6 +91,9 @@ def rounds(group, model_cfg, dcfg, tcfg, tokens, masks, params=None,
                    for slot in state.inflight or () if slot is not None)
     digest = shared_digest(state)
     full = pod_collectives.gather_stream_state(state, group)
+    if snapshot is not None and full is not None:
+        ckpt.save(snapshot, resilience.wrap(
+            full, torch.Generator().manual_seed(0), len(masks)))
     return {"rank": group.rank, "metrics": metrics, "traffic": traffic,
             "launches": launches, "shared": digest, "unwaited": unwaited,
             "state": None if full is None
@@ -98,3 +111,22 @@ def packed_means(group, params, d, m, cases):
         x, k_loc, group.rank).to(group.device), d)
     return {(P, dt): convert.params_to_numpy(pod_collectives.packed_mean_tree(
         group, params, band, m, P, dt)) for P, dt in cases}
+
+
+def reband(group, model_cfg, dcfg, path, out_path):
+    """Load the snapshot at ``path`` (a full sharded streaming state of
+    ``model_cfg``'s parameters under ``dcfg``) on the host, band it for
+    this group as a resume does (``pod_collectives.shard_stream_state``),
+    gather it again (``gather_stream_state``) and, on rank 0, write the
+    envelope to ``out_path``. Returns this rank's band size."""
+    meta = Arch(cfg=model_cfg).init(generator=None, device="meta")
+    loaded = ckpt.restore_tree(path)
+    # the generator state as written (a CUDA or a CPU generator's)
+    example = resilience.wrap(streaming.init_state(meta, dcfg),
+                              loaded["rng"]["key"].numpy(), 0)
+    full, key, done = resilience.unwrap(ckpt.reshape_like(loaded, example))
+    state = pod_collectives.shard_stream_state(full, group)
+    back = pod_collectives.gather_stream_state(state, group)
+    if back is not None:
+        ckpt.save(out_path, resilience.wrap(back, key, done))
+    return tree.leaves(state.base.replica_params)[0].shape[0]

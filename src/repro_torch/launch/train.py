@@ -26,7 +26,12 @@ fault scenario (``core/faults.py``: ``--speeds``, ``--link-latency``,
 ``--max-retries``, ``--retry-backoff``, ``--preempt``), each outer
 gradient applied at weight ``--staleness-lambda``^τ / k, shipped at
 ``--outer-grad-dtype`` with or without ``--error-feedback``; it prints
-one line per event. On the round transports the same fault flags are
+one line per event. ``--transport gossip`` runs NoLoCo-style pairwise
+partial averaging (``core/gossip.py``: ``--gossip-pairing``,
+``--gossip-mix``, ``--stream-fragments`` as its fragment schedule,
+``--outer-grad-dtype`` float32 or bfloat16); its records carry
+``gossip_edges``, ``gossip_spread``, ``gossip_frag`` and
+``exchange_frac``. On the round transports the same fault flags are
 projected onto the rounds' drop and active masks.
 
 The rounds run in chunks of ``--rounds-per-call`` through
@@ -41,9 +46,13 @@ digest), the scripted SIGKILL (``--crash-at-round``), NaN-poisoned outer
 gradients (``--nan-bomb W:ROUND``) and the anomaly guard (``--guard``:
 on a non-finite or spiking loss, roll back to the last good snapshot and
 replay with the in-graph guard armed). Chunks are cut at the snapshot
-cadence and at the crash round. The async transport takes a snapshot
-every ``--checkpoint-every`` events, ``--crash-at-tick``, and the full
-engine state through ``--checkpoint``/``--restore``.
+cadence and at the crash round. On the sharded transport rank 0 writes
+each snapshot from the gathered state, at host placement, so that a
+snapshot resumes under any ``--pods`` that bands k; rank 0 judges the
+guard for every rank, and the crash kills every rank and then the
+trainer. The async transport takes a snapshot every
+``--checkpoint-every`` events, ``--crash-at-tick``, and the full engine
+state through ``--checkpoint``/``--restore``.
 
 Example:
   PYTHONPATH=src python -m repro_torch.launch.train \\
@@ -70,6 +79,13 @@ Example:
   PYTHONPATH=src python -m repro_torch.launch.train --device cpu \\
       --k 2 --H 2 --rounds 6 --batch 2 --seq 32 --rounds-per-call 2 \\
       --checkpoint-dir /tmp/ckpt --checkpoint-every 2 --resume auto
+  PYTHONPATH=src python -m repro_torch.launch.train --device cpu \\
+      --transport sharded --pods 4 --stream-fragments 2 \\
+      --outer-grad-dtype int4 --error-feedback --k 4 --H 2 --rounds 4 \\
+      --batch 2 --seq 32 --checkpoint-dir /tmp/ckpt --resume 2
+  PYTHONPATH=src python -m repro_torch.launch.train --device cpu \\
+      --transport gossip --gossip-pairing random --stream-fragments 2 \\
+      --outer-grad-dtype bfloat16 --k 4 --H 2 --rounds 4 --batch 2 --seq 32
 """
 from __future__ import annotations
 
@@ -85,8 +101,8 @@ import torch
 from .. import resilience, tree
 from ..checkpoint import checkpoint as ckpt
 from ..configs.base import DiLoCoConfig, TrainConfig
-from ..core import (async_diloco, diloco, faults, pod_collectives,
-                    schedules, streaming)
+from ..core import (async_diloco, diloco, faults, gossip,
+                    pod_collectives, schedules, streaming)
 from ..data.sharding import make_regime, shard_weights
 from ..kernels import ops as kops
 from ..models.registry import get_arch, get_smoke_arch
@@ -96,16 +112,7 @@ from . import mesh
 
 # flag dest -> the ROADMAP.md port-queue item that ports it. A flag left
 # at its default passes; any other value exits with the item's name.
-UNPORTED = {"gossip_pairing": "transports", "gossip_mix": "transports",
-            "trace": "telemetry"}
-# transports of the JAX trainer that are not ported
-UNPORTED_TRANSPORTS = ("gossip",)
-# flags the sharded transport does not run yet: its snapshots would have
-# to gather every rank's replica band first
-SHARDED_UNPORTED = ("checkpoint_dir", "checkpoint_every", "resume",
-                    "retain", "checkpoint", "state_hash_out", "guard",
-                    "guard_window", "guard_spike", "guard_rollbacks",
-                    "crash_at_round")
+UNPORTED = {"trace": "telemetry"}
 
 
 def resolve_device(name: str) -> torch.device:
@@ -233,13 +240,6 @@ def check_ported(args, parser=None):
     changed = lambda dest: getattr(args, dest) != parser.get_default(dest)
     bad = [f"--{dest.replace('_', '-')} (ROADMAP.md, port queue: "
            f"{item})" for dest, item in UNPORTED.items() if changed(dest)]
-    if args.transport in UNPORTED_TRANSPORTS:
-        bad.insert(0, f"--transport {args.transport} (ROADMAP.md, port "
-                      "queue: transports)")
-    if args.transport == "sharded":
-        bad += [f"--{dest.replace('_', '-')} on --transport sharded "
-                "(ROADMAP.md, port queue: checkpoints and resilience)"
-                for dest in SHARDED_UNPORTED if changed(dest)]
     if bad:
         raise SystemExit("not ported yet: " + "; ".join(bad))
     if args.kernel_mode in ("pallas", "interpret"):
@@ -264,17 +264,20 @@ def check_ported(args, parser=None):
                 f"{', '.join(ignored)} require(s) --stream-fragments "
                 ">= 1 (streaming outer sync); the classic outer step "
                 "would ignore them")
-    if args.transport == "async":
-        # streaming mechanics that have no meaning off the fragment-round
-        # path are rejected, not ignored (the JAX trainer's check)
+    if args.transport in ("async", "gossip"):
+        # barrier-free transports: streaming mechanics that have no
+        # meaning off the fragment-round path are rejected, not ignored
+        # (the JAX trainer's check; gossip takes --stream-fragments as its
+        # partial-averaging schedule)
         bad = [flag for flag, on in (
-            ("--stream-fragments", args.stream_fragments != 0),
             ("--stream-alpha", args.stream_alpha != 1.0),
             ("--stream-tau", args.stream_tau != 0),
             ("--no-pack-wire", not args.pack_wire),
             ("--pods", args.pods != 0),
             ("--legacy-loop", args.legacy_loop),
             ("--cosine-stats", args.cosine_stats)) if on]
+        if args.transport == "async" and args.stream_fragments:
+            bad.insert(0, "--stream-fragments")
         if bad:
             raise SystemExit(f"{', '.join(bad)} do(es) not act on "
                              f"--transport {args.transport}")
@@ -348,7 +351,9 @@ def build(args, device, sampler=None):
                         error_feedback=args.error_feedback,
                         transport=args.transport,
                         pack_wire=args.pack_wire,
-                        staleness_lambda=args.staleness_lambda)
+                        staleness_lambda=args.staleness_lambda,
+                        gossip_pairing=args.gossip_pairing,
+                        gossip_mix=args.gossip_mix)
     total = args.pretrain_steps + args.rounds * args.H
     tcfg = TrainConfig(inner_lr=args.inner_lr, warmup_steps=args.warmup,
                        total_steps=total, batch_size=args.batch,
@@ -399,11 +404,46 @@ def _check_snapshot_rng(path: str, example_key: np.ndarray, step: int):
                 f"{example_key.size}: resume on the device that wrote it")
 
 
+def pick_resume(args, mgr, device):
+    """The snapshot ``--resume`` names (``auto``: the newest that
+    verifies), verified once, here: (its step, {"step", "verify_s"}), or
+    (None, None) when ``auto`` finds none. Refuses a snapshot that fails
+    verification, one of another replica count (``k`` in its metadata:
+    a resume, also under another ``--pods``, keeps k) and one whose
+    generator state cannot seed this run."""
+    step = (mgr.latest_good() if args.resume == "auto"
+            else int(args.resume))
+    if step is None:
+        return None, None
+    t0 = time.perf_counter()
+    ok = mgr.verify(step)
+    timing = {"step": step, "verify_s": time.perf_counter() - t0}
+    if not ok:
+        raise SystemExit(f"--resume {step}: snapshot fails integrity "
+                         "verification")
+    path = mgr.path_of(step)
+    if os.path.exists(path + ".meta.json"):
+        k_snap = ckpt.load_metadata(path).get("k")
+        if k_snap is not None and int(k_snap) != args.k:
+            raise SystemExit(
+                f"--resume {step}: the snapshot holds k={k_snap} replicas "
+                f"and this run has --k {args.k}: a resume keeps the "
+                "replica count (--pods may change, k may not)")
+    _check_snapshot_rng(path, torch.Generator(device=device).get_state()
+                        .numpy(), step)
+    return step, timing
+
+
 def _train(args, device, recorder=None, *, group=None, sampler=None,
-           data_setup_s=None, note=None):
+           data_setup_s=None, note=None, resume=None):
     """The run on ``device``; on the sharded transport, one pod rank's
-    part of it (``group``; the sampler and its set-up seconds come from
-    the parent). Only the lead process (rank 0) evaluates."""
+    part of it (``group``; the sampler, its set-up seconds and the
+    ``resume`` pick come from the parent). Only the lead process (rank 0)
+    evaluates, judges the guard, and writes snapshots and outputs: a
+    snapshot gathers every rank's replica band onto rank 0
+    (``pod_collectives.gather_stream_state``) and is written at host
+    placement, so that a resume under any ``--pods`` that bands k loads
+    the full state and bands it for its own ranks."""
     t_setup = time.perf_counter()
     arch, cfg, dcfg, tcfg, sampler = build(args, device, sampler=sampler)
     if data_setup_s is None:
@@ -430,18 +470,12 @@ def _train(args, device, recorder=None, *, group=None, sampler=None,
            if args.checkpoint_dir else None)
     resume_step = None
     if args.resume and mgr is not None and args.transport != "async":
-        resume_step = (mgr.latest_good() if args.resume == "auto"
-                       else int(args.resume))
+        resume_step, resume_timing = (pick_resume(args, mgr, device)
+                                      if resume is None else resume)
         if resume_step is None:
             rec.note("resume: no verified snapshot, starting fresh")
         else:
-            t0 = time.perf_counter()
-            ok = mgr.verify(resume_step)
-            timing["resume"] = {"step": resume_step,
-                                "verify_s": time.perf_counter() - t0}
-            if not ok:
-                raise SystemExit(f"--resume {resume_step}: snapshot fails "
-                                 "integrity verification")
+            timing["resume"] = resume_timing
 
     # ---- pretraining phase (paper: 24k steps before DiLoCo) ----
     # a resumed run skips it: the snapshot's state and generator carry it
@@ -473,10 +507,26 @@ def _train(args, device, recorder=None, *, group=None, sampler=None,
     if dcfg.transport == "async":
         return _run_async_phase(args, dcfg, tcfg, loss_fn, sampler, params,
                                 ev, val, rec)
-    if dcfg.streaming_fragments:
+    frag_wire = None            # gossip: per-fragment exchange bytes
+    full_example = None         # sharded: a full state's shapes (meta)
+    if dcfg.transport == "gossip":
+        state = gossip.init_state(params, dcfg)
+        frag_wire = gossip.frag_bytes(params, dcfg)
+        round_wire = None
+        plan = [{"fragment": i, "wire_bytes": float(b),
+                 "wire_dtype": dcfg.outer_grad_dtype}
+                for i, b in enumerate(frag_wire)]
+        note = (f"gossip transport: {dcfg.gossip_pairing} pairing, "
+                f"mix={dcfg.gossip_mix}, "
+                f"P={max(1, dcfg.streaming_fragments)} fragment(s), "
+                f"{max(frag_wire)} B/exchange")
+    elif dcfg.streaming_fragments:
         state = streaming.init_state(params, dcfg, group=group)
         plan = streaming.sync_plan(params, dcfg)
         round_wire = sum(row["wire_bytes"] for row in plan)
+        if group is not None:
+            full_example = streaming.init_state(tree.map(
+                lambda p: torch.empty_like(p, device="meta"), params), dcfg)
     else:
         state = diloco.init_state(params, dcfg)
         round_wire = diloco.outer_wire_bytes(params, dcfg)
@@ -490,17 +540,68 @@ def _train(args, device, recorder=None, *, group=None, sampler=None,
 
     def load_snapshot(step):
         """Snapshot ``step`` restored into the live state (in place) and
-        the generator; returns (state, rounds done)."""
-        example = resilience.wrap(state, gen, 0)
-        _check_snapshot_rng(mgr.path_of(step), example["rng"]["key"], step)
-        t0 = time.perf_counter()
-        st, key, done = resilience.unwrap(mgr.load(step, example,
-                                                   in_place=True))
+        the generator; on the sharded transport the full state is loaded
+        on the host and this rank's band of it placed on the device (the
+        old state is dropped first). Returns (state, rounds done)."""
+        nonlocal state
+        t0, band = time.perf_counter(), None
+        if full_example is None:
+            example = resilience.wrap(state, gen, 0)
+            _check_snapshot_rng(mgr.path_of(step), example["rng"]["key"],
+                                step)
+            st, key, done = resilience.unwrap(mgr.load(step, example,
+                                                       in_place=True))
+        else:
+            state = None
+            full, key, done = resilience.unwrap(ckpt.reshape_like(
+                mgr.load_tree(step), resilience.wrap(full_example, gen, 0)))
+            band = time.perf_counter()
+            st = pod_collectives.shard_stream_state(full, group)
+            del full
         gen.set_state(key)
         diloco._sync(device)
-        timing.setdefault("loads", []).append(
-            {"step": step, "load_s": time.perf_counter() - t0})
+        end = time.perf_counter()
+        load = {"step": step, "load_s": (band or end) - t0}
+        if band is not None:
+            load["band_s"] = end - band
+        timing.setdefault("loads", []).append(load)
         return st, done
+
+    def gathered(st):
+        """The full state (rank 0; None on the other ranks): every rank
+        calls it on the sharded transport."""
+        return st if group is None else \
+            pod_collectives.gather_stream_state(st, group)
+
+    def save_snapshot(t):
+        """The durable snapshot after round ``t``: written by rank 0 from
+        the gathered state; every rank then waits for it, so that none
+        runs ahead into the next snapshot. The ranks' generators must
+        agree (each draws all k shards and keeps its band)."""
+        diloco._sync(device)
+        t_s = time.perf_counter()
+        full = gathered(state)
+        entry = {"step": t}
+        if group is not None:
+            diloco._sync(device)
+            entry["gather_s"] = time.perf_counter() - t_s
+            if not group.agree(bytes(gen.get_state().numpy())):
+                raise RuntimeError(
+                    f"snapshot {t}: the pod ranks' token generators "
+                    "disagree; each rank must draw every shard's batches")
+        if lead:
+            t_w = time.perf_counter()
+            stats = mgr.save(t, resilience.wrap(full, gen, t),
+                             metadata={"transport": args.transport,
+                                       "k": args.k, "H": args.H,
+                                       "rounds_done": t})
+            stats.pop("path")
+            entry.update(stats, save_s=time.perf_counter() - (
+                t_s if group is None else t_w))
+            timing.setdefault("snapshots", []).append(entry)
+        del full
+        if group is not None:
+            group.barrier()
 
     rounds_done = 0
     if resume_step is not None:
@@ -534,7 +635,9 @@ def _train(args, device, recorder=None, *, group=None, sampler=None,
                  "(worker, round) cell(s)")
     crash_round = scen.crash_round(args.k) if scen is not None else -1
     guard = None
-    if args.guard:
+    if args.guard and lead:
+        # one judge for the run: on the sharded transport only rank 0
+        # evaluates, and it hands its verdict to the other ranks
         guard = resilience.AnomalyGuard(
             resilience.GuardConfig(window=args.guard_window,
                                    spike=args.guard_spike,
@@ -548,12 +651,18 @@ def _train(args, device, recorder=None, *, group=None, sampler=None,
         False marks a round the eval cadence skipped."""
         pick = float if i is None else (lambda x: float(x[i]))
         extras = {kk: pick(m[kk]) for kk in (
-            "inner_loss_last", "drop_frac", "prune_density",
-            "guard_rejected", "guard_clipped", "stream_peak_sync_bytes",
+            "inner_loss_last", "drop_frac", "gossip_spread", "gossip_frag",
+            "exchange_frac", "prune_density", "guard_rejected",
+            "guard_clipped", "stream_peak_sync_bytes",
             "stream_round_sync_bytes") if kk in m}
         if args.cosine_stats:
             extras["cos_mean"] = pick(m["cos_mean"])
             extras["cos_std"] = pick(m["cos_std"])
+        wire, edges = round_wire, None
+        if frag_wire is not None:       # gossip: the round's fragment
+            wire = frag_wire[t % len(frag_wire)]
+            edges = gossip.pairing_edges(args.k, t, args.gossip_pairing,
+                                         seed=args.seed)
         rec.round(round=t + 1, rounds=args.rounds,
                   inner_steps=args.pretrain_steps + (t + 1) * args.H,
                   inner_loss=pick(m["inner_loss"]),
@@ -562,7 +671,8 @@ def _train(args, device, recorder=None, *, group=None, sampler=None,
                   outer_gnorm=pick(m["outer_gnorm"]),
                   active=int(acts[t].sum()),
                   dropped=int(args.k - drops[t].sum()),
-                  wire_bytes=round_wire, extras=extras, evaled=evaled)
+                  wire_bytes=wire, gossip_edges=edges, extras=extras,
+                  evaled=evaled)
         timing["rounds"].append({kk: pick(m[kk]) for kk in (
             "sample_s", "inner_s", "outer_s", "wait_s") if kk in m})
 
@@ -608,39 +718,43 @@ def _train(args, device, recorder=None, *, group=None, sampler=None,
                 emit_round(t + i, ms, i, evaled=evaled[i])
             t += n
             # (1) the scripted kill, BEFORE this boundary's snapshot: the
-            # resume replays the crashed rounds from the last snapshot
+            # resume replays the crashed rounds from the last snapshot.
+            # Every rank reaches this boundary, waits for the others (no
+            # rank dies inside a collective) and kills itself.
             if 0 <= crash_round < t:
                 rec.note(f"crash: SIGKILL at round boundary {t}")
+                if group is not None:
+                    group.barrier()
                 os.kill(os.getpid(), signal.SIGKILL)
             # (2) the guard judges the chunk from the metrics on the host;
             # on an anomaly, roll back to the last good snapshot and
-            # replay with the in-graph guard armed
-            if guard is not None:
-                losses = [ms["val_loss"][i] if evaled[i] and "val_loss" in ms
-                          else ms["inner_loss"][i] for i in range(n)]
-                bad = guard.observe_chunk(t - n, losses)
-                if bad and mgr is not None and guard.can_rollback():
-                    back = mgr.latest_good()
-                    if back is not None and back < t:
-                        state, t = load_snapshot(back)
+            # replay with the in-graph guard armed. On the sharded
+            # transport rank 0 judges and every rank takes its decision.
+            if args.guard:
+                back, bad = -1, None
+                if guard is not None:
+                    losses = [ms["val_loss"][i]
+                              if evaled[i] and "val_loss" in ms
+                              else ms["inner_loss"][i] for i in range(n)]
+                    bad = guard.observe_chunk(t - n, losses)
+                    if bad and mgr is not None and guard.can_rollback():
+                        good = mgr.latest_good()
+                        if good is not None and good < t:
+                            back = good
+                if group is not None:
+                    back = group.decide(back)
+                if back >= 0:
+                    state, t = load_snapshot(back)
+                    if guard is not None:
                         guard.rolled_back(to_round=back,
                                           skip_round=bad[0]["round"])
-                        guarded = True
-                        rec.note(f"guard: restored snapshot {back}; "
-                                 "replaying with the in-graph guard armed")
-                        continue
+                    guarded = True
+                    rec.note(f"guard: restored snapshot {back}; "
+                             "replaying with the in-graph guard armed")
+                    continue
             # (3) the durable snapshot at the cadence
             if ckpt_every and (t % ckpt_every == 0 or t == args.rounds):
-                diloco._sync(device)
-                t_s = time.perf_counter()
-                stats = mgr.save(t, resilience.wrap(state, gen, t),
-                                 metadata={"transport": args.transport,
-                                           "k": args.k, "H": args.H,
-                                           "rounds_done": t})
-                stats.pop("path")
-                timing.setdefault("snapshots", []).append(
-                    {"step": t, **stats,
-                     "save_s": time.perf_counter() - t_s})
+                save_snapshot(t)
 
     floor = sampler.entropy_floor()
     rec.note(f"done in {time.time() - t0:.1f}s; "
@@ -648,19 +762,21 @@ def _train(args, device, recorder=None, *, group=None, sampler=None,
     if args.out and group is None:
         rec.dump(args.out, args=vars(args))
         rec.note(f"wrote {args.out}")
-    if args.checkpoint:
+    final = gathered(state) if args.checkpoint or args.state_hash_out \
+        else None
+    if args.checkpoint and lead:
         ckpt.save(args.checkpoint,
-                  {"params": state.global_params,
-                   "outer_buf": state.outer_state.buf},
+                  {"params": final.global_params,
+                   "outer_buf": final.outer_state.buf},
                   metadata={"rounds": args.rounds, "k": args.k,
                             "H": args.H})
         rec.note(f"checkpoint: {args.checkpoint}")
-    if args.state_hash_out:
+    if args.state_hash_out and lead:
         rrecs = rec.round_records()
         vals = [r["val_loss"] for r in rrecs if r["val_loss"] is not None]
         ckpt.atomic_write_json(args.state_hash_out, {
-            "state_sha256": resilience.tree_sha256(state),
-            "leaf_sha256": resilience.leaf_hashes(state),
+            "state_sha256": resilience.tree_sha256(final),
+            "leaf_sha256": resilience.leaf_hashes(final),
             "final_val_loss": vals[-1] if vals else None,
             "final_inner_loss": rrecs[-1]["inner_loss"] if rrecs else None,
             "resumed_from_step": (-1 if resume_step is None
@@ -681,7 +797,14 @@ def run_sharded(args, device, recorder=None, *, sampler=None):
     (``launch/mesh.spawn``). Rank 0 prints and records; its records are
     returned and land in ``recorder``, whose ``manifest["ranks"]`` holds
     every rank's device, kernel launches, collective traffic, timing and
-    peak device memory. A failure in any rank fails the run."""
+    peak device memory. A failure in any rank fails the run.
+
+    ``--resume`` is picked and verified here, once (``pick_resume``); the
+    ranks load the full snapshot and band it for this run's pod count.
+    Under ``--crash-at-round`` every rank kills itself at the boundary;
+    once ``mesh.spawn`` has reaped them (and removed its temporary
+    directory) this process dies by SIGKILL too, as a crash on the other
+    transports does."""
     n_dev = mesh.visible_devices(device.type)
     pods = args.pods or mesh.default_pods(args.k, n_dev)
     if pods < 2:
@@ -690,6 +813,10 @@ def run_sharded(args, device, recorder=None, *, sampler=None):
             f"divides k={args.k} and tiles the {n_dev} visible device(s) "
             "— a 1-pod group would run zero real cross-pod collectives")
     pod_collectives.check_bands(args.k, pods)
+    resume = None
+    if args.resume and args.checkpoint_dir:
+        resume = pick_resume(args, resilience.CheckpointManager(
+            args.checkpoint_dir, retain=args.retain), device)
     layout = mesh.make_pod_layout(pods, device.type)
     where = (f"{mesh.chips_of(layout)} card(s)" if device.type == "cuda"
              else "the CPU")
@@ -702,8 +829,14 @@ def run_sharded(args, device, recorder=None, *, sampler=None):
     first = torch.device(layout.devices[0])
     sampler = build(args, first)[4] if sampler is None else sampler.to(first)
     setup_s = time.perf_counter() - t0
-    results = mesh.spawn("repro_torch.launch.train:sharded_rank", layout,
-                         args, sampler, setup_s, note)
+    try:
+        results = mesh.spawn("repro_torch.launch.train:sharded_rank",
+                             layout, args, sampler, setup_s, note, resume)
+    except mesh.RanksKilled:
+        if args.crash_at_round < 0:
+            raise
+        # the scripted crash: every rank died at the boundary
+        os.kill(os.getpid(), signal.SIGKILL)
     if device.type == "cuda":
         torch.cuda.ipc_collect()       # the ranks' handles on the tables
     # rank 0 printed the run's lines; this recorder takes its records
@@ -720,7 +853,7 @@ def run_sharded(args, device, recorder=None, *, sampler=None):
     return rec.records
 
 
-def sharded_rank(group, args, sampler, setup_s, note):
+def sharded_rank(group, args, sampler, setup_s, note, resume=None):
     """One pod rank of ``run_sharded`` (``launch/mesh.spawn`` calls it in
     the rank's process): the run's rounds on this rank's replica band.
     Rank 0 prints; every rank returns its counts."""
@@ -731,7 +864,7 @@ def sharded_rank(group, args, sampler, setup_s, note):
         transport=args.transport, log_format=args.log_format,
         printer=print if lead else (lambda *a, **kw: None))
     _train(args, dev, rec, group=group, sampler=sampler,
-           data_setup_s=setup_s, note=note)
+           data_setup_s=setup_s, note=note, resume=resume)
     return {"rank": group.rank, "device": str(dev),
             "records": rec.records if lead else None,
             "manifest": rec.manifest if lead else None,
@@ -941,11 +1074,22 @@ def make_parser():
                          "rounds on --pods ranks with real "
                          "torch.distributed collectives; 'async' is the "
                          "barrier-free event loop (core/async_diloco.py) "
-                         "driven by the fault flags below; 'gossip' is not "
-                         "ported yet (see ROADMAP.md)")
+                         "driven by the fault flags below; 'gossip' is "
+                         "NoLoCo-style pairwise partial averaging with no "
+                         "global collective (core/gossip.py)")
     ap.add_argument("--staleness-lambda", type=float, default=1.0,
                     help="async transport: an outer gradient tau outer "
                          "steps stale is applied at weight lambda^tau/k")
+    ap.add_argument("--gossip-pairing", default="butterfly",
+                    choices=["butterfly", "random"],
+                    help="gossip partner schedule: butterfly (hypercube "
+                         "dims, k a power of 2, provably exact mixing "
+                         "in log2 k rounds) or a fresh random perfect "
+                         "matching per round")
+    ap.add_argument("--gossip-mix", type=float, default=0.5,
+                    help="gossip adoption rate: g_i <- g_i + "
+                         "mix*(g_partner - g_i) on the scheduled "
+                         "fragment")
     ap.add_argument("--ticks", type=int, default=0,
                     help="async horizon in wall-clock ticks (1 tick = "
                          "fastest worker's phase; 0 = the ticks a "
@@ -1031,8 +1175,6 @@ def make_parser():
                          "final losses and the resume provenance")
     # ---- not ported: accepted so that they can be refused by name ----
     nyi = "not ported yet (see ROADMAP.md)"
-    ap.add_argument("--gossip-pairing", default="butterfly", help=nyi)
-    ap.add_argument("--gossip-mix", type=float, default=0.5, help=nyi)
     ap.add_argument("--trace", default="", help=nyi)
     return ap
 

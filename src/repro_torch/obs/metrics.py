@@ -109,9 +109,11 @@ class RunRecorder:
     def round(self, *, round: int, rounds: int, inner_steps: int,
               inner_loss, val_loss, outer_gnorm, active: int,
               dropped: int | None = None, wire_bytes=None,
-              extras: dict | None = None, evaled: bool = True) -> dict:
+              gossip_edges=None, extras: dict | None = None,
+              evaled: bool = True) -> dict:
         """One outer round. ``evaled`` False marks a round the eval
-        cadence skipped (val_loss recorded as None)."""
+        cadence skipped (val_loss recorded as None); ``gossip_edges``, the
+        gossip transport's exchange pairs of the round."""
         rec = {"kind": "round", "phase": "diloco",
                "transport": self.transport, "round": int(round),
                "inner_steps": int(inner_steps),
@@ -122,6 +124,8 @@ class RunRecorder:
             rec["dropped"] = int(dropped)
         if wire_bytes is not None:
             rec["wire_bytes"] = float(wire_bytes)
+        if gossip_edges is not None:
+            rec["gossip_edges"] = [list(e) for e in gossip_edges]
         if extras:
             rec.update({k: float(v) for k, v in extras.items()})
         return self._emit(rec, _round_text(rec, rounds))

@@ -46,7 +46,9 @@ under the mixed policy with the drift's share, drift·sqrt(n)).
 from __future__ import annotations
 
 import functools
+import json
 import math
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -72,6 +74,7 @@ from repro_torch.core import faults as TF  # noqa: E402
 from repro_torch.launch import train  # noqa: E402
 from repro_torch.models import registry as treg  # noqa: E402
 from repro_torch.obs import metrics as tmetrics  # noqa: E402
+from repro_torch.resilience import harness  # noqa: E402
 
 torch.set_num_threads(2)
 K, H, B, S, VOCAB, EB, LAM = 2, 3, 2, 16, 64, 2, 0.7
@@ -410,26 +413,43 @@ SHARDED = ["--transport", "sharded", "--pods", "2", "--stream-fragments",
            "2"]
 
 
-# the crash, NaN-bomb and snapshot flags are ported on the other
-# transports: the cases that named "fault scenarios" and "checkpoints and
-# resilience" now hold their refusal on the sharded transport (ids kept)
 @pytest.mark.parametrize("flags,named", [
-    (["--gossip-pairing", "random"], "transports"),
-    (["--transport", "gossip"], "transports"),
-    pytest.param(SHARDED + ["--crash-at-round", "1"],
-                 "checkpoints and resilience",
-                 id="flags2-fault scenarios"),
-    pytest.param(SHARDED + ["--guard"], "checkpoints and resilience",
-                 id="flags3-fault scenarios"),
-    (SHARDED + ["--state-hash-out", "h.json"],
-     "checkpoints and resilience"),
-    (SHARDED + ["--checkpoint", "c.npz"], "checkpoints and resilience"),
     (["--transport", "async", "--trace", "t.json"], "telemetry"),
 ])
 def test_still_unported_flags_name_their_item(flags, named):
     args = train.make_parser().parse_args(["--device", "cpu", *flags])
     with pytest.raises(SystemExit, match=f"ROADMAP.md, port queue: {named}"):
         train.run(args)
+
+
+# the cases the test above refused until the gossip transport and the
+# sharded transport's resilience flags were ported: each now runs (the
+# sharded guard, state hash and checkpoint in this process, the crash in
+# a subprocess, which it kills)
+@pytest.mark.parametrize("flags", [
+    ["--gossip-pairing", "random"], ["--transport", "gossip"],
+    SHARDED + ["--crash-at-round", "0"], SHARDED + ["--guard"],
+    SHARDED + ["--state-hash-out", "h.json"],
+    SHARDED + ["--checkpoint", "c.npz"]])
+def test_formerly_unported_flags_run(flags, tmp_path):
+    flags = [str(tmp_path / f) if f.endswith((".json", ".npz")) else f
+             for f in flags]
+    argv = ["--device", "cpu", "--k", "2", "--H", "2", "--rounds", "1",
+            "--batch", "2", "--seq", "16", "--eval-batch", "2", *flags]
+    if "--crash-at-round" in flags:
+        proc = harness.run_until_crash(argv, timeout=600)
+        assert "crash: SIGKILL at round boundary 1" in proc.stdout
+        return
+    records = train.run(train.make_parser().parse_args(argv),
+                        recorder=tmetrics.RunRecorder(
+                            printer=lambda *a, **kw: None))
+    assert [r["round"] for r in records if r["kind"] == "round"] == [1]
+    for f in flags:
+        if f.endswith(".json"):
+            assert len(json.loads(Path(f).read_text())["state_sha256"]) \
+                == 64
+        if f.endswith(".npz"):
+            assert Path(f).stat().st_size > 0
 
 
 def test_scenario_on_round_transport():
