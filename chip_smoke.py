@@ -19,9 +19,12 @@ Phases, each printing one JSON line; any failure exits non-zero:
               every state leaf within atol 1e-5, rtol 1e-4.
   4. train    the main path at full width: ``repro_torch.launch.train
               --full --arch diloco_150m --k 2 --H 4 --rounds 2 --batch 8
-              --seq 1024 --eval-batch 8``. The launch counters are set to 0
-              just before and read just after: exactly k·H·rounds·12
-              fused_adamw and rounds·12 outer_nesterov launches.
+              --seq 1024 --eval-batch 8 --trace F``. The launch counters are
+              set to 0 just before and read just after: exactly
+              k·H·rounds·12 fused_adamw and rounds·12 outer_nesterov
+              launches. The trace F must validate (``obs/trace.py``); its
+              event count and wire bytes are printed (likewise in phases
+              15, 18, 21 and 28, all run with ``--trace``).
   5. profile  inner steps of one replica at full width: the host syncs
               inside a step (``torch.cuda`` sync debug mode), then one
               step under ``torch.profiler``: device time by kernel group
@@ -127,7 +130,8 @@ Phases, each printing one JSON line; any failure exits non-zero:
               ``--transport async --speeds 1,2 --staleness-lambda 0.7
               --outer-grad-dtype int4 --error-feedback`` with phase 4's
               sizes (4 ticks: worker 0 arrives at ticks 1-4, worker 1 at
-              2 and 4, stale by 0, 0, 2, 1, 0, 2). Counters set to 0 just
+              2 and 4, stale by 0, 0, 2, 1, 0, 2); its trace's transfer
+              spans match the engine's events exactly once. Counters set to 0 just
               before and read just after: one ``quantize_pack_int4`` and
               one ``unpack_dequantize_int4`` per arrival (6 and 6), 72
               ``outer_nesterov``, 288 ``fused_adamw``, every other
@@ -172,7 +176,9 @@ Phases, each printing one JSON line; any failure exits non-zero:
               fragment per sync. Prints the backend, ms per inner step per
               rank and in aggregate, tokens/s, the outer ms per round with
               the wait on the deferred gathers apart, and each rank's peak
-              memory.
+              memory. The int4 run's trace carries the issue→consume
+              offsets measured on rank 0's deferred gathers: ``ok``, every
+              one τ=2 inner steps or more.
  22. smoke_sharded  two sharded rounds of the smoke config (P=2, τ=1,
               α=0.5, int4 with error feedback, the packed wire) on two
               ranks on the card against two gloo ranks on the CPU, with
@@ -241,6 +247,29 @@ Phases, each printing one JSON line; any failure exits non-zero:
               on the card against the CPU within ``check.py``'s bf16
               exchange tolerance, with the same edges.
 
+ 29. serve_400m  slice 12's serving path at full width: diloco_400m
+              (551,327,232 seeded random f32 parameters) written by
+              ``checkpoint.save_packed`` in 4 fragments (exactly one
+              ``quantize_pack_int4`` per region, 39); 32 requests (prompt
+              lengths 64-1024 drawn from the seed, 128 new tokens each)
+              through a paged ``ContinuousBatcher`` (16 slots, page 16,
+              cache 1152) on the packed int4 weights, counters set to 0
+              just before and read just after: exactly 39 ×
+              (decode ticks + prefills) ``unpack_dequantize_int4``, every
+              other counter 0; the same requests through the contiguous
+              engine on the decoded weights: the tokens bit for bit the
+              paged run's. Two requests against themselves decoded alone
+              (teacher-forced): logits within ``check.SERVE_LOGIT_RTOL``
+              of the largest, tokens the argmax but near ties (counted).
+              Prints prefill ms per request, ms per decode tick, decode
+              tokens/s, peak memory, and the prefill logits of f32 against
+              packed weights beside JAX's empirical bound.
+ 30. serve_smoke  the serve path at smoke width (diloco_150m's smoke
+              config, window 0 and 32) on the card against the CPU: the
+              paged engine on packed weights, each request's tokens and
+              logits within ``check.SERVE_LOGIT_RTOL``; a static greedy
+              batch, teacher-forced logits card against CPU.
+
 ``python3 chip_smoke.py --cards 4`` runs only phases 22 and 21 across
 four cards: one pod rank and one replica per card, over NCCL.
 
@@ -254,8 +283,9 @@ launches from its own path's run: phase 4 for the f32 optimizer kernels,
 phase 7 for attention, phase 11 for the mixed AdamW and the pruning,
 phase 13's pure-policy run for the bf16 ``fused_adamw``, phase 15's runs
 for ``fake_quant``, phase 18 for the wire codecs, phase 21 for the
-reduce, phase 20's calls for the unfused pieces),
-the card's line again, and the last line ``{"ok": true, "device":
+reduce, phase 20's calls for the unfused pieces; the two wire codecs also
+carry ``serve_launches``, phase 29's), the card's line again, and the last
+line ``{"ok": true, "device":
 {...}}``. Without a GPU, or run from a directory that holds nothing else
 of the repository, it exits non-zero and prints no result.
 """
@@ -263,6 +293,7 @@ from __future__ import annotations
 
 import json
 import math
+import os
 import subprocess
 import sys
 import time
@@ -350,7 +381,14 @@ PROFILE_GROUPS = (("flash", "flash_"), ("fused_adamw", "adamw_kernel"),
                   ("index", "index"))
 
 
+T0 = time.perf_counter()
+
+
 def say(obj):
+    """One JSON line; a phase's is stamped with the seconds since the
+    script started (``elapsed_s``: where the script's time goes)."""
+    if "phase" in obj:
+        obj = {**obj, "elapsed_s": round(time.perf_counter() - T0, 1)}
     print(json.dumps(obj), flush=True)
 
 
@@ -511,6 +549,45 @@ def check_records(records, label, frac, n_pretrain=0, rounds=ROUNDS):
         raise SystemExit(f"{label}: pruned density {density} outside "
                          f"(0, {frac}]")
     return losses, density
+
+
+TRACE_DIR = ROOT / "build" / "chip_smoke_traces"
+
+
+def trace_flag(label: str) -> list:
+    """``--trace`` into this run's file under build/."""
+    TRACE_DIR.mkdir(parents=True, exist_ok=True)
+    return ["--trace", str(TRACE_DIR / f"{label}.json")]
+
+
+def check_trace(label: str, records=None, tau=None) -> dict:
+    """The trace ``--trace`` wrote for ``label``: it must validate; with
+    ``records`` (an async run's) every transfer span must match its event
+    exactly once; with ``tau`` the issue→consume overlap measured on the
+    sharded run's deferred gathers must hold (``ok``, every deferred wire
+    at least tau inner steps). Returns its event count and wire bytes."""
+    from repro_torch.obs import trace as obs_trace
+    path = TRACE_DIR / f"{label}.json"
+    t = json.loads(path.read_text())
+    errors = obs_trace.validate_trace(t)
+    if records is not None:
+        errors += obs_trace.span_event_correspondence(
+            t, [r for r in records if r["kind"] == "event"])
+    out = {"events": len(t["traceEvents"]),
+           "spans": sum(e["ph"] == "X" for e in t["traceEvents"]),
+           "wire_bytes": obs_trace.trace_wire_bytes(t)}
+    if tau is not None:
+        ov = t["otherData"].get("overlap", {})
+        out["overlap"] = {kk: ov.get(kk) for kk in (
+            "n_collectives", "n_deferred", "min_steps_between",
+            "min_dots_between", "tau", "ok")}
+        if not (ov.get("ok") and ov.get("tau") == tau
+                and ov["min_steps_between"] >= tau):
+            errors.append(f"measured overlap {out['overlap']}")
+    if errors:
+        raise SystemExit(f"{label}: trace {path}: {errors[:5]}")
+    path.unlink()
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -682,13 +759,14 @@ def phase_train(torch, dev):
 
     argv = ["--full", "--arch", "diloco_150m", "--k", str(K), "--H", str(H),
             "--rounds", str(ROUNDS), "--batch", str(BATCH), "--seq",
-            str(SEQ), "--eval-batch", "8"]
+            str(SEQ), "--eval-batch", "8", *trace_flag("train")]
     records, timing, wall_s, launches = run_trainer(torch, dev, argv)
     want = expect_launches(fused_adamw=K * H * ROUNDS * N_LEAVES,
                            outer_nesterov=ROUNDS * N_LEAVES)
     if launches != want:
         raise SystemExit(f"launch counts {launches}, expected {want}")
     losses, _ = check_records(records, "train", 0.0)
+    trace = check_trace("train")
     last = timing["rounds"][-1]
     # model FLOPs per token (PaLM's count, no recompute): 6 per matmul
     # weight (all but the embedding gather) + 12·L·S·H·hd of attention
@@ -700,6 +778,7 @@ def phase_train(torch, dev):
         * cfg.resolved_head_dim
     tok_s = K * H * BATCH * SEQ / last["inner_s"]
     say({"phase": "train", "argv": argv, "launches": launches,
+         "trace": trace,
          "losses": losses, "data_setup_s": timing["data_setup_s"],
          "rounds": timing["rounds"],
          "tokens_per_s": tok_s, "model_flops_per_token": flops_tok,
@@ -1459,7 +1538,8 @@ def phase_train_stream(torch, dev):
     meta = arch.init(generator=None, device="meta")
     argv = ["--full", "--arch", "diloco_150m", *STREAM_FLAGS, "--k", str(K),
             "--H", str(H), "--rounds", str(ROUNDS), "--batch", str(BATCH),
-            "--seq", str(SEQ), "--eval-batch", "8"]
+            "--seq", str(SEQ), "--eval-batch", "8",
+            *trace_flag("train_stream")]
     quant, nest = stream_launches(meta, 4, H, 2, ROUNDS, "int4")
     records, timing, wall_s, launches = run_trainer(torch, dev, argv)
     peak_gb = torch.cuda.max_memory_allocated(dev) / 1e9
@@ -1469,9 +1549,11 @@ def phase_train_stream(torch, dev):
         raise SystemExit(f"train_stream: launch counts {launches}, expected "
                          f"{want}")
     losses, _ = check_records(records, "train_stream", 0.0)
+    trace = check_trace("train_stream")
     rnds = [r for r in records if r["phase"] == "diloco"]
     last = timing["rounds"][-1]
     say({"phase": "train_stream", "argv": argv, "launches": launches,
+         "trace": trace,
          "losses": losses, "data_setup_s": timing["data_setup_s"],
          "rounds": timing["rounds"],
          "tokens_per_s": K * H * BATCH * SEQ / last["inner_s"],
@@ -1744,9 +1826,11 @@ def phase_train_async(torch, dev):
 
     argv = ["--full", "--arch", "diloco_150m", *ASYNC_FLAGS, "--k", str(K),
             "--H", str(H), "--rounds", str(ROUNDS), "--batch", str(BATCH),
-            "--seq", str(SEQ), "--eval-batch", "8"]
+            "--seq", str(SEQ), "--eval-batch", "8",
+            *trace_flag("train_async")]
     records, timing, wall_s, launches = run_trainer(torch, dev, argv)
     peak_gb = torch.cuda.max_memory_allocated(dev) / 1e9
+    trace = check_trace("train_async", records=records)
     arrivals = [r for r in records if r["event"] == "arrival"]
     n_arr = len(arrivals)
     want = expect_launches(quantize_pack_int4=n_arr,
@@ -1769,7 +1853,7 @@ def phase_train_async(torch, dev):
     train_s = sum(e["phase_s"] - e["sample_s"] for e in later)
     steps = len(later) * H
     say({"phase": "train_async", "argv": argv, "launches": launches,
-         "staleness": stale,
+         "trace": trace, "staleness": stale,
          "losses": [(r["inner_loss"], r["val_loss"]) for r in arrivals],
          "delta_norm": [r["delta_norm"] for r in arrivals],
          "data_setup_s": timing["data_setup_s"], "events": ev,
@@ -2086,6 +2170,8 @@ def phase_train_sharded(torch, dev, pods=2, k=K):
         argv = ["--full", "--arch", "diloco_150m", "--transport",
                 "sharded", "--pods", str(pods), *flags, "--rounds",
                 str(rounds), *sizes]
+        if tau:
+            argv += trace_flag(f"train_sharded_{label}_{pods}")
         torch.cuda.empty_cache()
         manifest = {}
         records, timing, wall_s, launches = run_trainer(torch, dev, argv,
@@ -2103,6 +2189,8 @@ def phase_train_sharded(torch, dev, pods=2, k=K):
                              f"expected {per_rank} on each rank")
         losses, _ = check_records(records, f"train_sharded {label}", 0.0,
                                   rounds=rounds)
+        trace = check_trace(f"train_sharded_{label}_{pods}", tau=tau) \
+            if tau else None
         plan = manifest["wire_plan"]
         per_round = sum(p["wire_bytes"] for p in plan)
         want_traffic = {"wire_bytes": k_loc * rounds * per_round,
@@ -2120,7 +2208,7 @@ def phase_train_sharded(torch, dev, pods=2, k=K):
         slowest = max(x["inner_s"] for x in last)
         rnds = [r for r in records if r["phase"] == "diloco"]
         say({"phase": "train_sharded", "transport": label, "pods": pods,
-             "argv": argv,
+             "argv": argv, "trace": trace,
              "note": note, "launches_per_rank": got[0],
              "losses": losses, "data_setup_s": timing["data_setup_s"],
              "rounds_per_rank": [r["timing"]["rounds"] for r in ranks],
@@ -2744,7 +2832,8 @@ def phase_train_gossip(torch, dev):
             "--rounds", str(rounds), "--batch", str(BATCH), "--seq",
             str(SEQ), "--eval-batch", "8", "--transport", "gossip",
             "--gossip-pairing", "butterfly", "--gossip-mix", "0.5",
-            "--stream-fragments", "2", "--outer-grad-dtype", "bfloat16"]
+            "--stream-fragments", "2", "--outer-grad-dtype", "bfloat16",
+            *trace_flag("train_gossip")]
     records, timing, wall_s, launches = run_trainer(torch, dev, argv)
     want = expect_launches(fused_adamw=K * H * rounds * N_LEAVES,
                            outer_nesterov=rounds * N_LEAVES,
@@ -2753,6 +2842,7 @@ def phase_train_gossip(torch, dev):
         raise SystemExit(f"train_gossip: launches {launches}, expected "
                          f"{want}")
     losses, _ = check_records(records, "train_gossip", 0.0, rounds=rounds)
+    trace = check_trace("train_gossip")
     rnds = [r for r in records if r["phase"] == "diloco"]
     if [r["gossip_edges"] for r in rnds] != [[[0, 1]]] * rounds:
         raise SystemExit(f"train_gossip: edges {rnds}")
@@ -2776,7 +2866,7 @@ def phase_train_gossip(torch, dev):
         raise SystemExit(f"train_gossip smoke: {path}: {shares[path]:.3g} "
                          f"outside; edges {e_card} against {e_cpu}")
     say({"phase": "train_gossip", "argv": argv, "launches": launches,
-         "losses": losses, "rounds": timing["rounds"],
+         "trace": trace, "losses": losses, "rounds": timing["rounds"],
          "tokens_per_s": K * H * BATCH * SEQ / last["inner_s"],
          "inner_step_ms": last["inner_s"] * 1e3 / (K * H),
          "outer_ms_per_round": last["outer_s"] * 1e3,
@@ -2791,6 +2881,262 @@ def phase_train_gossip(torch, dev):
                    "leaves_compared": len(shares),
                    "worst_share_outside_tolerance": shares[path],
                    "worst_leaf": path}})
+
+
+# ---------------------------------------------------------------------------
+# slice 12: the serving path of the dense family
+# ---------------------------------------------------------------------------
+
+SERVE_DIR = ROOT / "build" / "chip_smoke_serve"
+PARAMS_400M = 551_327_232
+# phase 29's load: 32 requests, prompts of 64-1024 tokens drawn from the
+# seed, 128 new tokens each, through 16 slots of a 1152-token ring
+SERVE_SLOTS, SERVE_REQUESTS, SERVE_NEW, SERVE_CACHE = 16, 32, 128, 1152
+SERVE_PAGE = 16
+# JAX's packed-weights bound on prefill logits (tests/test_batching.py: two
+# 12-token prompts, the weights of its own seeded smoke config), which
+# tests/test_torch_serve.py holds on JAX's weights. It is a property of
+# those weights, not of the codec: the port's seeded weights break it at
+# smoke width and at diloco_400m's full width alike, with the bytes JAX's
+# save_packed writes (PERF.md, PR 22). Phases 29 and 30 print the error
+# beside it; the packed path is held exactly instead (the paged engine on
+# packed weights against the contiguous one on their decoded values, bit
+# for bit; the card's packed engine against the CPU's).
+PACKED_REL, PACKED_ABS = 0.15, 0.05
+
+
+def serve_requests(engine_of, prompts, n_new, label):
+    """One drained run of the engine ``engine_of()`` over ``prompts``,
+    the launch counters set to 0 just before it and read just after.
+    Returns (the engine, each request's tokens, launches, wall s, device
+    GB: {"before": held before the engine was made (the weights, earlier
+    phases' Markov tables), "peak": the run's peak})."""
+    import torch
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    before = torch.cuda.memory_allocated() / 1e9
+    eng = engine_of()
+    reset_launches()
+    t0 = time.perf_counter()
+    rids = [eng.submit(p, n_new) for p in prompts]
+    done = eng.run_until_drained()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = read_launches()
+    if sorted(done) != sorted(rids) or any(
+            len(done[r]) != n_new for r in rids):
+        raise SystemExit(f"{label}: {len(done)} of {len(rids)} requests "
+                         "came back whole")
+    return (eng, [done[r] for r in rids], launches, wall,
+            {"before": before,
+             "peak": torch.cuda.max_memory_allocated() / 1e9})
+
+
+def serve_stats(eng, wall) -> dict:
+    """Prefill ms per request, ms per decode tick and decode tokens/s of
+    one engine run (host clock around work that ends in a wait)."""
+    pre, dec = sorted(eng.timing["prefill_s"]), sorted(eng.timing["decode_s"])
+    n_dec = sum(len(t) - 1 for t in eng.finished.values())
+    return {"prefill_ms_median": pre[len(pre) // 2] * 1e3,
+            "prefill_ms_mean": sum(pre) * 1e3 / len(pre),
+            "decode_tick_ms_median": dec[len(dec) // 2] * 1e3,
+            "decode_tick_ms_mean": sum(dec) * 1e3 / len(dec),
+            "decode_ticks": eng.decode_steps, "prefills": eng.prefills,
+            "decode_tokens": n_dec, "decode_tokens_per_s": n_dec / sum(dec),
+            "wall_s": wall}
+
+
+def phase_serve_400m(torch, dev):
+    """Phase 29: diloco_400m at full width (seeded random f32 weights)
+    served from packed int4 weights by the paged engine, and from their
+    dequantized values by the contiguous one; prefill logits of f32
+    against packed weights; two requests against themselves decoded
+    alone. Returns {kernel name: launches} of the two codec kernels on
+    this path."""
+    import numpy as np
+    from repro_torch import check, tree
+    from repro_torch.checkpoint import checkpoint as ckpt
+    from repro_torch.launch.batching import ContinuousBatcher
+    from repro_torch.launch.serve import forced_logits
+    from repro_torch.models.registry import get_arch
+
+    arch = get_arch("diloco_400m")
+    V = arch.cfg.vocab_size
+    params = arch.init(generator=torch.Generator(device=dev).manual_seed(0),
+                       device=dev)
+    n_params = sum(t.numel() for t in tree.leaves(params))
+    if n_params != PARAMS_400M:
+        raise SystemExit(f"serve_400m: {n_params} parameters, expected "
+                         f"{PARAMS_400M}")
+    SERVE_DIR.mkdir(parents=True, exist_ok=True)
+    path = str(SERVE_DIR / "diloco_400m.packed.npz")
+    torch.cuda.synchronize()
+    reset_launches()
+    t0 = time.perf_counter()
+    man = ckpt.save_packed(path, params, n_fragments=4)
+    save_s = time.perf_counter() - t0
+    saved = read_launches()
+    regions = sum(len(f) for f in man["fragments"])
+    if saved != expect_launches(quantize_pack_int4=regions):
+        raise SystemExit(f"serve_400m save_packed: launches {saved}, "
+                         f"expected {regions} quantize_pack_int4")
+    packed = ckpt.load_packed(path)
+    rng = np.random.default_rng(0)
+    lens = rng.integers(64, 1025, SERVE_REQUESTS)
+    prompts = [rng.integers(0, V, int(n)) for n in lens]
+    deq = ckpt.unpack_params({k: torch.from_numpy(v).to(dev)
+                              for k, v in packed["buffers"].items()},
+                             packed["manifest"], params)
+    # prefill logits of two prompts: f32 against the packed weights
+    prefill = []
+    with torch.no_grad():
+        for p in prompts[:2]:
+            toks = torch.from_numpy(p)[None].to(dev)
+            lf = arch.prefill(params, {"tokens": toks})[0]
+            lq = arch.prefill(deq, {"tokens": toks})[0]
+            scale = float(lf.abs().max())
+            err = float((lf - lq).abs().max())
+            bound = PACKED_REL * scale + PACKED_ABS
+            prefill.append({"prompt": len(p), "max_abs_err": err,
+                            "max_abs_logit": scale, "jax_bound": bound,
+                            "within_jax_bound": err <= bound})
+            if not math.isfinite(err):
+                raise SystemExit(f"serve_400m: packed prefill logits "
+                                 f"{prefill[-1]}")
+    del params
+    torch.cuda.empty_cache()
+    kw = dict(slots=SERVE_SLOTS, cache_len=SERVE_CACHE,
+              page_size=SERVE_PAGE, device=dev)
+    eng, paged, launches, wall, peak = serve_requests(
+        lambda: ContinuousBatcher(arch, deq, packed_weights=packed,
+                                  record_logits=(0, 1), **kw),
+        prompts, SERVE_NEW, "serve_400m paged")
+    forwards = eng.decode_steps + eng.prefills
+    want = expect_launches(unpack_dequantize_int4=regions * forwards)
+    if launches != want:
+        raise SystemExit(f"serve_400m paged: launches {launches}, "
+                         f"expected {want}")
+    stats = dict(serve_stats(eng, wall), memory_GB=peak,
+                 tokens_per_s_wall=SERVE_REQUESTS * SERVE_NEW / wall)
+    alone = []
+    for rid in (0, 1):
+        ref = forced_logits(arch, deq, prompts[rid], paged[rid])
+        res = check.serve_mismatches(paged[rid],
+                                     torch.stack(eng.logits[rid]),
+                                     ref.cpu(), forced=True)
+        alone.append(res)
+        if res["bad"] or res["max_logit_err"] > check.SERVE_LOGIT_RTOL:
+            raise SystemExit(f"serve_400m: request {rid} against itself "
+                             f"alone: {res}")
+    del eng
+    torch.cuda.empty_cache()
+    ceng, contiguous, c_launches, c_wall, c_peak = serve_requests(
+        lambda: ContinuousBatcher(arch, deq, paged=False, **kw), prompts,
+        SERVE_NEW, "serve_400m contiguous")
+    if c_launches != expect_launches():
+        raise SystemExit(f"serve_400m contiguous: launches {c_launches}")
+    differ = [i for i, (a, b) in enumerate(zip(paged, contiguous))
+              if not np.array_equal(a, b)]
+    if differ:
+        raise SystemExit(f"serve_400m: paged and contiguous tokens differ "
+                         f"for requests {differ}")
+    c_stats = dict(serve_stats(ceng, c_wall), memory_GB=c_peak,
+                   tokens_per_s_wall=SERVE_REQUESTS * SERVE_NEW / c_wall)
+    say({"phase": "serve_400m", "params": n_params, "regions": regions,
+         "packed_bytes": man["packed_bytes"], "f32_bytes": man["f32_bytes"],
+         "save_packed_s": save_s, "save_launches": saved,
+         "requests": SERVE_REQUESTS, "prompt_lens": lens.tolist(),
+         "new_tokens": SERVE_NEW, "slots": SERVE_SLOTS,
+         "cache_len": SERVE_CACHE, "page_size": SERVE_PAGE,
+         "launches": launches, "forwards": forwards,
+         "paged_packed": stats, "contiguous_f32": c_stats,
+         "paged_equals_contiguous": True, "prefill_packed_vs_f32": prefill,
+         "alone": [{kk: r[kk] for kk in ("steps_compared", "max_logit_err",
+                                         "near_ties")} for r in alone]})
+    del ceng, deq
+    os.remove(path)
+    torch.cuda.empty_cache()
+    return {"quantize_pack_int4": saved["quantize_pack_int4"],
+            "unpack_dequantize_int4": launches["unpack_dequantize_int4"]}
+
+
+def phase_serve_smoke(torch, dev):
+    """Phase 30: the serve path at smoke width (diloco_150m's smoke config,
+    window 0 and 32) on the card against the CPU: greedy decode and the
+    paged engine on packed weights, each request's tokens and logits held
+    to the CPU's (``check.serve_mismatches``)."""
+    import numpy as np
+    from repro_torch import check, tree
+    from repro_torch.checkpoint import checkpoint as ckpt
+    from repro_torch.launch.batching import ContinuousBatcher
+    from repro_torch.launch.serve import forced_logits, greedy_decode
+    from repro_torch.models.registry import Arch, get_smoke_arch
+
+    SERVE_DIR.mkdir(parents=True, exist_ok=True)
+    out = []
+    for window in (0, 32):
+        arch = Arch(cfg=get_smoke_arch("diloco_150m").cfg.replace(
+            window=window))
+        cpu = arch.init(generator=torch.Generator().manual_seed(1),
+                        device="cpu")
+        card = tree.map(lambda t: t.to(dev), cpu)
+        path = str(SERVE_DIR / f"smoke_{window}.npz")
+        ckpt.save_packed(path, card)
+        packed = ckpt.load_packed(path)
+        os.remove(path)
+        rng = np.random.default_rng(2)
+        prompts = [rng.integers(0, 256, int(n)) for n in (40, 7, 19, 33)]
+        res = []
+        for dev_ in (dev, torch.device("cpu")):
+            eng = ContinuousBatcher(arch, cpu, slots=2, cache_len=96,
+                                    packed_weights=packed, device=dev_,
+                                    record_logits=range(4))
+            rids = [eng.submit(p, 24) for p in prompts]
+            done = eng.run_until_drained()
+            res.append(([done[r] for r in rids], eng.logits))
+        worst = {"steps_compared": 0, "max_logit_err": 0.0,
+                 "near_ties": 0}
+        for rid in range(4):
+            r = check.serve_mismatches(res[0][0][rid],
+                                       torch.stack(res[0][1][rid]),
+                                       torch.stack(res[1][1][rid]))
+            if r["bad"] or r["max_logit_err"] > check.SERVE_LOGIT_RTOL:
+                raise SystemExit(f"serve_smoke window {window}: request "
+                                 f"{rid}: {r}")
+            worst = {"steps_compared": worst["steps_compared"]
+                     + r["steps_compared"],
+                     "max_logit_err": max(worst["max_logit_err"],
+                                          r["max_logit_err"]),
+                     "near_ties": worst["near_ties"] + r["near_ties"]}
+        # a static batch on the card against the CPU's forced logits
+        toks = np.stack([p[:7] for p in prompts])
+        g = greedy_decode(arch, card, toks, gen=16).cpu().numpy()
+        for i in range(len(toks)):
+            r = check.serve_mismatches(
+                g[i], forced_logits(arch, card, toks[i], g[i]).cpu(),
+                forced_logits(arch, cpu, toks[i], g[i]), forced=True)
+            if r["bad"] or r["max_logit_err"] > check.SERVE_LOGIT_RTOL:
+                raise SystemExit(f"serve_smoke window {window}: greedy "
+                                 f"row {i}: {r}")
+        # f32 against packed weights at JAX's test shapes
+        toks = torch.from_numpy(np.arange(2 * 12).reshape(2, 12) % 256)
+        deq = ckpt.unpack_params({k: torch.from_numpy(v).to(dev)
+                                  for k, v in packed["buffers"].items()},
+                                 packed["manifest"], card)
+        with torch.no_grad():
+            lf = arch.prefill(card, {"tokens": toks.to(dev)}, cache_len=16)[0]
+            lq = arch.prefill(deq, {"tokens": toks.to(dev)}, cache_len=16)[0]
+        scale = float(lf.abs().max())
+        err = float((lf - lq).abs().max())
+        if not math.isfinite(err):
+            raise SystemExit(f"serve_smoke window {window}: packed prefill "
+                             f"logits off by {err}")
+        bound = PACKED_REL * scale + PACKED_ABS
+        out.append({"window": window, "engine": worst,
+                    "packed_prefill_max_abs_err": err,
+                    "max_abs_logit": scale, "jax_bound": bound,
+                    "within_jax_bound": err <= bound})
+    say({"phase": "serve_smoke", "cases": out})
 
 
 def main_cards(torch, dev, cards: int) -> int:
@@ -2855,8 +3201,12 @@ def main() -> int:
     phase_resume_sharded(torch, dev)
     phase_elastic_sharded(torch, dev)
     phase_train_gossip(torch, dev)
+    serve = phase_serve_400m(torch, dev)
+    phase_serve_smoke(torch, dev)
     for row in rows:
         row["launches"] = launches[row["name"]]
+        if row["name"] in serve:        # their launches on the serve path
+            row["serve_launches"] = serve[row["name"]]
     say({"kernels": rows})
     print(card_line(), flush=True)
     say({"ok": True, "device": {"platform": "gpu",

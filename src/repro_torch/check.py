@@ -1,6 +1,7 @@
 """Tolerances that hold a round under a bf16 precision policy, a
 streaming round, or an async run, to another run of it (the card against
-the CPU, the port against the JAX reference).
+the CPU, the port against the JAX reference); and a served request to
+its reference (``serve_mismatches``).
 
 ``tests/test_torch_mixed.py``, ``tests/test_torch_streaming.py`` and
 ``tests/test_torch_async.py`` state why each tolerance is what it is;
@@ -450,3 +451,44 @@ def gossip_mismatch_shares(got: dict, want: dict, *, H: int, dcfg) -> dict:
             continue
         shares[path] = float(np.mean(out))
     return shares
+
+
+# The serving path on the card against the CPU, or a batched request
+# against the same request decoded alone (cuBLAS may pick another
+# algorithm for another batch size): logits within this share of the
+# reference's largest |logit|, and the tokens the reference's argmax
+# wherever its top-2 margin is wider than that share.
+SERVE_LOGIT_RTOL = 1e-4
+
+
+def serve_mismatches(tokens, got_logits, ref_logits, *,
+                     rtol: float = SERVE_LOGIT_RTOL,
+                     forced: bool = False) -> dict:
+    """Hold one request's generated ``tokens`` (n,) and the logits they
+    were drawn from, ``got_logits`` (n, V), to reference logits
+    ``ref_logits`` (n, V) of the same steps. ``forced``: the reference was
+    fed these tokens (teacher forcing), so every step compares; else it
+    chose its own, and the comparison ends at the first token where the
+    two differ. A token that differs from the reference's argmax where the
+    reference's top-2 margin is at most rtol·max|logit| is a near tie;
+    anywhere else it is ``bad``. Returns {"steps_compared",
+    "max_logit_err" (relative to the step's max|logit|), "near_ties",
+    "bad" (the steps)}."""
+    out = {"steps_compared": 0, "max_logit_err": 0.0, "near_ties": 0,
+           "bad": []}
+    for i, tok in enumerate(np.asarray(tokens)):
+        ref = np.asarray(ref_logits[i], np.float64)
+        scale = float(np.abs(ref).max())
+        err = float(np.abs(np.asarray(got_logits[i], np.float64)
+                           - ref).max()) / max(scale, 1e-30)
+        out["max_logit_err"] = max(out["max_logit_err"], err)
+        out["steps_compared"] += 1
+        top2 = np.sort(ref)[-2:]
+        if int(tok) != int(np.argmax(ref)):
+            if top2[1] - top2[0] <= rtol * scale:
+                out["near_ties"] += 1
+            else:
+                out["bad"].append(i)
+            if not forced:
+                break
+    return out

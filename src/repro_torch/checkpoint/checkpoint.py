@@ -13,6 +13,10 @@ their uint16 bit patterns, named ``key=bfloat16`` under the
 bits are taken through torch's ``view(torch.int16)``: no ml_dtypes).
 Python ints (the port's host step counters) are written as int32 0-d
 arrays, as JAX keeps them.
+
+Packed int4 weights (``save_packed``, ``load_packed``, ``unpack_params``,
+``restore_packed``) store a parameter tree as the packed wire of its
+fragment regions, in the JAX package's format.
 """
 from __future__ import annotations
 
@@ -236,3 +240,157 @@ def reshape_like(t, example):
 def load_metadata(path: str) -> dict:
     with open(path + ".meta.json") as f:
         return json.load(f)
+
+
+# ---------------------------------------------------------------------------
+# packed int4 weights: the wire codec at rest (the JAX package's format)
+# ---------------------------------------------------------------------------
+
+_MANIFEST_KEY = "__packed_manifest__"
+PACKED_FORMAT = "diloco_packed_weights_v1"
+
+
+def _region_key(p: int, j: int) -> str:
+    return f"frag{p}{_SEP}reg{j}"
+
+
+def _leaf_paths(t) -> tuple:
+    flat = tree.flatten_with_path(t)
+    return [key_of(p) for p, _ in flat], [x for _, x in flat]
+
+
+def _dtype_name(leaf) -> str:
+    if torch.is_tensor(leaf):
+        return str(leaf.dtype).replace("torch.", "")
+    return str(np.asarray(leaf).dtype)
+
+
+def save_packed(path: str, params, *, n_fragments: int = 4,
+                dtype: str = "int4", mode: str = "auto",
+                metadata: dict | None = None) -> dict:
+    """Save ``params`` as packed wire buffers, one per fragment region, in
+    the JAX ``save_packed`` file format (a file written by one package
+    loads in the other).
+
+    For each of the ``n_fragments`` contiguous fragments (the streaming
+    outer sync's partition) each contiguous region is flattened and
+    ``ops.wire_encode``d (int4 on CUDA tensors: one ``quantize_pack_int4``
+    launch a region); the npz holds one uint8 buffer per region and a json
+    manifest (leaf paths, shapes, dtypes and the region table) under
+    ``__packed_manifest__``. Returns the manifest."""
+    from ..core import fragments
+    from ..kernels import ops
+    paths, leaves = _leaf_paths(params)
+    part = fragments.partition_params(params, n_fragments)
+    regions = fragments.fragment_regions(part, params)
+    arrays: dict = {}
+    man_frags = []
+    for p, regs in enumerate(regions):
+        rr = []
+        for j, r in enumerate(regs):
+            flat = fragments.region_take(leaves[r.leaf].float(), r)
+            wire, _ = ops.wire_encode(flat, dtype, mode=mode,
+                                      with_local=False)
+            arrays[_region_key(p, j)] = _host(wire)[0]
+            rr.append([r.leaf, r.start, r.stop, r.elems])
+        man_frags.append(rr)
+    manifest = {
+        "format": PACKED_FORMAT,
+        "dtype": dtype,
+        "n_fragments": part.n,
+        "leaf_paths": paths,
+        "leaf_shapes": [list(_shape(x)) for x in leaves],
+        "leaf_dtypes": [_dtype_name(x) for x in leaves],
+        "fragments": man_frags,
+        "packed_bytes": int(sum(a.nbytes for a in arrays.values())),
+        "f32_bytes": int(sum(int(np.prod(_shape(x)) or 1) * 4
+                             for x in leaves)),
+    }
+    arrays[_MANIFEST_KEY] = np.asarray(json.dumps(manifest))
+    _atomic_write(path, lambda f: np.savez(f, **arrays))
+    if metadata is not None:
+        atomic_write_json(path + ".meta.json", metadata, indent=2,
+                          default=str)
+    return manifest
+
+
+def _check_structure(manifest, example_tree) -> list:
+    paths, leaves = _leaf_paths(example_tree)
+    if paths != list(manifest["leaf_paths"]):
+        raise KeyError(
+            "packed checkpoint structure mismatch: "
+            f"ckpt leaves {manifest['leaf_paths'][:3]}... vs example "
+            f"{paths[:3]}...")
+    for p, x, s in zip(paths, leaves, manifest["leaf_shapes"]):
+        if _shape(x) != tuple(s):
+            raise ValueError(f"shape mismatch for {p}: ckpt {tuple(s)} vs "
+                             f"example {_shape(x)}")
+    return leaves
+
+
+def load_packed(path: str) -> dict:
+    """The raw packed checkpoint: ``{"manifest": ..., "buffers":
+    {region key: uint8 numpy array}}``. The buffers stay packed: a server
+    decodes them at each use (``unpack_params``)."""
+    with np.load(path) as data:
+        if _MANIFEST_KEY not in data.files:
+            raise KeyError(f"{path} is not a packed checkpoint "
+                           f"(missing {_MANIFEST_KEY})")
+        manifest = json.loads(str(data[_MANIFEST_KEY]))
+        buffers = {k: data[k] for k in data.files if k != _MANIFEST_KEY}
+    return {"manifest": manifest, "buffers": buffers}
+
+
+def _unpacked(manifest, example_tree, wire_of, *, mode: str, device):
+    """The dequantized param tree, each region decoded from ``wire_of(p,
+    j)`` (a uint8 tensor on ``device``) straight into its place."""
+    from ..core import fragments
+    from ..kernels import ops
+    leaves = _check_structure(manifest, example_tree)
+    dts = [getattr(x, "dtype", torch.float32) for x in leaves]
+    dts = [d if isinstance(d, torch.dtype) else torch.float32 for d in dts]
+    covered = sum(r[3] for regs in manifest["fragments"] for r in regs)
+    whole = covered == sum(int(np.prod(_shape(x))) for x in leaves)
+    new = torch.empty if whole else torch.zeros
+    out = [new(_shape(x), dtype=d, device=device)
+           for x, d in zip(leaves, dts)]
+    for p, regs in enumerate(manifest["fragments"]):
+        for j, (leaf_i, start, stop, elems) in enumerate(regs):
+            r = fragments.Region(leaf_i, start, stop, elems)
+            dst = fragments.region_take(out[leaf_i], r)
+            if dst.dtype == torch.float32 and dst.is_contiguous():
+                ops.wire_decode(wire_of(p, j), elems, manifest["dtype"],
+                                mode=mode, out=dst)
+            else:
+                fragments.region_put(out[leaf_i], r, ops.wire_decode(
+                    wire_of(p, j), elems, manifest["dtype"], mode=mode))
+    return tree.unflatten_like(example_tree, out)
+
+
+def unpack_params(buffers, manifest, example_tree, *, mode: str = "auto"):
+    """The (dequantized f32) param tree of packed ``buffers`` (region key
+    -> uint8 tensor, all on one device; the tree is built there).
+    ``example_tree`` supplies structure and shapes only (tensors on the
+    ``meta`` device do). Int4 on CUDA tensors: one
+    ``unpack_dequantize_int4`` launch a region, decoding in place."""
+    device = next(iter(buffers.values())).device
+    return _unpacked(manifest, example_tree,
+                     lambda p, j: buffers[_region_key(p, j)], mode=mode,
+                     device=device)
+
+
+def restore_packed(path: str, example_tree, *, mode: str = "auto",
+                   device="cpu"):
+    """A packed checkpoint restored to a dequantized f32 param tree on
+    ``device``, region by region (the npz loads each key lazily: the
+    extra host memory is one region's wire buffer)."""
+    with np.load(path) as data:
+        if _MANIFEST_KEY not in data.files:
+            raise KeyError(f"{path} is not a packed checkpoint "
+                           f"(missing {_MANIFEST_KEY})")
+        manifest = json.loads(str(data[_MANIFEST_KEY]))
+        return _unpacked(
+            manifest, example_tree,
+            lambda p, j: torch.from_numpy(
+                data[_region_key(p, j)]).to(device), mode=mode,
+            device=device)

@@ -6,7 +6,9 @@ numpy arrays (``jax.tree.map(np.asarray, tree)``): nested dicts with the
 same key paths and shapes. The state functions read and write the
 fields of the JAX ``DiLoCoState`` (and of the streaming ``StreamState``
 and the gossip ``GossipState``) by name, so every leaf can be compared; an async engine's state crosses
-in the ``state_to_tree`` layout of the JAX ``core/async_diloco.py``.
+in the ``state_to_tree`` layout of the JAX ``core/async_diloco.py``. A
+decode cache, contiguous or paged, crosses as its nested dict
+(``cache_from_numpy``, ``cache_to_numpy``).
 
 On the sharded transport (``core/pod_collectives.py``) the port's state
 holds one rank's replica band: ``sharded_state_from_numpy`` bands a full
@@ -72,6 +74,20 @@ def params_from_numpy(params, *, device):
 
 def params_to_numpy(params):
     return tree.map(tensor_to_numpy, params)
+
+
+def cache_from_numpy(cache, *, device):
+    """A JAX decode cache (``init_cache`` or ``init_paged_cache``, its
+    leaves as numpy: {"cache0": {"attn": {"k", "v", "pos"} or {"kp",
+    "vp", "posp"}}}) -> the port's, on ``device`` (copies; the int32
+    position tracks stay int32), so that decode steps of both packages
+    start from one cache."""
+    return params_from_numpy(cache, device=device)
+
+
+def cache_to_numpy(cache):
+    """The port's decode cache -> the JAX layout as numpy."""
+    return params_to_numpy(cache)
 
 
 def state_from_numpy(state, *, device) -> DiLoCoState:

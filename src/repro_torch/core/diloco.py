@@ -312,10 +312,6 @@ def _check_ported(dcfg: DiLoCoConfig, tcfg: TrainConfig):
             f"dcfg=({dcfg.param_dtype}, {dcfg.master_dtype}) vs "
             f"tcfg=({tcfg.param_dtype}, {tcfg.master_dtype}); the state "
             "layout (dcfg) must match the inner step (tcfg)")
-    if dcfg.sync_inner_state:
-        raise NotImplementedError(
-            "sync_inner_state is not ported yet (ROADMAP.md, port queue: "
-            "DiLoCo extras)")
 
 
 def make_round(loss_fn, sample_fn, dcfg: DiLoCoConfig, tcfg: TrainConfig,

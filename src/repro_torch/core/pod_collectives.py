@@ -41,6 +41,7 @@ sites, the collectives and the bytes this rank hands to them.
 """
 from __future__ import annotations
 
+import functools
 import hashlib
 
 import numpy as np
@@ -63,7 +64,9 @@ class PodGroup:
     this rank contributes: ``wire_bytes`` for the outer gradients'
     collectives, ``metric_bytes`` for the round metrics' means; the
     resilience layer's agreements (barriers, rank 0's decisions, digest
-    checks) count as ``control`` calls and ``control_bytes``."""
+    checks) count as ``control`` calls and ``control_bytes``. ``probe``
+    (an ``OverlapProbe``, None unless a trace asks for it) records when
+    each of the rounds' collectives is issued and consumed."""
 
     def __init__(self, rank: int, pods: int, *, device, backend: str,
                  staged: bool = False, group=None):
@@ -73,6 +76,7 @@ class PodGroup:
         self.traffic = dict.fromkeys(
             ("all_reduce", "all_gather", "gather_wire", "wire_bytes",
              "metric_bytes", "control", "control_bytes"), 0)
+        self.probe: OverlapProbe | None = None
 
     def _host(self, x):
         if not (self.staged and x.device.type == "cuda"):
@@ -89,6 +93,8 @@ class PodGroup:
         dist.all_reduce(src, group=self.group)
         if src is not x:
             x.copy_(src)
+        if self.probe is not None:        # consumed where it is issued
+            self.probe.consume(self.probe.issue("all_reduce", False))
         return x
 
     def all_gather(self, x, *, async_op: bool = False, kind="all_gather",
@@ -105,7 +111,11 @@ class PodGroup:
                           dtype=x.dtype, device=src.device,
                           pin_memory=src is not x)
         work = _GATHER(out, src, group=self.group, async_op=async_op)
-        return Gathered(work, out, x.device)
+        on_wait = None
+        if self.probe is not None and bill == "wire_bytes":
+            on_wait = functools.partial(self.probe.consume,
+                                        self.probe.issue(kind, async_op))
+        return Gathered(work, out, x.device, on_wait=on_wait)
 
 
     def barrier(self):
@@ -142,11 +152,12 @@ _GATHER = getattr(dist, "all_gather_single", None) \
 class Gathered:
     """An issued all-gather: ``wait()`` blocks until its result is there
     (moved back to the card when the group stages through the host) and
-    returns it; later calls return the same tensor."""
+    returns it; later calls return the same tensor. ``on_wait`` is called
+    at the first ``wait()``."""
 
-    def __init__(self, work, out, device, finish=None):
+    def __init__(self, work, out, device, finish=None, on_wait=None):
         self._work, self._out, self._device = work, out, device
-        self._finish = finish
+        self._finish, self._on_wait = finish, on_wait
         self._done = None
 
     def then(self, finish):
@@ -155,7 +166,7 @@ class Gathered:
         first = self._finish
         return Gathered(self._work, self._out, self._device,
                         finish if first is None
-                        else lambda out: finish(first(out)))
+                        else lambda out: finish(first(out)), self._on_wait)
 
     @property
     def done(self) -> bool:
@@ -164,12 +175,91 @@ class Gathered:
 
     def wait(self):
         if self._done is None:
+            if self._on_wait is not None:       # an overlap probe's mark
+                self._on_wait()
             if self._work is not None:
                 self._work.wait()
             out = self._out.to(self._device)
             self._done = out if self._finish is None else self._finish(out)
             self._work = self._out = None
         return self._done
+
+
+class OverlapProbe:
+    """Issue→consume offsets of a pod rank's collectives, measured on the
+    run itself: the counterpart of the JAX ``hlo_analysis.stream_overlap``,
+    which reads them from the lowered round's HLO text (the port has no
+    HLO). The streaming round tells the probe where it is (``at``: the
+    round and the inner-step counter, before each batch of sync events);
+    ``PodGroup`` reports each round collective's issue and the first
+    ``wait()`` on it (an all-reduce is consumed where it is issued). Each
+    row holds the inner steps and the model's forward matmuls
+    (``models.layers.matmuls``, a host counter) at both ends. Nothing here
+    reads the card."""
+
+    def __init__(self):
+        self.round = self.step = 0
+        self.rows: list = []
+        self._seq = 0
+
+    def at(self, round_: int, step: int):
+        self.round, self.step = int(round_), int(step)
+
+    def _mark(self) -> tuple:
+        from ..models import layers
+        self._seq += 1
+        return self._seq, self.round, self.step, layers.matmuls
+
+    def issue(self, op: str, deferred: bool) -> dict:
+        seq, rnd, step, dots = self._mark()
+        row = {"collective": f"{op}.{seq}", "op": op, "issue_id": seq,
+               "deferred": bool(deferred), "round": rnd, "_at": (step, dots)}
+        self.rows.append(row)
+        return row
+
+    def consume(self, row: dict):
+        if "consume_id" in row:
+            return
+        seq, rnd, step, dots = self._mark()
+        row.update(consume_id=seq, wrapped=rnd > row["round"],
+                   steps_between=step - row["_at"][0],
+                   dots_between=dots - row["_at"][1])
+
+    def overlap(self, tau: int | None = None) -> dict:
+        """The rows of one round in ``stream_overlap``'s layout: issue
+        order, ``consume_id``, ``wrapped`` (consumed in a later round),
+        ``deferred`` (issued asynchronously), ``steps_between`` and
+        ``dots_between``, with ``n_collectives``, ``n_deferred``,
+        ``min_steps_between``, ``min_dots_between`` and, given ``tau``,
+        ``ok`` (every deferred row at least tau steps). The round is the
+        first whose every collective was consumed (else the first)."""
+        rounds = sorted({r["round"] for r in self.rows})
+        pick = next((rd for rd in rounds
+                     if all("consume_id" in r for r in self.rows
+                            if r["round"] == rd)),
+                    rounds[0] if rounds else None)
+        rows = [{kk: v for kk, v in r.items() if kk != "_at"}
+                for r in self.rows if r["round"] == pick]
+        for r in rows:
+            r.setdefault("consume_id", None)
+            r.setdefault("wrapped", True)
+            r.setdefault("steps_between", None)
+            r.setdefault("dots_between", None)
+        wire = [r for r in rows if r["deferred"]]
+        out = {"source": "measured", "round": pick, "rows": rows,
+               "n_collectives": len(rows), "n_deferred": len(wire),
+               "min_steps_between": min(
+                   (r["steps_between"] for r in wire
+                    if r["steps_between"] is not None), default=0),
+               "min_dots_between": min(
+                   (r["dots_between"] for r in wire
+                    if r["dots_between"] is not None), default=0)}
+        if tau is not None:
+            out["tau"] = int(tau)
+            out["ok"] = bool(wire) and all(
+                r["steps_between"] is not None
+                and r["steps_between"] >= tau for r in wire)
+        return out
 
 
 def resolve(payload):
@@ -413,7 +503,8 @@ def gather_stream_state(state, group: PodGroup):
     from .streaming import StreamState
     st = state.base
     ist = st.inner_state
-    saved = dict(group.traffic)
+    saved, probe = dict(group.traffic), group.probe
+    group.probe = None             # placement, not a round's collective
     reps = _gather_tree(st.replica_params, group)
     m, v = _gather_tree(ist.m, group), _gather_tree(ist.v, group)
     count = group.all_gather(torch.from_numpy(np.asarray(
@@ -423,6 +514,7 @@ def gather_stream_state(state, group: PodGroup):
     residual = None if state.residual is None else \
         _gather_tree(state.residual, group)
     group.traffic = saved          # placement, not the transport's bill
+    group.probe = probe
     inflight = None if state.inflight is None else tuple(
         None if slot is None else (resolve(slot[0]), slot[1])
         for slot in state.inflight)

@@ -317,6 +317,7 @@ def make_stream_round_body(loss_fn, sample_fn, dcfg: DiLoCoConfig,
     S = seq_len or tcfg.seq_len
     k_loc = dcfg.k // pods
     r0 = pod_collectives.local_band(k_loc, rank)
+    probe = None if group is None else group.probe
 
     def round_body(sstate: StreamState, gen, drop_mask=None,
                    active_mask=None, weights=None):
@@ -541,6 +542,8 @@ def make_stream_round_body(loss_fn, sample_fn, dcfg: DiLoCoConfig,
                 pos += steps
             diloco._sync(dev)
             t2 = time.perf_counter()
+            if probe is not None:       # where the sync events happen
+                probe.at(st.outer_t, st.inner_steps_done + pos)
             with torch.no_grad():
                 for ev in events:
                     if ev.kind == "apply":

@@ -12,11 +12,14 @@ the paper's vocab (32000) one (V, V) float64 draw is 8.2 GB, so the
 draws are taken in row chunks from the one generator (consecutive draws
 continue the same stream), cast to float32 and moved to the device
 chunk by chunk; the mixture is a running sum over shards, row chunk by
-row chunk. Tokens are sampled on the device from a ``torch.Generator``
-(the port cannot reproduce ``jax.random``; parity tests feed both
-packages the JAX sampler's tokens).
+row chunk (``regroup`` builds its group mixtures the same way). Tokens
+are sampled on the device from a ``torch.Generator`` (the port cannot
+reproduce ``jax.random``; parity tests feed both packages the JAX
+sampler's tokens).
 """
 from __future__ import annotations
+
+import copy
 
 import numpy as np
 import torch
@@ -105,6 +108,39 @@ class MarkovMixture:
                              (batch,), seq_len, self.vocab_size,
                              self.device)
 
+    # ---- resharding ----
+    def regroup(self, k_workers: int) -> "MarkovMixture":
+        """This mixture's k shards redistributed among ``k_workers``
+        (round-robin), holding the data-generating process fixed, as the
+        JAX ``regroup``: worker i samples from the probability mixture of
+        shards i, i + k_workers, ...: its logits are log(mean of their
+        softmaxes + 1e-9), its shard size their sum; the validation
+        mixture is unchanged. Computed on the device row chunk by row
+        chunk, so that no (k, V, V) softmax is ever held."""
+        if not 1 <= k_workers <= self.k:
+            raise ValueError(f"k_workers must be in [1, {self.k}], got "
+                             f"{k_workers}")
+        V = self.vocab_size
+        rows = max(1, _CHUNK_ELEMS // V)
+        logits = torch.empty((k_workers, V, V), dtype=torch.float32,
+                             device=self.device)
+        sizes = []
+        for i in range(k_workers):
+            idx = list(range(i, self.k, k_workers))
+            for r0 in range(0, V, rows):
+                acc = torch.zeros((min(rows, V - r0), V),
+                                  dtype=torch.float32, device=self.device)
+                for j in idx:
+                    acc += torch.softmax(self._logits[j, r0:r0 + rows],
+                                         dim=-1)
+                logits[i, r0:r0 + rows] = torch.log(acc / len(idx) + 1e-9)
+            sizes.append(float(self.shard_sizes[idx].sum()))
+        new = copy.copy(self)
+        new.k = k_workers
+        new._logits = logits
+        new.shard_sizes = np.asarray(sizes, np.float32)
+        return new
+
     # ---- statistics ----
     def entropy_floor(self) -> float:
         """Per-token entropy (nats) of the mixture chain = best achievable
@@ -142,3 +178,26 @@ def _sample_chain(gen, rows_of, lead, seq_len: int, vocab: int, device):
         tok = torch.multinomial(probs, 1, generator=gen).reshape(lead)
         out[..., t] = tok
     return out
+
+
+def batch_iterator(sampler: MarkovMixture, batch: int, seq_len: int,
+                   seed: int = 0, mode: str = "shards"):
+    """Infinite deterministic iterator; mode: shards|validation. Step n's
+    draw comes from a ``torch.Generator`` on the sampler's device seeded
+    from (seed, n) through ``numpy.random.SeedSequence``: the JAX
+    iterator's ``jax.random.fold_in(key, n)`` streams cannot be
+    reproduced, so the two packages yield different tokens of the same
+    shapes and distributions."""
+    if mode not in ("shards", "validation"):
+        raise ValueError(f"mode must be 'shards' or 'validation', got "
+                         f"{mode!r}")
+    step = 0
+    while True:
+        gen = torch.Generator(device=sampler.device)
+        gen.manual_seed(int(np.random.SeedSequence(
+            [int(seed) % 2 ** 63, step]).generate_state(1, np.uint64)[0]))
+        if mode == "shards":
+            yield sampler.sample_all_shards(gen, batch, seq_len)
+        else:
+            yield sampler.sample_validation(gen, batch, seq_len)
+        step += 1

@@ -8,10 +8,9 @@ It takes the JAX driver's flags and prints its console and ``--out``
 JSON lines. Two flags differ: ``--device`` (default ``cuda``; a run on
 the CPU is asked for with ``--device cpu``) and ``--kernel-mode``
 (``auto`` by default: the CUDA kernels on CUDA tensors, their plain
-PyTorch versions on the CPU). Flags of transports and features that are
-not ported exit with a message that names their ROADMAP.md item. With
-``--prune-frac`` each round's record also carries ``prune_density``, the
-share of the outer-gradient entries kept. ``--stream-fragments P`` runs
+PyTorch versions on the CPU). With ``--prune-frac`` each round's record
+also carries ``prune_density``, the share of the outer-gradient entries
+kept. ``--stream-fragments P`` runs
 streaming DiLoCo on the simulated transport (``core/streaming.py``:
 ``--stream-tau``, ``--stream-alpha``, ``--outer-grad-dtype``,
 ``--error-feedback``); its records carry ``stream_peak_sync_bytes`` and
@@ -32,7 +31,12 @@ partial averaging (``core/gossip.py``: ``--gossip-pairing``,
 ``--outer-grad-dtype`` float32 or bfloat16); its records carry
 ``gossip_edges``, ``gossip_spread``, ``gossip_frag`` and
 ``exchange_frac``. On the round transports the same fault flags are
-projected onto the rounds' drop and active masks.
+projected onto the rounds' drop and active masks. ``--trace FILE`` writes
+a tick-domain Chrome trace of the run on every transport (``obs/trace.py``,
+the JAX trace's lanes and events); on the sharded transport with deferred
+gathers its fragment lanes carry the issue→consume offsets measured on the
+run's own gathers (``pod_collectives.OverlapProbe``), where the JAX
+trainer reads them from the lowered HLO.
 
 The rounds run in chunks of ``--rounds-per-call`` through
 ``core.diloco.make_run`` (all rounds in one chunk by default), whose
@@ -107,12 +111,15 @@ from ..data.sharding import make_regime, shard_weights
 from ..kernels import ops as kops
 from ..models.registry import get_arch, get_smoke_arch
 from ..obs import metrics as obs_metrics
+from ..obs import trace as obs_trace
 from ..optim import adamw, precision
 from . import mesh
 
-# flag dest -> the ROADMAP.md port-queue item that ports it. A flag left
-# at its default passes; any other value exits with the item's name.
-UNPORTED = {"trace": "telemetry"}
+# what the measured overlap's ``dots_between`` counts (the trace's otherData)
+DOTS_BETWEEN = ("forward matmuls (models.layers.matmuls: weight and attention "
+                "products, per replica, evals included) that pod rank 0 "
+                "issued between the gather's issue and its first wait; the "
+                "backward's are not counted")
 
 
 def resolve_device(name: str) -> torch.device:
@@ -233,15 +240,9 @@ def eval_rounds(rounds: int, eval_every: int, *, legacy_loop: bool,
     return out
 
 
-def check_ported(args, parser=None):
-    """Refuse what the port does not run (naming its ROADMAP.md item),
-    then the JAX trainer's own validation of the flags it runs."""
-    parser = parser or make_parser()
-    changed = lambda dest: getattr(args, dest) != parser.get_default(dest)
-    bad = [f"--{dest.replace('_', '-')} (ROADMAP.md, port queue: "
-           f"{item})" for dest, item in UNPORTED.items() if changed(dest)]
-    if bad:
-        raise SystemExit("not ported yet: " + "; ".join(bad))
+def check_args(args):
+    """The JAX trainer's validation of its flags, with its messages; and
+    the refusal of the JAX package's TPU kernel modes."""
     if args.kernel_mode in ("pallas", "interpret"):
         raise SystemExit(f"--kernel-mode {args.kernel_mode} names TPU "
                          "(Pallas) machinery; the port's modes are "
@@ -376,7 +377,7 @@ def run(args, recorder=None, *, sampler=None):
     same regime, k, vocabulary, seed and weighting), used instead of
     building them again; on the device, or copied there.
     ``--transport sharded`` starts its pod ranks itself (``run_sharded``)."""
-    check_ported(args)
+    check_args(args)
     device = resolve_device(args.device)
     if args.transport == "sharded":
         return run_sharded(args, device, recorder, sampler=sampler)
@@ -634,6 +635,12 @@ def _train(args, device, recorder=None, *, group=None, sampler=None,
         rec.note(f"nan bombs armed: {int(nan_masks.sum())} "
                  "(worker, round) cell(s)")
     crash_round = scen.crash_round(args.k) if scen is not None else -1
+    gossip_rounds = []         # gossip: each round's exchange edges
+    trace_plan = plan if dcfg.streaming_fragments \
+        and dcfg.transport != "gossip" else ()
+    if args.trace and group is not None \
+            and any(row.get("deferred") for row in trace_plan):
+        group.probe = pod_collectives.OverlapProbe()
     guard = None
     if args.guard and lead:
         # one judge for the run: on the sharded transport only rank 0
@@ -663,6 +670,8 @@ def _train(args, device, recorder=None, *, group=None, sampler=None,
             wire = frag_wire[t % len(frag_wire)]
             edges = gossip.pairing_edges(args.k, t, args.gossip_pairing,
                                          seed=args.seed)
+            gossip_rounds.append({"round": t, "fragment": t % len(frag_wire),
+                                  "edges": [list(e) for e in edges]})
         rec.round(round=t + 1, rounds=args.rounds,
                   inner_steps=args.pretrain_steps + (t + 1) * args.H,
                   inner_loss=pick(m["inner_loss"]),
@@ -759,6 +768,26 @@ def _train(args, device, recorder=None, *, group=None, sampler=None,
     floor = sampler.entropy_floor()
     rec.note(f"done in {time.time() - t0:.1f}s; "
              f"entropy floor = {floor:.4f} (ppl {np.exp(floor):.2f})")
+    if args.trace and lead:
+        other = {"manifest": rec.manifest}
+        overlap = None
+        if group is not None and group.probe is not None:
+            overlap = group.probe.overlap(tau=dcfg.stream_tau)
+            other["overlap"] = dict(
+                overlap, measured_on="pod rank 0's round collectives",
+                dots_between_counts=DOTS_BETWEEN)
+            rec.note(
+                f"overlap (measured): {overlap['n_deferred']} deferred "
+                f"wires, min {overlap['min_steps_between']} steps / "
+                f"{overlap['min_dots_between']} dots issue->consume "
+                f"(tau={dcfg.stream_tau})")
+        obs_trace.round_trace(
+            transport=args.transport, k=args.k, rounds=args.rounds,
+            H=args.H, scenario=scen, drops=drops, acts=acts,
+            history=rec.round_records(), plan=trace_plan,
+            wire_bytes=round_wire, gossip_rounds=gossip_rounds,
+            overlap=overlap).write(args.trace, other_data=other)
+        rec.note(f"trace: {args.trace}")
     if args.out and group is None:
         rec.dump(args.out, args=vars(args))
         rec.note(f"wrote {args.out}")
@@ -843,6 +872,8 @@ def run_sharded(args, device, recorder=None, *, sampler=None):
     rec = recorder if recorder is not None else obs_metrics.RunRecorder(
         transport=args.transport, log_format=args.log_format)
     rec.records[:] = results[0]["records"]
+    rec.wire_bytes_total = sum(float(r.get("wire_bytes") or 0.0)
+                               for r in rec.records)
     rec.manifest.update(results[0]["manifest"])
     rec.manifest["ranks"] = [{kk: r[kk] for kk in (
         "rank", "device", "launches", "traffic", "timing",
@@ -958,6 +989,11 @@ def _run_async_phase(args, dcfg, tcfg, loss_fn, sampler, params, ev, val,
     rec.note(f"done in {time.time() - t0:.1f}s; {n_arr} applications "
              f"over {ticks} ticks; entropy floor = "
              f"{sampler.entropy_floor():.4f}")
+    if args.trace:
+        obs_trace.async_trace(scenario, args.k, ticks, history=hist,
+                              wire_bytes=eng.wire_bytes()).write(
+            args.trace, other_data={"manifest": rec.manifest})
+        rec.note(f"trace: {args.trace}")
     if args.out:
         rec.dump(args.out, args=vars(args))
         rec.note(f"wrote {args.out}")
@@ -1173,9 +1209,12 @@ def make_parser():
     ap.add_argument("--state-hash-out", default="",
                     help="write a JSON with the final state's sha256, the "
                          "final losses and the resume provenance")
-    # ---- not ported: accepted so that they can be refused by name ----
-    nyi = "not ported yet (see ROADMAP.md)"
-    ap.add_argument("--trace", default="", help=nyi)
+    ap.add_argument("--trace", default="",
+                    help="write a tick-domain Chrome trace-event JSON of the "
+                         "run (workers, fragments, transfers, faults; on "
+                         "the sharded transport the issue->consume offsets "
+                         "measured on the deferred gathers): open it in "
+                         "Perfetto or chrome://tracing")
     return ap
 
 

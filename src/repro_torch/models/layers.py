@@ -9,6 +9,7 @@ keep the JAX layouts at their interfaces: activations (B, S, D), heads
 from __future__ import annotations
 
 import functools
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -17,6 +18,19 @@ import torch.nn.functional as F
 from ..kernels import ops as kops
 
 NEG_INF = -1e30
+
+# Forward matmuls this process has issued through this module: each weight
+# product (the q, k, v and output projections, the MLP's, the LM head)
+# and each attention product (scores and values, per kv chunk; a flash
+# call counts as its two), recomputed forwards included. A host-side int,
+# bumped where the product is issued: it never waits for the card.
+# ``core.pod_collectives.OverlapProbe`` reads it as its ``dots_between``.
+matmuls = 0
+
+
+def _count(n: int = 1):
+    global matmuls
+    matmuls += n
 
 
 # ---------------------------------------------------------------------------
@@ -110,27 +124,37 @@ def apply_rope(x, positions, theta: float, pct: float = 1.0):
 # attention (direct, and chunked online-softmax)
 # ---------------------------------------------------------------------------
 
-def _mask_bias(q_pos, k_pos, causal: bool, window: int):
-    """(Sq, Sk) additive float32 bias: 0 where attended, -1e30 masked."""
-    kp = k_pos[None, :]
-    qp = q_pos[:, None]
-    ok = torch.ones(qp.shape[0], kp.shape[1], dtype=torch.bool,
-                    device=q_pos.device)
+def _mask_bias(q_pos, k_pos, causal: bool, window: int, kv_valid=None):
+    """Additive float32 bias, 0 where attended and -1e30 where masked:
+    (Sq, Sk) for shared key positions k_pos (Sk,), (B, Sq, Sk) for
+    per-slot position tracks k_pos (B, Sk) (continuous batching);
+    ``kv_valid``, when given, has k_pos's shape."""
+    kp = k_pos[..., None, :]                   # (..., 1, Sk)
+    qp = q_pos[:, None]                        # (Sq, 1)
+    ok = torch.ones(torch.broadcast_shapes(kp.shape, qp.shape),
+                    dtype=torch.bool, device=q_pos.device)
     if causal:
         ok &= kp <= qp
     if window and window > 0:
         ok &= kp > qp - window
+    if kv_valid is not None:
+        ok &= kv_valid[..., None, :]
     zero = torch.zeros((), dtype=torch.float32, device=q_pos.device)
     return torch.where(ok, zero, torch.full_like(zero, NEG_INF))
 
 
-def attention(q, k, v, *, causal=True, window=0, q_offset=0, chunk=1024,
+def attention(q, k, v, *, causal=True, window=0, q_offset=0,
+              kv_positions=None, kv_valid=None, chunk=1024,
               softcap: float = 0.0, scale: float | None = None):
     """GQA attention. q: (B,Sq,H,dh); k: (B,Sk,G,dh); v: (B,Sk,G,dv).
 
-    A direct path for short kv (the (B,G,rep,Sq,Sk) scores in one
-    tensor) and a chunked online-softmax loop for long kv, on the JAX
-    package's threshold, so both packages take the same path."""
+    A direct path for short kv or few queries (the (B,G,rep,Sq,Sk) scores
+    in one tensor) and a chunked online-softmax loop for long kv, on the
+    JAX package's threshold, so both packages take the same path.
+    ``q_offset``: absolute position of q[0] (an int). ``kv_positions``:
+    absolute positions of the kv entries, (Sk,) or per-slot (B, Sk)
+    (defaults to arange; a ring cache passes its position track);
+    ``kv_valid``: bool of the same shape (a partly filled cache)."""
     B, Sq, H, dh = q.shape
     _, Sk, G, _ = k.shape
     dv = v.shape[-1]
@@ -139,17 +163,26 @@ def attention(q, k, v, *, causal=True, window=0, q_offset=0, chunk=1024,
     qh = (q * scale).reshape(B, Sq, G, rep, dh)
     dev = q.device
     q_pos = q_offset + torch.arange(Sq, device=dev)
-    kv_pos = torch.arange(Sk, device=dev)
+    if kv_positions is None:
+        kv_positions = torch.arange(Sk, device=dev)
 
     if Sk <= max(2 * chunk, 2048) or Sq <= 8:
+        _count(2)
         s = torch.einsum("bqgrd,bkgd->bgrqk", qh, k).float()
         if softcap:
             s = torch.tanh(s / softcap) * softcap
-        s = s + _mask_bias(q_pos, kv_pos, causal, window)
+        bias = _mask_bias(q_pos, kv_positions, causal, window, kv_valid)
+        if bias.dim() == 3:             # per-slot tracks: (B, Sq, Sk)
+            bias = bias[:, None, None]
+        s = s + bias
         p = torch.softmax(s, dim=-1)
         o = torch.einsum("bgrqk,bkgd->bqgrd", p.to(v.dtype), v).float()
         return o.reshape(B, Sq, H, dv).to(q.dtype)
 
+    # chunked path: shared position track only (per-slot tracks imply
+    # Sq <= 8, the direct path above)
+    if kv_positions.dim() != 1:
+        raise ValueError("chunked attention needs shared kv positions")
     if Sk % chunk:
         raise ValueError(f"chunked attention needs Sk % chunk == 0, got "
                          f"Sk={Sk}, chunk={chunk}")
@@ -159,10 +192,13 @@ def attention(q, k, v, *, causal=True, window=0, q_offset=0, chunk=1024,
     l = torch.zeros(B, G, rep, Sq, dtype=torch.float32, device=dev)
     for c0 in range(0, Sk, chunk):
         kc, vc = k[:, c0:c0 + chunk], v[:, c0:c0 + chunk]
+        _count(2)
         s = torch.einsum("bqgrd,bkgd->bgrqk", qh, kc).float()
         if softcap:
             s = torch.tanh(s / softcap) * softcap
-        s = s + _mask_bias(q_pos, kv_pos[c0:c0 + chunk], causal, window)
+        s = s + _mask_bias(q_pos, kv_positions[c0:c0 + chunk], causal,
+                           window, None if kv_valid is None
+                           else kv_valid[c0:c0 + chunk])
         m_new = torch.maximum(m, s.amax(-1))
         p = torch.exp(s - m_new[..., None])
         corr = torch.exp(m - m_new)
@@ -175,7 +211,7 @@ def attention(q, k, v, *, causal=True, window=0, q_offset=0, chunk=1024,
 
 
 # ---------------------------------------------------------------------------
-# GQA attention block (no cache)
+# GQA attention block, with an optional decode cache
 # ---------------------------------------------------------------------------
 
 def init_attention(gen, cfg, *, device, lead=()):
@@ -192,24 +228,187 @@ def init_attention(gen, cfg, *, device, lead=()):
     return p
 
 
-def apply_attention(p, x, cfg, *, positions, window=0, causal=True):
-    """Self-attention without a decode cache. Returns (out, None)."""
+def _on(a: np.ndarray, device) -> torch.Tensor:
+    """A host index array on ``device`` without waiting for the card: a
+    copy from pinned memory, queued behind the work already issued."""
+    t = torch.from_numpy(np.ascontiguousarray(a))
+    if torch.device(device).type != "cuda":
+        return t.to(device)
+    return t.pin_memory().to(device, non_blocking=True)
+
+
+class PageIndex(NamedTuple):
+    """A page table resolved on the host for one write of ``S`` tokens at
+    ``cache_pos``: the pool rows (page · page_size + offset) the valid
+    tokens land in (``dst``), the rows of the flattened (B·S_eff) new
+    tokens they come from (``src``), their absolute positions (``pos``),
+    and for the dense view each logical page's pool page (``phys``, 0
+    where unmapped) and whether it is mapped (``mapped``). Built once per
+    forward and shared by every layer: the table and the clock live on
+    the host, so nothing here reads the card."""
+    dst: torch.Tensor
+    src: torch.Tensor
+    pos: torch.Tensor
+    phys: torch.Tensor
+    mapped: torch.Tensor
+    skip: int                  # leading new tokens beyond the ring length
+
+
+def page_index(page_table, cache_pos: int, S: int, *, page_size: int,
+               device) -> PageIndex:
+    """``PageIndex`` of ``page_table`` ((B, pages_per_slot) int, numpy or
+    a CPU tensor; -1 = unmapped) for ``S`` new tokens at ``cache_pos``."""
+    table = np.asarray(page_table.cpu() if torch.is_tensor(page_table)
+                       else page_table).astype(np.int64)
+    B, pps = table.shape
+    C = pps * page_size
+    skip = max(0, S - C)
+    S_eff = S - skip
+    abs_pos = int(cache_pos) + skip + np.arange(S_eff, dtype=np.int64)
+    ring = abs_pos % C
+    page = table[:, ring // page_size]                     # (B, S_eff)
+    ok = page >= 0
+    dst = (page * page_size + ring % page_size)[ok]
+    src = (np.arange(B)[:, None] * S_eff + np.arange(S_eff)[None])[ok]
+    pos = np.broadcast_to(abs_pos[None], (B, S_eff))[ok].astype(np.int32)
+    mapped = (table >= 0).reshape(-1)
+    phys = np.where(mapped, table.reshape(-1), 0)
+    return PageIndex(_on(dst, device), _on(src, device), _on(pos, device),
+                     _on(phys, device), _on(mapped, device), skip)
+
+
+def paged_kv_update(cache, page_table, k, v, cache_pos):
+    """Write new tokens into a paged K/V pool, in place, and gather the
+    dense ring view (the JAX ``paged_kv_update``).
+
+    cache: {"kp": (n_pages, psize, G, hd), "vp": ..., "posp": (n_pages,
+    psize) int32} — a pool of fixed-size pages shared by all slots.
+    page_table: (B, pages_per_slot), the physical page backing each
+    logical page of each slot's ring (-1 = unmapped: writes are dropped,
+    reads come back empty), on the host, or its ``PageIndex``. The
+    logical ring has length C = pages_per_slot · psize; the token at
+    absolute position p lives at logical page (p % C) // psize, offset
+    (p % C) % psize — the contiguous ring's layout, so the gathered dense
+    view is value-equal to a contiguous cache and attention over it is
+    bit-identical. ``cache_pos``: the absolute position (an int) of the
+    first new token.
+
+    Returns (cache, k_dense (B,C,G,hd), v_dense, kv_pos (B,C))."""
+    kp, vp, posp = cache["kp"], cache["vp"], cache["posp"]
+    psize = kp.shape[1]
+    idx = page_table if isinstance(page_table, PageIndex) else \
+        page_index(page_table, cache_pos, k.shape[1], page_size=psize,
+                   device=kp.device)
+    B = k.shape[0]
+    flat = lambda a: a.reshape((-1,) + tuple(a.shape[2:]))
+    kp.view((-1,) + kp.shape[2:]).index_copy_(
+        0, idx.dst, flat(k[:, idx.skip:]).index_select(0, idx.src)
+        .to(kp.dtype))
+    vp.view((-1,) + vp.shape[2:]).index_copy_(
+        0, idx.dst, flat(v[:, idx.skip:]).index_select(0, idx.src)
+        .to(vp.dtype))
+    posp.view(-1).index_copy_(0, idx.dst, idx.pos)
+
+    def dense(pool, fill):
+        got = pool.index_select(0, idx.phys)
+        keep = idx.mapped.reshape((-1,) + (1,) * (got.dim() - 1))
+        got = torch.where(keep, got, torch.full((), fill, dtype=got.dtype,
+                                                device=got.device))
+        return got.reshape((B, -1) + tuple(pool.shape[2:]))
+
+    return cache, dense(kp, 0), dense(vp, 0), dense(posp, -1)
+
+
+def _ring_write(buf, new, p0: int):
+    """``new`` (B, S, ...) into the ring rows ``buf`` (B, C, ...) from slot
+    ``p0`` on, wrapping at C (S <= C): at most two slices, in place."""
+    C, S = buf.shape[1], new.shape[1]
+    n1 = min(S, C - p0)
+    buf[:, p0:p0 + n1] = new[:, :n1]
+    if n1 < S:
+        buf[:, :S - n1] = new[:, n1:]
+
+
+def apply_attention(p, x, cfg, *, positions, cache=None, cache_pos=None,
+                    window=0, causal=True, page_table=None):
+    """Self-attention with an optional decode cache (the JAX
+    ``apply_attention`` without its cross-attention, which belongs to
+    other families). Returns (out, cache).
+
+    cache: {"k": (B, C, G, hd), "v": ..., "pos": (B, C) int32}, a ring of
+    C slots: the token at absolute position p lives in slot p % C, and
+    the ``pos`` track holds each slot's absolute position (-1 = empty),
+    so masking stays exact after wrap-around; when more than C tokens
+    arrive at once only the last C are kept. A paged cache ({"kp", "vp",
+    "posp"}, see ``paged_kv_update``) takes ``page_table`` instead. Both
+    are written in place. ``cache_pos``: the absolute position (an int) of
+    the first incoming token. Decode (at most 8 queries) masks each slot
+    by its own position track; prefill shares row 0's."""
     dt = x.dtype
+    _count(4)                           # q, k, v and the output projection
     q = torch.einsum("bsd,dhk->bshk", x, p["wq"].to(dt))
     k = torch.einsum("bsd,dgk->bsgk", x, p["wk"].to(dt))
     v = torch.einsum("bsd,dgk->bsgk", x, p["wv"].to(dt))
     if cfg.pos_emb == "rope":
         q = apply_rope(q, positions, cfg.rope_theta, cfg.rope_pct)
         k = apply_rope(k, positions, cfg.rope_theta, cfg.rope_pct)
-    # the JAX model's dispatch rule, condition for condition (it also needs
-    # self-attention without kv_positions, which every call here is)
-    if (cfg.use_pallas and cfg.resolved_head_dim % 128 == 0
+    if cache is not None:
+        if "kp" in cache:
+            if page_table is None:
+                raise ValueError("paged attention cache needs a page_table")
+            cache, ck, cv, kv_pos = paged_kv_update(cache, page_table, k, v,
+                                                    cache_pos)
+        else:
+            ck, cv, kv_pos = cache["k"], cache["v"], cache["pos"]
+            C, S_new = ck.shape[1], k.shape[1]
+            skip = max(0, S_new - C)
+            start = int(cache_pos) + skip
+            n = S_new - skip
+            _ring_write(ck, k[:, skip:].to(ck.dtype), start % C)
+            _ring_write(cv, v[:, skip:].to(cv.dtype), start % C)
+            track = torch.arange(start, start + n, dtype=kv_pos.dtype,
+                                 device=kv_pos.device)
+            _ring_write(kv_pos, track[None].expand(kv_pos.shape[0], n),
+                        start % C)
+        kv_pos1 = kv_pos if q.shape[1] <= 8 else kv_pos[0]
+        out = attention(q, ck, cv, causal=causal, window=window,
+                        q_offset=int(cache_pos), kv_positions=kv_pos1,
+                        kv_valid=kv_pos1 >= 0, chunk=cfg.attn_chunk)
+    # the JAX model's dispatch rule, condition for condition (with a cache,
+    # JAX never takes the flash branch either)
+    elif (cfg.use_pallas and cfg.resolved_head_dim % 128 == 0
             and q.shape[1] % 128 == 0):
+        _count(2)
         out = kops.flash_attention(q, k, v, causal=causal, window=window)
     else:
         out = attention(q, k, v, causal=causal, window=window,
                         chunk=cfg.attn_chunk)
-    return torch.einsum("bshk,hkd->bsd", out, p["wo"].to(dt)), None
+    return torch.einsum("bshk,hkd->bsd", out, p["wo"].to(dt)), cache
+
+
+def init_attn_cache(cfg, batch: int, cache_len: int, dtype, *, device):
+    """A contiguous ring cache of ``cache_len`` slots per row, empty."""
+    hd, G = cfg.resolved_head_dim, cfg.n_kv_heads
+    return {"k": torch.zeros((batch, cache_len, G, hd), dtype=dtype,
+                             device=device),
+            "v": torch.zeros((batch, cache_len, G, hd), dtype=dtype,
+                             device=device),
+            "pos": torch.full((batch, cache_len), -1, dtype=torch.int32,
+                              device=device)}
+
+
+def init_paged_attn_cache(cfg, n_pages: int, page_size: int, dtype, *,
+                          device):
+    """One shared pool of ``n_pages`` pages replacing the per-slot ring
+    rows: slots map logical ring pages to pool pages through the engine's
+    page table, so short requests only occupy the pages they touch."""
+    hd, G = cfg.resolved_head_dim, cfg.n_kv_heads
+    return {"kp": torch.zeros((n_pages, page_size, G, hd), dtype=dtype,
+                              device=device),
+            "vp": torch.zeros((n_pages, page_size, G, hd), dtype=dtype,
+                              device=device),
+            "posp": torch.full((n_pages, page_size), -1, dtype=torch.int32,
+                               device=device)}
 
 
 # ---------------------------------------------------------------------------
@@ -236,6 +435,7 @@ def _act(x, kind: str):
 
 def apply_mlp(p, x, cfg):
     dt = x.dtype
+    _count(len(p))
     h = x @ p["w_up"].to(dt)
     if "w_gate" in p:
         h = _act(x @ p["w_gate"].to(dt), cfg.act) * h
@@ -269,6 +469,7 @@ def lm_logits(head_p, emb_p, x, cfg):
         w = emb_p["table"].to(x.dtype).T
     else:
         w = head_p["w"].to(x.dtype)
+    _count()
     logits = (x @ w).float()
     if cfg.logit_softcap:
         logits = torch.tanh(logits / cfg.logit_softcap) * cfg.logit_softcap

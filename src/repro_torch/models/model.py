@@ -1,6 +1,8 @@
 """The stacked-layer LM (dense family): ``make_plan``, ``init_params``,
-``forward`` without a cache and ``loss_fn``, as in the JAX
-``models/model.py``.
+``forward`` (with or without a decode cache), ``loss_fn`` and the serving
+entry points ``init_cache``, ``init_paged_cache``, ``prefill`` and
+``decode_step``, as in the JAX ``models/model.py``. The caches are
+written in place, where the JAX package returns new ones.
 
 Layers of each pattern position are stacked with a leading (n_groups,)
 dim; the JAX ``lax.scan`` over groups is a Python loop over the unbound
@@ -51,34 +53,49 @@ def init_params(cfg, *, generator, device):
     return params
 
 
-def forward(params, cfg, tokens, *, window=None):
-    """tokens: (B, S) integer. Returns (logits (B, S, V) float32, None,
-    aux) like the JAX forward without a cache; aux is 0 for dense."""
+def forward(params, cfg, tokens, *, window=None, cache=None,
+            cache_pos=None, page_table=None):
+    """tokens: (B, S) integer. Returns (logits (B, S, V) float32, cache,
+    aux) like the JAX forward; aux is 0 for dense. With ``cache``
+    (``init_cache`` or ``init_paged_cache``) the tokens sit at absolute
+    positions ``cache_pos`` (an int, default 0) onwards and are written
+    into the cache in place (the returned cache is the same tree);
+    ``page_table`` ((B, pages_per_slot) on the host) maps a paged cache's
+    slots to its pool pages, resolved once for every layer."""
     plan = make_plan(cfg)
     B, S = tokens.shape
     x = L.embed(params["embed"], tokens, cfg)
-    positions = torch.arange(S, device=tokens.device)
+    cache_pos = 0 if cache_pos is None else int(cache_pos)
+    positions = cache_pos + torch.arange(S, device=tokens.device)
     # unbind each stack once: its backward stacks the per-layer grads in
     # one op (indexing layer by layer would build a full-size zero grad
     # per layer)
     stacks = [_unbind(params[f"stack{i}"], plan.n_groups)
               for i in range(len(plan.pattern))]
+    if page_table is not None and cache is not None:
+        kp = cache["cache0"]["attn"]["kp"]
+        page_table = L.page_index(page_table, cache_pos, S,
+                                  page_size=kp.shape[2], device=kp.device)
 
-    def group_body(x, lps):
+    def group_body(x, lps, lcs):
         for i, kind in enumerate(plan.pattern):
-            x = BLK.apply_block(lps[i], x, cfg, kind, positions=positions,
-                                window=window)
+            x, _ = BLK.apply_block(lps[i], x, cfg, kind, positions=positions,
+                                   cache=lcs[i], cache_pos=cache_pos,
+                                   window=window, page_table=page_table)
         return x
 
     for g in range(plan.n_groups):
         lps = [stack[g] for stack in stacks]
-        if cfg.remat and torch.is_grad_enabled():
-            x = checkpoint(group_body, x, lps, use_reentrant=False)
+        lcs = [None if cache is None
+               else tree.map(lambda a: a[g], cache[f"cache{i}"])
+               for i in range(len(plan.pattern))]
+        if cfg.remat and cache is None and torch.is_grad_enabled():
+            x = checkpoint(group_body, x, lps, lcs, use_reentrant=False)
         else:
-            x = group_body(x, lps)
+            x = group_body(x, lps, lcs)
     x = L.apply_norm(params["ln_f"], x, cfg.norm)
     logits = L.lm_logits(params.get("head", {}), params["embed"], x, cfg)
-    return logits, None, torch.zeros((), device=logits.device)
+    return logits, cache, torch.zeros((), device=logits.device)
 
 
 def _unbind(stack, n):
@@ -92,3 +109,73 @@ def loss_fn(params, cfg, batch):
     ce = L.next_token_loss(logits, batch["tokens"])
     total = ce + cfg.router_aux_coef * aux
     return total, {"loss": ce, "aux": aux}
+
+
+def init_cache(cfg, batch: int, cache_len: int, dtype, *, device,
+               window: int = 0):
+    """An empty decode cache: per pattern position, the blocks' caches
+    stacked over the layer groups ((n_groups, batch, C, ...) leaves, the
+    JAX layout). ``window`` > 0 bounds the ring length C."""
+    plan = make_plan(cfg)
+    eff = min(cache_len, window) if window else cache_len
+    return {f"cache{i}": _stacked(
+        lambda: BLK.init_block_cache(cfg, kind, batch, eff, dtype,
+                                     device=device), plan.n_groups)
+            for i, kind in enumerate(plan.pattern)}
+
+
+# cache-leaf names that live in the shared page pool (no batch axis after
+# the group axis); every other leaf is a per-slot row
+PAGED_LEAF_NAMES = ("kp", "vp", "posp")
+
+
+def init_paged_cache(cfg, batch: int, cache_len: int, dtype, *,
+                     page_size: int, n_pages: int, device, window: int = 0):
+    """A paged decode cache: the attention rings become ONE shared pool of
+    ``n_pages`` pages of ``page_size`` per layer group; the engine maps
+    each slot's logical ring (length eff = min(cache_len, window or
+    cache_len), a multiple of ``page_size``) onto pool pages through a
+    (batch, eff // page_size) page table passed to ``forward``."""
+    plan = make_plan(cfg)
+    eff = min(cache_len, window) if window else cache_len
+    if eff % page_size:
+        raise ValueError(
+            f"effective cache length {eff} must be a multiple of "
+            f"page_size {page_size} (the paged ring must tile exactly "
+            "to stay bit-identical to the contiguous ring)")
+    return {f"cache{i}": _stacked(
+        lambda: BLK.init_paged_block_cache(cfg, kind, batch, eff, dtype,
+                                           n_pages=n_pages,
+                                           page_size=page_size,
+                                           device=device), plan.n_groups)
+            for i, kind in enumerate(plan.pattern)}
+
+
+def _stacked(make_one, n: int):
+    """The tree ``make_one()`` with every leaf repeated along a new leading
+    (n,) axis."""
+    return tree.map(lambda a: a[None].repeat((n,) + (1,) * a.dim()),
+                    make_one())
+
+
+def prefill(params, cfg, tokens, *, window: int = 0, cache_len: int = 0):
+    """Run the whole prompt, building the decode cache. Returns (logits,
+    cache); ``cache_len`` sizes the cache for the decode that follows
+    (default: the prompt length)."""
+    B, S = tokens.shape
+    cache = init_cache(cfg, B, max(cache_len, S),
+                       getattr(torch, cfg.compute_dtype),
+                       device=tokens.device, window=window)
+    logits, cache, _ = forward(params, cfg, tokens, cache=cache,
+                               cache_pos=0, window=window or None)
+    return logits, cache
+
+
+def decode_step(params, cfg, cache, tokens, pos, *, window: int = 0,
+                page_table=None):
+    """One decode step. tokens: (B, 1); pos: the absolute position (an
+    int). Returns (logits, cache), the cache written in place."""
+    logits, cache, _ = forward(params, cfg, tokens, cache=cache,
+                               cache_pos=pos, window=window or None,
+                               page_table=page_table)
+    return logits, cache

@@ -1,8 +1,8 @@
-"""Run telemetry: the subset of the JAX ``obs/metrics.py`` that the
-trainer uses — ``RunRecorder`` with its ``pretrain``, ``round``,
-``guard_event`` and ``async_event`` records, notes, the chunk boundary
-(``ingest_chunk``), the wire plan and ``dump``. The console lines and the
-record fields are the JAX package's.
+"""Run telemetry: the JAX ``obs/metrics.py`` — ``RunRecorder`` with its
+``pretrain``, ``round``, ``guard_event`` and ``async_event`` records,
+notes, the chunk boundary (``ingest_chunk``), the wire plan,
+``attach_hlo_profile`` and ``dump``. The console lines and the record
+fields are the JAX package's.
 """
 from __future__ import annotations
 
@@ -170,6 +170,14 @@ class RunRecorder:
     def attach_wire_plan(self, plan):
         """Static outer-sync plan: what each round is scheduled to ship."""
         self.manifest["wire_plan"] = [dict(p) for p in plan]
+
+    def attach_hlo_profile(self, profile: dict, fn: str = "round"):
+        """A measured wire profile of one function (the JAX name and key,
+        ``manifest["hlo_profile"][fn]``, kept so that a reader of either
+        package's manifest finds it): what the program really ships, which
+        the trace's byte annotations are held against. The port has no HLO;
+        its profiles are counted at the collective call sites."""
+        self.manifest.setdefault("hlo_profile", {})[fn] = dict(profile)
 
     @property
     def history(self) -> list:

@@ -38,7 +38,10 @@ def unflatten(like, flat):
             return {key: build(t[key]) for key in sorted(t)}
         return next(it)
 
-    return build(like)
+    try:
+        return build(like)
+    finally:
+        del build           # the closure refers to itself: free the leaves now
 
 
 def map(fn, tree, *rest):
@@ -88,4 +91,7 @@ def unflatten_like(example, flat):
             return type(t)(build(x) for x in t)
         return next(it)
 
-    return build(example)
+    try:
+        return build(example)
+    finally:
+        del build           # the closure refers to itself: free the leaves now

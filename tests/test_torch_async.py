@@ -413,13 +413,28 @@ SHARDED = ["--transport", "sharded", "--pods", "2", "--stream-fragments",
            "2"]
 
 
+# ``--trace`` on the async transport was refused as unported telemetry
+# until the telemetry slice ported it: it now writes the event timeline's
+# trace, which both packages' validators accept and whose transfer spans
+# match the engine's events exactly once
 @pytest.mark.parametrize("flags,named", [
     (["--transport", "async", "--trace", "t.json"], "telemetry"),
 ])
-def test_still_unported_flags_name_their_item(flags, named):
-    args = train.make_parser().parse_args(["--device", "cpu", *flags])
-    with pytest.raises(SystemExit, match=f"ROADMAP.md, port queue: {named}"):
-        train.run(args)
+def test_still_unported_flags_name_their_item(flags, named, tmp_path):
+    from repro.obs import trace as jtrace
+    from repro_torch.obs import trace as ttrace
+    flags = [str(tmp_path / f) if f.endswith(".json") else f for f in flags]
+    argv = ASYNC_FLAGS + ["--ticks", "3"] + flags
+    args = train.make_parser().parse_args(argv)
+    records = train.run(args, recorder=tmetrics.RunRecorder(
+        transport="async", printer=lambda *a, **k: None))
+    trace = json.loads((tmp_path / "t.json").read_text())
+    assert ttrace.validate_trace(trace) == []
+    assert jtrace.validate_trace(trace) == []
+    events = [r for r in records if r["kind"] == "event"]
+    assert ttrace.span_event_correspondence(trace, events) == []
+    assert ttrace.trace_wire_bytes(trace) == pytest.approx(
+        sum(r["wire_bytes"] for r in events if r["event"] == "arrival"))
 
 
 # the cases the test above refused until the gossip transport and the

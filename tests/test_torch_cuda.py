@@ -637,3 +637,81 @@ def test_cuda_unfused_codecs_equal_plain(cuda, rows, kind, offset):
     assert {n: TQ.launches[n] - before[n] for n in before} == {
         **dict.fromkeys(before, 0), "quantize_int4": 1,
         "dequantize_int4": 1, "pack_int4": 1, "unpack_int4": 1}
+
+
+# ---- the serving path: cache ops and the engine, card against the CPU ----
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("S,pos", [(1, 9), (5, 10), (14, 3)])
+def test_cuda_paged_kv_update_equals_cpu(cuda, S, pos):
+    """The paged write and the dense gather move values: the card's pool
+    and view equal the CPU's bit for bit (unmapped pages, a wrapping ring,
+    more new tokens than the ring)."""
+    from repro_torch.models import layers as L
+    g = torch.Generator().manual_seed(S)
+    n_pages, ps, G, hd, B = 7, 4, 2, 8, 3
+    cache = {"kp": torch.randn(n_pages, ps, G, hd, generator=g),
+             "vp": torch.randn(n_pages, ps, G, hd, generator=g),
+             "posp": torch.randint(-1, 30, (n_pages, ps), generator=g,
+                                   dtype=torch.int32)}
+    table = np.array([[2, 0, -1], [5, -1, 6], [-1, -1, -1]], np.int32)
+    k = torch.randn(B, S, G, hd, generator=g)
+    v = torch.randn(B, S, G, hd, generator=g)
+    on = {n: t.to(cuda) for n, t in cache.items()}
+    want = L.paged_kv_update(cache, table, k, v, pos)
+    got = L.paged_kv_update(on, table, k.to(cuda), v.to(cuda), pos)
+    for a, b in zip(got[1:], want[1:]):
+        assert torch.equal(a.cpu(), b)
+    for n in cache:
+        assert torch.equal(on[n].cpu(), cache[n])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("window", [0, 32])
+def test_cuda_serving_matches_cpu(cuda, window, tmp_path):
+    """diloco_150m's smoke config served on the card and on the CPU: the
+    prefill logits within ``check.SERVE_LOGIT_RTOL`` of the CPU's largest
+    logit; the paged engine with packed int4 weights and the contiguous
+    one give one answer on the card; each request's tokens are the CPU's
+    wherever the CPU's top-2 margin is wider than the tolerance; every
+    forward decodes the packed regions (``unpack_dequantize_int4``)."""
+    from repro_torch.checkpoint import checkpoint as ckpt
+    from repro_torch.launch.batching import ContinuousBatcher
+    from repro_torch.models.registry import Arch
+    arch = get_smoke_arch("diloco_150m")
+    arch = Arch(cfg=arch.cfg.replace(window=window))
+    params = arch.init(generator=torch.Generator().manual_seed(0),
+                       device="cpu")
+    path = str(tmp_path / "w.npz")
+    man = ckpt.save_packed(path, params)
+    packed = ckpt.load_packed(path)
+    deq = ckpt.restore_packed(path, params)
+    rng = np.random.default_rng(1)
+    prompts = [rng.integers(0, 256, n) for n in (12, 7, 19, 5)]
+    gens = [6, 1, 9, 8]
+    runs = {}
+    for dev, paged in (("cpu", True), (cuda, True), (cuda, False)):
+        eng = ContinuousBatcher(
+            arch, tree.map(lambda t: t.to(dev), deq), slots=2,
+            cache_len=96, paged=paged, device=dev,
+            packed_weights=packed if paged else None,
+            record_logits=range(4))
+        TQ.launches["unpack_dequantize_int4"] = 0
+        rids = [eng.submit(p, n) for p, n in zip(prompts, gens)]
+        out = eng.run_until_drained()
+        runs[(str(dev), paged)] = ([out[r] for r in rids], eng.logits)
+        if str(dev) != "cpu" and paged:
+            assert TQ.launches["unpack_dequantize_int4"] == \
+                len(packed["buffers"]) * (eng.decode_steps + eng.prefills)
+    card, contiguous = runs[("cuda", True)], runs[("cuda", False)]
+    for a, b in zip(card[0], contiguous[0]):
+        np.testing.assert_array_equal(a, b)
+    cpu = runs[("cpu", True)]
+    for rid, (toks, ref) in enumerate(zip(card[0], cpu[0])):
+        got = torch.stack(card[1][rid])
+        want = torch.stack(cpu[1][rid])
+        n = min(len(got), len(want))
+        res = check.serve_mismatches(toks[:n], got[:n], want[:n])
+        assert res["bad"] == [] and res["max_logit_err"] <= \
+            check.SERVE_LOGIT_RTOL, res
+    assert man["dtype"] == "int4"

@@ -81,11 +81,25 @@ SHARDED = ["--transport", "sharded", "--pods", "2", "--stream-fragments",
            "2"]
 
 
+# ``--trace`` was refused by name (ROADMAP.md, telemetry) until the
+# telemetry slice ported it: it now writes a trace that both packages'
+# validators accept, its wire bytes those of the recorder
 @pytest.mark.parametrize("flags", [["--trace", "t.json"]])
-def test_unported_flags_exit_with_roadmap_item(flags):
-    args = train.make_parser().parse_args(["--device", "cpu", *flags])
-    with pytest.raises(SystemExit, match="ROADMAP.md"):
-        train.run(args)
+def test_unported_flags_exit_with_roadmap_item(flags, tmp_path):
+    from repro.obs import trace as jtrace
+    from repro_torch.obs import trace as ttrace
+    flags = [str(tmp_path / f) if f.endswith(".json") else f for f in flags]
+    args = train.make_parser().parse_args(
+        ["--device", "cpu", "--k", "2", "--H", "2", "--rounds", "1",
+         "--batch", "2", "--seq", "16", "--eval-batch", "2", *flags])
+    rec = tmetrics.RunRecorder(printer=lambda *a, **k: None)
+    train.run(args, recorder=rec)
+    trace = json.loads((tmp_path / "t.json").read_text())
+    assert ttrace.validate_trace(trace) == []
+    assert jtrace.validate_trace(trace) == []
+    # one delivered send span per replica (k=2) of the per-replica bytes
+    # each round record carries
+    assert ttrace.trace_wire_bytes(trace) == 2 * rec.wire_bytes_total > 0
 
 
 # the flags the test above refused until the gossip transport and the
@@ -193,6 +207,9 @@ def test_port_imports_no_jax():
         "assert len(names) > 25, names\n"
         "new = {'repro_torch.checkpoint.checkpoint',\n"
         "       'repro_torch.core.gossip',\n"
+        "       'repro_torch.launch.batching',\n"
+        "       'repro_torch.launch.serve',\n"
+        "       'repro_torch.obs.trace',\n"
         "       'repro_torch.resilience.guard',\n"
         "       'repro_torch.resilience.harness',\n"
         "       'repro_torch.resilience.manager',\n"
