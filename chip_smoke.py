@@ -202,8 +202,8 @@ Phases, each printing one JSON line; any failure exits non-zero:
               in-graph guard armed (``guard_rejected`` 1 on the bombed
               round, 0 after), finite losses, and the same guard events as
               a CPU run of the same flags at smoke width.
- 25. milestone  diloco_60m at full width, k=2, H=8, 12 rounds,
-              ``--warmup 20 --rounds-per-call 4 --eval-every 2`` (192
+ 25. milestone  diloco_60m at full width, k=2, H=8, 8 rounds,
+              ``--warmup 20 --rounds-per-call 4 --eval-every 2`` (128
               replica-steps): every round's inner and val loss beside the
               entropy floor, the last val loss below the first; then ten
               rounds of its smoke config through one ``make_run`` call on
@@ -218,10 +218,11 @@ Phases, each printing one JSON line; any failure exits non-zero:
               15's streaming flags, H=4, 4 rounds, ``--rounds-per-call 2
               --checkpoint-every 2 --retain 1``: the uncut run with
               ``--state-hash-out``; the same run with ``--crash-at-round
-              2`` in a trainer subprocess (started first, so that its own
-              Markov tables build on the host while the uncut run trains),
+              2`` in a trainer subprocess (started before phase 23, so
+              that its own Markov tables and rounds overlap phases 23-25),
               which must die by SIGKILL with no rank process left; then
-              ``--resume auto`` of its snapshot, whose ``state_sha256``
+              ``--resume auto`` of its snapshot (writing none of its own:
+              phase 23's resumed run neither), whose ``state_sha256``
               must equal the uncut run's (else the leaves that differ are
               named). Each rank's launches asserted (the resumed run's
               fragments all armed). Prints the snapshot's bytes and the ms
@@ -270,6 +271,39 @@ Phases, each printing one JSON line; any failure exits non-zero:
               logits within ``check.SERVE_LOGIT_RTOL``; a static greedy
               batch, teacher-forced logits card against CPU.
 
+ 31. families_smoke  the ten other configs (dense variants, olmoe,
+              deepseek, zamba2, xlstm, llama-vision, whisper) at smoke
+              width, card against CPU, every all-zero leaf perturbed: the
+              forward's loss and aux, the gradients, prefill + 3 decode
+              steps' logits; paged = contiguous through the engine, bit
+              for bit (the eight it serves); one k=2, H=2 ``make_round``
+              (the eight the trainer takes), every state leaf at phase 3's
+              tolerance.
+ 32. train_zamba2  zamba2 at full width cut to 12 of its 54 layers
+              (721,188,160 parameters, 74 leaves), as phase 7 builds
+              diloco_400m: the trainer's ``build`` on ``--full --arch
+              zamba2_2_7b --k 2 --H 2 --rounds 2 --batch 8 --seq 1024``,
+              ``make_round`` and ``make_eval`` on phase 4's tables. Exactly
+              2·2·2·74 = 592 ``fused_adamw`` and 2·74 = 148
+              ``outer_nesterov``; tokens/s, ms per inner step, peak memory,
+              the losses.
+ 33. serve_families  olmoe_1b_7b at full size (6,919,100,416 seeded
+              f32 parameters) written by ``save_packed`` in 4 fragments
+              (one ``quantize_pack_int4`` per region), the f32 tree freed;
+              16 requests (prompts 64-512 from seed 0, 64 new tokens each)
+              through the paged engine on the packed weights (8 slots, page
+              16): exactly regions × forwards ``unpack_dequantize_int4``;
+              dropped MoE assignments counted by wrapping
+              ``moe._dispatch_group`` (0 in decode ticks; prefills'
+              printed); the contiguous engine on the decoded values (the
+              tokens bit for bit); two requests against themselves
+              teacher-forced alone (``check.serve_mismatches``). Then
+              deepseek_v2_lite_16b cut to 4 of 27 layers (8 requests × 32
+              tokens, 8 slots: the absorbed MLA decode at rank 512) and
+              xlstm_350m (4 requests, prompts 16-64, 16 tokens), paged and
+              contiguous from f32 weights. Each prints ms per decode tick,
+              prefill ms per request, decode tokens/s and peak memory.
+
 ``python3 chip_smoke.py --cards 4`` runs only phases 22 and 21 across
 four cards: one pod rank and one replica per card, over NCCL.
 
@@ -284,7 +318,8 @@ phase 7 for attention, phase 11 for the mixed AdamW and the pruning,
 phase 13's pure-policy run for the bf16 ``fused_adamw``, phase 15's runs
 for ``fake_quant``, phase 18 for the wire codecs, phase 21 for the
 reduce, phase 20's calls for the unfused pieces; the two wire codecs also
-carry ``serve_launches``, phase 29's), the card's line again, and the last
+carry ``serve_launches``, phase 29's, and ``olmoe_serve_launches``, phase
+33's), the card's line again, and the last
 line ``{"ok": true, "device":
 {...}}``. Without a GPU, or run from a directory that holds nothing else
 of the repository, it exits non-zero and prints no result.
@@ -2346,8 +2381,11 @@ def phase_resume(torch, dev):
         snap = ["--checkpoint-dir", str(CKPT_DIR / "d"),
                 "--checkpoint-every", "2", "--retain", "2"]
         out = {}
+        # the resumed run reads the uncut run's snapshot 2 and writes none
+        # (its final state is checked by the hash, not by a snapshot)
         for name, extra, rounds in (
-                ("uncut", snap, 4), ("resumed", snap + ["--resume", "2"], 2),
+                ("uncut", snap, 4),
+                ("resumed", snap[:2] + ["--resume", "2"], 2),
                 ("legacy", ["--legacy-loop"], 4)):
             path = str(CKPT_DIR / f"{name}.json")
             man = {}
@@ -2480,8 +2518,11 @@ def smoke_milestone(torch, device, params, toks, val, rounds, k, h):
     return m["inner_loss"].tolist(), m["val_loss"].tolist()
 
 
+MILESTONE_ROUNDS = 8
+
+
 def phase_milestone(torch, dev):
-    """Phase 25: diloco_60m at full width for 12 rounds of H=8 (192
+    """Phase 25: diloco_60m at full width for 8 rounds of H=8 (128
     replica-steps), every round's losses beside the entropy floor; then
     ten rounds of its smoke config through ``make_run`` on the card and
     on the CPU, every round's inner and val loss within
@@ -2489,15 +2530,16 @@ def phase_milestone(torch, dev):
     from repro_torch.data.sharding import make_regime
     from repro_torch.models.registry import get_smoke_arch
 
-    argv = ARGV_60M + ["--H", "8", "--rounds", "12", "--warmup", "20",
-                       "--rounds-per-call", "4", "--eval-every", "2"]
+    argv = ARGV_60M + ["--H", "8", "--rounds", str(MILESTONE_ROUNDS),
+                       "--warmup", "20", "--rounds-per-call", "4",
+                       "--eval-every", "2"]
     records, timing, wall_s, launches = run_trainer(torch, dev, argv)
-    if launches != sync_launches(12, h=8):
+    if launches != sync_launches(MILESTONE_ROUNDS, h=8):
         raise SystemExit(f"milestone: launches {launches}, expected "
-                         f"{sync_launches(12, h=8)}")
+                         f"{sync_launches(MILESTONE_ROUNDS, h=8)}")
     rnds = [r for r in records if r["phase"] == "diloco"]
     vals = [r["val_loss"] for r in rnds if r["val_loss"] is not None]
-    if len(rnds) != 12 or not all(math.isfinite(r["inner_loss"])
+    if len(rnds) != MILESTONE_ROUNDS or not all(math.isfinite(r["inner_loss"])
                                   for r in rnds) \
             or not all(math.isfinite(v) for v in vals) \
             or not vals[-1] < vals[0]:
@@ -2566,58 +2608,92 @@ def leaves_differ(got, want) -> list:
                   if want["leaf_sha256"].get(k) != v)
 
 
-def phase_resume_sharded(torch, dev):
+# phase 26's directory: its crash run starts before phase 23 and must
+# outlive the directories phases 23-25 delete
+SHARDED_CKPT_DIR = ROOT / "build" / "chip_smoke_ckpt_sharded"
+SHARDED_SNAP = ["--rounds-per-call", "2", "--checkpoint-every", "2",
+                "--retain", "1"]
+
+
+def sharded_resume_argv() -> list:
+    return ARGV_60M + ["--H", str(H), "--rounds", "4", "--transport",
+                       "sharded", "--pods", "2", *STREAM_FLAGS]
+
+
+class CrashRun:
+    """Phase 26's killed run: the trainer subprocess with ``--crash-at-round
+    2``, started before phase 23 so that its Markov table build and its
+    two rounds overlap phases 23-25; ``stop`` kills it if it still runs
+    and closes its logs."""
+
+    def __init__(self):
+        import shutil
+        import uuid
+
+        from repro_torch.resilience import harness
+        shutil.rmtree(SHARDED_CKPT_DIR, ignore_errors=True)
+        SHARDED_CKPT_DIR.mkdir(parents=True)
+        self.tag = uuid.uuid4().hex
+        self.logs = [open(SHARDED_CKPT_DIR / f"crash.{x}", "w+")
+                     for x in ("out", "err")]
+        self.t0 = time.perf_counter()
+        self.proc = subprocess.Popen(
+            harness.train_cmd(sharded_resume_argv() + SHARDED_SNAP + [
+                "--checkpoint-dir", str(SHARDED_CKPT_DIR / "c"),
+                "--crash-at-round", "2"]),
+            env=harness.train_env({"REPRO_CRASH_RUN": self.tag}),
+            stdout=self.logs[0], stderr=self.logs[1], text=True)
+
+    def stop(self):
+        import shutil
+        if self.proc.poll() is None:
+            self.proc.kill()
+            self.proc.wait()
+        for f in self.logs:
+            f.close()
+        shutil.rmtree(SHARDED_CKPT_DIR, ignore_errors=True)
+
+
+def phase_resume_sharded(torch, dev, crash: CrashRun):
     """Phase 26: diloco_60m at full width on two sharded ranks with
     snapshots: the uncut run, the same run killed by ``--crash-at-round
-    2`` in a trainer subprocess (started first: its own Markov tables
-    build on the host while the uncut run trains), and ``--resume auto``
-    of the killed run's snapshot: one final state (sha256)."""
-    import shutil
-    import uuid
-
+    2`` in a trainer subprocess (``crash``, started before phase 23), and
+    ``--resume auto`` of the killed run's snapshot (which writes none of
+    its own): one final state (sha256)."""
     from repro_torch.models.registry import get_arch
     from repro_torch.resilience import CheckpointManager, harness
 
     torch.cuda.empty_cache()
-    shutil.rmtree(CKPT_DIR, ignore_errors=True)
-    CKPT_DIR.mkdir(parents=True)
-    argv = ARGV_60M + ["--H", str(H), "--rounds", "4", "--transport",
-                       "sharded", "--pods", "2", *STREAM_FLAGS,
-                       "--rounds-per-call", "2", "--checkpoint-every", "2",
-                       "--retain", "1"]
-    tag = uuid.uuid4().hex
-    logs = [open(CKPT_DIR / f"crash.{x}", "w+") for x in ("out", "err")]
-    crash = subprocess.Popen(
-        harness.train_cmd(argv + ["--checkpoint-dir", str(CKPT_DIR / "c"),
-                                  "--crash-at-round", "2"]),
-        env=harness.train_env({"REPRO_CRASH_RUN": tag}),
-        stdout=logs[0], stderr=logs[1], text=True)
+    D = SHARDED_CKPT_DIR
+    argv = sharded_resume_argv()
+    logs, tag = crash.logs, crash.tag
     try:
         meta = get_arch("diloco_60m").init(generator=None, device="meta")
         n = leaves_60m()
         out = {}
         for name, extra, rounds, resumed in (
-                ("uncut", ["--checkpoint-dir", str(CKPT_DIR / "u")], 4,
-                 False),
-                ("resumed", ["--checkpoint-dir", str(CKPT_DIR / "c"),
-                             "--resume", "auto"], 2, True)):
+                ("uncut", SHARDED_SNAP + ["--checkpoint-dir", str(D / "u")],
+                 4, False),
+                ("resumed", ["--rounds-per-call", "2", "--checkpoint-dir",
+                             str(D / "c"), "--resume", "auto"], 2, True)):
             if resumed:
                 t_c = time.perf_counter()
-                crash.wait(timeout=600)
+                crash.proc.wait(timeout=600)
                 crash_wait_s = time.perf_counter() - t_c
+                crash_s = time.perf_counter() - crash.t0
                 so, se = (f.seek(0) or f.read() for f in logs)
                 left = harness.processes_with("REPRO_CRASH_RUN", tag)
-                if crash.returncode != harness.SIGKILL_RC or \
+                if crash.proc.returncode != harness.SIGKILL_RC or \
                         "crash: SIGKILL at round boundary 3" not in so or left:
                     raise SystemExit(
                         f"resume_sharded: the crash run exited with "
-                        f"{crash.returncode}, ranks left {left}\n"
+                        f"{crash.proc.returncode}, ranks left {left}\n"
                         f"{so[-2000:]}\n{se[-4000:]}")
-                kept = CheckpointManager(str(CKPT_DIR / "c")).steps()
+                kept = CheckpointManager(str(D / "c")).steps()
                 if kept != [2]:
                     raise SystemExit(f"resume_sharded: the crash left "
                                      f"snapshots {kept}")
-            path = str(CKPT_DIR / f"{name}.json")
+            path = str(D / f"{name}.json")
             man = {}
             records, timing, wall_s, launches = run_trainer(
                 torch, dev, argv + extra + ["--state-hash-out", path], man)
@@ -2641,12 +2717,14 @@ def phase_resume_sharded(torch, dev):
                              f"{diff[:8]}")
         res = out["resumed"][1]
         r0 = res["ranks"][0]["timing"]
-        snaps = {n: o[1]["timing"]["snapshots"] for n, o in out.items()}
+        snaps = {n: o[1]["timing"].get("snapshots", [])
+                 for n, o in out.items()}
         say({"phase": "resume_sharded", "argv": argv,
              "state_sha256": want["state_sha256"],
              "resumed_from_step": got["resumed_from_step"],
-             "crash_rc": crash.returncode, "crash_wait_s": crash_wait_s,
-             "snapshot_bytes": snaps["resumed"][0]["bytes"],
+             "crash_rc": crash.proc.returncode, "crash_s": crash_s,
+             "crash_wait_s": crash_wait_s,
+             "snapshot_bytes": snaps["uncut"][0]["bytes"],
              "gather_ms": {n: [x["gather_s"] * 1e3 for x in s]
                            for n, s in snaps.items()},
              "save_ms": {n: [x["save_s"] * 1e3 for x in s]
@@ -2664,12 +2742,7 @@ def phase_resume_sharded(torch, dev):
              "rank0_rounds": r0["rounds"],
              "wall_s": {n: o[2] for n, o in out.items()}})
     finally:
-        if crash.poll() is None:
-            crash.kill()
-            crash.wait()
-        for f in logs:
-            f.close()
-        shutil.rmtree(CKPT_DIR, ignore_errors=True)
+        crash.stop()
 
 
 def phase_elastic_sharded(torch, dev):
@@ -2903,6 +2976,10 @@ SERVE_PAGE = 16
 # packed weights against the contiguous one on their decoded values, bit
 # for bit; the card's packed engine against the CPU's).
 PACKED_REL, PACKED_ABS = 0.15, 0.05
+# phase 33's olmoe load: 16 requests, prompts of 64-512 tokens, 64 new
+# tokens each, 8 slots (at most 8 assignments reach an expert in a decode
+# tick, under the capacity floor of 8: no decode tick drops)
+FAM_SLOTS, FAM_REQUESTS, FAM_NEW = 8, 16, 64
 
 
 def serve_requests(engine_of, prompts, n_new, label):
@@ -3139,6 +3216,386 @@ def phase_serve_smoke(torch, dev):
     say({"phase": "serve_smoke", "cases": out})
 
 
+# the ten configs of the other families, those the continuous engine
+# serves (not the VLM and the encoder-decoder, which need a modality
+# input) and those the trainer takes (the same eight)
+FAMILY_ARCHS = ("stablelm_1_6b", "starcoder2_7b", "qwen3_32b",
+                "command_r_35b", "olmoe_1b_7b", "deepseek_v2_lite_16b",
+                "zamba2_2_7b", "xlstm_350m", "llama_3_2_vision_90b",
+                "whisper_large_v3")
+CROSS_ARCHS = ("llama_3_2_vision_90b", "whisper_large_v3")
+SMOKE_TOL = dict(rtol=1e-4, atol=1e-5)     # phase 3's
+ZAMBA2_LAYERS, ZAMBA2_LEAVES = 12, 74
+DEEPSEEK_LAYERS = 4
+OLMOE_PARAMS, ZAMBA2_PARAMS_12 = 6_919_100_416, 721_188_160
+DEEPSEEK_PARAMS_4 = 2_758_823_936
+
+
+def perturbed_smoke_params(torch, arch, seed):
+    """Seeded CPU params of a smoke config, every all-zero leaf (biases,
+    the VLM's gates, ``conv_b``, ``dt_bias``) given N(0, 0.1²) noise so
+    that the card's use of it shows."""
+    from repro_torch import tree
+    gen = torch.Generator().manual_seed(seed)
+    params = arch.init(generator=gen, device="cpu")
+    for t in tree.leaves(params):
+        if not t.any():
+            t.copy_(0.1 * torch.randn(t.shape, generator=gen))
+    return params
+
+
+def assert_close(np, got, want, what):
+    np.testing.assert_allclose(np.asarray(got), np.asarray(want),
+                               err_msg=what, **SMOKE_TOL)
+    return float(np.max(np.abs(np.asarray(got, np.float64)
+                               - np.asarray(want)), initial=0.0))
+
+
+def phase_families_smoke(torch, dev):
+    """Phase 31: the ten other configs at smoke width, card against CPU:
+    the forward's logits and aux, loss and gradients, prefill + 3 decode
+    steps; paged = contiguous bit for bit through the engine (the eight it
+    serves); one k=2, H=2 round through ``make_round`` (the eight the
+    trainer takes), every state leaf at phase 3's tolerance."""
+    import numpy as np
+    from repro_torch import convert, tree
+    from repro_torch.configs.base import DiLoCoConfig, TrainConfig
+    from repro_torch.core import diloco
+    from repro_torch.launch.batching import ContinuousBatcher
+    from repro_torch.launch.serve import modality_inputs
+    from repro_torch.models.registry import get_smoke_arch
+
+    cpu = torch.device("cpu")
+    out = []
+    for name in FAMILY_ARCHS:
+        t0 = time.perf_counter()
+        arch = get_smoke_arch(name)
+        cfg = arch.cfg
+        params = perturbed_smoke_params(torch, arch, 0)
+        gen = torch.Generator().manual_seed(1)
+        toks = torch.randint(0, cfg.vocab_size, (2, 24), generator=gen)
+        batch = {"tokens": toks, **modality_inputs(cfg, 2, 0, cpu)}
+        res = {}
+        for tag, d in (("card", dev), ("cpu", cpu)):
+            p = tree.map(lambda t: t.detach().clone().to(d)
+                         .requires_grad_(), params)
+            b = {k: v.to(d) for k, v in batch.items()}
+            loss, m = arch.loss(p, b)
+            grads = torch.autograd.grad(loss, tree.leaves(p),
+                                        allow_unused=True)
+            with torch.no_grad():
+                lg, cache = arch.prefill(p, b, cache_len=27)
+                steps = [lg[:, -1]]
+                for i in range(3):
+                    lg, cache = arch.decode(p, cache, toks[:, i:i + 1]
+                                            .to(d), 24 + i)
+                    steps.append(lg[:, -1])
+            res[tag] = {
+                "loss": float(loss.detach()), "aux": float(m["aux"]),
+                "grads": [np.zeros(tuple(t.shape), np.float32) if g is None
+                          else g.cpu().numpy()
+                          for t, g in zip(tree.leaves(p), grads)],
+                "logits": [s_.cpu().numpy() for s_ in steps]}
+        got, want = res["card"], res["cpu"]
+        worst = {"loss": assert_close(np, got["loss"], want["loss"],
+                                      f"{name} loss"),
+                 "aux": assert_close(np, got["aux"], want["aux"],
+                                     f"{name} aux")}
+        worst["grads"] = max(assert_close(np, a, w, f"{name} grad {i}")
+                             for i, (a, w) in enumerate(zip(
+                                 got["grads"], want["grads"])))
+        worst["logits"] = max(assert_close(np, a, w, f"{name} logits {i}")
+                              for i, (a, w) in enumerate(zip(
+                                  got["logits"], want["logits"])))
+        row = {"arch": name, "family": cfg.family, "max_abs_diff": worst,
+               "loss_card": got["loss"], "aux_card": got["aux"]}
+        if name not in CROSS_ARCHS:
+            card = tree.map(lambda t: t.to(dev), params)
+            rng = np.random.default_rng(5)
+            prompts = [rng.integers(0, cfg.vocab_size, n)
+                       for n in (12, 7, 19, 5, 9)]
+            gens = [6, 1, 4, 8, 5]
+            served = {}
+            for paged in (True, False):
+                eng = ContinuousBatcher(arch, card, slots=2, cache_len=64,
+                                        paged=paged, page_size=16)
+                rids = [eng.submit(q, g) for q, g in zip(prompts, gens)]
+                done = eng.run_until_drained()
+                served[paged] = [done[r] for r in rids]
+            if any(not np.array_equal(a, b_) for a, b_ in zip(
+                    served[True], served[False])):
+                raise SystemExit(f"families_smoke {name}: paged and "
+                                 "contiguous tokens differ")
+            row["paged_equals_contiguous"] = True
+            k, h, bsz, s = 2, 2, 2, 32
+            rtoks = torch.randint(0, cfg.vocab_size, (k, h * bsz, s),
+                                  generator=gen)
+            states = {}
+            for tag, d in (("card", dev), ("cpu", cpu)):
+                rnd = diloco.make_round(
+                    lambda p_, bt: arch.loss(p_, bt),
+                    lambda g_, bb, ss: rtoks.to(d), DiLoCoConfig(k=k, H=h),
+                    TrainConfig(inner_lr=1e-3, warmup_steps=2,
+                                total_steps=8), batch_size=bsz, seq_len=s)
+                st = diloco.init_state(tree.map(lambda t: t.to(d), params),
+                                       DiLoCoConfig(k=k, H=h))
+                st, _ = rnd(st, None)
+                states[tag] = convert.state_to_numpy(st)
+            row["round_max_abs_diff"] = max(
+                assert_close(np, a, w, f"{name} round {path}")
+                for (path, a), (_, w) in zip(tree.paths(states["card"]),
+                                             tree.paths(states["cpu"])))
+        row["wall_s"] = time.perf_counter() - t0
+        out.append(row)
+    torch.cuda.empty_cache()
+    say({"phase": "families_smoke", **SMOKE_TOL, "archs": out})
+
+
+def phase_train_zamba2(torch, dev):
+    """Phase 32: zamba2 at full width, cut to 12 of its 54 layers, through
+    the trainer's ``build``, ``core.diloco.make_round`` and ``make_eval``:
+    k=2, H=2, 2 rounds, batch 8, seq 1024 on phase 4's Markov tables.
+    Exactly one ``fused_adamw`` per leaf per replica-step and one
+    ``outer_nesterov`` per leaf per round."""
+    from repro_torch import tree
+    from repro_torch.core import diloco
+    from repro_torch.launch import train
+
+    h = 2
+    argv = ["--full", "--arch", "zamba2_2_7b", "--k", str(K), "--H", str(h),
+            "--rounds", str(ROUNDS), "--batch", str(BATCH), "--seq",
+            str(SEQ)]
+    args = train.make_parser().parse_args(argv)
+    arch, cfg, dcfg, tcfg, sampler = train.build(
+        args, dev, sampler=shared_sampler(torch, dev, args))
+    cfg = cfg.replace(n_layers=ZAMBA2_LAYERS)
+    loss_fn = lambda p, b: arch.loss(p, b, cfg=cfg)
+    gen = torch.Generator(device=dev).manual_seed(args.seed)
+    params = arch.init(generator=gen, device=dev, cfg=cfg)
+    n_params = sum(t.numel() for t in tree.leaves(params))
+    n_leaves = len(tree.leaves(params))
+    if (n_params, n_leaves) != (ZAMBA2_PARAMS_12, ZAMBA2_LEAVES):
+        raise SystemExit(f"train_zamba2: {n_params} parameters in "
+                         f"{n_leaves} leaves")
+    state = diloco.init_state(params, dcfg)
+    del params
+    rnd = diloco.make_round(loss_fn, sampler.sample_all_shards, dcfg, tcfg,
+                            total_steps=tcfg.total_steps, batch_size=BATCH,
+                            seq_len=SEQ)
+    ev = diloco.make_eval(loss_fn)
+    val = sampler.sample_validation(
+        torch.Generator(device=dev).manual_seed(10_000), BATCH, SEQ)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    reset_launches()
+    rounds = []
+    t0 = time.perf_counter()
+    for _ in range(ROUNDS):
+        state, m = rnd(state, gen)
+        rounds.append({"inner_loss": float(m["inner_loss"]),
+                       "val_loss": float(ev(state.global_params, val)),
+                       **{n: m[n] for n in ("sample_s", "inner_s",
+                                            "outer_s")}})
+    wall_s = time.perf_counter() - t0
+    launches = read_launches()
+    want = expect_launches(fused_adamw=K * h * ROUNDS * n_leaves,
+                           outer_nesterov=ROUNDS * n_leaves)
+    if launches != want:
+        raise SystemExit(f"train_zamba2: launch counts {launches}, "
+                         f"expected {want}")
+    if not all(math.isfinite(r[n]) for r in rounds
+               for n in ("inner_loss", "val_loss")):
+        raise SystemExit(f"train_zamba2: bad round records: {rounds}")
+    say({"phase": "train_zamba2", "argv": argv,
+         "n_layers": ZAMBA2_LAYERS, "params": n_params, "leaves": n_leaves,
+         "launches": {n: c for n, c in launches.items() if c},
+         "rounds": rounds,
+         "tokens_per_s": K * h * BATCH * SEQ / rounds[-1]["inner_s"],
+         "inner_step_ms": rounds[-1]["inner_s"] * 1e3 / (K * h),
+         "outer_step_ms": rounds[-1]["outer_s"] * 1e3, "wall_s": wall_s,
+         "max_memory_allocated_GB":
+             torch.cuda.max_memory_allocated(dev) / 1e9})
+    del state, val, rnd, ev
+    torch.cuda.empty_cache()
+    return launches
+
+
+class DropCounter:
+    """Dropped MoE assignments, counted from outside the package by
+    wrapping ``models.moe._dispatch_group`` (the engine has no counter of
+    its own, as JAX's has none): a call over ``decode_rows`` tokens is a
+    decode tick's, any other a prefill's."""
+
+    def __init__(self, decode_rows: int):
+        from repro_torch.models import moe
+        self.moe, self.orig = moe, moe._dispatch_group
+        self.rows = decode_rows
+        self.calls = {"prefill": 0, "decode": 0}
+        self.dropped = {"prefill": 0, "decode": 0}
+
+    def __enter__(self):
+        def counted(x, probs, idx, E, C):
+            out = self.orig(x, probs, idx, E, C)
+            kind = "decode" if x.shape[0] == self.rows else "prefill"
+            self.calls[kind] += 1
+            self.dropped[kind] += int((~out[2]).sum())
+            return out
+        self.moe._dispatch_group = counted
+        return self
+
+    def __exit__(self, *exc):
+        self.moe._dispatch_group = self.orig
+
+
+def phase_serve_families(torch, dev):
+    """Phase 33: serving at full width. olmoe_1b_7b at full depth from
+    packed int4 weights (paged, 8 slots), then from their decoded values
+    (contiguous), then two requests teacher-forced alone; deepseek cut to
+    4 layers and xlstm_350m from f32 weights, paged and contiguous.
+    Returns {kernel name: launches} of the two codec kernels on olmoe's
+    path."""
+    import numpy as np
+    from repro_torch import check, tree
+    from repro_torch.checkpoint import checkpoint as ckpt
+    from repro_torch.launch.batching import ContinuousBatcher
+    from repro_torch.launch.serve import forced_logits
+    from repro_torch.models.registry import Arch, get_arch
+
+    SERVE_DIR.mkdir(parents=True, exist_ok=True)
+    rows = {}
+
+    def engines(arch, weights, prompts, n_new, slots, label, packed=None,
+                record=()):
+        """The paged engine (on ``packed`` when given) then the
+        contiguous one; their tokens must be equal."""
+        cache = -(-(max(len(p) for p in prompts) + n_new) // 16) * 16
+        kw = dict(slots=slots, cache_len=cache, page_size=16, device=dev)
+        with DropCounter(slots) as drops:
+            eng, paged, launches, wall, mem = serve_requests(
+                lambda: ContinuousBatcher(arch, weights, packed_weights=packed,
+                                          record_logits=record, **kw),
+                prompts, n_new, f"{label} paged")
+        stats = {"paged": dict(serve_stats(eng, wall), memory_GB=mem),
+                 "dropped": dict(drops.dropped),
+                 "moe_calls": dict(drops.calls)}
+        logits = {r: torch.stack(eng.logits[r]) for r in record}
+        forwards = eng.decode_steps + eng.prefills
+        del eng
+        torch.cuda.empty_cache()
+        return paged, launches, forwards, stats, logits, kw
+
+    # ---- olmoe at full depth from packed int4 weights ----
+    arch = get_arch("olmoe_1b_7b")
+    params = arch.init(generator=torch.Generator(device=dev).manual_seed(0),
+                       device=dev)
+    n_params = sum(t.numel() for t in tree.leaves(params))
+    if n_params != OLMOE_PARAMS:
+        raise SystemExit(f"serve_families: olmoe has {n_params} parameters")
+    path = str(SERVE_DIR / "olmoe.packed.npz")
+    torch.cuda.synchronize()
+    reset_launches()
+    t0 = time.perf_counter()
+    man = ckpt.save_packed(path, params, n_fragments=4)
+    save_s = time.perf_counter() - t0
+    saved = read_launches()
+    regions = sum(len(f) for f in man["fragments"])
+    if saved != expect_launches(quantize_pack_int4=regions):
+        raise SystemExit(f"serve_families save_packed: launches {saved}, "
+                         f"expected {regions} quantize_pack_int4")
+    del params                      # the f32 tree goes before any engine
+    torch.cuda.empty_cache()
+    packed = ckpt.load_packed(path)
+    os.remove(path)
+    meta = arch.init(generator=None, device="meta")
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(0, arch.cfg.vocab_size, int(n))
+               for n in rng.integers(64, 513, FAM_REQUESTS)]
+    paged, served, forwards, stats, logits, kw = engines(
+        arch, meta, prompts, FAM_NEW, FAM_SLOTS, "olmoe", packed=packed,
+        record=(0, 1))
+    if served != expect_launches(unpack_dequantize_int4=regions * forwards):
+        raise SystemExit(f"serve_families olmoe: launches {served}, "
+                         f"expected {regions} × {forwards}")
+    if stats["dropped"]["decode"] or not stats["moe_calls"]["decode"]:
+        raise SystemExit(f"serve_families olmoe: decode ticks dropped "
+                         f"{stats['dropped']} ({stats['moe_calls']})")
+    deq = ckpt.unpack_params({k: torch.from_numpy(v).to(dev)
+                              for k, v in packed["buffers"].items()},
+                             packed["manifest"], meta)
+    del packed
+    torch.cuda.empty_cache()
+    ceng, contiguous, c_launches, c_wall, c_mem = serve_requests(
+        lambda: ContinuousBatcher(arch, deq, paged=False, **kw), prompts,
+        FAM_NEW, "olmoe contiguous")
+    stats["contiguous"] = dict(serve_stats(ceng, c_wall), memory_GB=c_mem)
+    del ceng
+    differ = [i for i, (a, b) in enumerate(zip(paged, contiguous))
+              if not np.array_equal(a, b)]
+    if differ or c_launches != expect_launches():
+        raise SystemExit(f"serve_families olmoe: paged and contiguous "
+                         f"differ for {differ}; launches {c_launches}")
+    alone = []
+    for rid in (0, 1):
+        ref = forced_logits(arch, deq, prompts[rid], paged[rid])
+        res = check.serve_mismatches(paged[rid], logits[rid], ref.cpu(),
+                                     forced=True)
+        alone.append({kk: res[kk] for kk in ("steps_compared",
+                                             "max_logit_err", "near_ties")})
+        if res["bad"] or res["max_logit_err"] > check.SERVE_LOGIT_RTOL:
+            raise SystemExit(f"serve_families olmoe: request {rid} against "
+                             f"itself alone: {res}")
+    rows["olmoe_1b_7b"] = {
+        "params": n_params, "regions": regions,
+        "packed_bytes": man["packed_bytes"], "save_packed_s": save_s,
+        "forwards": forwards, "launches": {n: c for n, c in served.items()
+                                           if c},
+        "prompt_lens": [len(p) for p in prompts], **stats, "alone": alone}
+    del deq
+    torch.cuda.empty_cache()
+
+    # ---- deepseek (4 layers, absorbed MLA decode at rank 512), xlstm ----
+    for name, cfg_kw, lo, hi, n_req, n_new, slots, want_params in (
+            ("deepseek_v2_lite_16b", {"n_layers": DEEPSEEK_LAYERS}, 64, 257,
+             8, 32, 8, DEEPSEEK_PARAMS_4),
+            ("xlstm_350m", {}, 16, 65, 4, 16, 4, None)):
+        a = get_arch(name)
+        a = Arch(cfg=a.cfg.replace(**cfg_kw))
+        params = a.init(generator=torch.Generator(device=dev).manual_seed(0),
+                        device=dev)
+        n = sum(t.numel() for t in tree.leaves(params))
+        if want_params is not None and n != want_params:
+            raise SystemExit(f"serve_families: {name} has {n} parameters")
+        rng = np.random.default_rng(0)
+        prompts = [rng.integers(0, a.cfg.vocab_size, int(m))
+                   for m in rng.integers(lo, hi, n_req)]
+        paged, launches, _, stats, _, kw = engines(a, params, prompts, n_new,
+                                                   slots, name)
+        ceng, contiguous, c_launches, c_wall, c_mem = serve_requests(
+            lambda: ContinuousBatcher(a, params, paged=False, **kw),
+            prompts, n_new, f"{name} contiguous")
+        stats["contiguous"] = dict(serve_stats(ceng, c_wall),
+                                   memory_GB=c_mem)
+        del ceng
+        if any(not np.array_equal(x, y) for x, y in zip(paged, contiguous)) \
+                or launches != expect_launches() \
+                or c_launches != expect_launches():
+            raise SystemExit(f"serve_families {name}: paged and contiguous "
+                             f"differ, or launches {launches}")
+        if name.startswith("deepseek") and stats["dropped"]["decode"]:
+            raise SystemExit(f"serve_families {name}: decode dropped "
+                             f"{stats['dropped']}")
+        rows[name] = {"params": n, "n_layers": a.cfg.n_layers,
+                      "prompt_lens": [len(p) for p in prompts],
+                      "new_tokens": n_new, "slots": slots, **stats}
+        del params
+        torch.cuda.empty_cache()
+    say({"phase": "serve_families", "slots": FAM_SLOTS,
+         "olmoe_requests": FAM_REQUESTS, "olmoe_new_tokens": FAM_NEW,
+         "paged_equals_contiguous": True, "models": rows})
+    return {"quantize_pack_int4": saved["quantize_pack_int4"],
+            "unpack_dequantize_int4": served["unpack_dequantize_int4"]}
+
+
 def main_cards(torch, dev, cards: int) -> int:
     """``--cards N`` (N > 1): only the sharded transport across N cards,
     one pod rank and one replica per card over NCCL: phase 22 against
@@ -3195,18 +3652,26 @@ def main() -> int:
     rows += codec_rows
     launches.update(phase_train_sharded(torch, dev))
     phase_smoke_sharded(torch, dev)
-    phase_resume(torch, dev)
-    phase_guard(torch, dev)
-    phase_milestone(torch, dev)
-    phase_resume_sharded(torch, dev)
+    crash = CrashRun()
+    try:
+        phase_resume(torch, dev)
+        phase_guard(torch, dev)
+        phase_milestone(torch, dev)
+        phase_resume_sharded(torch, dev, crash)
+    finally:
+        crash.stop()
     phase_elastic_sharded(torch, dev)
     phase_train_gossip(torch, dev)
     serve = phase_serve_400m(torch, dev)
     phase_serve_smoke(torch, dev)
+    phase_families_smoke(torch, dev)
+    phase_train_zamba2(torch, dev)
+    families = phase_serve_families(torch, dev)
     for row in rows:
         row["launches"] = launches[row["name"]]
-        if row["name"] in serve:        # their launches on the serve path
+        if row["name"] in serve:        # their launches on the serve paths
             row["serve_launches"] = serve[row["name"]]
+            row["olmoe_serve_launches"] = families[row["name"]]
     say({"kernels": rows})
     print(card_line(), flush=True)
     say({"ok": True, "device": {"platform": "gpu",

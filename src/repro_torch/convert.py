@@ -79,15 +79,17 @@ def params_to_numpy(params):
 def cache_from_numpy(cache, *, device):
     """A JAX decode cache (``init_cache`` or ``init_paged_cache``, its
     leaves as numpy: {"cache0": {"attn": {"k", "v", "pos"} or {"kp",
-    "vp", "posp"}}}) -> the port's, on ``device`` (copies; the int32
-    position tracks stay int32), so that decode steps of both packages
-    start from one cache."""
-    return params_from_numpy(cache, device=device)
+    "vp", "posp"}}}, the recurrent states' tuples included, e.g.
+    {"state": (C, n, m)} of an mLSTM block) -> the port's, on ``device``
+    (copies; the int32 position tracks stay int32), so that decode steps
+    of both packages start from one cache."""
+    return tree.map_nested(lambda a: tensor_from_numpy(a, device=device),
+                           cache)
 
 
 def cache_to_numpy(cache):
     """The port's decode cache -> the JAX layout as numpy."""
-    return params_to_numpy(cache)
+    return tree.map_nested(tensor_to_numpy, cache)
 
 
 def state_from_numpy(state, *, device) -> DiLoCoState:

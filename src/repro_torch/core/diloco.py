@@ -108,8 +108,13 @@ def make_inner_step(loss_fn: Callable, tcfg: TrainConfig,
                                        "lr": float(lr)}
         req = tree.map(lambda t: t.detach().requires_grad_(True), params)
         loss, _ = loss_fn(req, batch)
-        grads = tree.unflatten(
-            params, torch.autograd.grad(loss, tree.leaves(req)))
+        leaves = tree.leaves(req)
+        # a leaf the loss never reads (the parallel block's ln2) has a
+        # zero gradient, as under jax.grad
+        grads = tree.unflatten(params, [
+            torch.zeros_like(t) if g is None else g for t, g in zip(
+                leaves, torch.autograd.grad(loss, leaves,
+                                            allow_unused=True))])
         grads, gnorm = adamw.clip_by_global_norm(grads, tcfg.grad_clip)
         params, opt_state = adamw.update(
             grads, opt_state, params, lr=lr, b1=tcfg.b1, b2=tcfg.b2,

@@ -18,7 +18,7 @@ clock reaches it.
 Two cache layouts behind the same scheduler:
 
   contiguous (paged=False)  every slot owns a full (C,)-long ring row;
-      admission resets the slot's row and prefills into it in place.
+      admission resets the slot's rows and prefills into them in place.
   paged (paged=True, the default)  fixed-size pages in ONE shared pool
       per layer group and a per-slot page table on the host
       (``models/model.py`` ``init_paged_cache``): a short request occupies
@@ -26,6 +26,11 @@ Two cache layouts behind the same scheduler:
       their position tracks and prefills straight into the pool. The
       tokens equal the contiguous layout's bit for bit (the gathered
       dense view is the same ring).
+
+In both, every per-slot leaf (the SSM and xLSTM states, MLA latent rings,
+cross K/V) is reset at admission to its ``init_cache`` value (the xLSTM
+stabilisers to −1e30, not 0). The VLM and encoder-decoder families are
+refused: a request is a prompt, with no modality input.
 
 There is no compiled step to copy: each tick is a plain eager decode
 that writes the cache in place, then the sampling, and the host waits
@@ -95,6 +100,12 @@ class ContinuousBatcher:
                 "continuous batching requires translation-invariant "
                 "positions (rope/none); learned absolute embeddings "
                 "break the shared-clock alignment")
+        cross = M.make_plan(self.cfg).cross_src
+        if cross:
+            raise ValueError(
+                f"continuous batching takes no {cross!r} input (submit "
+                f"takes a prompt only): serve the {self.cfg.family} family "
+                "through launch/serve.py's greedy_decode")
         self.device = torch.device(
             device if device is not None else tree.leaves(params)[0].device)
         if self.device.type == "meta":
@@ -159,6 +170,12 @@ class ContinuousBatcher:
             self.cache = M.init_cache(self.cfg, slots, cache_len,
                                       torch.float32, window=self.cfg.window,
                                       device=self.device)
+        # one empty row of every per-slot leaf, as ``init_cache`` makes it
+        # (zeros, -1 position tracks, the xLSTM stabilisers at -1e30): an
+        # admission resets its slot's rows to it
+        self._blank = M.init_cache(self.cfg, 1, cache_len, torch.float32,
+                                   window=self.cfg.window,
+                                   device=self.device)
         self.finished: dict[int, np.ndarray] = {}
         self.latencies: dict[int, int] = {}      # rid -> ticks-to-finish
 
@@ -198,15 +215,26 @@ class ContinuousBatcher:
     def _tokens(self, toks) -> torch.Tensor:
         return L._on(np.asarray(toks, np.int64), self.device)
 
-    # ---- contiguous admission (the slot's ring row, in place) ----
+    def _slot_row(self, slot: int):
+        """The cache as slot ``slot`` sees it: every per-slot leaf's row
+        (a view: writes land in the cache), the shared page pools whole;
+        each per-slot row reset to its empty value first."""
+        def row(path, a):
+            if path and path[-1] in M.PAGED_LEAF_NAMES:
+                return a
+            r = a[:, slot:slot + 1]
+            r.copy_(blank[path])
+            return r
+
+        blank = {tuple(e[1] for e in p): a
+                 for p, a in tree.flatten_with_path(self._blank)}
+        return _map_with_path(row, self.cache)
+
+    # ---- contiguous admission (the slot's rows, in place) ----
     def _admit_contiguous(self, slot: int, req: Request):
         start = self.clock - len(req.prompt)     # prompt at [t-L, t)
         assert start >= 0, "advance the clock before admitting"
-        row = tree.map(lambda a: a[:, slot:slot + 1], self.cache)
-        for c in row.values():
-            c["attn"]["k"].zero_()
-            c["attn"]["v"].zero_()
-            c["attn"]["pos"].fill_(-1)
+        row = self._slot_row(slot)
         logits, _, _ = M.forward(
             self._make_params(self._weights), self.cfg,
             self._tokens(req.prompt)[None], cache=row, cache_pos=start,
@@ -249,10 +277,11 @@ class ContinuousBatcher:
         self.table[slot, lps] = new_pages
         reset = self._tokens(new_pages)
         for c in self.cache.values():
-            c["attn"]["posp"].index_fill_(1, reset, -1)   # reused pages
+            if "attn" in c:
+                c["attn"]["posp"].index_fill_(1, reset, -1)   # reused pages
         logits, _, _ = M.forward(
             self._make_params(self._weights), self.cfg,
-            self._tokens(req.prompt)[None], cache=self.cache,
+            self._tokens(req.prompt)[None], cache=self._slot_row(slot),
             cache_pos=start, window=self.cfg.window or None,
             page_table=self.table[slot:slot + 1])
         return logits[:, -1]
@@ -346,3 +375,14 @@ class ContinuousBatcher:
     @property
     def utilization(self) -> float:
         return sum(r is not None for r in self.active) / self.B
+
+
+def _map_with_path(fn, t, path=()):
+    """``fn(path, leaf)`` over a cache tree (dicts and the recurrent
+    states' tuples), ``path`` the tuple of dict keys and tuple indices."""
+    if isinstance(t, dict):
+        return {k: _map_with_path(fn, v, path + (k,)) for k, v in t.items()}
+    if isinstance(t, tuple):
+        return tuple(_map_with_path(fn, v, path + (i,))
+                     for i, v in enumerate(t))
+    return fn(path, t)

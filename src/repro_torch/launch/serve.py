@@ -12,15 +12,18 @@ packed on the device and decodes at every forward.
 
 The weights are random, drawn from a ``torch.Generator`` seeded with
 ``--seed`` (or restored from ``--checkpoint``), and so are the prompts
-(seeded with ``--seed`` + 1): neither reproduces the JAX driver's
-``jax.random`` draws. The server runs on the card unless ``--device cpu``
-asks for the CPU; it raises without a GPU otherwise. Only the dense
-family is ported: the VLM and encoder-decoder inputs of other
-families are refused.
+(seeded with ``--seed`` + 1) and the stubbed modality input of the VLM
+(``patches``) and encoder-decoder (``frames``) families (seeded from
+(``--seed``, 2)): none reproduces the JAX server's ``jax.random`` draws.
+Those two families serve on the static path only: the engine's requests
+are prompts, with no modality input. The server runs on the card unless
+``--device cpu`` asks for the CPU; it raises without a GPU otherwise.
 
 Example:
   PYTHONPATH=src python -m repro_torch.launch.serve --device cpu \\
       --batch 4 --prompt-len 64 --gen 32
+  PYTHONPATH=src python -m repro_torch.launch.serve --device cpu \\
+      --arch whisper_large_v3 --batch 2 --prompt-len 16 --gen 8
   PYTHONPATH=src python -m repro_torch.launch.serve --full \\
       --arch diloco_400m --continuous --batch 16 --prompt-len 256 --gen 128
 """
@@ -38,19 +41,38 @@ from ..models.registry import get_arch, get_smoke_arch
 from .train import resolve_device
 
 
+def modality_inputs(cfg, batch: int, seed: int, device) -> dict:
+    """The stubbed frontend's output of the VLM (``patches``, (B,
+    n_patches, D)) and encoder-decoder (``frames``, (B, n_frames, D))
+    families, N(0, 0.1²) from a ``torch.Generator`` seeded from (``seed``,
+    2); {} for the other families."""
+    n = {"vlm": ("patches", cfg.n_patches),
+         "encdec": ("frames", cfg.n_frames)}.get(cfg.family)
+    if n is None:
+        return {}
+    ss = np.random.SeedSequence([int(seed) % 2 ** 63, 2])
+    gen = torch.Generator(device=device).manual_seed(
+        int(ss.generate_state(1, np.uint64)[0]) % 2 ** 63)
+    return {n[0]: 0.1 * torch.randn((batch, n[1], cfg.d_model),
+                                    generator=gen, device=device)}
+
+
 @torch.no_grad()
-def greedy_decode(arch, params, prompts, *, gen: int,
+def greedy_decode(arch, params, prompts, *, gen: int, extra=None,
                   temperature: float = 0.0, seed: int = 0):
-    """prompts: (B, S) integer (a tensor or numpy). Returns the (B, gen)
-    generated tokens, on the params' device. The first token comes from
-    the prefill logits under the same policy as the rest: argmax at
-    temperature 0, else a draw from a ``torch.Generator`` seeded with
-    ``seed``. No step waits for the card."""
+    """prompts: (B, S) integer (a tensor or numpy); ``extra``: the
+    modality input of a cross-attention family (``modality_inputs``).
+    Returns the (B, gen) generated tokens, on the params' device. The
+    first token comes from the prefill logits under the same policy as
+    the rest: argmax at temperature 0, else a draw from a
+    ``torch.Generator`` seeded with ``seed``. No step waits for the
+    card."""
     dev = tree.leaves(params)[0].device
     prompts = torch.as_tensor(np.asarray(prompts), dtype=torch.int64) \
         .to(dev) if not torch.is_tensor(prompts) else prompts.to(dev)
     B, S = prompts.shape
-    logits, cache = arch.prefill(params, {"tokens": prompts},
+    logits, cache = arch.prefill(params,
+                                 {"tokens": prompts, **(extra or {})},
                                  cache_len=S + gen)
     g = torch.Generator(device=dev)
     g.manual_seed(seed)
@@ -94,10 +116,7 @@ def forced_logits(arch, params, prompt, tokens):
 
 def run(args):
     device = resolve_device(args.device)
-    try:
-        arch = (get_smoke_arch if args.smoke else get_arch)(args.arch)
-    except NotImplementedError as e:
-        raise SystemExit(str(e))
+    arch = (get_smoke_arch if args.smoke else get_arch)(args.arch)
     cfg = arch.cfg
     gen = torch.Generator(device=device)
     gen.manual_seed(args.seed)
@@ -116,6 +135,7 @@ def run(args):
     gen.manual_seed(args.seed + 1)
     prompts = torch.randint(0, cfg.vocab_size, (B, S), generator=gen,
                             device=device)
+    extra = modality_inputs(cfg, B, args.seed, device)
 
     t0 = time.time()
     if args.continuous:
@@ -140,7 +160,7 @@ def run(args):
                  for k, v in packed["buffers"].items()},
                 packed["manifest"], params)
         toks = greedy_decode(arch, params, prompts, gen=args.gen,
-                             temperature=args.temperature,
+                             extra=extra, temperature=args.temperature,
                              seed=args.seed).cpu().numpy()
     dt = time.time() - t0
     total = B * args.gen

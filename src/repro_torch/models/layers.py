@@ -1,5 +1,6 @@
-"""Dense transformer building blocks (the dense subset of the JAX
-``models/layers.py``), in PyTorch.
+"""Transformer building blocks (the JAX ``models/layers.py``), in
+PyTorch: norms, RoPE and sin-cos positions, GQA self- and cross-attention
+with their decode caches, the MLP, the embedding and the LM head.
 
 Init functions take an explicit ``torch.Generator`` and ``device`` and
 return plain dicts of tensors with the JAX tree's keys. Apply functions
@@ -52,6 +53,10 @@ def ones_init(shape, *, device, lead=()):
     return torch.ones(tuple(lead) + tuple(shape), device=device)
 
 
+def zeros_init(shape, *, device, lead=()):
+    return torch.zeros(tuple(lead) + tuple(shape), device=device)
+
+
 # ---------------------------------------------------------------------------
 # norms
 # ---------------------------------------------------------------------------
@@ -59,7 +64,7 @@ def ones_init(shape, *, device, lead=()):
 def init_norm(kind: str, dim: int, *, device, lead=()):
     if kind != "rmsnorm":
         return {"scale": ones_init((dim,), device=device, lead=lead),
-                "bias": torch.zeros(tuple(lead) + (dim,), device=device)}
+                "bias": zeros_init((dim,), device=device, lead=lead)}
     return {"scale": ones_init((dim,), device=device, lead=lead)}
 
 
@@ -75,6 +80,13 @@ def apply_norm(params, x, kind: str, eps: float = 1e-6):
     if "bias" in params:
         y = y + params["bias"].float()
     return y.to(x.dtype)
+
+
+def rms_head_norm(scale, x, eps: float = 1e-6):
+    """qk-norm: RMSNorm over the head dim of (B, S, H, hd)."""
+    xf = x.float()
+    y = xf * torch.rsqrt(xf.square().mean(-1, keepdim=True) + eps)
+    return (y * scale.float()).to(x.dtype)
 
 
 # ---------------------------------------------------------------------------
@@ -118,6 +130,17 @@ def apply_rope(x, positions, theta: float, pct: float = 1.0):
     o2 = x2 * cos + x1 * sin
     out = torch.stack([o1, o2], -1).reshape(xr.shape)
     return torch.cat([out, xp], -1).to(x.dtype)
+
+
+def sincos_positions(seq_len: int, dim: int, dtype=torch.float32, *,
+                     device):
+    """(seq_len, dim) sin-cos position table, computed in float64 numpy
+    as the JAX package does, then cast to ``dtype``."""
+    pos = np.arange(seq_len)[:, None]
+    i = np.arange(dim // 2)[None]
+    ang = pos / (10_000 ** (2 * i / dim))
+    emb = np.concatenate([np.sin(ang), np.cos(ang)], -1)
+    return torch.from_numpy(emb).to(device=device, dtype=dtype)
 
 
 # ---------------------------------------------------------------------------
@@ -221,11 +244,27 @@ def init_attention(gen, cfg, *, device, lead=()):
                                     device=device, lead=lead)
     p = {"wq": init((D, H, hd)), "wk": init((D, G, hd)),
          "wv": init((D, G, hd)), "wo": init((H, hd, D))}
-    if cfg.attn_bias or cfg.qk_norm:
-        raise NotImplementedError(
-            "attention biases and qk-norm belong to other model families "
-            "(ROADMAP.md, port queue: other families)")
+    zeros = lambda shape: zeros_init(shape, device=device, lead=lead)
+    if cfg.attn_bias:
+        p.update(bq=zeros((H, hd)), bk=zeros((G, hd)), bv=zeros((G, hd)),
+                 bo=zeros((D,)))
+    if cfg.qk_norm:
+        p["q_norm"] = ones_init((hd,), device=device, lead=lead)
+        p["k_norm"] = ones_init((hd,), device=device, lead=lead)
     return p
+
+
+def project_cross_kv(p, cfg, kv_x):
+    """Cross-attention K/V of the source ``kv_x`` (B, S_src, D), projected
+    once (a prefill caches them; a decode step reuses them)."""
+    dt = kv_x.dtype
+    _count(2)
+    k = torch.einsum("bsd,dgk->bsgk", kv_x, p["wk"].to(dt))
+    v = torch.einsum("bsd,dgk->bsgk", kv_x, p["wv"].to(dt))
+    if "bk" in p:
+        k = k + p["bk"].to(dt)
+        v = v + p["bv"].to(dt)
+    return k, v
 
 
 def _on(a: np.ndarray, device) -> torch.Tensor:
@@ -330,10 +369,9 @@ def _ring_write(buf, new, p0: int):
 
 
 def apply_attention(p, x, cfg, *, positions, cache=None, cache_pos=None,
-                    window=0, causal=True, page_table=None):
-    """Self-attention with an optional decode cache (the JAX
-    ``apply_attention`` without its cross-attention, which belongs to
-    other families). Returns (out, cache).
+                    window=0, causal=True, page_table=None, cross_kv=None):
+    """Self- or cross-attention with an optional decode cache. Returns
+    (out, cache).
 
     cache: {"k": (B, C, G, hd), "v": ..., "pos": (B, C) int32}, a ring of
     C slots: the token at absolute position p lives in slot p % C, and
@@ -343,16 +381,31 @@ def apply_attention(p, x, cfg, *, positions, cache=None, cache_pos=None,
     "posp"}, see ``paged_kv_update``) takes ``page_table`` instead. Both
     are written in place. ``cache_pos``: the absolute position (an int) of
     the first incoming token. Decode (at most 8 queries) masks each slot
-    by its own position track; prefill shares row 0's."""
+    by its own position track; prefill shares row 0's. ``cross_kv``: the
+    (k, v) of a cross-attention source (``project_cross_kv``): queries
+    alone are rotated, nothing is cached and no mask applies but
+    ``causal``."""
     dt = x.dtype
-    _count(4)                           # q, k, v and the output projection
+    _count(2 if cross_kv is not None else 4)     # the projections
     q = torch.einsum("bsd,dhk->bshk", x, p["wq"].to(dt))
-    k = torch.einsum("bsd,dgk->bsgk", x, p["wk"].to(dt))
-    v = torch.einsum("bsd,dgk->bsgk", x, p["wv"].to(dt))
+    if "bq" in p:
+        q = q + p["bq"].to(dt)
+    if cross_kv is not None:
+        k, v = (t.to(dt) for t in cross_kv)
+    else:
+        k = torch.einsum("bsd,dgk->bsgk", x, p["wk"].to(dt))
+        v = torch.einsum("bsd,dgk->bsgk", x, p["wv"].to(dt))
+        if "bk" in p:
+            k = k + p["bk"].to(dt)
+            v = v + p["bv"].to(dt)
+    if cfg.qk_norm:
+        q = rms_head_norm(p["q_norm"], q)
+        k = rms_head_norm(p["k_norm"], k)
     if cfg.pos_emb == "rope":
         q = apply_rope(q, positions, cfg.rope_theta, cfg.rope_pct)
-        k = apply_rope(k, positions, cfg.rope_theta, cfg.rope_pct)
-    if cache is not None:
+        if cross_kv is None:
+            k = apply_rope(k, positions, cfg.rope_theta, cfg.rope_pct)
+    if cache is not None and cross_kv is None:
         if "kp" in cache:
             if page_table is None:
                 raise ValueError("paged attention cache needs a page_table")
@@ -374,16 +427,19 @@ def apply_attention(p, x, cfg, *, positions, cache=None, cache_pos=None,
         out = attention(q, ck, cv, causal=causal, window=window,
                         q_offset=int(cache_pos), kv_positions=kv_pos1,
                         kv_valid=kv_pos1 >= 0, chunk=cfg.attn_chunk)
-    # the JAX model's dispatch rule, condition for condition (with a cache,
-    # JAX never takes the flash branch either)
-    elif (cfg.use_pallas and cfg.resolved_head_dim % 128 == 0
-            and q.shape[1] % 128 == 0):
+    # the JAX model's dispatch rule, condition for condition (with a cache
+    # or a cross-attention source, JAX never takes the flash branch)
+    elif (cfg.use_pallas and cross_kv is None
+            and cfg.resolved_head_dim % 128 == 0 and q.shape[1] % 128 == 0):
         _count(2)
         out = kops.flash_attention(q, k, v, causal=causal, window=window)
     else:
         out = attention(q, k, v, causal=causal, window=window,
                         chunk=cfg.attn_chunk)
-    return torch.einsum("bshk,hkd->bsd", out, p["wo"].to(dt)), cache
+    o = torch.einsum("bshk,hkd->bsd", out, p["wo"].to(dt))
+    if "bo" in p:
+        o = o + p["bo"].to(dt)
+    return o, cache
 
 
 def init_attn_cache(cfg, batch: int, cache_len: int, dtype, *, device):
@@ -423,9 +479,8 @@ def init_mlp(gen, cfg, *, device, lead=()):
     if cfg.mlp_gated:
         p["w_gate"] = init((D, Fd))
     if cfg.mlp_bias:
-        raise NotImplementedError(
-            "MLP biases belong to other model families (ROADMAP.md, port "
-            "queue: other families)")
+        p["b_up"] = zeros_init((Fd,), device=device, lead=lead)
+        p["b_down"] = zeros_init((D,), device=device, lead=lead)
     return p
 
 
@@ -435,13 +490,18 @@ def _act(x, kind: str):
 
 def apply_mlp(p, x, cfg):
     dt = x.dtype
-    _count(len(p))
+    _count(2 + ("w_gate" in p))
     h = x @ p["w_up"].to(dt)
+    if "b_up" in p:
+        h = h + p["b_up"].to(dt)
     if "w_gate" in p:
         h = _act(x @ p["w_gate"].to(dt), cfg.act) * h
     else:
         h = _act(h, cfg.act)
-    return h @ p["w_down"].to(dt)
+    o = h @ p["w_down"].to(dt)
+    if "b_down" in p:
+        o = o + p["b_down"].to(dt)
+    return o
 
 
 # ---------------------------------------------------------------------------

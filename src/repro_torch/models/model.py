@@ -1,14 +1,20 @@
-"""The stacked-layer LM (dense family): ``make_plan``, ``init_params``,
-``forward`` (with or without a decode cache), ``loss_fn`` and the serving
-entry points ``init_cache``, ``init_paged_cache``, ``prefill`` and
-``decode_step``, as in the JAX ``models/model.py``. The caches are
-written in place, where the JAX package returns new ones.
+"""The stacked-layer LM of every architecture family: ``make_plan``,
+``init_params``, ``forward`` (with or without a decode cache), ``loss_fn``
+and the serving entry points ``init_cache``, ``init_paged_cache``,
+``prefill`` and ``decode_step``, as in the JAX ``models/model.py``. The
+caches are written in place, where the JAX package returns new ones.
 
-Layers of each pattern position are stacked with a leading (n_groups,)
-dim; the JAX ``lax.scan`` over groups is a Python loop over the unbound
-layer slices, and ``cfg.remat`` wraps each group in
-``torch.utils.checkpoint`` (non-reentrant), the counterpart of
-``jax.checkpoint``.
+A ``Plan`` is the repeating pattern of block kinds. Layers of each
+pattern position are stacked with a leading (n_groups,) dim; the JAX
+``lax.scan`` over groups is a Python loop over the unbound layer slices,
+and ``cfg.remat`` wraps each group in ``torch.utils.checkpoint``
+(non-reentrant), the counterpart of ``jax.checkpoint``. The pattern entry
+"SHARED" (zamba2) is one tied block, ``params["shared"]``, invoked once a
+group (its gradients sum over the invocations), with a cache per
+invocation. The encoder-decoder family (whisper) runs an encoder stack
+over its ``frames`` input first; it and the VLM family feed their
+modality input to the cross-attention blocks, which project it once at
+prefill and read the cached K/V at decode.
 """
 from __future__ import annotations
 
@@ -24,78 +30,183 @@ from . import layers as L
 
 @dataclass(frozen=True)
 class Plan:
-    pattern: tuple              # block kinds per group
+    pattern: tuple              # block kinds per group, may hold "SHARED"
     n_groups: int
+    shared_kind: str = ""       # kind of the SHARED block (zamba2)
+    enc_layers: int = 0         # whisper encoder depth
+    cross_src: str = ""         # batch key of the modality input
 
 
 def make_plan(cfg) -> Plan:
-    if cfg.family != "dense":
-        raise NotImplementedError(
-            f"family {cfg.family!r} is not ported (ROADMAP.md, port queue: "
-            "other families)")
-    return Plan(("attn_mlp",), cfg.n_layers)
+    f = cfg.family
+    if f == "dense":
+        return Plan(("attn_mlp",), cfg.n_layers)
+    if f == "moe":
+        return Plan(("mla_moe" if cfg.mla else "attn_mlp",), cfg.n_layers)
+    if f == "vlm":
+        e = cfg.cross_attn_every
+        assert cfg.n_layers % e == 0
+        return Plan(("attn_mlp",) * (e - 1) + ("cross_mlp",),
+                    cfg.n_layers // e, cross_src="patches")
+    if f == "encdec":
+        return Plan(("self_cross_mlp",), cfg.n_layers,
+                    enc_layers=cfg.n_enc_layers, cross_src="frames")
+    if f == "hybrid":
+        e = cfg.shared_attn_every
+        assert cfg.n_layers % e == 0
+        return Plan(("mamba2",) * e + ("SHARED",), cfg.n_layers // e,
+                    shared_kind="attn_mlp")
+    if f == "ssm":
+        if cfg.slstm_every:
+            e = cfg.slstm_every
+            assert cfg.n_layers % e == 0
+            return Plan(("mlstm",) * (e - 1) + ("slstm",),
+                        cfg.n_layers // e)
+        return Plan(("mamba2",), cfg.n_layers)
+    raise ValueError(f)
+
+
+def _kind(plan: Plan, kind: str) -> str:
+    return plan.shared_kind if kind == "SHARED" else kind
 
 
 def init_params(cfg, *, generator, device):
     """Random params with the JAX init's distributions (``dense_init``
-    normals, ones for norm scales), drawn from ``generator``. The draws
-    are not those of ``jax.random``: parity runs load JAX params with
+    normals, ones for norm scales, zeros for biases and gates, +3 for the
+    xLSTM forget biases), drawn from ``generator``. The draws are not
+    those of ``jax.random``: parity runs load JAX params with
     ``convert.params_from_numpy`` instead."""
     plan = make_plan(cfg)
-    if cfg.pos_emb not in ("rope", "none"):
-        raise NotImplementedError(f"pos_emb={cfg.pos_emb!r} is not ported")
     params = {"embed": L.init_embedding(generator, cfg, device=device),
               "ln_f": L.init_norm(cfg.norm, cfg.d_model, device=device),
               "head": L.init_lm_head(generator, cfg, device=device)}
+    if cfg.pos_emb == "learned":
+        params["pos_table"] = L.dense_init(
+            generator, (min(cfg.max_position, 1 << 16), cfg.d_model),
+            cfg.init_scale, device=device)
     for i, kind in enumerate(plan.pattern):
-        params[f"stack{i}"] = BLK.stacked_init(generator, cfg, kind,
-                                               plan.n_groups, device=device)
+        if kind != "SHARED":
+            params[f"stack{i}"] = BLK.stacked_init(
+                generator, cfg, kind, plan.n_groups, device=device)
+    if plan.shared_kind:
+        params["shared"] = BLK.init_block(generator, cfg, plan.shared_kind,
+                                          device=device)
+    if plan.enc_layers:
+        params["encoder"] = BLK.stacked_init(generator, cfg, "enc_attn_mlp",
+                                             plan.enc_layers, device=device)
+        params["enc_ln_f"] = L.init_norm(cfg.norm, cfg.d_model,
+                                         device=device)
     return params
 
 
-def forward(params, cfg, tokens, *, window=None, cache=None,
-            cache_pos=None, page_table=None):
+def _remat(cfg, cache) -> bool:
+    return cfg.remat and cache is None and torch.is_grad_enabled()
+
+
+def _run_encoder(params, cfg, frames):
+    """The whisper-style encoder over the frame embeddings (B, T, D), with
+    sin-cos positions added."""
+    x = frames.to(getattr(torch, cfg.compute_dtype))
+    x = x + L.sincos_positions(x.shape[1], cfg.d_model, x.dtype,
+                               device=x.device)[None]
+    pos = torch.arange(x.shape[1], device=x.device)
+
+    def body(x, lp):
+        return BLK.apply_block(lp, x, cfg, "enc_attn_mlp", positions=pos,
+                               window=0)[0]
+
+    for lp in _unbind(params["encoder"], cfg.n_enc_layers):
+        x = checkpoint(body, x, lp, use_reentrant=False) \
+            if _remat(cfg, None) else body(x, lp)
+    return L.apply_norm(params["enc_ln_f"], x, cfg.norm)
+
+
+def _first_pool(cache):
+    """A paged cache's first page pool ("kp"), or None."""
+    if isinstance(cache, dict):
+        if "kp" in cache:
+            return cache["kp"]
+        for key in sorted(cache):
+            got = _first_pool(cache[key])
+            if got is not None:
+                return got
+    return None
+
+
+def forward(params, cfg, tokens, *, extra=None, window=None, cache=None,
+            cache_pos=None, page_table=None, groups: int = 1):
     """tokens: (B, S) integer. Returns (logits (B, S, V) float32, cache,
-    aux) like the JAX forward; aux is 0 for dense. With ``cache``
+    aux) like the JAX forward; aux is the MoE load-balancing loss summed
+    over the layers (0 without experts). ``extra``: the batch's other
+    inputs (``patches`` of a VLM, ``frames`` of the encoder-decoder),
+    projected by the cross-attention blocks. With ``cache``
     (``init_cache`` or ``init_paged_cache``) the tokens sit at absolute
     positions ``cache_pos`` (an int, default 0) onwards and are written
     into the cache in place (the returned cache is the same tree);
     ``page_table`` ((B, pages_per_slot) on the host) maps a paged cache's
     slots to its pool pages, resolved once for every layer."""
     plan = make_plan(cfg)
+    dt = getattr(torch, cfg.compute_dtype)
     B, S = tokens.shape
     x = L.embed(params["embed"], tokens, cfg)
     cache_pos = 0 if cache_pos is None else int(cache_pos)
     positions = cache_pos + torch.arange(S, device=tokens.device)
+    if cfg.pos_emb == "learned":
+        tbl = params["pos_table"].to(dt)
+        start = min(max(cache_pos, 0), tbl.shape[0] - S)
+        x = x + tbl[start:start + S][None]
+    elif cfg.pos_emb == "sincos":
+        x = x + L.sincos_positions(S, cfg.d_model, dt, device=x.device)[None]
+
+    cross_src = None
+    if plan.cross_src and extra is not None and plan.cross_src in extra:
+        src = extra[plan.cross_src]
+        if plan.enc_layers:
+            src = _run_encoder(params, cfg, src)
+        cross_src = src.to(dt)
+    elif plan.cross_src and cache is None:
+        raise ValueError(
+            f"{cfg.family} cross-attention needs the batch's "
+            f"{plan.cross_src!r} input (train/prefill) or a prefilled "
+            "cache (decode)")
+    # decode (no extra): the blocks read their cached cross K/V, projected
+    # once, at prefill
+
     # unbind each stack once: its backward stacks the per-layer grads in
     # one op (indexing layer by layer would build a full-size zero grad
     # per layer)
-    stacks = [_unbind(params[f"stack{i}"], plan.n_groups)
-              for i in range(len(plan.pattern))]
-    if page_table is not None and cache is not None:
-        kp = cache["cache0"]["attn"]["kp"]
+    stacks = [None if kind == "SHARED"
+              else _unbind(params[f"stack{i}"], plan.n_groups)
+              for i, kind in enumerate(plan.pattern)]
+    pool = _first_pool(cache) if page_table is not None else None
+    if pool is not None:
         page_table = L.page_index(page_table, cache_pos, S,
-                                  page_size=kp.shape[2], device=kp.device)
+                                  page_size=pool.shape[2], device=pool.device)
 
-    def group_body(x, lps, lcs):
+    def group_body(x, aux, lps, lcs):
         for i, kind in enumerate(plan.pattern):
-            x, _ = BLK.apply_block(lps[i], x, cfg, kind, positions=positions,
-                                   cache=lcs[i], cache_pos=cache_pos,
-                                   window=window, page_table=page_table)
-        return x
+            p = params["shared"] if kind == "SHARED" else lps[i]
+            x, _, a = BLK.apply_block(
+                p, x, cfg, _kind(plan, kind), positions=positions,
+                cache=lcs[i], cache_pos=cache_pos, kv_x=cross_src,
+                groups=groups, window=window, page_table=page_table)
+            aux = aux + a
+        return x, aux
 
+    aux = torch.zeros((), device=x.device)
     for g in range(plan.n_groups):
-        lps = [stack[g] for stack in stacks]
+        lps = [None if stack is None else stack[g] for stack in stacks]
         lcs = [None if cache is None
-               else tree.map(lambda a: a[g], cache[f"cache{i}"])
+               else tree.map_nested(lambda a: a[g], cache[f"cache{i}"])
                for i in range(len(plan.pattern))]
-        if cfg.remat and cache is None and torch.is_grad_enabled():
-            x = checkpoint(group_body, x, lps, lcs, use_reentrant=False)
+        if _remat(cfg, cache):
+            x, aux = checkpoint(group_body, x, aux, lps, lcs,
+                                use_reentrant=False)
         else:
-            x = group_body(x, lps, lcs)
+            x, aux = group_body(x, aux, lps, lcs)
     x = L.apply_norm(params["ln_f"], x, cfg.norm)
     logits = L.lm_logits(params.get("head", {}), params["embed"], x, cfg)
-    return logits, cache, torch.zeros((), device=logits.device)
+    return logits, cache, aux
 
 
 def _unbind(stack, n):
@@ -104,8 +215,9 @@ def _unbind(stack, n):
     return [tree.map(lambda t: t[g], per_leaf) for g in range(n)]
 
 
-def loss_fn(params, cfg, batch):
-    logits, _, aux = forward(params, cfg, batch["tokens"])
+def loss_fn(params, cfg, batch, *, groups: int = 1):
+    logits, _, aux = forward(params, cfg, batch["tokens"], extra=batch,
+                             groups=groups)
     ce = L.next_token_loss(logits, batch["tokens"])
     total = ce + cfg.router_aux_coef * aux
     return total, {"loss": ce, "aux": aux}
@@ -119,8 +231,8 @@ def init_cache(cfg, batch: int, cache_len: int, dtype, *, device,
     plan = make_plan(cfg)
     eff = min(cache_len, window) if window else cache_len
     return {f"cache{i}": _stacked(
-        lambda: BLK.init_block_cache(cfg, kind, batch, eff, dtype,
-                                     device=device), plan.n_groups)
+        lambda: BLK.init_block_cache(cfg, _kind(plan, kind), batch, eff,
+                                     dtype, device=device), plan.n_groups)
             for i, kind in enumerate(plan.pattern)}
 
 
@@ -144,7 +256,8 @@ def init_paged_cache(cfg, batch: int, cache_len: int, dtype, *,
             f"page_size {page_size} (the paged ring must tile exactly "
             "to stay bit-identical to the contiguous ring)")
     return {f"cache{i}": _stacked(
-        lambda: BLK.init_paged_block_cache(cfg, kind, batch, eff, dtype,
+        lambda: BLK.init_paged_block_cache(cfg, _kind(plan, kind), batch,
+                                           eff, dtype,
                                            n_pages=n_pages,
                                            page_size=page_size,
                                            device=device), plan.n_groups)
@@ -154,19 +267,21 @@ def init_paged_cache(cfg, batch: int, cache_len: int, dtype, *,
 def _stacked(make_one, n: int):
     """The tree ``make_one()`` with every leaf repeated along a new leading
     (n,) axis."""
-    return tree.map(lambda a: a[None].repeat((n,) + (1,) * a.dim()),
-                    make_one())
+    return tree.map_nested(
+        lambda a: a[None].repeat((n,) + (1,) * a.dim()), make_one())
 
 
-def prefill(params, cfg, tokens, *, window: int = 0, cache_len: int = 0):
-    """Run the whole prompt, building the decode cache. Returns (logits,
+def prefill(params, cfg, tokens, *, extra=None, window: int = 0,
+            cache_len: int = 0):
+    """Run the whole prompt (and ``extra``, the modality input of the
+    cross-attention families), building the decode cache. Returns (logits,
     cache); ``cache_len`` sizes the cache for the decode that follows
     (default: the prompt length)."""
     B, S = tokens.shape
     cache = init_cache(cfg, B, max(cache_len, S),
                        getattr(torch, cfg.compute_dtype),
                        device=tokens.device, window=window)
-    logits, cache, _ = forward(params, cfg, tokens, cache=cache,
+    logits, cache, _ = forward(params, cfg, tokens, extra=extra, cache=cache,
                                cache_pos=0, window=window or None)
     return logits, cache
 

@@ -1,6 +1,6 @@
-"""Architecture registry for the ported configs: ``get_arch(name)`` ->
-``Arch`` with ``init``, ``loss``, ``prefill`` and ``decode`` entry
-points."""
+"""Architecture registry: ``get_arch(name)`` -> ``Arch`` with ``init``,
+``loss``, ``prefill`` and ``decode`` entry points, over every config of
+the JAX registry."""
 from __future__ import annotations
 
 import importlib
@@ -9,7 +9,13 @@ from dataclasses import dataclass
 from ..configs.base import ModelConfig
 from . import model as M
 
-ARCH_NAMES = ["diloco_60m", "diloco_150m", "diloco_400m"]
+ARCH_NAMES = [
+    "whisper_large_v3", "deepseek_v2_lite_16b", "starcoder2_7b",
+    "llama_3_2_vision_90b", "stablelm_1_6b", "olmoe_1b_7b", "qwen3_32b",
+    "zamba2_2_7b", "command_r_35b", "xlstm_350m",
+    # the paper's own Chinchilla-style models
+    "diloco_60m", "diloco_150m", "diloco_400m",
+]
 
 
 @dataclass
@@ -21,20 +27,16 @@ class Arch:
         return M.init_params(cfg or self.cfg, generator=generator,
                              device=device)
 
-    def loss(self, params, batch, *, cfg=None):
-        return M.loss_fn(params, cfg or self.cfg, batch)
+    def loss(self, params, batch, *, cfg=None, groups: int = 1):
+        return M.loss_fn(params, cfg or self.cfg, batch, groups=groups)
 
     def prefill(self, params, batch, *, cfg=None, cache_len: int = 0):
-        """(logits, cache) of the prompt ``batch["tokens"]``; the other
-        families' extra inputs are not ported."""
+        """(logits, cache) of the prompt ``batch["tokens"]``; the batch's
+        other entries (``patches``, ``frames``) are the modality input."""
         cfg = cfg or self.cfg
-        extra = sorted(k for k in batch if k != "tokens")
-        if extra:
-            raise NotImplementedError(
-                f"serving inputs {extra} belong to other model families "
-                "(ROADMAP.md, port queue: other families)")
-        return M.prefill(params, cfg, batch["tokens"], window=cfg.window,
-                         cache_len=cache_len)
+        extra = {k: v for k, v in batch.items() if k != "tokens"}
+        return M.prefill(params, cfg, batch["tokens"], extra=extra or None,
+                         window=cfg.window, cache_len=cache_len)
 
     def decode(self, params, cache, tokens, pos, *, cfg=None,
                page_table=None):
@@ -48,9 +50,8 @@ class Arch:
 def _module(name: str):
     name = name.replace("-", "_").replace(".", "_")
     if name not in ARCH_NAMES:
-        raise NotImplementedError(
-            f"architecture {name!r} is not ported; the port has "
-            f"{ARCH_NAMES} (ROADMAP.md, port queue: other families)")
+        raise ValueError(f"unknown architecture {name!r}; the registry has "
+                         f"{ARCH_NAMES}")
     return importlib.import_module(f"repro_torch.configs.{name}")
 
 

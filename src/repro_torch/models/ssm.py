@@ -1,0 +1,159 @@
+"""Mamba2 (SSD, state-space duality) blocks, as the JAX ``models/ssm.py``.
+
+Training and prefill run the chunked SSD algorithm: a within-chunk
+quadratic (attention-like) term plus a linear recurrence between chunks,
+the JAX ``lax.scan`` over chunks a Python loop here. Decode is the exact
+one-token recurrence on a constant (B, H, N, P) state and a (conv
+width − 1)-deep causal-conv tail.
+"""
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+
+from .layers import _count, apply_norm, dense_init, ones_init, zeros_init
+
+
+def _dims(cfg):
+    d_inner = cfg.ssm_expand * cfg.d_model
+    H = cfg.ssm_heads or max(1, d_inner // 64)
+    return d_inner, H, cfg.ssm_state
+
+
+def init_mamba2(gen, cfg, *, device, lead=()):
+    D = cfg.d_model
+    d_inner, H, N = _dims(cfg)
+    conv_ch = d_inner + 2 * N
+    # in_proj -> [z(d_inner), x(d_inner), B(N), C(N), dt(H)]
+    d_in_total = 2 * d_inner + 2 * N + H
+    init = lambda shape, scale: dense_init(gen, shape, scale, device=device,
+                                           lead=lead)
+    return {"in_proj": init((D, d_in_total), cfg.init_scale),
+            "out_proj": init((d_inner, D), cfg.init_scale),
+            "conv_w": init((cfg.ssm_conv, conv_ch), 0.2),
+            "conv_b": zeros_init((conv_ch,), device=device, lead=lead),
+            "A_log": init((H,), 1.0),
+            "D": ones_init((H,), device=device, lead=lead),
+            "dt_bias": zeros_init((H,), device=device, lead=lead),
+            "norm": ones_init((d_inner,), device=device, lead=lead)}
+
+
+def _causal_conv(x, w, b, tail=None):
+    """Depthwise causal conv with SiLU. x: (B, T, C); w: (W, C); tail:
+    (B, W−1, C), the carried history (zeros when None). Returns (y,
+    new_tail)."""
+    W = w.shape[0]
+    if tail is None:
+        tail = x.new_zeros((x.shape[0], W - 1, x.shape[-1]))
+    xp = torch.cat([tail, x], dim=1)
+    T = x.shape[1]
+    y = sum(xp[:, i:i + T] * w[i] for i in range(W)) + b
+    new_tail = xp[:, -(W - 1):] if W > 1 else tail
+    return F.silu(y), new_tail
+
+
+def ssd_chunked(x, dt, A, Bm, Cm, Dp, chunk: int):
+    """SSD scan. x: (B, T, H, P); dt: (B, T, H) (after softplus); A: (H,)
+    < 0; Bm, Cm: (B, T, N); Dp: (H,). Returns y (B, T, H, P) and the final
+    state (B, H, N, P) float32. A T that is no multiple of ``chunk`` runs
+    as chunks of 1 (T < chunk) or one chunk of T, as the JAX package does.
+    The three-operand contractions go pairwise, never through a
+    (b, c, i, j, h, p) tensor."""
+    Bsz, T, H, P = x.shape
+    N = Bm.shape[-1]
+    if T % chunk != 0:
+        chunk = 1 if T < chunk else T
+    nc, cs = T // chunk, chunk
+
+    dA = dt * A[None, None]                                   # (B,T,H) <= 0
+    xdt = x * dt[..., None]
+    r = lambda a: a.reshape(Bsz, nc, cs, *a.shape[2:])
+    dAc, xc, Bc, Cc = r(dA), r(xdt), r(Bm), r(Cm)
+    cum = torch.cumsum(dAc, dim=2)                            # (B,nc,cs,H)
+    cum_end = cum[:, :, -1]                                   # (B,nc,H)
+
+    # within-chunk (diagonal) term; masked BEFORE exp (an unmasked seg > 0
+    # would overflow and poison the backward with inf · 0)
+    seg = cum[:, :, :, None, :] - cum[:, :, None, :, :]       # (B,nc,i,j,H)
+    ii = torch.arange(cs, device=x.device)
+    causal = (ii[:, None] >= ii[None, :])[None, None, :, :, None]
+    seg = torch.where(causal, seg, torch.full((), -torch.inf,
+                                              device=x.device))
+    Lmat = torch.exp(seg)
+    _count(4)
+    scores = torch.einsum("bcin,bcjn->bcij", Cc, Bc).float()
+    ydiag = torch.einsum("bcijh,bcjhp->bcihp", scores[..., None] * Lmat,
+                         xc).float()
+
+    # each chunk's input state: sum_j exp(cum_end − cum_j) B_j (dt_j x_j)
+    decay_in = torch.exp(cum_end[:, :, None] - cum)           # (B,nc,cs,H)
+    chunk_states = torch.einsum("bcjn,bcjhp->bchnp", Bc,
+                                decay_in[..., None] * xc).float()
+
+    # the recurrence between chunks: each chunk reads the state before it
+    state = x.new_zeros((Bsz, H, N, P), dtype=torch.float32)
+    prev = []
+    for c in range(nc):
+        prev.append(state)
+        state = state * torch.exp(cum_end[:, c])[..., None, None] \
+            + chunk_states[:, c]
+    prev_states = torch.stack(prev, 1)                        # (B,nc,H,N,P)
+
+    # off-diagonal: y_i += exp(cum_i) C_i . state_prev
+    yoff = torch.einsum("bcin,bchnp->bcihp", Cc, prev_states).float() \
+        * torch.exp(cum)[..., None]
+    y = (ydiag + yoff).reshape(Bsz, T, H, P)
+    y = y + x * Dp[None, None, :, None]
+    return y.to(x.dtype), state
+
+
+def ssd_decode_step(x, dt, A, Bm, Cm, Dp, state):
+    """One-token recurrence. x: (B, 1, H, P); dt: (B, 1, H); Bm, Cm: (B, 1,
+    N); state: (B, H, N, P). Returns (y (B, 1, H, P), the new state)."""
+    dA = torch.exp(dt[:, 0] * A[None])                        # (B,H)
+    upd = torch.einsum("bn,bhp->bhnp", Bm[:, 0],
+                       dt[:, 0][..., None] * x[:, 0]).float()
+    state = state * dA[..., None, None] + upd
+    y = torch.einsum("bn,bhnp->bhp", Cm[:, 0], state).float()
+    y = y + x[:, 0] * Dp[None, :, None]
+    return y[:, None].to(x.dtype), state
+
+
+def apply_mamba2(p, x, cfg, *, state=None, conv_tail=None):
+    """x: (B, T, D). With ``state`` and T == 1 the decode recurrence; else
+    the chunked scan from a zero state (train, or a prefill, whose conv
+    still starts from ``conv_tail``). Returns (out, (new_state,
+    new_conv_tail))."""
+    dt_ = x.dtype
+    d_inner, H, N = _dims(cfg)
+    _count(2)                               # in_proj, out_proj
+    proj = x @ p["in_proj"].to(dt_)
+    z = proj[..., :d_inner]
+    conv_in = proj[..., d_inner:2 * d_inner + 2 * N]          # [x, B, C]
+    dtr = proj[..., 2 * d_inner + 2 * N:]
+    conv_out, new_tail = _causal_conv(conv_in, p["conv_w"].to(dt_),
+                                      p["conv_b"].to(dt_), conv_tail)
+    xc = conv_out[..., :d_inner]
+    Bm = conv_out[..., d_inner:d_inner + N]
+    Cm = conv_out[..., d_inner + N:]
+    xh = xc.reshape(*xc.shape[:2], H, d_inner // H)
+    dt_soft = F.softplus(dtr.float() + p["dt_bias"].float())
+    A = -torch.exp(p["A_log"].float())
+    Dp = p["D"].float()
+
+    if state is not None and x.shape[1] == 1:
+        y, new_state = ssd_decode_step(xh, dt_soft, A, Bm, Cm, Dp, state)
+    else:
+        y, new_state = ssd_chunked(xh, dt_soft, A, Bm, Cm, Dp, cfg.ssm_chunk)
+    y = y.reshape(*y.shape[:2], d_inner)
+    # gated RMSNorm (mamba2 style), then the down-projection
+    y = apply_norm({"scale": p["norm"]}, y * F.silu(z), "rmsnorm")
+    return y @ p["out_proj"].to(dt_), (new_state, new_tail)
+
+
+def init_mamba2_state(cfg, batch: int, dtype=torch.float32, *, device):
+    d_inner, H, N = _dims(cfg)
+    conv_ch = d_inner + 2 * N
+    return (torch.zeros((batch, H, N, d_inner // H), device=device),
+            torch.zeros((batch, cfg.ssm_conv - 1, conv_ch), dtype=dtype,
+                        device=device))

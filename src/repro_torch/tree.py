@@ -52,6 +52,19 @@ def map(fn, tree, *rest):
     return fn(tree, *rest)
 
 
+def map_nested(fn, tree, *rest):
+    """``map`` that also walks tuples and lists (not NamedTuples), as a
+    decode cache holds its recurrent states: the xLSTM cells' (C, n, m)
+    and (c, n, h, m)."""
+    if isinstance(tree, dict):
+        return {key: map_nested(fn, tree[key], *(r[key] for r in rest))
+                for key in tree}
+    if isinstance(tree, (tuple, list)) and not hasattr(tree, "_fields"):
+        return type(tree)(map_nested(fn, x, *(r[i] for r in rest))
+                          for i, x in enumerate(tree))
+    return fn(tree, *rest)
+
+
 def _children(t):
     """[(path entry, child), ...] of an inner node, or None for a leaf."""
     if isinstance(t, dict):

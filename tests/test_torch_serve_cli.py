@@ -1,7 +1,9 @@
 """The port's server entry point (``python -m repro_torch.launch.serve``)
 on the CPU: a static batch, the continuous engine (paged and contiguous),
 packed int4 weights from a ``save_packed`` file, the refusal of
-``--device cuda`` without a GPU and of the other families' configs. One
+``--device cuda`` without a GPU, and the other families' configs: each
+serves on the static path; the engine refuses the VLM's and the
+encoder-decoder's, which need a modality input. One
 run goes through a subprocess (the module's entry point); the others
 call ``run`` with the parsed flags."""
 from __future__ import annotations
@@ -69,9 +71,21 @@ def test_packed_checkpoint_serves(tmp_path, capsys):
               "--contiguous-cache"])
 
 
-def test_cuda_without_gpu_and_other_families_are_refused():
+def test_cuda_without_gpu_and_other_families_are_refused(capsys):
+    """The GPU half: ``--device cuda`` without a GPU is refused. The
+    family half: a hybrid (zamba2) and an encoder-decoder (whisper) smoke
+    config serve on the static path, zamba2 through the engine too (one
+    answer); the engine refuses whisper as JAX's does."""
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="--device cpu"):
             serve.run(serve.make_parser().parse_args(["--gen", "2"]))
-    with pytest.raises(SystemExit, match="other families"):
-        _run(["--arch", "zamba2_2_7b"])
+    static = _run(["--arch", "zamba2_2_7b"])
+    engine = _run(["--arch", "zamba2_2_7b", "--continuous"])
+    assert static.shape == (3, 6)
+    assert static.min() >= 0 and static.max() < 256
+    np.testing.assert_array_equal(engine, static)
+    whisper = _run(["--arch", "whisper_large_v3"])
+    assert whisper.shape == (3, 6) and whisper.max() < 256
+    assert capsys.readouterr().out.count("arch=") == 3
+    with pytest.raises(ValueError, match="learned absolute"):
+        _run(["--arch", "whisper_large_v3", "--continuous"])

@@ -209,6 +209,10 @@ def test_port_imports_no_jax():
         "       'repro_torch.core.gossip',\n"
         "       'repro_torch.launch.batching',\n"
         "       'repro_torch.launch.serve',\n"
+        "       'repro_torch.models.mla', 'repro_torch.models.moe',\n"
+        "       'repro_torch.models.ssm', 'repro_torch.models.xlstm',\n"
+        "       'repro_torch.configs.olmoe_1b_7b',\n"
+        "       'repro_torch.configs.whisper_large_v3',\n"
         "       'repro_torch.obs.trace',\n"
         "       'repro_torch.resilience.guard',\n"
         "       'repro_torch.resilience.harness',\n"
