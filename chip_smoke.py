@@ -303,6 +303,16 @@ Phases, each printing one JSON line; any failure exits non-zero:
               xlstm_350m (4 requests, prompts 16-64, 16 tokens), paged and
               contiguous from f32 weights. Each prints ms per decode tick,
               prefill ms per request, decode tokens/s and peak memory.
+ 34. dryrun   the dry run's counters against this run: ``op_cost`` of one
+              diloco_150m replica step (B 8, S 1024, remat off) on meta
+              tensors within 0.1 % of phase 4's FLOP count (remat on
+              printed); a ``CountingGroup``'s traffic over phase 21's int4
+              round (rank 0 of 2, on meta) equal to each rank's measured
+              ``PodGroup.traffic``; the step's peak memory estimate (its
+              arguments plus the meta run's peak of live storage) within
+              25 % of ``max_memory_allocated`` over a real step on the card.
+              Phases 4 and 7 also print the dry run's 6·N model FLOPs per
+              token beside their own count.
 
 ``python3 chip_smoke.py --cards 4`` runs only phases 22 and 21 across
 four cards: one pod rank and one replica per card, over NCCL.
@@ -337,6 +347,9 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
+# the card's peaks and each kernel's operations per element: the port's own
+from repro_torch.launch import comm_analysis as CA   # noqa: E402
+from repro_torch.launch.op_cost import LEAF_FLOPS     # noqa: E402
 
 K, H, ROUNDS, BATCH, SEQ = 2, 4, 2, 8, 1024
 N_LEAVES = 12
@@ -360,41 +373,39 @@ FLASH_CASES = [FLASH_LAYER] + [
     (2, 4, 2, (333, 1000), 128, True, 0),
     (1, 4, 2, (461, 777), 64, False, 0),
     (2, 8, 2, 700, 128, True, 200)]
-# H100 device-memory rates (NVIDIA data sheets), bytes/s, by card name
+# H100 device-memory rates (NVIDIA data sheets), bytes/s, by card name; the
+# SXM part's rate and peaks are the port's (launch/comm_analysis.py)
 BANDWIDTH = (("H100 PCIe", 2.0e12), ("H100 NVL", 3.9e12), ("H200", 4.8e12),
-             ("H100", 3.35e12))
-PEAK_F32 = 67e12       # f32 FLOP/s outside the tensor cores, H100 SXM
-PEAK_TF32 = 495e12     # dense TF32 FLOP/s of the tensor cores, H100 SXM
-ADAMW_FLOPS, NESTEROV_FLOPS = 16, 6      # per element, kernels/csrc
+             ("H100", CA.HBM_BW))
+PEAK_F32 = CA.PEAK_F32      # f32 FLOP/s outside the tensor cores, H100 SXM
+PEAK_TF32 = CA.PEAK_TF32    # dense TF32 FLOP/s of the tensor cores, H100 SXM
+# each kernel's operations per element (entry, or entry and replica) are
+# the dry run's (``op_cost.LEAF_FLOPS``, with the reasons)
+ADAMW_FLOPS, NESTEROV_FLOPS = LEAF_FLOPS["fused_adamw"], \
+    LEAF_FLOPS["outer_nesterov"]
 ADAMW_BYTES, NESTEROV_BYTES = 28, 20     # 4 reads + 3 writes; 3 + 2
 # bf16 p, g, m, v read and p, m, v written; bf16 g, m, v + f32 master read,
 # f32 master + bf16 m, v, p written
 BF16_ADAMW_BYTES, MIXED_ADAMW_BYTES = 14, 20
 # sign_prune per element of the f32 deltas: read once, written once; its
-# operations, at most 60 an entry, those of a warp row: |x|, two selects
-# and adds and the max (4), 26 bisection steps of a compare and an add
-# (52), the mask (4) (a long row's entry takes fewer: the statistics,
-# three count passes of a compare or two, the first also binning it, the
-# mask). 60 at 67 TFLOP/s is below the bytes at 3.35 TB/s: the bound is
-# bytes.
-PRUNE_BYTES, PRUNE_OPS = 8, 60
+# 60 operations at 67 TFLOP/s are below the bytes at 3.35 TB/s: the bound
+# is bytes.
+PRUNE_BYTES, PRUNE_OPS = 8, LEAF_FLOPS["sign_prune"]
 PRUNE_FRAC = 0.5
-# fake_quant per element: read once, written once; int4's operations: |x|,
-# the max, the divide, rint, two compares of the clip and the multiply (7;
-# the scale's one multiply per block is not counted); bf16's: the rounding
-QUANT_BYTES, QUANT_OPS = 8, {"int4": 7, "bfloat16": 1}
-# the packed int4 wire's operations per entry: the sender's |x|, max,
-# divide, rint, two compares of the clip, the NaN test and the shift-or
-# (8); the receiver's shift, mask, sign extension and multiply (4)
-PACK_OPS, UNPACK_OPS = 8, 4
+# fake_quant per element: read once, written once
+QUANT_BYTES = 8
+QUANT_OPS = {"int4": LEAF_FLOPS["fake_quant_int4"],
+             "bfloat16": LEAF_FLOPS["fake_quant_bf16"]}
+# the packed int4 wire's sender and receiver
+PACK_OPS, UNPACK_OPS = LEAF_FLOPS["quantize_pack_int4"], \
+    LEAF_FLOPS["unpack_dequantize_int4"]
 N_150M = 217_012_096        # entries of diloco_150m's flat tree
-# unpack_dequantize_reduce's operations per entry and replica: the nibble
-# shift and mask, the sign extension (2), the scale's and the mask's
-# multiplies, the add (6); quantize_int4's as the wire sender's (8);
-# dequantize_int4's conversion and multiply (2); pack_int4's mask and
-# shift-or per code (2); unpack_int4's shift, mask and sign extension (4)
-REDUCE_OPS, QUANT_INT4_OPS, DEQUANT_OPS = 6, 8, 2
-PACK_CODE_OPS, UNPACK_CODE_OPS = 2, 4
+# the reduce per entry and replica; the unfused codecs per entry or code
+REDUCE_OPS, QUANT_INT4_OPS, DEQUANT_OPS = (
+    LEAF_FLOPS[n] for n in ("unpack_dequantize_reduce", "quantize_int4",
+                            "dequantize_int4"))
+PACK_CODE_OPS, UNPACK_CODE_OPS = LEAF_FLOPS["pack_int4"], \
+    LEAF_FLOPS["unpack_int4"]
 QUANT_KERNELS = ("quantize_pack_int4", "unpack_dequantize_int4",
                  "unpack_dequantize_reduce", "quantize_int4",
                  "dequantize_int4", "pack_int4", "unpack_int4")
@@ -786,6 +797,23 @@ def phase_smoke(torch, dev):
          "inner_loss_cpu": loss_cpu, "rtol": 1e-4, "atol": 1e-5})
 
 
+def flops_per_token(cfg, n_params: int) -> int:
+    """Model FLOPs per token (PaLM's count, no recompute): 6 per matmul
+    weight (all but the embedding gather) + 12·L·S·H·hd of attention (the
+    full S·S) at SEQ tokens."""
+    return 6 * (n_params - cfg.vocab_size * cfg.d_model) \
+        + 12 * cfg.n_layers * SEQ * cfg.n_heads * cfg.resolved_head_dim
+
+
+def dryrun_flops_per_token(n_params: int) -> float:
+    """The dry run's model FLOPs (6·N·D, ``dryrun.model_flops``) per token
+    of a BATCH × SEQ training step."""
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.launch import dryrun
+    return dryrun.model_flops(n_params, n_params, ShapeConfig(
+        "step", SEQ, BATCH, "train")) / (BATCH * SEQ)
+
+
 def phase_train(torch, dev):
     """The main path at full width, through the trainer's entry point.
     Returns {kernel name: launches}."""
@@ -803,20 +831,17 @@ def phase_train(torch, dev):
     losses, _ = check_records(records, "train", 0.0)
     trace = check_trace("train")
     last = timing["rounds"][-1]
-    # model FLOPs per token (PaLM's count, no recompute): 6 per matmul
-    # weight (all but the embedding gather) + 12·L·S·H·hd of attention
     arch = get_arch("diloco_150m")
-    cfg = arch.cfg
-    n_matmul = sum(math.prod(t.shape) for t in tree.leaves(arch.init(
-        generator=None, device="meta"))) - cfg.vocab_size * cfg.d_model
-    flops_tok = 6 * n_matmul + 12 * cfg.n_layers * SEQ * cfg.n_heads \
-        * cfg.resolved_head_dim
+    n_params = sum(math.prod(t.shape) for t in tree.leaves(arch.init(
+        generator=None, device="meta")))
+    flops_tok = flops_per_token(arch.cfg, n_params)
     tok_s = K * H * BATCH * SEQ / last["inner_s"]
     say({"phase": "train", "argv": argv, "launches": launches,
          "trace": trace,
          "losses": losses, "data_setup_s": timing["data_setup_s"],
          "rounds": timing["rounds"],
          "tokens_per_s": tok_s, "model_flops_per_token": flops_tok,
+         "dryrun_model_flops_per_token": dryrun_flops_per_token(n_params),
          "mfu_vs_f32_peak": tok_s * flops_tok / PEAK_F32,
          "inner_step_ms": last["inner_s"] * 1e3 / (K * H),
          "outer_step_ms": last["outer_s"] * 1e3,
@@ -1126,14 +1151,13 @@ def phase_train_400m(torch, dev):
                for n in ("inner_loss", "val_loss")):
         raise SystemExit(f"bad round records: {rounds}")
     # model FLOPs per token as in phase 4 (no recompute, full S·S)
-    n_matmul = n_params - cfg.vocab_size * cfg.d_model
-    flops_tok = 6 * n_matmul + 12 * L * SEQ * cfg.n_heads \
-        * cfg.resolved_head_dim
+    flops_tok = flops_per_token(cfg, n_params)
     tok_s = K * H * BATCH * SEQ / rounds[-1]["inner_s"]
     say({"phase": "train_400m", "argv": argv, "use_pallas": True,
          "params": n_params, "launches": launches, "rounds": rounds,
          "data_setup_s": data_setup_s, "tokens_per_s": tok_s,
          "model_flops_per_token": flops_tok,
+         "dryrun_model_flops_per_token": dryrun_flops_per_token(n_params),
          "mfu_vs_f32_peak": tok_s * flops_tok / PEAK_F32,
          "inner_step_ms": rounds[-1]["inner_s"] * 1e3 / (K * H),
          "outer_step_ms": rounds[-1]["outer_s"] * 1e3, "wall_s": wall_s,
@@ -2190,7 +2214,8 @@ def sharded_launches(params, P, H_, tau, rounds, dtype, k_loc,
 def phase_train_sharded(torch, dev, pods=2, k=K):
     """Slice 6's path at full width through the trainer on ``pods`` ranks
     of one replica each (``k`` replicas), then float32 rounds. Returns
-    {kernel name: launches} of unpack_dequantize_reduce."""
+    ({kernel name: launches} of unpack_dequantize_reduce, the int4 run's
+    ``PodGroup.traffic`` of each rank)."""
     from repro_torch.models.registry import get_arch
 
     meta = get_arch("diloco_150m").init(generator=None, device="meta")
@@ -2266,9 +2291,9 @@ def phase_train_sharded(torch, dev, pods=2, k=K):
              "parent_max_memory_allocated_GB":
                  torch.cuda.max_memory_allocated(dev) / 1e9,
              "wall_s": wall_s})
-        out[label] = launches
-    return {"unpack_dequantize_reduce":
-            out["int4"]["unpack_dequantize_reduce"]}
+        out[label] = launches, [r["traffic"] for r in ranks]
+    return ({"unpack_dequantize_reduce":
+             out["int4"][0]["unpack_dequantize_reduce"]}, out["int4"][1])
 
 
 def phase_smoke_sharded(torch, dev, pods=2):
@@ -3596,6 +3621,145 @@ def phase_serve_families(torch, dev):
             "unpack_dequantize_int4": served["unpack_dequantize_int4"]}
 
 
+# phase 34's tolerances: the counted FLOPs of a replica step against phase
+# 4's formula, the meta run's peak memory estimate against the card's
+DRYRUN_FLOPS_TOL, DRYRUN_MEMORY_TOL = 1e-3, 0.25
+# the traffic keys of a round's collectives (no control calls)
+DRYRUN_TRAFFIC = ("all_reduce", "all_gather", "gather_wire", "exchange",
+                  "wire_bytes", "metric_bytes")
+
+
+def replica_step(torch, remat: bool, device):
+    """(step, args_of(gen)) of one diloco_150m replica step at BATCH ×
+    SEQ: the trainer's inner step (``diloco.make_inner_step``) and a fresh
+    (params, AdamW state, batch) on ``device``."""
+    from repro_torch.core import diloco
+    from repro_torch.launch import train
+    from repro_torch.models.registry import get_arch
+    from repro_torch.optim import adamw
+
+    arch = get_arch("diloco_150m")
+    cfg = arch.cfg.replace(remat=remat)
+    tcfg = train.build(train.make_parser().parse_args(
+        ["--full", "--arch", "diloco_150m", "--batch", str(BATCH), "--seq",
+         str(SEQ)]), device, sampler=False)[3]
+    step = diloco.make_inner_step(lambda p, b: arch.loss(p, b, cfg=cfg),
+                                  tcfg)
+
+    def args_of(gen=None):
+        params = arch.init(generator=gen, device=device)
+        toks = torch.zeros((BATCH, SEQ), dtype=torch.int64, device=device)
+        return params, adamw.init(params), {"tokens": toks}
+
+    return step, args_of
+
+
+def dryrun_counts(torch) -> dict:
+    """Phase 34's counts, on meta tensors (no card): ``op_cost`` of one
+    replica step with remat off and on, and the ``CountingGroup`` traffic
+    of phase 21's int4 round on rank 0 of 2."""
+    from repro_torch import tree
+    from repro_torch.core import diloco, streaming
+    from repro_torch.launch import op_cost, train
+    from repro_torch.models.registry import get_arch
+
+    arch = get_arch("diloco_150m")
+    meta = arch.init(generator=None, device="meta")
+    n_params = sum(t.numel() for t in tree.leaves(meta))
+    want_flops = flops_per_token(arch.cfg, n_params) * BATCH * SEQ
+
+    costs = {}
+    for remat in (False, True):
+        step, args_of = replica_step(torch, remat, "meta")
+        costs[remat] = op_cost.op_cost(step, *args_of(), 1)
+
+    # phase 21's int4 round, one rank of two, counted on meta tensors
+    argv = ["--full", "--arch", "diloco_150m", "--transport", "sharded",
+            "--pods", "2", *STREAM_FLAGS, "--rounds", str(ROUNDS), "--k",
+            str(K), "--H", str(H), "--batch", str(BATCH), "--seq", str(SEQ)]
+    _, cfg, dcfg, tcfg, _ = train.build(train.make_parser().parse_args(argv),
+                                        "meta", sampler=False)
+    group = CA.CountingGroup(0, 2)
+    rnd = diloco.make_round(
+        lambda p, b: arch.loss(p, b, cfg=cfg),
+        lambda gen, n, s: torch.zeros((K, n, s), dtype=torch.int64,
+                                      device="meta"),
+        dcfg, tcfg, total_steps=tcfg.total_steps, batch_size=BATCH,
+        seq_len=SEQ, group=group)
+    with op_cost.counting():
+        state = streaming.init_state(meta, dcfg, group=group)
+        for _ in range(ROUNDS):
+            state, _ = rnd(state, None)
+    return {"costs": costs, "want_flops": want_flops,
+            "traffic": {n: group.traffic[n] for n in DRYRUN_TRAFFIC}}
+
+
+def phase_dryrun(torch, dev, sharded_traffic):
+    """The dry run's counts (``dryrun_counts``) held against this run: the
+    FLOPs of one diloco_150m replica step (B 8, S 1024, remat off) against
+    phase 4's count, the bytes of phase 21's int4 round counted by a
+    ``CountingGroup`` against that phase's measured ``PodGroup.traffic``,
+    and the step's peak memory estimate against
+    ``torch.cuda.max_memory_allocated`` around a real step on the card."""
+    from repro_torch import tree
+
+    t0 = time.perf_counter()
+    got = dryrun_counts(torch)
+    costs, want_flops, counted = got["costs"], got["want_flops"], \
+        got["traffic"]
+    ratio = costs[False]["flops"] / want_flops
+    if abs(ratio - 1.0) > DRYRUN_FLOPS_TOL:
+        raise SystemExit(f"dryrun: counted {costs[False]['flops']} FLOPs, "
+                         f"phase 4's count {want_flops} (ratio {ratio})")
+    measured = [{n: t.get(n, 0) for n in DRYRUN_TRAFFIC}
+                for t in sharded_traffic]
+    if any(m != counted for m in measured):
+        raise SystemExit(f"dryrun: counted traffic {counted}, phase 21 "
+                         f"measured {measured}")
+
+    # the peak memory of a real replica step on the card
+    step, args_of = replica_step(torch, False, dev)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    base = torch.cuda.memory_allocated(dev)
+    p, st, b = args_of(torch.Generator(device=dev).manual_seed(0))
+    arg_bytes = sum(t.numel() * t.element_size() for t in
+                    tree.leaves(p) + tree.leaves(st.m) + tree.leaves(st.v)
+                    + [b["tokens"]])
+    step(p, st, b, 1)                       # the workspaces, once
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    step(p, st, b, 2)
+    torch.cuda.synchronize()
+    measured_peak = torch.cuda.max_memory_allocated(dev) - base
+    estimate = arg_bytes + costs[False]["peak_live_bytes"]
+    rel = estimate / measured_peak - 1.0
+    del p, st, b
+    torch.cuda.empty_cache()
+    if abs(rel) > DRYRUN_MEMORY_TOL:
+        raise SystemExit(f"dryrun: peak estimate {estimate} B, measured "
+                         f"{measured_peak} B ({rel:+.3f})")
+    say({"phase": "dryrun", "arch": "diloco_150m", "batch": BATCH,
+         "seq": SEQ, "counted_flops": costs[False]["flops"],
+         "phase4_flops": want_flops, "flops_ratio": ratio,
+         "flops_tol": DRYRUN_FLOPS_TOL,
+         "remat_flops_ratio": costs[True]["flops"] / want_flops,
+         "dots": costs[False]["dots"],
+         "fused_leaves": costs[False]["leaves"],
+         "hbm_bytes": costs[False]["bytes"],
+         "hbm_bytes_min": costs[False]["bytes_min"],
+         "counted_traffic": counted, "phase21_traffic": measured,
+         "wire_bytes_per_round_per_replica":
+             counted["wire_bytes"] // (ROUNDS * (K // 2)),
+         "argument_bytes": arg_bytes,
+         "peak_live_bytes": costs[False]["peak_live_bytes"],
+         "peak_estimate_bytes": estimate,
+         "peak_measured_bytes": measured_peak, "peak_rel_err": rel,
+         "memory_tol": DRYRUN_MEMORY_TOL,
+         "remat_peak_live_bytes": costs[True]["peak_live_bytes"],
+         "elapsed_s": time.perf_counter() - t0})
+
+
 def main_cards(torch, dev, cards: int) -> int:
     """``--cards N`` (N > 1): only the sharded transport across N cards,
     one pod rank and one replica per card over NCCL: phase 22 against
@@ -3650,7 +3814,8 @@ def main() -> int:
     codec_rows = phase_codec_kernels(torch, dev)
     launches.update({r["name"]: r["launches"] for r in codec_rows[1:]})
     rows += codec_rows
-    launches.update(phase_train_sharded(torch, dev))
+    sharded, sharded_traffic = phase_train_sharded(torch, dev)
+    launches.update(sharded)
     phase_smoke_sharded(torch, dev)
     crash = CrashRun()
     try:
@@ -3667,6 +3832,7 @@ def main() -> int:
     phase_families_smoke(torch, dev)
     phase_train_zamba2(torch, dev)
     families = phase_serve_families(torch, dev)
+    phase_dryrun(torch, dev, sharded_traffic)
     for row in rows:
         row["launches"] = launches[row["name"]]
         if row["name"] in serve:        # their launches on the serve paths

@@ -100,6 +100,26 @@ class ModelConfig:
 
 
 @dataclass(frozen=True)
+class ShapeConfig:
+    name: str
+    seq_len: int
+    global_batch: int
+    kind: str                   # train | prefill | decode
+
+
+# The four assigned input shapes.
+SHAPES: dict[str, ShapeConfig] = {
+    "train_4k": ShapeConfig("train_4k", 4_096, 256, "train"),
+    "prefill_32k": ShapeConfig("prefill_32k", 32_768, 32, "prefill"),
+    "decode_32k": ShapeConfig("decode_32k", 32_768, 128, "decode"),
+    "long_500k": ShapeConfig("long_500k", 524_288, 1, "decode"),
+}
+
+# Sliding window used by full-attention archs for long_500k.
+LONG_CONTEXT_WINDOW = 4_096
+
+
+@dataclass(frozen=True)
 class DiLoCoConfig:
     """Algorithm 1 hyper-parameters (paper defaults in comments)."""
     k: int = 8                  # number of replicas / islands

@@ -62,7 +62,7 @@ from .. import tree
 from ..configs.base import DiLoCoConfig, TrainConfig
 from ..kernels import ops as kops
 from ..optim import adamw, precision
-from . import diloco, fragments, outer_opt
+from . import diloco, fragments, outer_opt, pod_collectives
 
 
 class GossipState(NamedTuple):
@@ -231,6 +231,51 @@ def mix_round(est, partner, mask_tree, *, mix: float, ok=None,
         return g + mix * sel * m[None] * (recv - g)
 
     return tree.map(leaf, est, mask_tree)
+
+
+def pod_mix_round(est_band, partner, mask_tree, *, mix: float, group,
+                  ok=None, quant_dtype: str = "float32",
+                  kernel_mode: str = "auto"):
+    """``mix_round`` on a pod group: this rank holds the band [r·k_loc,
+    (r+1)·k_loc) of the (k, ...) estimates, k_loc = k / pods, and the
+    partners' (transport-quantized) estimates arrive by
+    ``group.exchange``: ONE exchange a leaf with the rank holding the
+    partner band (a point-to-point collective-permute, no collective over
+    all pods), none where the partners lie in the rank's own band. The
+    partner map must send the band to one band, as a butterfly stage
+    does. Returns this rank's band of ``mix_round``'s result, bit for
+    bit."""
+    leaves = tree.leaves(est_band)
+    k_loc, dev = leaves[0].shape[0], leaves[0].device
+    partner = np.asarray(partner, np.int64)
+    k = partner.shape[0]
+    pod_collectives.check_bands(k, group.pods)
+    r0 = pod_collectives.local_band(k_loc, group.rank)
+    band = partner[r0:r0 + k_loc]
+    peer = int(band[0]) // k_loc
+    if (band // k_loc != peer).any():
+        raise ValueError(f"rank {group.rank}'s partners {band.tolist()} "
+                         "span several bands: a pod exchange needs a "
+                         "band-to-band partner map (a butterfly stage)")
+    ok = np.ones((k,), np.float32) if ok is None else np.asarray(
+        ok, np.float32)
+    gate = (ok * (partner != np.arange(k)).astype(np.float32))[
+        r0:r0 + k_loc]
+    gate_t = torch.from_numpy(gate).to(dev)
+    idx_t = torch.from_numpy(band - peer * k_loc).to(dev)
+
+    def leaf(g, m):
+        payload = g
+        if quant_dtype != "float32":
+            payload = kops.quant_roundtrip(g, quant_dtype, mode=kernel_mode,
+                                           stacked=True)
+        recv = group.exchange(payload, peer).index_select(0, idx_t)
+        sel = gate_t.reshape((k_loc,) + (1,) * (g.dim() - 1))
+        m = torch.as_tensor(np.asarray(m, np.float32), device=dev).to(
+            g.dtype).expand(g.shape[1:])
+        return g + mix * sel * m[None] * (recv - g)
+
+    return tree.map(leaf, est_band, mask_tree)
 
 
 def butterfly_swap(stage: int, k: int):

@@ -64,9 +64,15 @@ class PodGroup:
     this rank contributes: ``wire_bytes`` for the outer gradients'
     collectives, ``metric_bytes`` for the round metrics' means; the
     resilience layer's agreements (barriers, rank 0's decisions, digest
-    checks) count as ``control`` calls and ``control_bytes``. ``probe``
+    checks) count as ``control`` calls and ``control_bytes``; a gossip
+    ``exchange`` counts as an ``exchange`` call and wire bytes. ``probe``
     (an ``OverlapProbe``, None unless a trace asks for it) records when
-    each of the rounds' collectives is issued and consumed."""
+    each of the rounds' collectives is issued and consumed.
+
+    The wire collectives communicate in ``_all_reduce``, ``_all_gather``
+    and ``_exchange``, so a group that only counts (``launch/
+    comm_analysis.CountingGroup``) keeps this accounting by overriding
+    them."""
 
     def __init__(self, rank: int, pods: int, *, device, backend: str,
                  staged: bool = False, group=None):
@@ -74,8 +80,8 @@ class PodGroup:
         self.device = torch.device(device)
         self.backend, self.staged, self.group = backend, bool(staged), group
         self.traffic = dict.fromkeys(
-            ("all_reduce", "all_gather", "gather_wire", "wire_bytes",
-             "metric_bytes", "control", "control_bytes"), 0)
+            ("all_reduce", "all_gather", "gather_wire", "exchange",
+             "wire_bytes", "metric_bytes", "control", "control_bytes"), 0)
         self.probe: OverlapProbe | None = None
 
     def _host(self, x):
@@ -90,7 +96,7 @@ class PodGroup:
         self.traffic["metric_bytes" if metric else "wire_bytes"] += \
             x.numel() * x.element_size()
         src = self._host(x)
-        dist.all_reduce(src, group=self.group)
+        self._all_reduce(src)
         if src is not x:
             x.copy_(src)
         if self.probe is not None:        # consumed where it is issued
@@ -110,13 +116,29 @@ class PodGroup:
         out = torch.empty((self.pods * x.shape[0],) + tuple(x.shape[1:]),
                           dtype=x.dtype, device=src.device,
                           pin_memory=src is not x)
-        work = _GATHER(out, src, group=self.group, async_op=async_op)
+        work = self._all_gather(out, src, async_op)
         on_wait = None
         if self.probe is not None and bill == "wire_bytes":
             on_wait = functools.partial(self.probe.consume,
                                         self.probe.issue(kind, async_op))
         return Gathered(work, out, x.device, on_wait=on_wait)
 
+    def exchange(self, x, partner: int):
+        """Send ``x`` to rank ``partner`` and receive that rank's tensor of
+        the same shape and dtype (a paired isend / irecv: ``partner`` must
+        name this rank in turn). Counted as one ``exchange`` call and its
+        bytes as wire bytes. ``partner == rank`` sits out: ``x`` comes back
+        and nothing is counted."""
+        if int(partner) == self.rank:
+            return x
+        x = x.contiguous()
+        self.traffic["exchange"] += 1
+        self.traffic["wire_bytes"] += x.numel() * x.element_size()
+        src = self._host(x)
+        recv = torch.empty(x.shape, dtype=x.dtype, device=src.device,
+                           pin_memory=src is not x)
+        self._exchange(src, recv, int(partner))
+        return recv.to(x.device)
 
     def barrier(self):
         """Wait until every rank has reached this call."""
@@ -140,6 +162,22 @@ class PodGroup:
         got = self.all_gather(digest[None], kind="control",
                               bill="control_bytes").wait()
         return bool((got == got[0]).all())
+
+    # the communication: what a counting group overrides
+    def _all_reduce(self, src):
+        dist.all_reduce(src, group=self.group)
+
+    def _all_gather(self, out, src, async_op: bool):
+        return _GATHER(out, src, group=self.group, async_op=async_op)
+
+    def _exchange(self, src, recv, partner: int):
+        # one batch of the send and the receive: both ranks post both
+        # together, which NCCL needs (two ranks that each send before
+        # they receive can deadlock there); gloo takes the batch too
+        ops = [dist.P2POp(dist.isend, src, partner, group=self.group),
+               dist.P2POp(dist.irecv, recv, partner, group=self.group)]
+        for work in dist.batch_isend_irecv(ops):
+            work.wait()
 
 
 # the single-tensor all-gather of this PyTorch: ``all_gather_single``

@@ -130,3 +130,24 @@ def reband(group, model_cfg, dcfg, path, out_path):
     if back is not None:
         ckpt.save(out_path, resilience.wrap(back, key, done))
     return tree.leaves(state.base.replica_params)[0].shape[0]
+
+
+def gossip_exchanges(group, est, stages, mix: float):
+    """For each butterfly ``stage``, one exchange of the (k, ...) estimate
+    tree ``est`` (the full tree on the host) on this rank's band
+    (``gossip.pod_mix_round``). Returns [(this rank's band of the result,
+    as numpy, the exchanges it made)] by stage."""
+    from ..core import gossip
+    k = tree.leaves(est)[0].shape[0]
+    k_loc = k // group.pods
+    band = tree.map(lambda x: pod_collectives.band_slice(
+        x, k_loc, group.rank).to(group.device), est)
+    out = []
+    for stage in stages:
+        before = group.traffic["exchange"]
+        got = gossip.pod_mix_round(
+            band, gossip.partner_map(k, stage, "butterfly"),
+            tree.map(lambda _: 1.0, est), mix=mix, group=group)
+        out.append((convert.params_to_numpy(got),
+                    group.traffic["exchange"] - before))
+    return out

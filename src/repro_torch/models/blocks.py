@@ -54,6 +54,29 @@ def init_block(gen, cfg, kind: str, *, device, lead=()):
     raise ValueError(kind)
 
 
+def block_axes(kind: str) -> dict:
+    """The logical axes of every leaf ``init_block`` may give a ``kind``
+    block (a superset of any one config's keys)."""
+    n, mlp = L.NORM_AXES, L.MLP_AXES
+    if kind in ("attn_mlp", "enc_attn_mlp"):
+        return {"ln1": n, "attn": L.ATTENTION_AXES, "ln2": n, "mlp": mlp,
+                "moe": MOE.MOE_AXES}
+    if kind == "mla_moe":
+        return {"ln1": n, "mla": MLA.MLA_AXES, "ln2": n, "moe": MOE.MOE_AXES}
+    if kind == "cross_mlp":
+        return {"ln1": n, "xattn": L.ATTENTION_AXES, "ln2": n, "mlp": mlp,
+                "gate_attn": (None,), "gate_mlp": (None,)}
+    if kind == "self_cross_mlp":
+        return {"ln1": n, "attn": L.ATTENTION_AXES, "ln2": n,
+                "xattn": L.ATTENTION_AXES, "ln3": n, "mlp": mlp}
+    if kind == "mamba2":
+        return {"ln1": n, "mixer": SSM.MAMBA2_AXES}
+    if kind in ("mlstm", "slstm"):
+        return {"ln1": n, "cell": XL.MLSTM_AXES if kind == "mlstm"
+                else XL.SLSTM_AXES}
+    raise ValueError(kind)
+
+
 def _store(dst, src):
     """Write a recurrent state (a tensor or a tuple of them) into the
     cache's tensors in place."""

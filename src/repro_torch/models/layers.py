@@ -49,6 +49,22 @@ def dense_init(gen, shape, scale=0.02, *, device, lead=()):
     return w.mul_(std)
 
 
+# Each leaf's logical axes (``sharding/spec.py``), one name or None per dim
+# of the unstacked leaf: the axes the JAX init boxes the same leaf with.
+NORM_AXES = {"scale": (None,), "bias": (None,)}
+ATTENTION_AXES = {
+    "wq": ("embed", "heads", None), "wk": ("embed", "kv_heads", None),
+    "wv": ("embed", "kv_heads", None), "wo": ("heads", None, "embed"),
+    "bq": ("heads", None), "bk": ("kv_heads", None),
+    "bv": ("kv_heads", None), "bo": (None,),
+    "q_norm": (None,), "k_norm": (None,)}
+MLP_AXES = {"w_up": ("embed", "ff"), "w_gate": ("embed", "ff"),
+            "w_down": ("ff", "embed"), "b_up": ("ff",), "b_down": (None,)}
+EMBED_AXES = {"table": ("vocab", "embed")}
+HEAD_AXES = {"w": ("embed", "vocab")}
+POS_TABLE_AXES = (None, "embed")
+
+
 def ones_init(shape, *, device, lead=()):
     return torch.ones(tuple(lead) + tuple(shape), device=device)
 

@@ -15,6 +15,12 @@ from .layers import (_count, _ring_write, apply_norm, apply_rope, attention,
                      dense_init, ones_init)
 
 
+MLA_AXES = {"wq": ("embed", "heads", None), "w_dkv": ("embed", None),
+            "w_kr": ("embed", None), "ckv_norm": (None,),
+            "w_uk": (None, "heads", None), "w_uv": (None, "heads", None),
+            "wo": ("heads", None, "embed")}
+
+
 def init_mla(gen, cfg, *, device, lead=()):
     D, H = cfg.d_model, cfg.n_heads
     dh = cfg.resolved_head_dim          # nope dims per head

@@ -99,6 +99,26 @@ def init_params(cfg, *, generator, device):
     return params
 
 
+def param_axes(cfg):
+    """The logical-axes tree of ``init_params(cfg)``: per leaf a tuple of
+    logical axis names (``sharding/spec.py``), None for a dim no rule
+    shards, the stacked-layer dim first. These are the axes the JAX init
+    boxes each leaf with (its ``unbox`` tree)."""
+    plan = make_plan(cfg)
+    stacked = lambda table: tree.map(lambda ax: (None,) + ax, table)
+    table = {"embed": L.EMBED_AXES, "ln_f": L.NORM_AXES,
+             "head": L.HEAD_AXES, "pos_table": L.POS_TABLE_AXES,
+             "enc_ln_f": L.NORM_AXES,
+             "encoder": stacked(BLK.block_axes("enc_attn_mlp"))}
+    for i, kind in enumerate(plan.pattern):
+        if kind != "SHARED":
+            table[f"stack{i}"] = stacked(BLK.block_axes(kind))
+    if plan.shared_kind:
+        table["shared"] = BLK.block_axes(plan.shared_kind)
+    shapes = init_params(cfg, generator=None, device="meta")
+    return tree.map(lambda _, ax: ax, shapes, table)
+
+
 def _remat(cfg, cache) -> bool:
     return cfg.remat and cache is None and torch.is_grad_enabled()
 
@@ -272,25 +292,26 @@ def _stacked(make_one, n: int):
 
 
 def prefill(params, cfg, tokens, *, extra=None, window: int = 0,
-            cache_len: int = 0):
+            cache_len: int = 0, groups: int = 1):
     """Run the whole prompt (and ``extra``, the modality input of the
     cross-attention families), building the decode cache. Returns (logits,
     cache); ``cache_len`` sizes the cache for the decode that follows
-    (default: the prompt length)."""
+    (default: the prompt length); ``groups``: the MoE token grouping."""
     B, S = tokens.shape
     cache = init_cache(cfg, B, max(cache_len, S),
                        getattr(torch, cfg.compute_dtype),
                        device=tokens.device, window=window)
     logits, cache, _ = forward(params, cfg, tokens, extra=extra, cache=cache,
-                               cache_pos=0, window=window or None)
+                               cache_pos=0, window=window or None,
+                               groups=groups)
     return logits, cache
 
 
 def decode_step(params, cfg, cache, tokens, pos, *, window: int = 0,
-                page_table=None):
+                page_table=None, groups: int = 1):
     """One decode step. tokens: (B, 1); pos: the absolute position (an
     int). Returns (logits, cache), the cache written in place."""
     logits, cache, _ = forward(params, cfg, tokens, cache=cache,
                                cache_pos=pos, window=window or None,
-                               page_table=page_table)
+                               page_table=page_table, groups=groups)
     return logits, cache

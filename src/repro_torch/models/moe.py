@@ -20,6 +20,13 @@ from . import layers as L
 from .layers import _act, dense_init
 
 
+MOE_AXES = {"router": ("embed", None),
+            "w_up": ("experts", "embed", None),
+            "w_gate": ("experts", "embed", None),
+            "w_down": ("experts", None, "embed"),
+            "shared": L.MLP_AXES}
+
+
 def init_moe(gen, cfg, *, device, lead=()):
     D, E, Fd = cfg.d_model, cfg.n_experts, cfg.moe_d_ff or cfg.d_ff
     init = lambda shape: dense_init(gen, shape, cfg.init_scale,

@@ -1,12 +1,16 @@
 """Architecture registry: ``get_arch(name)`` -> ``Arch`` with ``init``,
 ``loss``, ``prefill`` and ``decode`` entry points, over every config of
-the JAX registry."""
+the JAX registry, plus ``shape_cfg``, ``input_specs``, ``cache_specs`` and
+``abstract_params``: meta-tensor stand-ins for the dry run
+(``launch/dryrun.py``), which allocate nothing."""
 from __future__ import annotations
 
 import importlib
 from dataclasses import dataclass
 
-from ..configs.base import ModelConfig
+import torch
+
+from ..configs.base import LONG_CONTEXT_WINDOW, ModelConfig, ShapeConfig
 from . import model as M
 
 ARCH_NAMES = [
@@ -17,10 +21,23 @@ ARCH_NAMES = [
     "diloco_60m", "diloco_150m", "diloco_400m",
 ]
 
+# families with full self-attention that need a sliding window at 500k ctx
+_ATTN_FAMILIES = ("dense", "moe", "vlm", "encdec", "hybrid")
+META = torch.device("meta")
+
 
 @dataclass
 class Arch:
     cfg: ModelConfig
+
+    def shape_cfg(self, shape: ShapeConfig) -> ModelConfig:
+        """Per-shape config: long-context decode on attention archs flips
+        on sliding-window attention (sub-quadratic carve-out)."""
+        cfg = self.cfg
+        if (shape.kind == "decode" and shape.seq_len > 65_536
+                and cfg.family in _ATTN_FAMILIES and not cfg.window):
+            cfg = cfg.replace(window=LONG_CONTEXT_WINDOW)
+        return cfg
 
     def init(self, *, generator, device, cfg=None):
         """Random params (a plain dict tree) on ``device``."""
@@ -30,21 +47,57 @@ class Arch:
     def loss(self, params, batch, *, cfg=None, groups: int = 1):
         return M.loss_fn(params, cfg or self.cfg, batch, groups=groups)
 
-    def prefill(self, params, batch, *, cfg=None, cache_len: int = 0):
+    def prefill(self, params, batch, *, cfg=None, cache_len: int = 0,
+                groups: int = 1):
         """(logits, cache) of the prompt ``batch["tokens"]``; the batch's
         other entries (``patches``, ``frames``) are the modality input."""
         cfg = cfg or self.cfg
         extra = {k: v for k, v in batch.items() if k != "tokens"}
         return M.prefill(params, cfg, batch["tokens"], extra=extra or None,
-                         window=cfg.window, cache_len=cache_len)
+                         window=cfg.window, cache_len=cache_len,
+                         groups=groups)
 
     def decode(self, params, cache, tokens, pos, *, cfg=None,
-               page_table=None):
+               page_table=None, groups: int = 1):
         """(logits, cache) of one decode step at absolute position
         ``pos``; the cache is written in place."""
         cfg = cfg or self.cfg
         return M.decode_step(params, cfg, cache, tokens, pos,
-                             window=cfg.window, page_table=page_table)
+                             window=cfg.window, page_table=page_table,
+                             groups=groups)
+
+    # ---- meta stand-ins for the dry run ----
+    def input_specs(self, shape: ShapeConfig, *, batch_override: int = 0,
+                    dtype=torch.float32) -> dict:
+        """The batch of ``shape`` as meta tensors: int32 ``tokens`` (B, S),
+        (B, 1) at decode, plus the VLM's ``patches`` or the
+        encoder-decoder's ``frames`` outside decode."""
+        cfg = self.shape_cfg(shape)
+        B = batch_override or shape.global_batch
+        S = 1 if shape.kind == "decode" else shape.seq_len
+        out = {"tokens": torch.empty((B, S), dtype=torch.int32, device=META)}
+        if cfg.family == "vlm" and shape.kind != "decode":
+            out["patches"] = torch.empty((B, cfg.n_patches, cfg.d_model),
+                                         dtype=dtype, device=META)
+        if cfg.family == "encdec" and shape.kind != "decode":
+            out["frames"] = torch.empty((B, cfg.n_frames, cfg.d_model),
+                                        dtype=dtype, device=META)
+        return out
+
+    def cache_specs(self, shape: ShapeConfig, *, batch_override: int = 0,
+                    dtype=torch.float32):
+        """The decode cache of ``shape`` (``init_cache``) on meta."""
+        cfg = self.shape_cfg(shape)
+        B = batch_override or shape.global_batch
+        return M.init_cache(cfg, B, shape.seq_len, dtype, device=META,
+                            window=cfg.window)
+
+    def abstract_params(self, cfg=None):
+        """(meta parameter tree, logical-axes tree with the same keys),
+        allocating nothing."""
+        cfg = cfg or self.cfg
+        return (M.init_params(cfg, generator=None, device=META),
+                M.param_axes(cfg))
 
 
 def _module(name: str):

@@ -20,6 +20,12 @@ def _dims(cfg):
     return d_inner, H, cfg.ssm_state
 
 
+MAMBA2_AXES = {"in_proj": ("embed", "inner"), "out_proj": ("inner", "embed"),
+               "conv_w": (None, "inner"), "conv_b": ("inner",),
+               "A_log": (None,), "D": (None,), "dt_bias": (None,),
+               "norm": ("inner",)}
+
+
 def init_mamba2(gen, cfg, *, device, lead=()):
     D = cfg.d_model
     d_inner, H, N = _dims(cfg)
@@ -58,7 +64,8 @@ def ssd_chunked(x, dt, A, Bm, Cm, Dp, chunk: int):
     state (B, H, N, P) float32. A T that is no multiple of ``chunk`` runs
     as chunks of 1 (T < chunk) or one chunk of T, as the JAX package does.
     The three-operand contractions go pairwise, never through a
-    (b, c, i, j, h, p) tensor."""
+    (b, c, i, j, h, p) tensor; B and C meet the float32 states as float32
+    (the JAX einsum promotes a bf16 operand there)."""
     Bsz, T, H, P = x.shape
     N = Bm.shape[-1]
     if T % chunk != 0:
@@ -87,7 +94,7 @@ def ssd_chunked(x, dt, A, Bm, Cm, Dp, chunk: int):
 
     # each chunk's input state: sum_j exp(cum_end − cum_j) B_j (dt_j x_j)
     decay_in = torch.exp(cum_end[:, :, None] - cum)           # (B,nc,cs,H)
-    chunk_states = torch.einsum("bcjn,bcjhp->bchnp", Bc,
+    chunk_states = torch.einsum("bcjn,bcjhp->bchnp", Bc.float(),
                                 decay_in[..., None] * xc).float()
 
     # the recurrence between chunks: each chunk reads the state before it
@@ -100,7 +107,7 @@ def ssd_chunked(x, dt, A, Bm, Cm, Dp, chunk: int):
     prev_states = torch.stack(prev, 1)                        # (B,nc,H,N,P)
 
     # off-diagonal: y_i += exp(cum_i) C_i . state_prev
-    yoff = torch.einsum("bcin,bchnp->bcihp", Cc, prev_states).float() \
+    yoff = torch.einsum("bcin,bchnp->bcihp", Cc.float(), prev_states) \
         * torch.exp(cum)[..., None]
     y = (ydiag + yoff).reshape(Bsz, T, H, P)
     y = y + x * Dp[None, None, :, None]
@@ -111,10 +118,10 @@ def ssd_decode_step(x, dt, A, Bm, Cm, Dp, state):
     """One-token recurrence. x: (B, 1, H, P); dt: (B, 1, H); Bm, Cm: (B, 1,
     N); state: (B, H, N, P). Returns (y (B, 1, H, P), the new state)."""
     dA = torch.exp(dt[:, 0] * A[None])                        # (B,H)
-    upd = torch.einsum("bn,bhp->bhnp", Bm[:, 0],
+    upd = torch.einsum("bn,bhp->bhnp", Bm[:, 0].float(),
                        dt[:, 0][..., None] * x[:, 0]).float()
     state = state * dA[..., None, None] + upd
-    y = torch.einsum("bn,bhnp->bhp", Cm[:, 0], state).float()
+    y = torch.einsum("bn,bhnp->bhp", Cm[:, 0].float(), state)
     y = y + x[:, 0] * Dp[None, :, None]
     return y[:, None].to(x.dtype), state
 

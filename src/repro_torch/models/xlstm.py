@@ -20,6 +20,17 @@ M_INIT = -1e30          # the stabiliser's start
 # mLSTM
 # ---------------------------------------------------------------------------
 
+MLSTM_AXES = {"wq": ("embed", "heads", None), "wk": ("embed", "heads", None),
+              "wv": ("embed", "heads", None), "wi": ("embed", "heads"),
+              "wf": ("embed", "heads"), "bi": ("heads",), "bf": ("heads",),
+              "wz": ("embed", "inner"), "wo": ("inner", "embed"),
+              "norm": (None,)}
+SLSTM_AXES = {**{w: ("embed", "inner") for w in ("wz", "wi", "wf", "wo")},
+              **{r: ("heads", None, None) for r in ("rz", "ri", "rf", "ro")},
+              **{b: (None,) for b in ("bz", "bi", "bf", "bo", "norm")},
+              "w_down": ("inner", "embed")}
+
+
 def init_mlstm(gen, cfg, *, device, lead=()):
     D, H = cfg.d_model, cfg.n_heads
     dh = D // H

@@ -715,3 +715,37 @@ def test_cuda_serving_matches_cpu(cuda, window, tmp_path):
         assert res["bad"] == [] and res["max_logit_err"] <= \
             check.SERVE_LOGIT_RTOL, res
     assert man["dtype"] == "int4"
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("pods", [2, 4])
+def test_cuda_pod_exchange_nccl_equals_mix_round(cuda, pods):
+    """``PodGroup.exchange`` with a card per rank (NCCL): the two ranks of
+    a pair post their send and their receive as one batch, so bands of
+    64 MB (2 pods) and 32 MB (4 pods) pass without a deadlock, and every
+    band of the result equals ``mix_round``'s on the CPU bit for bit (the
+    mix is the same elementwise ops in the same order)."""
+    if torch.cuda.device_count() < pods:
+        pytest.skip(f"needs {pods} cards: NCCL takes one rank per card")
+    from repro_torch.core import gossip
+    from repro_torch.launch import mesh
+
+    k = 4
+    rng = np.random.default_rng(pods)
+    est = {"w": rng.standard_normal((k, 1 << 23)).astype(np.float32)}
+    stages = [0, 1]
+    want = {s: convert.params_to_numpy(gossip.mix_round(
+        convert.params_from_numpy(est, device="cpu"),
+        gossip.partner_map(k, s, "butterfly"),
+        tree.map(lambda _: 1.0, est), mix=0.5))["w"] for s in stages}
+    layout = mesh.make_pod_layout(pods, "cuda")
+    assert layout.backend == "nccl" and not layout.staged
+    ranks = mesh.spawn("repro_torch.launch.pod_rounds:gossip_exchanges",
+                       layout, convert.params_from_numpy(est, device="cpu"),
+                       stages, 0.5)
+    k_loc = k // pods
+    for r, by_stage in enumerate(ranks):
+        for s, (band, exchanges) in zip(stages, by_stage):
+            np.testing.assert_array_equal(
+                band["w"], want[s][r * k_loc:(r + 1) * k_loc])
+            assert exchanges == (1 if (1 << s) >= k_loc else 0)

@@ -2,14 +2,18 @@
 attention + MLP block invoked once a group) against the JAX package at
 smoke width: ``_causal_conv`` with its tail, ``ssd_chunked`` over whole
 chunks, over chunks of 1 (T < chunk) and as one chunk of T (T no
-multiple of the chunk), ``ssd_decode_step``, loss and gradients (the
+multiple of the chunk), ``ssd_decode_step`` (both also with bf16 x, B
+and C against float32 states, as at bf16 compute), loss and gradients (the
 tied block's summed over 2 and 3 invocations, under the group
 checkpoint), prefill and decode, one k=2, H=2 DiLoCo round, the
 streaming fragment partition, and the port's paged engine against its
 contiguous one.
 
 Tolerances: f32, atol 1e-5, rtol 1e-4 (gradients atol 1e-6, rtol 1e-4);
-fragment masks exactly."""
+fragment masks exactly. With bf16 inputs: y within 1e-2 of max|y| (y is
+rounded to bf16, whose half-ulp is 2^-9 of a value, after the port's
+C·B scores are rounded to bf16; measured 0.5 %), the float32 state
+within 1e-5 of max|state|."""
 from __future__ import annotations
 
 import numpy as np
@@ -28,11 +32,11 @@ torch.set_num_threads(2)
 NAME = "zamba2_2_7b"
 
 
-def _ssd_inputs(T, seed=0, B=2, H=3, P=4, N=5):
+def _ssd_inputs(T, seed=0, B=2, H=3, P=4, N=5, dt_shift=0.0):
     rng = np.random.default_rng(seed)
     f = lambda *s: rng.standard_normal(s).astype(np.float32)
     x, Bm, Cm = f(B, T, H, P), f(B, T, N), f(B, T, N)
-    dt = np.log1p(np.exp(f(B, T, H))).astype(np.float32)      # softplus
+    dt = np.log1p(np.exp(f(B, T, H) + dt_shift)).astype(np.float32)
     A = -np.exp(0.5 * f(H)).astype(np.float32)
     Dp = f(H)
     return x, dt, A, Bm, Cm, Dp
@@ -68,6 +72,52 @@ def test_ssd_decode_step_and_conv_tail_match_jax():
                                    None if t is None else torch.from_numpy(t))
         FC.close(ty, jy, "conv y")
         FC.close(tt, jt, "conv tail")
+
+
+def _bf16(*arrays):
+    """The same bf16 values as JAX and as torch arrays (both round to
+    nearest even)."""
+    return ([jnp.asarray(a).astype(jnp.bfloat16) for a in arrays],
+            [torch.from_numpy(a).bfloat16() for a in arrays])
+
+
+def _close_to_max(got, want, frac, what):
+    want = np.asarray(jnp.asarray(want).astype(jnp.float32))
+    np.testing.assert_allclose(got.float().numpy(), want, rtol=0,
+                               atol=frac * np.abs(want).max(), err_msg=what)
+
+
+@pytest.mark.parametrize("T,chunk", [(64, 16), (24, 8)])
+def test_ssd_chunked_bf16_x_B_C_match_jax(T, chunk):
+    """bf16 x, B and C, float32 dt, A and D, as ``apply_mamba2`` hands
+    them over at bf16 compute. dt is small (softplus(N(0, 1) − 2)), so a
+    chunk's state still carries into the next chunks' outputs and the
+    B·x and C·state contractions both show in y."""
+    x, dt, A, Bm, Cm, Dp = _ssd_inputs(T, seed=T, dt_shift=-2.0)
+    (jx, jB, jC), (tx, tB, tC) = _bf16(x, Bm, Cm)
+    jy, js = JSSM.ssd_chunked(jx, jnp.asarray(dt), jnp.asarray(A), jB, jC,
+                              jnp.asarray(Dp), chunk)
+    ty, ts = TSSM.ssd_chunked(tx, torch.from_numpy(dt), torch.from_numpy(A),
+                              tB, tC, torch.from_numpy(Dp), chunk)
+    assert ty.dtype == torch.bfloat16 and ts.dtype == torch.float32
+    _close_to_max(ty, jy, 1e-2, "y")
+    _close_to_max(ts, js, 1e-5, "final state")
+
+
+def test_ssd_decode_step_bf16_x_B_C_matches_jax():
+    x, dt, A, Bm, Cm, Dp = _ssd_inputs(1, seed=6)
+    state = np.random.default_rng(7).standard_normal((2, 3, 5, 4)).astype(
+        np.float32)
+    (jx, jB, jC), (tx, tB, tC) = _bf16(x, Bm, Cm)
+    jy, js = JSSM.ssd_decode_step(jx, jnp.asarray(dt), jnp.asarray(A), jB,
+                                  jC, jnp.asarray(Dp), jnp.asarray(state))
+    ty, ts = TSSM.ssd_decode_step(tx, torch.from_numpy(dt),
+                                  torch.from_numpy(A), tB, tC,
+                                  torch.from_numpy(Dp),
+                                  torch.from_numpy(state))
+    assert ty.dtype == torch.bfloat16 and ts.dtype == torch.float32
+    _close_to_max(ty, jy, 1e-2, "decode y")
+    _close_to_max(ts, js, 1e-5, "decode state")
 
 
 def test_loss_and_grads_match_jax():

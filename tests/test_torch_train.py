@@ -208,7 +208,11 @@ def test_port_imports_no_jax():
         "new = {'repro_torch.checkpoint.checkpoint',\n"
         "       'repro_torch.core.gossip',\n"
         "       'repro_torch.launch.batching',\n"
+        "       'repro_torch.launch.comm_analysis',\n"
+        "       'repro_torch.launch.dryrun',\n"
+        "       'repro_torch.launch.op_cost',\n"
         "       'repro_torch.launch.serve',\n"
+        "       'repro_torch.sharding.spec',\n"
         "       'repro_torch.models.mla', 'repro_torch.models.moe',\n"
         "       'repro_torch.models.ssm', 'repro_torch.models.xlstm',\n"
         "       'repro_torch.configs.olmoe_1b_7b',\n"
@@ -223,9 +227,12 @@ def test_port_imports_no_jax():
     proc = subprocess.run([sys.executable, "-c", code], env=_env(),
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stderr
-    # the card's script and the torch quickstart import neither either
+    # the card's script and the torch examples import neither either
     root = Path(SRC).parent
-    for script in ("chip_smoke.py", "examples/quickstart_torch.py"):
+    examples = sorted(str(p.relative_to(root))
+                      for p in (root / "examples").glob("*_torch.py"))
+    assert len(examples) == 7, examples
+    for script in ("chip_smoke.py", *examples):
         mods = set()
         for node in ast.walk(ast.parse((root / script).read_text())):
             if isinstance(node, ast.Import):
