@@ -44,7 +44,18 @@ Phases, each printing one JSON line; any failure exits non-zero:
               kernels are named from ``torch.profiler``; its backward
               against dq + dk/dv) and the bound (on the tensor cores as
               three TF32 products per f32 product, beside the f32
-              CUDA-core one, ``bound_f32_ms``).
+              CUDA-core one, ``bound_f32_ms``). Then the same four on
+              bf16 operands (their own entry points and counters) against
+              their plain versions on the same bf16 tensors (rtol 2^-7,
+              two bf16 ulps, beside the f32 atols; lse at 2e-5), a bf16
+              CUDA tensor never reaching a plain version, each timed at
+              the layer shape in bf16 beside SDPA's bf16 call and the
+              bound on the bf16 tensor cores; and their path: one inner
+              step and one eval forward of diloco_400m at full width with
+              ``use_pallas=True, compute_dtype="bfloat16"``, the counters
+              set to 0 just before and read just after (2·L
+              ``fwd_lse_bf16``, L ``bwd_dq_bf16``, L ``bwd_dkv_bf16``, L
+              ``fwd_bf16``, 0 for every other kernel).
   7. train_400m  slice 2's path at full width: diloco_400m with
               ``use_pallas=True`` (the flash branch), k=2, H=4, 2 rounds,
               batch 8, seq 1024, through ``core.diloco.make_round`` and
@@ -196,9 +207,10 @@ Phases, each printing one JSON line; any failure exits non-zero:
               leaves that differ are named). Prints the snapshot's bytes,
               ms to save (with its device-to-host copy), to verify and to
               load, and the disk left; D is deleted at the end.
- 24. guard    the same width, 4 rounds, ``--nan-bomb 1:2 --guard
-              --checkpoint-dir D --checkpoint-every 1``: exactly one
-              anomaly and one rollback (round index 2), the replay with the
+ 24. guard    the same width, 3 rounds (4 before the island phase
+              needed the time), ``--nan-bomb 1:1 --guard --checkpoint-dir
+              D --checkpoint-every 1``: exactly one
+              anomaly and one rollback (round index 1), the replay with the
               in-graph guard armed (``guard_rejected`` 1 on the bombed
               round, 0 after), finite losses, and the same guard events as
               a CPU run of the same flags at smoke width.
@@ -215,10 +227,12 @@ Phases, each printing one JSON line; any failure exits non-zero:
 
  26. resume_sharded  slice 11's sharded snapshots at full width:
               diloco_60m, k=2, ``--transport sharded --pods 2`` with phase
-              15's streaming flags, H=4, 4 rounds, ``--rounds-per-call 2
-              --checkpoint-every 2 --retain 1``: the uncut run with
-              ``--state-hash-out``; the same run with ``--crash-at-round
-              2`` in a trainer subprocess (started before phase 23, so
+              15's streaming flags, H=4, 3 rounds (4 before the island
+              phase needed the time), ``--rounds-per-call 2``: the uncut
+              run with ``--state-hash-out`` and one snapshot, at its end
+              (``--checkpoint-every 3``); the same run with
+              ``--checkpoint-every 2 --retain 1 --crash-at-round 2`` in a
+              trainer subprocess (started before phase 23, so
               that its own Markov tables and rounds overlap phases 23-25),
               which must die by SIGKILL with no rank process left; then
               ``--resume auto`` of its snapshot (writing none of its own:
@@ -278,7 +292,8 @@ Phases, each printing one JSON line; any failure exits non-zero:
               steps' logits; paged = contiguous through the engine, bit
               for bit (the eight it serves); one k=2, H=2 ``make_round``
               (the eight the trainer takes), every state leaf at phase 3's
-              tolerance.
+              tolerance; xLSTM's smoke train step (loss and gradients)
+              timed on the card.
  32. train_zamba2  zamba2 at full width cut to 12 of its 54 layers
               (721,188,160 parameters, 74 leaves), as phase 7 builds
               diloco_400m: the trainer's ``build`` on ``--full --arch
@@ -313,18 +328,38 @@ Phases, each printing one JSON line; any failure exits non-zero:
               25 % of ``max_memory_allocated`` over a real step on the card.
               Phases 4 and 7 also print the dry run's 6·N model FLOPs per
               token beside their own count.
+ 35. island   FSDP×TP within an island: one inner train step of
+              diloco_150m at full width (B 8, S 1024, f32 params and
+              compute through the step's bf16 weight cast) on a (data 1,
+              model 2) mesh, two ranks sharing the card (gloo, every
+              collective staged through the host), the dry run's sharded
+              step (``launch/island.py``) from m = 0 and seeded second
+              moments (``island.second_moments``: the update is then
+              smooth in the gradient), held to the unsharded step of the
+              same params, state and batch on the card: the loss and
+              every param after it within atol 1e-5, rtol 1e-4, AdamW's
+              first moments leaf by leaf within 2⁻⁷ (a bf16 ulp) of the
+              leaf's largest; each rank's collectives,
+              as the step issues them, equal to the dry run's count for
+              that mesh and step (``dryrun.island_step_cost``, on meta
+              tensors); each rank's peak over the step within phase 34's
+              25 % of the count's per-chip estimate (the gap printed).
 
 ``python3 chip_smoke.py --cards 4`` runs only phases 22 and 21 across
-four cards: one pod rank and one replica per card, over NCCL.
+four cards: one pod rank and one replica per card, over NCCL; then phase
+35 on a (data 2, model 2) mesh of the four cards over NCCL at
+diloco_400m.
 
 The Markov tables are built once per (vocab, k, regime, seed, weighting)
 and handed to every trainer run (``train.run(..., sampler=...)``): the
 trainer phases' ``data_setup_s`` is then the handing over, and the one
 build's seconds are printed on a ``data`` line. Every trainer run asserts
-the launches of every kernel (eighteen counters), 0 for those its path
-does not run. Then the ``{"kernels": [...]}`` line (each kernel's
-launches from its own path's run: phase 4 for the f32 optimizer kernels,
-phase 7 for attention, phase 11 for the mixed AdamW and the pruning,
+the launches of every kernel (twenty-two counters, the four bf16 flash
+kernels' among them), 0 for those its path does not run. Then the
+``{"kernels": [...]}`` line (each kernel's launches from its own path's
+run: phase 4 for the f32 optimizer kernels, phase 7 for attention, phase
+6's bf16 path for the bf16 attention kernels, phase 11 for the mixed
+AdamW and the pruning,
 phase 13's pure-policy run for the bf16 ``fused_adamw``, phase 15's runs
 for ``fake_quant``, phase 18 for the wire codecs, phase 21 for the
 reduce, phase 20's calls for the unfused pieces; the two wire codecs also
@@ -2457,7 +2492,7 @@ def phase_resume(torch, dev):
 
 
 def guard_argv(d) -> list:
-    return ["--H", str(H), "--rounds", "4", "--nan-bomb", "1:2", "--guard",
+    return ["--H", str(H), "--rounds", "3", "--nan-bomb", "1:1", "--guard",
             "--checkpoint-dir", str(d), "--checkpoint-every", "1"]
 
 
@@ -2467,11 +2502,11 @@ def guard_events(records) -> list:
 
 
 def phase_guard(torch, dev):
-    """Phase 24: worker 1's outer gradient poisoned in round 3 (index 2):
+    """Phase 24: worker 1's outer gradient poisoned in round 2 (index 1):
     the guard sees the NaN val loss, rolls back to the snapshot after
-    round 2 and replays round 3 with the in-graph guard armed, which
-    rejects the poisoned replica; the same guard events as a CPU run of
-    the same flags at smoke width."""
+    round 1 and replays round 2 with the in-graph guard armed, which
+    rejects the poisoned replica, then runs round 3; the same guard
+    events as a CPU run of the same flags at smoke width."""
     import shutil
 
     from repro_torch.launch import train
@@ -2486,14 +2521,14 @@ def phase_guard(torch, dev):
         rnds = [r for r in records if r["phase"] == "diloco"]
         replay = [r for r in rnds if "guard_rejected" in r]
         notes = [n["note"] for n in man.get("notes", ())]
-        if launches != sync_launches(5):          # round 3 ran twice
+        if launches != sync_launches(4):          # round 2 ran twice
             raise SystemExit(f"guard: launches {launches}, expected "
-                             f"{sync_launches(5)}")
-        if events != [("anomaly", 2), ("rollback", 2)] or not any(
+                             f"{sync_launches(4)}")
+        if events != [("anomaly", 1), ("rollback", 1)] or not any(
                 "in-graph guard armed" in n for n in notes):
             raise SystemExit(f"guard: events {events}, notes {notes}")
         if [(r["round"], r["guard_rejected"]) for r in replay] != [
-                (3, 1.0), (4, 0.0)]:
+                (2, 1.0), (3, 0.0)]:
             raise SystemExit(f"guard: replayed rounds {replay}")
         if not all(math.isfinite(r["inner_loss"])
                    and math.isfinite(r["val_loss"]) for r in replay):
@@ -2640,9 +2675,15 @@ SHARDED_SNAP = ["--rounds-per-call", "2", "--checkpoint-every", "2",
                 "--retain", "1"]
 
 
+# phase 26's rounds: the killed run's snapshot after round 2, then one
+# round resumed
+SHARDED_RESUME_ROUNDS = 3
+
+
 def sharded_resume_argv() -> list:
-    return ARGV_60M + ["--H", str(H), "--rounds", "4", "--transport",
-                       "sharded", "--pods", "2", *STREAM_FLAGS]
+    return ARGV_60M + ["--H", str(H), "--rounds",
+                       str(SHARDED_RESUME_ROUNDS), "--transport", "sharded",
+                       "--pods", "2", *STREAM_FLAGS]
 
 
 class CrashRun:
@@ -2681,10 +2722,10 @@ class CrashRun:
 
 def phase_resume_sharded(torch, dev, crash: CrashRun):
     """Phase 26: diloco_60m at full width on two sharded ranks with
-    snapshots: the uncut run, the same run killed by ``--crash-at-round
-    2`` in a trainer subprocess (``crash``, started before phase 23), and
-    ``--resume auto`` of the killed run's snapshot (which writes none of
-    its own): one final state (sha256)."""
+    snapshots, 3 rounds: the uncut run, the same run killed by
+    ``--crash-at-round 2`` in a trainer subprocess (``crash``, started
+    before phase 23), and ``--resume auto`` of the killed run's snapshot
+    (which writes none of its own): one final state (sha256)."""
     from repro_torch.models.registry import get_arch
     from repro_torch.resilience import CheckpointManager, harness
 
@@ -2696,11 +2737,15 @@ def phase_resume_sharded(torch, dev, crash: CrashRun):
         meta = get_arch("diloco_60m").init(generator=None, device="meta")
         n = leaves_60m()
         out = {}
+        # the uncut run's one snapshot, at its end, is the one timed
+        uncut_snap = ["--rounds-per-call", "2", "--checkpoint-every",
+                      str(SHARDED_RESUME_ROUNDS), "--retain", "1"]
         for name, extra, rounds, resumed in (
-                ("uncut", SHARDED_SNAP + ["--checkpoint-dir", str(D / "u")],
-                 4, False),
+                ("uncut", uncut_snap + ["--checkpoint-dir", str(D / "u")],
+                 SHARDED_RESUME_ROUNDS, False),
                 ("resumed", ["--rounds-per-call", "2", "--checkpoint-dir",
-                             str(D / "c"), "--resume", "auto"], 2, True)):
+                             str(D / "c"), "--resume", "auto"],
+                 SHARDED_RESUME_ROUNDS - 2, True)):
             if resumed:
                 t_c = time.perf_counter()
                 crash.proc.wait(timeout=600)
@@ -3334,6 +3379,17 @@ def phase_families_smoke(torch, dev):
                                   got["logits"], want["logits"])))
         row = {"arch": name, "family": cfg.family, "max_abs_diff": worst,
                "loss_card": got["loss"], "aux_card": got["aux"]}
+        if name == "xlstm_350m":
+            # one smoke train step (loss and gradients) on the card, the
+            # cells' per-token inputs unbound once (its backward one stack)
+            p = tree.map(lambda t: t.detach().clone().to(dev)
+                         .requires_grad_(), params)
+            b = {k: v.to(dev) for k, v in batch.items()}
+            row["train_step_ms"] = time_ms(torch, lambda: torch.autograd.grad(
+                arch.loss(p, b)[0], tree.leaves(p), allow_unused=True),
+                reps=5, warmup=1)
+            row["train_step_shape"] = list(toks.shape)
+            del p, b
         if name not in CROSS_ARCHS:
             card = tree.map(lambda t: t.to(dev), params)
             rng = np.random.default_rng(5)
@@ -3760,10 +3816,305 @@ def phase_dryrun(torch, dev, sharded_traffic):
          "elapsed_s": time.perf_counter() - t0})
 
 
+# the bf16 kernels' tolerance against their plain versions: both compute
+# in f32 and round o, dq, dk, dv to bf16 once; the f32 sums' orders differ
+# (split TF32 against whole rows), and so may the rounding: two bf16 ulps
+# relative, beside the f32 kernels' absolute tolerances
+BF16_RTOL = 2 ** -7
+FLASH_BF16_CASES = FLASH_CASES[:5] + FLASH_CASES[9:]
+PEAK_BF16 = CA.PEAK_BF16    # dense bf16 FLOP/s of the tensor cores, H100 SXM
+
+
+def phase_flash_bf16(torch, dev):
+    """Phase 6, bf16: the four flash kernels on bf16 operands (their own
+    entry points and counters) against their plain versions on the same
+    bf16 tensors (``BF16_RTOL``; lse, f32, at the forward's 2e-5), a bf16
+    CUDA tensor never reaching a plain version; then each kernel's time
+    at ``FLASH_LAYER`` in bf16 beside its plain version, PyTorch's bf16
+    ``scaled_dot_product_attention`` (the yardstick, which the port never
+    calls) and the bound on the bf16 tensor cores. Returns the kernels'
+    rows."""
+    from repro_torch.kernels import flash_attention as FK
+    from repro_torch.kernels import ref
+
+    names = ("fwd", "fwd_lse", "bwd_dq", "bwd_dkv")
+    err = dict.fromkeys(names, 0.0)
+    gen = torch.Generator(device=dev).manual_seed(6)
+    bf16 = torch.bfloat16
+
+    def inputs(B, Hh, G, Sq, Sk, d, amp=1.0):
+        q, k, v, do = (torch.randn(shape, generator=gen, device=dev)
+                       for shape in ((B, Hh, Sq, d), (B, G, Sk, d),
+                                     (B, G, Sk, d), (B, Hh, Sq, d)))
+        return tuple(t.to(bf16) for t in (q * amp, k * amp, v, do))
+
+    def check(name, got, want, tol, rtol=BF16_RTOL):
+        got, want = got.float(), want.float()
+        diff = (got - want).abs()
+        worst = float(diff.max())
+        if not bool((diff <= tol + rtol * want.abs()).all()):
+            raise SystemExit(f"flash bf16 {name} differs from its plain "
+                             f"version: max abs {worst}")
+        err[name] = max(err[name], worst)
+        return worst
+
+    plain = (ref.flash_fwd_lse, ref.flash_bwd)
+
+    def refuse(*_a, **_k):
+        raise SystemExit("flash bf16: a bf16 CUDA tensor reached a plain "
+                         "version")
+    for case in FLASH_BF16_CASES:
+        B, Hh, G, S, d, causal, window, *amp = case
+        Sq, Sk = S if isinstance(S, tuple) else (S, S)
+        q, k, v, do = inputs(B, Hh, G, Sq, Sk, d, amp[0] if amp else 1.0)
+        opts = dict(causal=causal, window=window)
+        ref.flash_fwd_lse, ref.flash_bwd = refuse, refuse
+        try:
+            o_nolse = FK.flash_fwd(q, k, v, **opts)
+            o, lse = FK.flash_fwd_lse(q, k, v, **opts)
+            dq, dk, dv = FK.flash_bwd(q, k, v, o, lse, do, **opts)
+            torch.cuda.synchronize()
+        finally:
+            ref.flash_fwd_lse, ref.flash_bwd = plain
+        if any(t.dtype != bf16 for t in (o_nolse, o, dq, dk, dv)):
+            raise SystemExit("flash bf16: an output is not bf16")
+        want_o, want_lse = ref.flash_fwd_lse(q, k, v, **opts)
+        want_dq, want_dk, want_dv = ref.flash_bwd(q, k, v, o, lse, do,
+                                                  **opts)
+        say({"phase": "flash_bf16", "case": dict(
+                B=B, H=Hh, G=G, Sq=Sq, Sk=Sk, d=d, causal=causal,
+                window=window, amp=amp[0] if amp else 1.0),
+             "max_abs_err": {
+                 "fwd": check("fwd", o_nolse, want_o, FWD_TOL),
+                 "fwd_lse": max(check("fwd_lse", o, want_o, FWD_TOL),
+                                check("fwd_lse", lse, want_lse, FWD_TOL,
+                                      FWD_TOL)),
+                 "bwd_dq": check("bwd_dq", dq, want_dq, BWD_TOL),
+                 "bwd_dkv": max(check("bwd_dkv", dk, want_dk, BWD_TOL),
+                                check("bwd_dkv", dv, want_dv, BWD_TOL))},
+             "rtol": BF16_RTOL, "fwd_atol": FWD_TOL, "bwd_atol": BWD_TOL})
+        del q, k, v, do, o_nolse, o, lse, dq, dk, dv
+    torch.cuda.empty_cache()
+
+    B, Hh, G, S, d, causal, window = FLASH_LAYER
+    q, k, v, do = inputs(B, Hh, G, S, S, d)
+    opts = dict(causal=causal, window=window)
+    o, lse = FK.flash_fwd_lse(q, k, v, **opts)
+    delta = (do.float() * o.float()).sum(-1).contiguous()
+    dq, dk, dv = (torch.empty_like(t) for t in (q, k, v))
+    launch = dict(do=do, lse=lse, delta=delta, scale=d ** -0.5, q_offset=0,
+                  **opts)
+    kernel = {
+        "fwd": lambda: FK.flash_fwd(q, k, v, **opts),
+        "fwd_lse": lambda: FK.flash_fwd_lse(q, k, v, **opts),
+        "bwd_dq": lambda: FK._launch("bwd_dq", q, k, v, out=dq, **launch),
+        "bwd_dkv": lambda: FK._launch("bwd_dkv", q, k, v, out=None, dk=dk,
+                                      dv=dv, **launch)}
+    plain_fn = {
+        "fwd": lambda: ref.flash_fwd_lse(q, k, v, **opts)[0],
+        "fwd_lse": lambda: ref.flash_fwd_lse(q, k, v, **opts),
+        "bwd_dq": lambda: ref.flash_bwd_dq(q, k, v, lse, do, delta, **opts),
+        "bwd_dkv": lambda: ref.flash_bwd_dkv(q, k, v, lse, do, delta,
+                                             **opts)}
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
+    out = sdpa(*leaves, is_causal=causal)
+    lib_fwd = time_ms(torch, lambda: sdpa(q, k, v, is_causal=causal))
+    lib_bwd = time_ms(torch, lambda: torch.autograd.grad(
+        out, leaves, do, retain_graph=True))
+    library = {"fwd": lib_fwd, "fwd_lse": lib_fwd, "bwd_dq": lib_bwd,
+               "bwd_dkv": lib_bwd}
+    # the bound: this run's visible pairs, 2·d flops per pair and head for
+    # each product, on the bf16 tensor cores; bytes: bf16 q, k, v, dO, o,
+    # dq, dk, dv read or written once, f32 lse and delta
+    pairs = int(ref.flash_visible(S, S, causal=causal, window=window,
+                                  device=dev).sum()) * B * Hh
+    nq, nkv, nrow = 2 * q.numel(), 2 * k.numel(), 4 * lse.numel()
+    work = {"fwd": (4 * d * pairs, 2 * nq + 2 * nkv),
+            "fwd_lse": (4 * d * pairs, 2 * nq + 2 * nkv + nrow),
+            "bwd_dq": (6 * d * pairs, 3 * nq + 2 * nkv + 2 * nrow),
+            "bwd_dkv": (8 * d * pairs, 2 * nq + 4 * nkv + 2 * nrow)}
+    bw = bandwidth(torch.cuda.get_device_name(0))
+    tpu = {"fwd": "src/repro/kernels/flash_attention.py:218",
+           "fwd_lse": "src/repro/kernels/flash_attention.py:293",
+           "bwd_dq": "src/repro/kernels/flash_attention.py:360",
+           "bwd_dkv": "src/repro/kernels/flash_attention.py:380"}
+    rows = []
+    for n in names:
+        flops, nbytes = work[n]
+        by_ops, by_bytes = flops / PEAK_BF16, nbytes / bw
+        t = {"ms": time_ms(torch, kernel[n]),
+             "plain_ms": time_ms(torch, plain_fn[n])}
+        rows.append({"name": f"flash_{n}_bf16", "route": "cuda",
+                     "source": "src/repro_torch/kernels/csrc/"
+                               "flash_attention.cu",
+                     "replaces": tpu[n], "launches": None,
+                     "max_abs_err": err[n], **t,
+                     "bound_ms": max(by_ops, by_bytes) * 1e3,
+                     "bound_by": "operations" if by_ops >= by_bytes
+                     else "bytes", "library_ms": library[n]})
+        say({"phase": "flash_bf16", "kernel": n, "shape": list(FLASH_LAYER),
+             "flops": flops, "bytes": nbytes, **t,
+             "bound_ms": rows[-1]["bound_ms"],
+             "bound_by": rows[-1]["bound_by"], "library_ms": library[n],
+             "kernel_TFLOPs": flops / t["ms"] / 1e9})
+    del q, k, v, do, o, lse, delta, dq, dk, dv, leaves, out
+    torch.cuda.empty_cache()
+    return rows
+
+
+def phase_flash_bf16_path(torch, dev):
+    """Phase 6's bf16 kernels on their path: one inner step of diloco_400m
+    at full width with ``cfg.replace(use_pallas=True,
+    compute_dtype="bfloat16")`` (the loss and its gradients, then one
+    no-grad forward), as a user reaches it through ``Arch.loss``. The
+    counters are set to 0 just before and read just after: 2·L
+    ``fwd_lse_bf16`` (remat runs the forward twice), L ``bwd_dq_bf16``
+    and L ``bwd_dkv_bf16``, L ``fwd_bf16``, and 0 for every other
+    kernel. Returns the launches."""
+    from repro_torch import tree
+    from repro_torch.models.registry import get_arch
+
+    arch = get_arch("diloco_400m")
+    cfg = arch.cfg.replace(use_pallas=True, compute_dtype="bfloat16")
+    L = cfg.n_layers
+    gen = torch.Generator(device=dev).manual_seed(7)
+    params = arch.init(generator=gen, device=dev, cfg=cfg)
+    toks = torch.randint(0, cfg.vocab_size, (BATCH, SEQ), generator=gen,
+                         device=dev)
+    leaves = [t.requires_grad_(True) for t in tree.leaves(params)]
+    torch.cuda.synchronize()
+    reset_launches()
+    t0 = time.perf_counter()
+    loss, _ = arch.loss(tree.unflatten(params, leaves), {"tokens": toks},
+                        cfg=cfg)
+    grads = torch.autograd.grad(loss, leaves)
+    with torch.no_grad():
+        eval_loss, _ = arch.loss(params, {"tokens": toks}, cfg=cfg)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    got = read_launches()
+    want = expect_launches(flash_fwd_lse_bf16=2 * L, flash_bwd_dq_bf16=L,
+                           flash_bwd_dkv_bf16=L, flash_fwd_bf16=L)
+    if got != want:
+        raise SystemExit(f"flash_bf16_path: launches {got}, want {want}")
+    if not (math.isfinite(float(loss)) and math.isfinite(float(eval_loss))
+            and all(bool(torch.isfinite(g).all()) for g in grads)):
+        raise SystemExit("flash_bf16_path: a loss or gradient is not "
+                         "finite")
+    say({"phase": "flash_bf16_path", "arch": "diloco_400m",
+         "compute_dtype": "bfloat16", "batch": BATCH, "seq": SEQ,
+         "loss": float(loss), "eval_loss": float(eval_loss),
+         "step_plus_eval_s": wall,
+         "launches": {n: c for n, c in got.items() if c}})
+    del params, leaves, grads, loss, eval_loss
+    torch.cuda.empty_cache()
+    return {n: got[n] for n in ("flash_fwd_bf16", "flash_fwd_lse_bf16",
+                                "flash_bwd_dq_bf16", "flash_bwd_dkv_bf16")}
+
+
+# phase 35: the island step of diloco_150m at full width on (data 1, model
+# 2), two ranks sharing the card; the port's f32 bound against the
+# unsharded step, and phase 34's memory gate
+ISLAND_SHAPE = (1, 2)
+ISLAND_ATOL, ISLAND_RTOL = 1e-5, 1e-4
+# AdamW's first moments (0.1 of the clipped gradient, rounded to bf16 once
+# after its reduce), leaf by leaf: within one bf16 ulp of the leaf's
+# largest entry (2⁻⁷ of it)
+ISLAND_M_REL = 2.0 ** -7
+
+
+def phase_island(torch, dev, shape=ISLAND_SHAPE, arch_name="diloco_150m",
+                 cards=1):
+    """Phase 35: one inner train step of ``arch_name`` at full width (B 8,
+    S 1024, f32 params and compute through the step's bf16 weight cast)
+    on an island mesh of ``shape`` (data, model): the dry run's sharded
+    step (``launch/island.py``) on one rank per chip of the mesh, on this
+    card's ranks (gloo, collectives staged through the host) or one a card
+    over NCCL (``cards`` > 1), from m = 0 and ``island.second_moments``.
+    Held against the unsharded step of the same params, state and batch
+    on the card: the loss and every param after the step (atol 1e-5,
+    rtol 1e-4), and the first moments leaf by leaf within
+    ``ISLAND_M_REL`` of the leaf's largest; each rank's measured
+    collectives equal
+    to the dry run's count for that mesh and step (op and bytes, in
+    order); each rank's peak memory over the step within phase 34's gate
+    of the dry run's per-chip estimate (its blocks of the arguments plus
+    the meta run's peak of live storage)."""
+    from repro_torch.launch import dryrun, mesh
+    from repro_torch.models.registry import get_arch
+
+    t0 = time.perf_counter()
+    arch = get_arch(arch_name)
+    cfg = arch.cfg
+    ranks = shape[0] * shape[1]
+    layout = mesh.make_pod_layout(ranks, "cuda")
+    # the dry run's count (on meta tensors, on this process's CPU) while
+    # the ranks run
+    from concurrent.futures import ThreadPoolExecutor
+    with ThreadPoolExecutor(1) as pool:
+        counting = pool.submit(dryrun.island_step_cost, cfg, BATCH, SEQ,
+                               shape)
+        t1 = time.perf_counter()
+        # every rank also runs the unsharded step of the same params,
+        # state and batch (drawn from the same seed) on its card and
+        # compares its blocks
+        res = mesh.spawn("repro_torch.launch.island:train_steps", layout,
+                         shape, [{"cfg": cfg, "init_seed": 35,
+                                  "tokens_shape": (BATCH, SEQ),
+                                  "microbatches": 1,
+                                  "check": {"atol": ISLAND_ATOL,
+                                            "rtol": ISLAND_RTOL,
+                                            "m_rel": ISLAND_M_REL}}])
+        rank_s = time.perf_counter() - t1
+        counted = counting.result()
+    got = [r[0] for r in res]
+    for g in got:
+        chk = g["check"]
+        if chk["m_leaves_beyond"] or chk["params_beyond"] or abs(
+                g["loss"] - chk["loss"]) > ISLAND_ATOL + ISLAND_RTOL * abs(
+                    chk["loss"]):
+            raise SystemExit(f"island: the sharded step differs from the "
+                             f"unsharded one: {g['loss']} {chk}")
+    entries = sum(g["check"]["entries"] for g in got)
+    want_coll = [tuple(c) for c in counted["collectives"]]
+    for r, g in enumerate(got):
+        if [tuple(c) for c in g["collectives"]] != want_coll:
+            raise SystemExit(f"island: rank {r}'s collectives differ from "
+                             f"the dry run's count")
+    estimate = counted["argument_bytes"] + counted["peak_live_bytes"]
+    gaps = [g["peak_bytes"] / estimate - 1.0 for g in got]
+    if any(abs(x) > DRYRUN_MEMORY_TOL for x in gaps):
+        raise SystemExit(f"island: peaks {[g['peak_bytes'] for g in got]} "
+                         f"against the estimate {estimate} ({gaps})")
+    by_op = {}
+    for op, nb in want_coll:
+        by_op[op] = by_op.get(op, 0) + nb
+    say({"phase": "island", "arch": arch_name, "mesh": list(shape),
+         "cards": cards, "backend": layout.backend,
+         "staged": layout.staged, "batch": BATCH, "seq": SEQ,
+         "loss": got[0]["loss"], "unsharded_loss": got[0]["check"]["loss"],
+         "params_max_abs_diff": max(g["check"]["params_max_abs_diff"]
+                                    for g in got),
+         "m_max_abs_diff": max(g["check"]["m_max_abs_diff"] for g in got),
+         "m_rel_max": max(g["check"]["m_rel_max"] for g in got),
+         "m_rel_bound": ISLAND_M_REL, "entries_compared": entries,
+         "atol": ISLAND_ATOL,
+         "rtol": ISLAND_RTOL, "collectives": len(want_coll),
+         "intra_bytes_per_rank": sum(nb for _, nb in want_coll),
+         "intra_bytes_by_op": by_op,
+         "counted_equals_measured": True,
+         "peak_measured_bytes": [g["peak_bytes"] for g in got],
+         "peak_estimate_bytes": estimate, "peak_rel_err": gaps,
+         "memory_tol": DRYRUN_MEMORY_TOL, "counted_flops": counted["flops"],
+         "ranks_s": rank_s, "elapsed_s": time.perf_counter() - t0})
+
+
 def main_cards(torch, dev, cards: int) -> int:
     """``--cards N`` (N > 1): only the sharded transport across N cards,
     one pod rank and one replica per card over NCCL: phase 22 against
-    gloo ranks on the CPU, then phase 21 at full width."""
+    gloo ranks on the CPU, then phase 21 at full width; with four cards,
+    phase 35 on (data 2, model 2) at diloco_400m."""
     if torch.cuda.device_count() < cards:
         print(f"chip_smoke: --cards {cards} needs {cards} cards, "
               f"{torch.cuda.device_count()} visible", file=sys.stderr)
@@ -3771,6 +4122,10 @@ def main_cards(torch, dev, cards: int) -> int:
     phase_device(torch)
     phase_smoke_sharded(torch, dev, pods=cards)
     phase_train_sharded(torch, dev, pods=cards, k=cards)
+    if cards == 4:
+        # the island step over NCCL, a rank a card, at diloco_400m
+        phase_island(torch, dev, shape=(2, 2), arch_name="diloco_400m",
+                     cards=cards)
     print(card_line(), flush=True)
     say({"ok": True, "device": {"platform": "gpu",
                                 "kind": torch.cuda.get_device_name(0),
@@ -3792,9 +4147,11 @@ def main() -> int:
     launches = phase_train(torch, dev)
     phase_profile(torch, dev)
     rows += phase_flash(torch, dev)
+    rows += phase_flash_bf16(torch, dev)
+    launches.update(phase_flash_bf16_path(torch, dev))
     # each kernel's launches from its own path's run
     launches.update({n: c for n, c in phase_train_400m(torch, dev).items()
-                     if n.startswith("flash_")})
+                     if n.startswith("flash_") and not n.endswith("_bf16")})
     phase_profile(torch, dev, "diloco_400m", "profile_400m", use_pallas=True)
     rows += phase_mixed_kernels(torch, dev)
     phase_smoke_mixed(torch, dev)
@@ -3833,6 +4190,7 @@ def main() -> int:
     phase_train_zamba2(torch, dev)
     families = phase_serve_families(torch, dev)
     phase_dryrun(torch, dev, sharded_traffic)
+    phase_island(torch, dev)
     for row in rows:
         row["launches"] = launches[row["name"]]
         if row["name"] in serve:        # their launches on the serve paths

@@ -1,4 +1,5 @@
-// Flash attention, forward and backward, float32, for Hopper (sm_90a).
+// Flash attention, forward and backward, for Hopper (sm_90a), on float32 or
+// bfloat16 operands.
 //
 // Replaces the TPU kernels of src/repro/kernels/flash_attention.py:
 //   repro_flash_fwd_f32      flash_attention  (_attn_kernel): o only
@@ -6,6 +7,13 @@
 //                            per-row logsumexp lse = m + log(l)
 //   repro_flash_bwd_dq_f32   _bwd, first call  (_bwd_dq_kernel)
 //   repro_flash_bwd_dkv_f32  _bwd, second call (_bwd_dkv_kernel)
+// and the same four as _bf16: as the Pallas kernels, q, k, v and
+// dO of any float dtype are converted to f32 where they are staged, every
+// product and sum is f32, and o, dq, dk and dv are written in the
+// operands' dtype; lse and delta are f32 whatever the operands' dtype. A
+// bf16 or f16 tile is loaded through registers (8 bytes a thread-chunk)
+// and stored to shared memory as f32, so the f32 pipeline's split-TF32
+// products run unchanged; f32 tiles keep their cp.async ring.
 //
 // Layout: q, o, dO, dq (B, H, Sq, D); k, v, dk, dv (B, G, Sk, D), H % G == 0,
 // query head h reads kv head h / (H / G). Each tensor comes with its batch,
@@ -97,8 +105,11 @@
 // mma.sync reaches, as the forward does (PERF.md). ptxas (-Xptxas -v, sm_90a), no spills: dq 239 registers
 // (d 128) or 187 (d 64), dk/dv 252 or 176; dynamic shared memory: dq
 // 196,608 or 98,304 bytes, dk/dv 139,776 or 74,240; one block per SM.
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 namespace {
 
@@ -109,31 +120,35 @@ struct Strides {
   long long b, h, s;
 };
 
+// T: the operands' element type (float or __nv_bfloat16)
+template <typename T>
 struct Attn {
-  const float* q;
-  const float* k;
-  const float* v;
-  const float* dout;
+  const T* q;
+  const T* k;
+  const T* v;
+  const T* dout;
   const float* lse;     // (B, H, Sq)
   const float* delta;   // (B, H, Sq)
-  float* out;           // o (forward) or dq
+  T* out;               // o (forward) or dq
   float* lse_out;       // forward with lse only
-  float* dk;
-  float* dv;
+  T* dk;
+  T* dv;
   Strides sq, sk, sv, sdo, sout, sdk, sdv;
   int H, G, Sq, Sk;
   float scale;
   int causal, window, q_off;
 };
 
-__device__ __forceinline__ bool visible(const Attn& a, int qp, int kp) {
+template <typename T>
+__device__ __forceinline__ bool visible(const Attn<T>& a, int qp, int kp) {
   return kp < a.Sk && (!a.causal || kp <= qp) &&
          (a.window <= 0 || kp > qp - a.window);
 }
 
 // Tile-level skip of the Pallas kernels: a (query tile, key tile) pair is
 // live unless causality or the window masks all of it.
-__device__ __forceinline__ bool live(const Attn& a, int q0, int k0,
+template <typename T>
+__device__ __forceinline__ bool live(const Attn<T>& a, int q0, int k0,
                                      int bq, int bk) {
   const int q_first = a.q_off + q0, q_last = q_first + bq - 1;
   if (a.causal && k0 > q_last) return false;
@@ -216,11 +231,48 @@ __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;" :: "n"(N) : "memory");
 }
 
+// Four consecutive elements as f32, and back in the element type
+// (round to nearest even).
+__device__ __forceinline__ float4 load4(const float* p) {
+  return *reinterpret_cast<const float4*>(p);
+}
+__device__ __forceinline__ float4 load4(const __nv_bfloat16* p) {
+  const uint2 u = *reinterpret_cast<const uint2*>(p);
+  const float2 a = __bfloat1622float2(
+      *reinterpret_cast<const __nv_bfloat162*>(&u.x));
+  const float2 b = __bfloat1622float2(
+      *reinterpret_cast<const __nv_bfloat162*>(&u.y));
+  return make_float4(a.x, a.y, b.x, b.y);
+}
+__device__ __forceinline__ void store4(float* p, float4 x) {
+  *reinterpret_cast<float4*>(p) = x;
+}
+__device__ __forceinline__ void store4(__nv_bfloat16* p, float4 x) {
+  const __nv_bfloat162 a = __floats2bfloat162_rn(x.x, x.y);
+  const __nv_bfloat162 b = __floats2bfloat162_rn(x.z, x.w);
+  *reinterpret_cast<uint2*>(p) = make_uint2(
+      *reinterpret_cast<const uint32_t*>(&a),
+      *reinterpret_cast<const uint32_t*>(&b));
+}
+
+// Stage four elements of src at dst as f32: a 16-byte cp.async for f32
+// (zero-filled unless `in`), a load through registers otherwise (nothing
+// read unless `in`).
+template <typename T>
+__device__ __forceinline__ void stage4(float* dst, const T* src, bool in) {
+  if constexpr (std::is_same_v<T, float>) {
+    cp_async16(dst, src, in);
+  } else {
+    *reinterpret_cast<float4*>(dst) =
+        in ? load4(src) : make_float4(0.f, 0.f, 0.f, 0.f);
+  }
+}
+
 // Stage key rows k0 .. k0 + FBK - 1 of k and v; rows at or past Sk are
 // zero-filled (src-size 0), never read.
-template <int D>
-__device__ __forceinline__ void load_kv(float* Kt, float* Vt, const float* k,
-                                        const float* v, const Attn& a,
+template <typename T, int D>
+__device__ __forceinline__ void load_kv(float* Kt, float* Vt, const T* k,
+                                        const T* v, const Attn<T>& a,
                                         int k0) {
   constexpr int V4 = D / 4;
   static_assert(FBK * V4 % THREADS == 0, "whole rounds of 16-byte chunks");
@@ -230,8 +282,8 @@ __device__ __forceinline__ void load_kv(float* Kt, float* Vt, const float* k,
     const int r = idx / V4, c = (idx % V4) * 4;
     const bool in = k0 + r < a.Sk;
     const long long row = in ? k0 + r : 0;
-    cp_async16(Kt + r * FWD_LDK<D> + c, k + row * a.sk.s + c, in);
-    cp_async16(Vt + r * FWD_LDV<D> + c, v + row * a.sv.s + c, in);
+    stage4(Kt + r * FWD_LDK<D> + c, k + row * a.sk.s + c, in);
+    stage4(Vt + r * FWD_LDV<D> + c, v + row * a.sv.s + c, in);
   }
 }
 
@@ -248,9 +300,9 @@ __device__ __forceinline__ void load_kv(float* Kt, float* Vt, const float* k,
 //   rows 2t and 2t + 1. Output n-tile 4 mm + r, column g holds d = 32 mm +
 //   4 g + r, so one float4 of a V row feeds four n-tiles and a thread's
 //   accumulators cover d = 32 mm + 8 t .. + 7 of its rows.
-template <int D, bool LSE>
+template <typename T, int D, bool LSE>
 __global__ void __launch_bounds__(THREADS, 1)
-flash_fwd_kernel(Attn a) {
+flash_fwd_kernel(Attn<T> a) {
   constexpr int LDK = FWD_LDK<D>, LDV = FWD_LDV<D>;
   constexpr int NKP = D / 16, NJ = FBK / 8, NM = D / 32;
   extern __shared__ float4 smem4[];
@@ -264,8 +316,8 @@ flash_fwd_kernel(Attn a) {
   const int q0 = (n_q - 1 - (int)blockIdx.x / bh_n) * FBQ;
   const int h = bh % a.H, b = bh / a.H;
   const int gk = h / (a.H / a.G);
-  const float* k = a.k + b * a.sk.b + gk * a.sk.h;
-  const float* v = a.v + b * a.sv.b + gk * a.sv.h;
+  const T* k = a.k + b * a.sk.b + gk * a.sk.h;
+  const T* v = a.v + b * a.sv.b + gk * a.sv.h;
   const int r0 = q0 + 16 * warp;                 // the warp's first row
   const int qa = a.q_off + r0, qb = qa + 15;     // its absolute positions
 
@@ -273,13 +325,12 @@ flash_fwd_kernel(Attn a) {
   // after the first barrier of the loop)
   {
     constexpr int V4 = D / 4;
-    const float* q = a.q + b * a.sq.b + h * a.sq.h;
+    const T* q = a.q + b * a.sq.b + h * a.sq.h;
     for (int idx = threadIdx.x; idx < FBQ * V4; idx += THREADS) {
       const int r = idx / V4, c = (idx % V4) * 4;
       float4 x = make_float4(0.f, 0.f, 0.f, 0.f);
       if (q0 + r < a.Sq) {
-        x = *reinterpret_cast<const float4*>(
-            q + (long long)(q0 + r) * a.sq.s + c);
+        x = load4(q + (long long)(q0 + r) * a.sq.s + c);
         x.x *= a.scale;
         x.y *= a.scale;
         x.z *= a.scale;
@@ -305,8 +356,8 @@ flash_fwd_kernel(Attn a) {
 #pragma unroll
   for (int i = 0; i < STAGES - 1; ++i) {
     if (lo + i <= hi)
-      load_kv<D>(Ks + i * FBK * LDK, Vs + i * FBK * LDV, k, v, a,
-                 (lo + i) * FBK);
+      load_kv<T, D>(Ks + i * FBK * LDK, Vs + i * FBK * LDV, k, v, a,
+                    (lo + i) * FBK);
     cp_async_commit();
   }
   for (int kb = lo; kb <= hi; ++kb) {
@@ -315,8 +366,8 @@ flash_fwd_kernel(Attn a) {
     {
       const int nb = kb + STAGES - 1, st = (nb - lo) % STAGES;
       if (nb <= hi)
-        load_kv<D>(Ks + st * FBK * LDK, Vs + st * FBK * LDV, k, v, a,
-                   nb * FBK);
+        load_kv<T, D>(Ks + st * FBK * LDK, Vs + st * FBK * LDV, k, v, a,
+                      nb * FBK);
       cp_async_commit();
     }
     const int k0 = kb * FBK;
@@ -414,7 +465,7 @@ flash_fwd_kernel(Attn a) {
         o[n][e] = fmaf(o[n][e], corr[e >> 1], c[n][e]);
   }
 
-  float* out = a.out + b * a.sout.b + h * a.sout.h;
+  T* out = a.out + b * a.sout.b + h * a.sout.h;
 #pragma unroll
   for (int i = 0; i < 2; ++i) {
     float li = l[i];
@@ -426,15 +477,15 @@ flash_fwd_kernel(Attn a) {
     if (row >= a.Sq) continue;
     if (LSE && t == 0)
       a.lse_out[((long long)b * a.H + h) * a.Sq + row] = m[i] + logf(li);
-    float* dst = out + (long long)row * a.sout.s + 8 * t;
+    T* dst = out + (long long)row * a.sout.s + 8 * t;
 #pragma unroll
     for (int mm = 0; mm < NM; ++mm) {
-      *reinterpret_cast<float4*>(dst + 32 * mm) = make_float4(
+      store4(dst + 32 * mm, make_float4(
           o[4 * mm][2 * i] * inv, o[4 * mm + 1][2 * i] * inv,
-          o[4 * mm + 2][2 * i] * inv, o[4 * mm + 3][2 * i] * inv);
-      *reinterpret_cast<float4*>(dst + 32 * mm + 4) = make_float4(
+          o[4 * mm + 2][2 * i] * inv, o[4 * mm + 3][2 * i] * inv));
+      store4(dst + 32 * mm + 4, make_float4(
           o[4 * mm][2 * i + 1] * inv, o[4 * mm + 1][2 * i + 1] * inv,
-          o[4 * mm + 2][2 * i + 1] * inv, o[4 * mm + 3][2 * i + 1] * inv);
+          o[4 * mm + 2][2 * i + 1] * inv, o[4 * mm + 3][2 * i + 1] * inv));
     }
   }
 }
@@ -471,8 +522,8 @@ __device__ __forceinline__ int at(int r, int c) {
 
 // Stage rows row0 .. row0 + R - 1 of src (row stride ld) into dst; rows
 // at or past n_rows are zero-filled, never read.
-template <int D, int R>
-__device__ __forceinline__ void stage_rows(float* dst, const float* src,
+template <int D, int R, typename T>
+__device__ __forceinline__ void stage_rows(float* dst, const T* src,
                                            long long ld, int row0,
                                            int n_rows) {
   constexpr int V4 = D / 4;
@@ -483,7 +534,7 @@ __device__ __forceinline__ void stage_rows(float* dst, const float* src,
     const int r = idx / V4, c = idx % V4;
     const bool in = row0 + r < n_rows;
     const long long row = in ? row0 + r : 0;
-    cp_async16(dst + at<D>(r, c), src + row * ld + 4 * c, in);
+    stage4(dst + at<D>(r, c), src + row * ld + 4 * c, in);
   }
 }
 
@@ -641,24 +692,24 @@ __device__ __forceinline__ void accumulate(float (&acc)[D / 8][4],
 
 // Rows `row` (accumulator e = 0, 1) and `row + 8` (e = 2, 3) of acc times
 // `mul` into dst (row stride ld), rows at or past n_rows dropped.
-template <int D>
-__device__ __forceinline__ void store_acc(float* dst, long long ld,
+template <int D, typename T>
+__device__ __forceinline__ void store_acc(T* dst, long long ld,
                                           const float (&acc)[D / 8][4],
                                           float mul, int row, int t,
                                           int n_rows) {
 #pragma unroll
   for (int i = 0; i < 2; ++i) {
     if (row + 8 * i >= n_rows) continue;
-    float* p = dst + (long long)(row + 8 * i) * ld + 8 * t;
+    T* p = dst + (long long)(row + 8 * i) * ld + 8 * t;
 #pragma unroll
     for (int mm = 0; mm < D / 32; ++mm) {
-      *reinterpret_cast<float4*>(p + 32 * mm) = make_float4(
+      store4(p + 32 * mm, make_float4(
           acc[4 * mm][2 * i] * mul, acc[4 * mm + 1][2 * i] * mul,
-          acc[4 * mm + 2][2 * i] * mul, acc[4 * mm + 3][2 * i] * mul);
-      *reinterpret_cast<float4*>(p + 32 * mm + 4) = make_float4(
+          acc[4 * mm + 2][2 * i] * mul, acc[4 * mm + 3][2 * i] * mul));
+      store4(p + 32 * mm + 4, make_float4(
           acc[4 * mm][2 * i + 1] * mul, acc[4 * mm + 1][2 * i + 1] * mul,
           acc[4 * mm + 2][2 * i + 1] * mul,
-          acc[4 * mm + 3][2 * i + 1] * mul);
+          acc[4 * mm + 3][2 * i + 1] * mul));
     }
   }
 }
@@ -669,9 +720,9 @@ __device__ __forceinline__ void store_acc(float* dst, long long ld,
 // through a cp.async ring of FBK-key tiles
 // ---------------------------------------------------------------------------
 
-template <int D>
+template <typename T, int D>
 __global__ void __launch_bounds__(THREADS, 1)
-flash_dq_kernel(Attn a) {
+flash_dq_kernel(Attn<T> a) {
   extern __shared__ float4 smem4[];
   float* Qs = reinterpret_cast<float*>(smem4);   // [FBQ][D], scaled
   float* dOs = Qs + FBQ * D;                      // [FBQ][D]
@@ -684,8 +735,8 @@ flash_dq_kernel(Attn a) {
   const int q0 = (n_q - 1 - (int)blockIdx.x / bh_n) * FBQ;
   const int h = bh % a.H, b = bh / a.H;
   const int gk = h / (a.H / a.G);
-  const float* k = a.k + b * a.sk.b + gk * a.sk.h;
-  const float* v = a.v + b * a.sv.b + gk * a.sv.h;
+  const T* k = a.k + b * a.sk.b + gk * a.sk.h;
+  const T* v = a.v + b * a.sv.b + gk * a.sv.h;
   const int r0 = q0 + 16 * warp;                 // the warp's first row
   const int qa = a.q_off + r0, qb = qa + 15;     // its absolute positions
 
@@ -707,16 +758,14 @@ flash_dq_kernel(Attn a) {
   // after the first barrier of the loop)
   {
     constexpr int V4 = D / 4;
-    const float* q = a.q + b * a.sq.b + h * a.sq.h;
-    const float* dout = a.dout + b * a.sdo.b + h * a.sdo.h;
+    const T* q = a.q + b * a.sq.b + h * a.sq.h;
+    const T* dout = a.dout + b * a.sdo.b + h * a.sdo.h;
     for (int idx = threadIdx.x; idx < FBQ * V4; idx += THREADS) {
       const int r = idx / V4, c = idx % V4;
       float4 x = make_float4(0.f, 0.f, 0.f, 0.f), y = x;
       if (q0 + r < a.Sq) {
-        x = *reinterpret_cast<const float4*>(
-            q + (long long)(q0 + r) * a.sq.s + 4 * c);
-        y = *reinterpret_cast<const float4*>(
-            dout + (long long)(q0 + r) * a.sdo.s + 4 * c);
+        x = load4(q + (long long)(q0 + r) * a.sq.s + 4 * c);
+        y = load4(dout + (long long)(q0 + r) * a.sdo.s + 4 * c);
         x.x *= a.scale;
         x.y *= a.scale;
         x.z *= a.scale;
@@ -802,9 +851,9 @@ flash_dq_kernel(Attn a) {
 // accumulator layout that the A fragments of the second products read.
 // ---------------------------------------------------------------------------
 
-template <int D>
+template <typename T, int D>
 __global__ void __launch_bounds__(THREADS, 1)
-flash_dkv_kernel(Attn a) {
+flash_dkv_kernel(Attn<T> a) {
   extern __shared__ float4 smem4[];
   float* Ks = reinterpret_cast<float*>(smem4);   // [BKV][D]
   float* Vs = Ks + BKV * D;                       // [BKV][D]
@@ -955,9 +1004,9 @@ static_assert(smem_bytes<128>(FWD) <= 232448, "forward stages overflow");
 static_assert(smem_bytes<128>(BWD_DQ) <= 232448, "dq stages overflow");
 static_assert(smem_bytes<128>(BWD_DKV) <= 232448, "dk/dv stages overflow");
 
-template <typename K>
+template <typename K, typename T>
 cudaError_t launch(K kernel, dim3 grid, size_t smem, cudaStream_t stream,
-                   const Attn& a) {
+                   const Attn<T>& a) {
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
@@ -965,29 +1014,30 @@ cudaError_t launch(K kernel, dim3 grid, size_t smem, cudaStream_t stream,
   return cudaGetLastError();
 }
 
-template <int D>
-cudaError_t run(Kind kind, const Attn& a, int B, cudaStream_t stream) {
+template <typename T, int D>
+cudaError_t run(Kind kind, const Attn<T>& a, int B, cudaStream_t stream) {
   const dim3 rows(((a.Sq + FBQ - 1) / FBQ) * a.H * B);
   const dim3 keys(((a.Sk + BKV - 1) / BKV) * a.G * B);
   const size_t smem = smem_bytes<D>(kind);
   switch (kind) {
     case FWD:
-      return launch(flash_fwd_kernel<D, false>, rows, smem, stream, a);
+      return launch(flash_fwd_kernel<T, D, false>, rows, smem, stream, a);
     case FWD_LSE:
-      return launch(flash_fwd_kernel<D, true>, rows, smem, stream, a);
+      return launch(flash_fwd_kernel<T, D, true>, rows, smem, stream, a);
     case BWD_DQ:
-      return launch(flash_dq_kernel<D>, rows, smem, stream, a);
+      return launch(flash_dq_kernel<T, D>, rows, smem, stream, a);
     case BWD_DKV:
-      return launch(flash_dkv_kernel<D>, keys, smem, stream, a);
+      return launch(flash_dkv_kernel<T, D>, keys, smem, stream, a);
   }
   return cudaErrorInvalidValue;
 }
 
 // st: batch, head and sequence strides of q, k, v, dO, out (o or dq), dk,
 // dv, in that order (21 values; zeros for tensors a kernel does not take).
-int dispatch(Kind kind, const float* q, const float* k, const float* v,
-             const float* dout, const float* lse, const float* delta,
-             float* out, float* lse_out, float* dk, float* dv,
+template <typename T>
+int dispatch(Kind kind, const void* q, const void* k, const void* v,
+             const void* dout, const float* lse, const float* delta,
+             void* out, float* lse_out, void* dk, void* dv,
              const long long* st, int B, int H, int G, int Sq, int Sk, int D,
              float scale, int causal, int window, int q_off, int device,
              void* stream) {
@@ -995,40 +1045,47 @@ int dispatch(Kind kind, const float* q, const float* k, const float* v,
   if (err != cudaSuccess) return (int)err;
   if (B <= 0 || H <= 0 || G <= 0 || H % G != 0 || Sq <= 0 || Sk <= 0)
     return (int)cudaErrorInvalidValue;
-  Attn a{q, k, v, dout, lse, delta, out, lse_out, dk, dv,
+  Attn<T> a{static_cast<const T*>(q), static_cast<const T*>(k),
+            static_cast<const T*>(v), static_cast<const T*>(dout), lse,
+            delta, static_cast<T*>(out), lse_out, static_cast<T*>(dk),
+            static_cast<T*>(dv),
          {st[0], st[1], st[2]}, {st[3], st[4], st[5]},
          {st[6], st[7], st[8]}, {st[9], st[10], st[11]},
          {st[12], st[13], st[14]}, {st[15], st[16], st[17]},
          {st[18], st[19], st[20]},
          H, G, Sq, Sk, scale, causal, window, q_off};
   cudaStream_t s = (cudaStream_t)stream;
-  if (D == 64) return (int)run<64>(kind, a, B, s);
-  if (D == 128) return (int)run<128>(kind, a, B, s);
+  if (D == 64) return (int)run<T, 64>(kind, a, B, s);
+  if (D == 128) return (int)run<T, 128>(kind, a, B, s);
   return (int)cudaErrorInvalidValue;
 }
 
 }  // namespace
 
-// Each returns the cudaError_t of its launch (0 on success).
+// Each returns the cudaError_t of its launch (0 on success). q, k, v, dO,
+// out, dk and dv are of the entry point's element type; lse and delta f32.
 #define REPRO_FLASH_ARGS                                                    \
-  const float *q, const float *k, const float *v, const float *dout,       \
-      const float *lse, const float *delta, float *out, float *lse_out,    \
-      float *dk, float *dv, const long long *st, int B, int H, int G,      \
+  const void *q, const void *k, const void *v, const void *dout,           \
+      const float *lse, const float *delta, void *out, float *lse_out,     \
+      void *dk, void *dv, const long long *st, int B, int H, int G,        \
       int Sq, int Sk, int D, float scale, int causal, int window,          \
       int q_off, int device, void *stream
 #define REPRO_FLASH_PASS                                                    \
   q, k, v, dout, lse, delta, out, lse_out, dk, dv, st, B, H, G, Sq, Sk, D, \
       scale, causal, window, q_off, device, stream
+#define REPRO_FLASH_ENTRIES(SUFFIX, T)                                      \
+  extern "C" int repro_flash_fwd_##SUFFIX(REPRO_FLASH_ARGS) {               \
+    return dispatch<T>(FWD, REPRO_FLASH_PASS);                              \
+  }                                                                         \
+  extern "C" int repro_flash_fwd_lse_##SUFFIX(REPRO_FLASH_ARGS) {           \
+    return dispatch<T>(FWD_LSE, REPRO_FLASH_PASS);                          \
+  }                                                                         \
+  extern "C" int repro_flash_bwd_dq_##SUFFIX(REPRO_FLASH_ARGS) {            \
+    return dispatch<T>(BWD_DQ, REPRO_FLASH_PASS);                           \
+  }                                                                         \
+  extern "C" int repro_flash_bwd_dkv_##SUFFIX(REPRO_FLASH_ARGS) {           \
+    return dispatch<T>(BWD_DKV, REPRO_FLASH_PASS);                          \
+  }
 
-extern "C" int repro_flash_fwd_f32(REPRO_FLASH_ARGS) {
-  return dispatch(FWD, REPRO_FLASH_PASS);
-}
-extern "C" int repro_flash_fwd_lse_f32(REPRO_FLASH_ARGS) {
-  return dispatch(FWD_LSE, REPRO_FLASH_PASS);
-}
-extern "C" int repro_flash_bwd_dq_f32(REPRO_FLASH_ARGS) {
-  return dispatch(BWD_DQ, REPRO_FLASH_PASS);
-}
-extern "C" int repro_flash_bwd_dkv_f32(REPRO_FLASH_ARGS) {
-  return dispatch(BWD_DKV, REPRO_FLASH_PASS);
-}
+REPRO_FLASH_ENTRIES(f32, float)
+REPRO_FLASH_ENTRIES(bf16, __nv_bfloat16)

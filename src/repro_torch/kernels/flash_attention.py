@@ -15,10 +15,17 @@ in as transposed views, without a copy.
   flash_attention  FlashAttention where a gradient is needed, else
                  flash_fwd
 
+Operands are float32 or bfloat16 (all of one dtype), as the Pallas
+kernels take any float dtype: the kernels stage bf16 tiles as f32,
+compute in f32, and write o, dq, dk and dv in the operands' dtype; lse
+and delta are float32 whatever the operands' dtype (the plain versions
+do the same).
+
 Each function runs the kernels on CUDA tensors and the plain PyTorch
 versions (``ref.flash_fwd_lse``, ``ref.flash_bwd``) on CPU tensors; a
 CUDA tensor goes to a kernel or raises. ``launches`` counts each kernel's
-launches (and nothing else).
+launches (and nothing else), the bf16 kernels under their own keys
+("fwd_bf16", ...).
 """
 from __future__ import annotations
 
@@ -29,19 +36,30 @@ import torch
 from . import build, ref
 
 HEAD_DIMS = (64, 128)     # head dims the kernels are built for
-launches = {"fwd": 0, "fwd_lse": 0, "bwd_dq": 0, "bwd_dkv": 0}
+# operand dtype -> the suffix of its kernels' entry points and counters
+DTYPES = {torch.float32: "f32", torch.bfloat16: "bf16"}
+KERNELS = ("fwd", "fwd_lse", "bwd_dq", "bwd_dkv")
+launches = {**dict.fromkeys(KERNELS, 0),
+            **dict.fromkeys((f"{n}_bf16" for n in KERNELS), 0)}
 _fns: dict = {}
 
 
-def _kernel(name: str):
-    if name not in _fns:
-        fn = getattr(build.load("flash_attention"), f"repro_flash_{name}_f32")
+def counter(name: str, dtype) -> str:
+    """The ``launches`` key of kernel ``name`` on ``dtype`` operands."""
+    return name if dtype == torch.float32 else f"{name}_{DTYPES[dtype]}"
+
+
+def _kernel(name: str, dtype):
+    key = (name, dtype)
+    if key not in _fns:
+        fn = getattr(build.load("flash_attention"),
+                     f"repro_flash_{name}_{DTYPES[dtype]}")
         fn.restype = ctypes.c_int
         fn.argtypes = ([ctypes.c_void_p] * 11 + [ctypes.c_int] * 6
                        + [ctypes.c_float] + [ctypes.c_int] * 4
                        + [ctypes.c_void_p])
-        _fns[name] = fn
-    return _fns[name]
+        _fns[key] = fn
+    return _fns[key]
 
 
 def _scale(q, scale):
@@ -61,10 +79,13 @@ def _check(q, k, v, *more):
                          f"{tuple(q.shape)} (need H % G == 0)")
     if Sq == 0 or k.shape[2] == 0:
         raise ValueError("flash attention needs Sq > 0 and Sk > 0")
+    if q.dtype not in DTYPES:
+        raise TypeError(f"flash attention takes {list(DTYPES)} operands, "
+                        f"got {q.dtype}")
     for t in (q, k, v, *more):
-        if t.dtype != torch.float32:
-            raise TypeError(f"flash attention takes float32 tensors only, "
-                            f"got {t.dtype} (other dtypes are not ported)")
+        if t.dtype != q.dtype:
+            raise TypeError(f"flash attention operands of one dtype, got "
+                            f"{t.dtype} beside {q.dtype}")
         if t.device != q.device:
             raise ValueError(f"flash attention operands on {t.device} and "
                              f"{q.device}")
@@ -99,7 +120,7 @@ def _launch(name, q, k, v, *, out, do=None, lse=None, delta=None,
     for t in (q, k, v, do, out, dk, dv):
         strides += list(t.stride()[:3]) if t is not None else [0, 0, 0]
     ptr = lambda t: None if t is None else t.data_ptr()
-    err = _kernel(name)(
+    err = _kernel(name, q.dtype)(
         ptr(q), ptr(k), ptr(v), ptr(do), ptr(lse), ptr(delta), ptr(out),
         ptr(lse_out), ptr(dk), ptr(dv),
         (ctypes.c_longlong * len(strides))(*strides),
@@ -109,7 +130,7 @@ def _launch(name, q, k, v, *, out, do=None, lse=None, delta=None,
     if err != 0:
         raise RuntimeError(f"flash attention kernel {name} launch failed: "
                            f"CUDA error {err}")
-    launches[name] += 1
+    launches[counter(name, q.dtype)] += 1
 
 
 def flash_fwd(q, k, v, *, causal=True, window=0, scale=None, q_offset=0):
@@ -151,8 +172,9 @@ def flash_bwd(q, k, v, o, lse, do, *, causal=True, window=0, scale=None,
                              window=window, scale=scale, q_offset=q_offset)
     if lse.shape != q.shape[:3] or not lse.is_contiguous():
         raise ValueError("lse must be a contiguous (B, H, Sq) tensor")
-    # Δ = rowsum(dO∘O) stays a PyTorch expression, as in the JAX package
-    delta = (do * o).sum(-1).contiguous()
+    # Δ = rowsum(dO∘O) in float32 stays a PyTorch expression, as in the
+    # JAX package
+    delta = (do.float() * o.float()).sum(-1).contiguous()
     dq, dk, dv = (torch.empty_like(t) for t in (q, k, v))
     opts = dict(causal=causal, window=window, scale=scale,
                 q_offset=q_offset, do=do, lse=lse, delta=delta)

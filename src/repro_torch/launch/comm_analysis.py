@@ -2,17 +2,21 @@
 JAX ``launch/hlo_analysis.py``), with the H100's constants.
 
 The JAX package reads its collectives from post-SPMD HLO text. The port
-has no HLO: its only cross-island collectives are the calls of its pod
-group (``core/pod_collectives.PodGroup``), so it counts them at their call
-sites. ``CountingGroup`` is a ``PodGroup`` whose communication methods
-record each call (op, bytes) and return tensors of the right shape (meta
-tensors stay meta) without communicating: one rank's view of a run whose
-ranks are DiLoCo islands. Every one of its bytes crosses islands ("pods"),
-and, as ``PodGroup.traffic`` counts them, each is a byte this rank hands
-to a collective: the tensor all-reduced, this rank's band of an
-all-gather, the tensor sent in an exchange. Collectives within an island
-(tensor or data parallelism across its cards) are not modelled: the
-port's models run no model parallelism within an island.
+has no HLO: it counts them where they are issued. Its cross-island
+collectives are the calls of its pod group (``core/pod_collectives.
+PodGroup``): ``CountingGroup`` is a ``PodGroup`` whose communication
+methods record each call (op, bytes) and return tensors of the right
+shape (meta tensors stay meta) without communicating: one rank's view of
+a run whose ranks are DiLoCo islands. Every one of its bytes crosses
+islands ("pods"), and, as ``PodGroup.traffic`` counts them, each is a
+byte this rank hands to a collective: the tensor all-reduced, this rank's
+band of an all-gather, the tensor sent in an exchange. The collectives
+within an island (FSDP×TP of the dense and cross-attention families on
+an island mesh of DTensors) are the functional collectives DTensor
+issues, which ``launch/op_cost.py`` records per chip as a chip moves
+them; the dry run adds them to the stats as intra-pod bytes
+(``CollectiveStats.intra_pod_bytes``). The other families run unsharded
+within an island, and their records say so.
 
 Roofline terms (one NVIDIA H100 SXM5 per chip; data-sheet values):
     compute    = FLOPs / (chips × 989.4e12 FLOP/s, bf16 dense)
@@ -87,10 +91,12 @@ def roofline(flops: float, hbm_bytes: float, coll: CollectiveStats,
     time needs NO further division. ``ici_bw`` is the link rate within an
     island (NVLink), ``dcn_bw`` between islands.
 
-    The within-island term is JAX's, kept so the formula stays JAX's for
-    any stats: the port's own stats (``CountingGroup``'s) hold no
-    within-island bytes, so it is 0 for them, and the dry run's records
-    show it, with ``intra_pod_bytes``, as None (not modelled, not 0).
+    The within-island term reads the stats' intra-pod bytes: the
+    collectives DTensor issues on an island mesh (``op_cost``), which are
+    already what a chip moves (an all-reduce's (n−1)/n of its tensor each
+    way, so its 2× stays). A record whose family runs unsharded within an
+    island shows the term, with ``intra_pod_bytes``, as None (not
+    modelled, not 0).
     """
     compute_s = flops / (chips * peak)
     memory_s = hbm_bytes / (chips * hbm)

@@ -31,24 +31,38 @@ Per (arch × shape), the functions JAX lowers:
 Each record: ``op_cost``'s FLOPs and bytes (global totals: one island's
 count times the islands that each do their own share of the work; work
 every island repeats, the outer update or an unsplit batch, counts
-once), the collectives
-(per chip: a rank's counted bytes spread over its island's chips),
-``comm_analysis.roofline`` on the H100's rates, and the memory per chip
-against the card's (``comm_analysis.memory_items``): arguments from the
-specs' shard bytes (``sharding/spec.py``: FSDP×TP params, batch over
-data), temporaries from the meta run's peak of live storage divided by
-the batch's mesh axes.
+once), the collectives (per chip), ``comm_analysis.roofline`` on the
+H100's rates, and the memory per chip against the card's
+(``comm_analysis.memory_items``).
 
-What the JAX dry run has and this one does not:
-  * within-island collectives (GSPMD's FSDP all-gathers, TP reduces):
-    the port runs no model parallelism within an island, so they are
-    reported as not modelled (``intra_pod_bytes`` None), not as 0 bytes;
-  * the variants that only steer those collectives (``cast_outside_mb``,
-    ``decode_kv_shard``, ``seq_parallel``, ``no_act_shard``) are refused;
-  * XLA's own cost analysis (``xla_flops``, ``xla_bytes``).
-Kernel modes: ``auto`` counts each kernel wrapper as one fused leaf
-(``op_cost``), ``ref`` runs the plain versions on meta; ``kernel``,
-``pallas`` and ``interpret`` are refused.
+Within an island, the dense and cross-attention families (dense, vlm,
+encdec: ``ISLAND_FAMILIES``) run as JAX's GSPMD lowering runs them, FSDP×TP
+on the island's (data, model) mesh: the train, prefill and decode
+functions take params, moments, batch and caches as DTensors of meta
+blocks laid out by the specs (``sharding/spec.py``: ``param_pspec``,
+``batch_pspec``, ``cache_pspec``), on a process group of the mesh's size
+on the ``fake`` backend (``fake_world``); DTensor's propagation and the
+model's ``constrain`` sites put in the collectives. The record then
+holds one chip's within-island collectives (``intra_pod_bytes``, by op;
+``roofline.collective_intra_s`` at NVLink's rate), and its memory is the
+chip's blocks of the arguments plus the peak of the chip's live storage
+(``op_cost`` tracks the local blocks); its FLOPs, counted at the DTensor
+ops' global shapes, are those of the same function unsharded. The
+island variants (``cast_outside_mb``, ``decode_kv_shard``,
+``seq_parallel``, ``no_act_shard``) apply as in JAX. Multi-pod runs keep
+a ``CountingGroup`` for the pods and the same island mesh within each:
+the inner step's collectives are all within the island. The elementwise
+outer update and gossip exchange run none (``intra_pod_bytes`` 0); the
+streaming round's inner steps are counted unsharded. The MoE/MLA, Mamba2
+and xLSTM families run unsharded within an island: their records say
+so (``intra_pod_bytes`` None, ``intra_pod`` naming the family), their
+temporaries are divided by the batch's mesh axes, and the island
+variants are refused for them by family.
+
+What the JAX dry run has and this one does not: XLA's own cost analysis
+(``xla_flops``, ``xla_bytes``). Kernel modes: ``auto`` counts each kernel
+wrapper as one fused leaf (``op_cost``), ``ref`` runs the plain versions
+on meta; ``kernel``, ``pallas`` and ``interpret`` are refused.
 
 Per-token loops: the xLSTM cells step once per token (a Python loop of
 ~15 ops a step, 24 blocks), which would dispatch tens of millions of
@@ -56,18 +70,20 @@ ops at 4k or 32k tokens. For a family with such a loop the train and
 prefill functions are counted at four short lengths (4, 8, 12, 16 tokens
 for a train step, 32 to 128 for a prefill: ``FIT_STEP``) and
 extrapolated to S by the quadratic through three of them, which must
-give the fourth exactly (else the pair fails): no trip multiplier is
-applied anywhere.
+give the fourth exactly (else the window moves on past a regime change,
+or the pair fails): no trip multiplier is applied anywhere.
 """
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import math
 import time
 from fractions import Fraction
 
 import torch
+import torch.distributed as dist
 
 from .. import tree
 from ..configs.base import SHAPES, DiLoCoConfig, ShapeConfig, TrainConfig
@@ -77,8 +93,10 @@ from ..models import model as M
 from ..models.registry import ARCH_NAMES, Arch, get_arch
 from ..obs import metrics as obs_metrics
 from ..optim import adamw
-from ..sharding.spec import (MeshShape, batch_pspec, entry_axes,
-                             logical_to_pspec, production_mesh, shard_bytes)
+from ..sharding.spec import (MeshShape, batch_pspec, cache_pspec,
+                             contiguous_strides, distribute, entry_axes,
+                             is_dtensor, island_mesh, on_mesh, param_pspec,
+                             production_mesh, shard_bytes, shard_params)
 from . import comm_analysis as C
 from .op_cost import counting
 
@@ -89,76 +107,33 @@ STREAM_H = 4
 STREAM_ROUNDS = 2
 STREAM_TAU = 0
 KERNEL_MODES = ("auto", "ref")
-VARIANTS = ("fsdp", "pure_dp", "remat", "microbatches", "moe_groups")
-# variants of the JAX dry run that only move GSPMD's collectives within an
-# island, which the port does not run
+# variants of the JAX dry run that only move the collectives within an
+# island (JAX ``dryrun.py``'s hillclimbing switches)
 ISLAND_ONLY_VARIANTS = ("cast_outside_mb", "decode_kv_shard",
                         "seq_parallel", "no_act_shard")
-NOT_MODELLED = ("within-island collectives (FSDP x TP over data and model) "
-                "are not modelled: the port runs no model parallelism "
-                "within an island (ROADMAP.md §1)")
+VARIANTS = ("fsdp", "pure_dp", "remat", "microbatches",
+            "moe_groups") + ISLAND_ONLY_VARIANTS
+# the families whose models run on an island's DTensors (FSDP×TP): those
+# that PyTorch's sharding propagation carries unchanged
+ISLAND_FAMILIES = ("dense", "vlm", "encdec")
+_FAMILY_NAMES = {"moe": "MoE/MLA", "hybrid": "Mamba2 (zamba2)",
+                 "ssm": "xLSTM"}
+# the mesh type the island's collectives are chosen for (the H100's; the
+# DTensors hold meta blocks, so nothing runs on a card)
+ISLAND_DEVICE = "cuda"
+
+
+def not_modelled(family: str) -> str:
+    """Why a family's record has no within-island collectives."""
+    return (f"within-island collectives (FSDP x TP over data and model) "
+            f"of the {_FAMILY_NAMES.get(family, family)} family are not "
+            "modelled: its models run unsharded within an island "
+            "(ROADMAP.md §1)")
 
 
 # ---------------------------------------------------------------------------
 # shardings
 # ---------------------------------------------------------------------------
-
-def param_pspec(axes: tuple, shape: tuple, mesh: MeshShape,
-                fsdp: bool = True) -> tuple:
-    """2-D param sharding: model-parallel pass (priority rules), then an
-    FSDP pass putting 'embed' rows on "data" if still free.
-
-    Exception, as in the JAX dry run: *gathered* tables (axes start with
-    "vocab") whose vocab dim does not divide the model axis are fully
-    replicated (a gather from a feature-sharded table mis-lowers under
-    XLA's SPMD partitioner, and a data-sharded table is all-gathered every
-    step anyway)."""
-    sizes = mesh.sizes
-    if (axes and axes[0] == "vocab" and "model" in sizes
-            and shape[0] % sizes["model"] != 0):
-        return (None,) * len(axes)
-    spec = list(logical_to_pspec(axes, shape, mesh))
-    if fsdp and "data" in sizes and "data" not in spec:
-        for i, name in enumerate(axes):
-            if (spec[i] is None and name == "embed"
-                    and shape[i] % sizes["data"] == 0):
-                spec[i] = "data"
-                break
-    return tuple(spec)
-
-
-def cache_pspec(shape: tuple, mesh: MeshShape, *, include_pod: bool) -> tuple:
-    """Decode-cache sharding: leading (groups) dim replicated, batch dim
-    over ("pod"?, "data") when divisible, and ONE more dim over "model"
-    (kv-heads first, then the sequence dim, then feature dims); a batch too
-    small for "data" puts the sequence dim on it instead."""
-    sizes = mesh.sizes
-    nd = len(shape)
-    spec = [None] * nd
-    if nd >= 2:
-        axes = []
-        if include_pod and "pod" in sizes:
-            axes.append("pod")
-        axes.append("data")
-        total = math.prod(sizes[a] for a in axes)
-        while axes and shape[1] % total != 0:
-            total //= sizes[axes.pop()]
-        if axes:
-            spec[1] = tuple(axes) if len(axes) > 1 else axes[0]
-    if "model" in sizes and nd >= 3:
-        for i in [3, 2, nd - 1, nd - 2]:
-            if 2 <= i < nd and spec[i] is None \
-                    and shape[i] % sizes["model"] == 0 and shape[i] > 1:
-                spec[i] = "model"
-                break
-    if spec[1] is None and "data" in sizes and nd >= 4:
-        for i in [2, nd - 2]:
-            if 2 <= i < nd and spec[i] is None \
-                    and shape[i] % sizes["data"] == 0 and shape[i] > 1:
-                spec[i] = "data"
-                break
-    return tuple(spec)
-
 
 def _tree_shard_bytes(params, axes, mesh, *, fsdp=True, pure_dp=False):
     if pure_dp:
@@ -193,49 +168,129 @@ def _meta_like(t, dtype=None):
     return torch.empty(t.shape, dtype=dtype or t.dtype, device=META)
 
 
-def _cast(params, dtype):
-    return tree.map(lambda x: x.to(dtype) if x.is_floating_point() else x,
-                    params)
+def _microbatch(x, i: int, mb: int):
+    """Microbatch i of mb of batch leaf ``x``: rows i·B/mb .. of a plain
+    tensor; of an island's DTensor (rows sharded over the batch's mesh
+    axes), microbatch i of each rank's own rows (the same mean over the
+    batch; nothing moves between ranks)."""
+    if not is_dtensor(x):
+        B = x.shape[0]
+        return x[i * B // mb:(i + 1) * B // mb]
+    from torch.distributed.tensor import DTensor
+    block = x.to_local()
+    b = block.shape[0] // mb
+    shape = (x.shape[0] // mb,) + tuple(x.shape[1:])
+    return DTensor.from_local(block[i * b:(i + 1) * b], x.device_mesh,
+                              x.placements, run_check=False, shape=shape,
+                              stride=contiguous_strides(shape))
+
+
+def _like(g, a):
+    """Gradient ``g`` in the layout of its accumulator ``a``, in its own
+    dtype (the gradient of a hoisted, gathered weight comes back partial
+    over the batch's axis: this is its FSDP reduce-scatter; the others
+    are reduced in ``_CastBF16``'s backward)."""
+    if is_dtensor(g) and tuple(g.placements) != tuple(a.placements):
+        return g.redistribute(a.device_mesh, a.placements)
+    return g
+
+
+class _CastBF16(torch.autograd.Function):
+    """JAX's step casts the f32 params to bf16 and the model casts them to
+    its compute dtype: a bf16 rounding of each weight, at ``dtype``. The
+    gradient is brought to the param's own layout first (on an island, a
+    product's partial sums are reduced where the product is, as XLA's
+    partitioner reduces them, before the transpose of the casts rounds
+    the sum to bf16 once), then rounded to bf16, as the transposes of
+    JAX's two converts round it."""
+
+    @staticmethod
+    def forward(ctx, p, dtype):
+        ctx.layout = (p.device_mesh, tuple(p.placements)) \
+            if is_dtensor(p) else None
+        return p.to(torch.bfloat16).to(dtype)
+
+    @staticmethod
+    def backward(ctx, g):
+        if ctx.layout is not None and tuple(g.placements) != ctx.layout[1]:
+            g = g.redistribute(*ctx.layout)
+        return g.to(torch.bfloat16).to(torch.float32), None
+
+
+def _cast_bf16(params, dtype):
+    """The float leaves through ``_CastBF16`` to ``dtype``."""
+    return tree.map(lambda x: _CastBF16.apply(x, dtype)
+                    if x.is_floating_point() else x, params)
+
+
+def _gathered(t):
+    """An island leaf with its FSDP ("data") shards gathered: the weight
+    every microbatch reads when the cast is hoisted."""
+    if not is_dtensor(t):
+        return t
+    from torch.distributed.tensor import Replicate
+    names = t.device_mesh.mesh_dim_names
+    return t.redistribute(t.device_mesh, [
+        Replicate() if n == "data" else p
+        for n, p in zip(names, t.placements)])
 
 
 def build_train_step(arch: Arch, cfg, *, groups: int,
                      microbatches: int = TRAIN_MICROBATCHES,
-                     kernel_mode: str = "auto", group=None):
+                     kernel_mode: str = "auto", group=None,
+                     cast_outside_mb: bool = False):
     """(params, m, v, count, batch) -> (params, m, v, count, loss): the JAX
-    dry run's step. Gradients of the loss at ``cfg.compute_dtype`` are
-    accumulated in float32 over ``microbatches`` splits of the batch, then
-    clipped to norm 1 and applied by the port's AdamW (``adamw.update``,
-    the fused kernel under ``auto``). With ``group`` (the DDP baseline)
-    each accumulated gradient is all-reduced over the pods and divided by
-    their count before the clip."""
+    dry run's step. The params are cast to bfloat16 (as JAX's step casts
+    them, whatever ``cfg.compute_dtype``), and the gradients of the loss
+    are accumulated in float32 over ``microbatches`` splits of the batch,
+    then clipped to norm 1 and applied by the port's AdamW
+    (``adamw.update``, the fused kernel under ``auto``). With ``group``
+    (the DDP baseline) each accumulated gradient is all-reduced over the
+    pods and divided by their count before the clip.
+
+    On an island's DTensors (params, m, v and batch laid out by
+    ``sharding/spec.py``) the same code runs FSDP×TP: each weight's
+    gradient is brought to its param's layout (the FSDP reduce-scatter)
+    before it is accumulated. ``cast_outside_mb`` hoists the cast, and
+    with it the FSDP all-gather of every weight, out of the microbatch
+    loop: the gathered bf16 weights are read by every microbatch (JAX's
+    hoisted cast, which GSPMD gathers once a step)."""
     cdt = getattr(torch, cfg.compute_dtype)
 
     def step(params, m, v, count, batch):
         B = batch["tokens"].shape[0]
         mb = microbatches if B % microbatches == 0 else 1
         leaves = tree.leaves(params)
-        acc = [torch.zeros(p.shape, dtype=torch.float32, device=p.device)
-               for p in leaves]
+        acc = [torch.zeros_like(p, dtype=torch.float32) for p in leaves]
         losses = []
-        for i in range(mb):
-            sub = {k: x[i * B // mb:(i + 1) * B // mb]
-                   for k, x in batch.items()}
-            req = [p.detach().requires_grad_(True) for p in leaves]
-            loss, _ = arch.loss(_cast(tree.unflatten(params, req), cdt),
-                                sub, cfg=cfg, groups=groups)
-            grads = torch.autograd.grad(loss, req, allow_unused=True)
-            for a, g in zip(acc, grads):
-                if g is not None:
-                    a.add_(g.float() / mb)
-            losses.append(loss.detach())
-        if group is not None:
-            for a in acc:
-                group.all_reduce(a).div_(group.pods)
-        grads, _ = adamw.clip_by_global_norm(tree.unflatten(params, acc),
-                                             1.0)
-        params, st = adamw.update(grads, adamw.AdamWState(m, v, count),
-                                  params, lr=4e-4, mode=kernel_mode)
-        return params, st.m, st.v, st.count, torch.stack(losses).mean()
+        with on_mesh(params, batch):
+            if cast_outside_mb:
+                hoisted = [_gathered(p.to(torch.bfloat16))
+                           if p.is_floating_point() else p for p in leaves]
+            for i in range(mb):
+                sub = {k: _microbatch(x, i, mb) for k, x in batch.items()}
+                if cast_outside_mb:
+                    req = [p.detach().requires_grad_(p.is_floating_point())
+                           for p in hoisted]
+                    cast = tree.unflatten(params, req)
+                else:
+                    req = [p.detach().requires_grad_(True) for p in leaves]
+                    cast = _cast_bf16(tree.unflatten(params, req), cdt)
+                loss, _ = arch.loss(cast, sub, cfg=cfg, groups=groups)
+                grads = torch.autograd.grad(loss, req, allow_unused=True)
+                for a, g in zip(acc, grads):
+                    if g is not None:
+                        a.add_(_like(g, a).float() / mb)
+                losses.append(loss.detach())
+            if group is not None:
+                for a in acc:
+                    group.all_reduce(a).div_(group.pods)
+            grads, _ = adamw.clip_by_global_norm(
+                tree.unflatten(params, acc), 1.0)
+            params, st = adamw.update(grads, adamw.AdamWState(m, v, count),
+                                      params, lr=4e-4, mode=kernel_mode)
+            loss = torch.stack(losses).mean()
+        return params, st.m, st.v, st.count, loss
 
     return step
 
@@ -319,15 +374,18 @@ def build_gossip_exchange(*, k: int, group, stage: int = 0,
 
 def build_prefill(arch: Arch, cfg, *, groups: int):
     def fn(params, batch):
-        logits, cache = arch.prefill(params, batch, cfg=cfg, groups=groups)
-        return logits[:, -1:], cache
+        with on_mesh(params, batch):
+            logits, cache = arch.prefill(params, batch, cfg=cfg,
+                                         groups=groups)
+            return logits[:, -1:], cache
     return fn
 
 
 def build_decode(arch: Arch, cfg, *, groups: int):
     def fn(params, cache, tokens, pos):
-        return arch.decode(params, cache, tokens, pos, cfg=cfg,
-                           groups=groups)
+        with on_mesh(params, cache, tokens):
+            return arch.decode(params, cache, tokens, pos, cfg=cfg,
+                               groups=groups)
     return fn
 
 
@@ -402,42 +460,66 @@ def _quadratic_at(xs, ys, x):
     return total
 
 
+# how many times the per-token fit's window of four lengths may move on
+FIT_SHIFTS = 4
+
+
 def _extrapolated(count_at, S: int, step: int) -> dict:
     """Counts at S from four short lengths, ``step`` × (1, 2, 3, 4): each
     count is fitted by the quadratic through the first three and checked
     on the fourth (exactly), then evaluated at S; a count that is no such
-    polynomial of the length fails the pair. (Quadratic, not affine: the
-    backward of the per-token slices writes a full-length zero gradient a
-    token, so bytes grow with S².)"""
-    lens = [step * i for i in (1, 2, 3, 4)]
-    got = [count_at(s) for s in lens]
-    out = dict(got[0])
+    polynomial of the length fails the pair. (FLOPs and bytes are affine
+    in the length, and an affine count is a quadratic too; the peak live
+    bytes of a short run are the largest of several such counts, so they
+    can change regime as the length grows.) Where a count changes regime
+    among the first lengths (xlstm_350m ``train_4k`` at one microbatch:
+    its peak live bytes settle on their asymptote at 20 tokens), the
+    window of four lengths moves on by one step, at most ``FIT_SHIFTS``
+    times, and the fit is taken from the first window that passes its
+    check."""
+    got = {}
+    for start in range(1, FIT_SHIFTS + 2):
+        lens = [step * i for i in range(start, start + 4)]
+        for s in lens:
+            if s not in got:
+                got[s] = count_at(s)
+        bad = [key for key in _COUNTS
+               if _quadratic_at(lens, [got[s][key] for s in lens], lens[3])
+               != got[lens[3]][key]]
+        if not bad:
+            break
+    else:
+        key = bad[0]
+        raise ValueError(
+            f"{key} is not a quadratic in the length "
+            f"({[(s, got[s][key]) for s in sorted(got)]}): cannot "
+            "extrapolate")
+    out = dict(got[lens[0]])
     for key in _COUNTS:
-        ys = [g[key] for g in got]
-        if _quadratic_at(lens, ys, lens[3]) != ys[3]:
-            raise ValueError(
-                f"{key} is not a quadratic in the length "
-                f"({list(zip(lens, ys))}): cannot extrapolate")
-        out[key] = int(round(_quadratic_at(lens, ys, S)))
+        out[key] = int(round(_quadratic_at(lens, [got[s][key] for s in lens],
+                                           S)))
     out["extrapolated_from"] = lens
     return out
 
 
-def _check_variant(variant: dict, kernel_mode: str):
+def _check_variant(variant: dict, kernel_mode: str, family=None):
+    """Refuse an unknown variant or kernel mode, and (with ``family``) a
+    variant that steers within-island collectives for a family whose
+    models run unsharded within an island."""
     if kernel_mode not in KERNEL_MODES:
         raise ValueError(
             f"kernel_mode={kernel_mode!r}: the dry run takes {KERNEL_MODES} "
             "('kernel' needs CUDA tensors; 'pallas' and 'interpret' name "
             "TPU machinery the port has no counterpart of)")
     for key in variant:
-        if key in ISLAND_ONLY_VARIANTS:
-            raise ValueError(
-                f"variant {key!r} only changes GSPMD's collectives within "
-                "an island, which the port does not run (ROADMAP.md §1: "
-                "within-island model parallelism)")
         if key not in VARIANTS:
             raise ValueError(f"unknown variant {key!r}; the dry run takes "
                              f"{VARIANTS}")
+        if (key in ISLAND_ONLY_VARIANTS and family is not None
+                and family not in ISLAND_FAMILIES):
+            raise ValueError(
+                f"variant {key!r} steers the collectives within an island: "
+                + not_modelled(family))
 
 
 def _per_chip(stats: C.CollectiveStats, chips: int) -> C.CollectiveStats:
@@ -450,6 +532,62 @@ def _per_chip(stats: C.CollectiveStats, chips: int) -> C.CollectiveStats:
         out.total_bytes += share
         out.cross_pod_bytes += share
     return out
+
+
+def _add_intra(stats: C.CollectiveStats, collectives) -> C.CollectiveStats:
+    """``stats`` plus a chip's within-island collectives ((op, bytes), as
+    ``op_cost`` records them): intra-pod bytes, by op."""
+    for op, nb in collectives:
+        stats.total_bytes += nb
+        stats.intra_pod_bytes += nb
+        stats.count += 1
+        stats.by_op[op] = stats.by_op.get(op, 0) + nb
+    return stats
+
+
+@contextlib.contextmanager
+def fake_world(n: int):
+    """A default process group of ``n`` ranks on the ``fake`` backend
+    (this process rank 0; collectives return at once and move nothing),
+    for an island's DTensors of meta blocks. Refused where a real group is
+    up; removed on exit."""
+    from torch.testing._internal.distributed.fake_pg import FakeStore
+    if dist.is_initialized():
+        raise RuntimeError("the dry run's island counts make their own "
+                           "fake process group: a process group is up")
+    dist.init_process_group("fake", store=FakeStore(), rank=0,
+                            world_size=n)
+    try:
+        yield
+    finally:
+        dist.destroy_process_group()
+
+
+def island_step_cost(cfg, batch: int, seq: int, shape: tuple) -> dict:
+    """``op_cost`` of one island train step (``build_train_step``, one
+    microbatch) of the model ``cfg`` on a (data, model) mesh of ``shape``,
+    on meta blocks at ``batch`` × ``seq`` tokens: the counts one chip of
+    the island makes (its collectives, its live storage), laid out as
+    ``launch/island.py`` lays out a real run. Its ``argument_bytes`` are
+    the chip's blocks of the params, moments and batch."""
+    from ..models.model import init_params, param_axes
+    arch = Arch(cfg=cfg)
+    with fake_world(math.prod(shape)):
+        mesh = island_mesh(tuple(shape), ("data", "model"), ISLAND_DEVICE)
+        params = shard_params(init_params(cfg, generator=None, device=META),
+                              param_axes(cfg), mesh)
+        ba = tuple(cfg.act_batch_axes)
+        tokens = distribute(torch.empty((batch, seq), dtype=torch.int64,
+                                        device=META),
+                            (ba if len(ba) > 1 else ba[0], None), mesh)
+        args = (params, tree.map(torch.zeros_like, params),
+                tree.map(torch.zeros_like, params), 0, {"tokens": tokens})
+        held = sum(t.to_local().numel() * t.element_size()
+                   for x in args for t in tree.leaves(x) if is_dtensor(t))
+        cost = _count(build_train_step(arch, cfg, groups=1, microbatches=1),
+                      args)
+    cost["argument_bytes"] = held
+    return cost
 
 
 def dryrun_pair(arch_name: str, shape_name: str, *, multi_pod: bool,
@@ -466,12 +604,41 @@ def dryrun_pair(arch_name: str, shape_name: str, *, multi_pod: bool,
       remat: bool         — override activation checkpointing
       microbatches: int   — override accumulation factor
       moe_groups: int     — override MoE token-grouping factor
+      cast_outside_mb: bool — hoist the bf16 cast, and with it the FSDP
+                            all-gather, out of the microbatch loop
+      decode_kv_shard: str — constrain decode scores' kv dim to this axis
+      seq_parallel: bool  — residual stream over (batch, seq on "model")
+      no_act_shard: bool  — residual stream's d_model not sharded
+    The last four steer within-island collectives: refused for families
+    whose models run unsharded within an island.
     """
     variant = dict(variant or {})
-    _check_variant(variant, kernel_mode)
+    arch = get_arch(arch_name)
+    family = arch.cfg.family
+    _check_variant(variant, kernel_mode, family)
+    island_sharded = family in ISLAND_FAMILIES
+    with (fake_world(_island_of(mesh, multi_pod).devices) if island_sharded
+          else contextlib.nullcontext()):
+        return _dryrun_pair(arch, arch_name, shape_name,
+                            multi_pod=multi_pod, microbatches=microbatches,
+                            fns=fns, mesh=mesh, variant=variant,
+                            kernel_mode=kernel_mode,
+                            stream_wire=stream_wire, stream_tau=stream_tau,
+                            island_sharded=island_sharded)
+
+
+def _island_of(mesh, multi_pod) -> MeshShape:
+    mesh = mesh or production_mesh(multi_pod=multi_pod)
+    sizes = mesh.sizes
+    return MeshShape(tuple(a for a in mesh.axis_names if a != "pod"),
+                     tuple(n for a, n in sizes.items() if a != "pod"))
+
+
+def _dryrun_pair(arch, arch_name, shape_name, *, multi_pod, microbatches,
+                 fns, mesh, variant, kernel_mode, stream_wire, stream_tau,
+                 island_sharded) -> list[dict]:
     microbatches = int(variant.get("microbatches", microbatches))
     t0 = time.time()
-    arch = get_arch(arch_name)
     shape = SHAPES[shape_name]
     cfg = arch.shape_cfg(shape)
     train = shape.kind == "train"
@@ -480,14 +647,20 @@ def dryrun_pair(arch_name: str, shape_name: str, *, multi_pod: bool,
                       param_dtype="float32" if train else "bfloat16")
     if "remat" in variant:
         cfg = cfg.replace(remat=bool(variant["remat"]))
+    if "decode_kv_shard" in variant:
+        cfg = cfg.replace(decode_kv_shard=variant["decode_kv_shard"])
+    if variant.get("seq_parallel"):
+        cfg = cfg.replace(act_seq_shard=True, act_model_shard=False)
+    if variant.get("no_act_shard"):
+        cfg = cfg.replace(act_model_shard=False)
     fsdp = bool(variant.get("fsdp", True))
+    cast_outside_mb = bool(variant.get("cast_outside_mb", False))
     pure_dp = bool(variant.get("pure_dp", False))
     mesh = mesh or production_mesh(multi_pod=multi_pod)
     chips = mesh.devices
     sizes = mesh.sizes
     pods = sizes.get("pod", 1)
-    island = MeshShape(tuple(a for a in mesh.axis_names if a != "pod"),
-                       tuple(n for a, n in sizes.items() if a != "pod"))
+    island = _island_of(mesh, multi_pod)
     cpp = island.devices if "pod" in sizes else None
     groups = int(variant.get("moe_groups", sizes.get("data", 1)))
     k = pods
@@ -513,12 +686,41 @@ def dryrun_pair(arch_name: str, shape_name: str, *, multi_pod: bool,
         batch_axes = tuple(island.axis_names)
     else:
         batch_axes = batch_pspec(island, B_isl, 2)[0]
+    if pure_dp:
+        # small-model regime: batch over every axis, params replicated, no
+        # Megatron activation sharding (as JAX's pure_dp)
+        cfg = cfg.replace(act_batch_axes=entry_axes(batch_axes) or
+                          ("data",), act_model_shard=False)
     shards = math.prod(sizes[a] for a in entry_axes(batch_axes))
     param_b = _tree_shard_bytes(pshapes, paxes, island, fsdp=fsdp,
                                 pure_dp=pure_dp)
     batch_b = lambda B: sum(
         -(-B // shards) * math.prod(v.shape[1:]) * v.element_size()
         for v in in_specs.values())
+
+    # the island's device mesh: params, moments, batch and caches as
+    # DTensors of meta blocks laid out by the specs
+    dmesh = island_mesh(island.shape, island.axis_names, ISLAND_DEVICE) \
+        if island_sharded else None
+
+    def on_island(params):
+        if dmesh is None:
+            return params
+        return shard_params(params, paxes, dmesh, fsdp=fsdp,
+                            pure_dp=pure_dp)
+
+    def batch_on_island(batch):
+        if dmesh is None:
+            return batch
+        return {n: distribute(x, (batch_axes,) + (None,) * (x.dim() - 1),
+                              dmesh) for n, x in batch.items()}
+
+    def cache_on_island(cache):
+        if dmesh is None:
+            return cache
+        return tree.map_nested(lambda t: distribute(
+            t, cache_pspec(tuple(t.shape), island, include_pod=False)
+            if t.is_floating_point() else (None,) * t.dim(), dmesh), cache)
 
     records = []
     base = {"arch": arch_name, "shape": shape_name,
@@ -531,29 +733,38 @@ def dryrun_pair(arch_name: str, shape_name: str, *, multi_pod: bool,
             "kernel_mode": kernel_mode}
 
     def batch_of(B, S):
-        return arch.input_specs(ShapeConfig(shape.name, S, B, shape.kind),
-                                dtype=torch.bfloat16)
+        return batch_on_island(arch.input_specs(
+            ShapeConfig(shape.name, S, B, shape.kind), dtype=torch.bfloat16))
 
     def record(name, cost, arg_bytes, *, islands, group=None,
-               temp_shards=None):
+               temp_shards=None, intra=None):
         """One function's record from one island's ``cost``; ``islands``:
-        how many islands run it (its global totals). Its temporaries are
-        divided by the batch's shards, or by ``temp_shards`` (a function
-        without a batch: its param-shaped temporaries spread over the
-        island)."""
+        how many islands run it (its global totals). On the island's
+        DTensors the cost's live storage is one chip's and its
+        collectives are the chip's within the island; otherwise the
+        temporaries are divided by the batch's shards, or by
+        ``temp_shards`` (a function without a batch: its param-shaped
+        temporaries spread over the island), and ``intra`` says what the
+        record holds of within-island collectives: 0 (the function runs
+        none: elementwise on each chip's shards) or a reason they are not
+        modelled."""
         stats = C.CollectiveStats() if group is None \
             else _per_chip(group.stats, cpp)
+        sharded = dmesh is not None and intra is None
+        if sharded:
+            _add_intra(stats, cost["collectives"])
         flops = cost["flops"] * islands
         nbytes = cost["bytes"] * islands
         nbytes_min = cost["bytes_min"] * islands
         terms = C.roofline(flops, nbytes, stats, chips=chips)
         terms["memory_min_s"] = nbytes_min / (chips * C.HBM_BW)
-        # the stats hold no within-island bytes: that term is not modelled
-        terms["collective_intra_s"] = None
         terms["model_flops_ratio"] = mf / flops if flops else 0.0
         coll = stats.as_dict()
-        coll["intra_pod_bytes"] = None
-        coll["intra_pod"] = NOT_MODELLED
+        if not sharded and intra != 0:
+            # the stats hold no within-island bytes: not modelled, not 0
+            terms["collective_intra_s"] = None
+            coll["intra_pod_bytes"] = None
+            coll["intra_pod"] = intra or not_modelled(cfg.family)
         if group is not None:
             coll["per_rank"] = group.stats.as_dict()
             coll["traffic"] = dict(group.traffic)
@@ -561,8 +772,9 @@ def dryrun_pair(arch_name: str, shape_name: str, *, multi_pod: bool,
                "hbm_bytes_min": nbytes_min, "dots": cost["dots"] * islands,
                "fused_leaves_per_island": cost["leaves"],
                "collectives": coll, "roofline": terms,
-               "memory": C.memory_items(arg_bytes, cost,
-                                        batch_shards=temp_shards or shards),
+               "memory": C.memory_items(
+                   arg_bytes, cost,
+                   batch_shards=1 if sharded else temp_shards or shards),
                **base}
         if "extrapolated_from" in cost:
             rec["extrapolated_from"] = cost["extrapolated_from"]
@@ -585,6 +797,13 @@ def dryrun_pair(arch_name: str, shape_name: str, *, multi_pod: bool,
         return tree.map(lambda t: torch.empty((1,) + tuple(t.shape),
                                               device=META), p)
 
+    # functions that run no within-island collective (elementwise on each
+    # chip's shards) and the streaming round (its inner steps are counted
+    # unsharded)
+    elementwise = 0 if island_sharded else None
+    stream_why = ("within-island collectives of the streaming round are "
+                  "not modelled: its inner steps are counted unsharded "
+                  "within an island") if island_sharded else None
     S = shape.seq_len
     no_batch = 1 if pure_dp else island.devices
     if train:
@@ -596,16 +815,17 @@ def dryrun_pair(arch_name: str, shape_name: str, *, multi_pod: bool,
             list), a fresh ``CountingGroup`` for each count, appended
             there (the DDP baseline's: one count's collectives each)."""
             def make(s):
-                p = fresh_params()
+                p = on_island(fresh_params())
                 group = None
                 if made is not None:
                     group = C.CountingGroup(0, pods)
                     made.append(group)
                 fn = build_train_step(arch, cfg, groups=groups,
                                       microbatches=microbatches,
-                                      kernel_mode=kernel_mode, group=group)
-                return fn, (p, tree.map(_meta_like, p),
-                            tree.map(_meta_like, p), 0, batch_of(B, s))
+                                      kernel_mode=kernel_mode, group=group,
+                                      cast_outside_mb=cast_outside_mb)
+                return fn, (p, tree.map(torch.zeros_like, p),
+                            tree.map(torch.zeros_like, p), 0, batch_of(B, s))
             return make
 
         if not multi_pod:
@@ -625,7 +845,8 @@ def dryrun_pair(arch_name: str, shape_name: str, *, multi_pod: bool,
                 # every island applies the same update to the same global
                 # params: replicated work, counted once
                 record("diloco_outer_step", cost, 3 * param_b,
-                       islands=1, group=g, temp_shards=no_batch)
+                       islands=1, group=g, temp_shards=no_batch,
+                       intra=elementwise)
             if "stream" in fns:
                 made = []
 
@@ -640,7 +861,7 @@ def dryrun_pair(arch_name: str, shape_name: str, *, multi_pod: bool,
                 cost = counted(stream, S)
                 g = made[-1]
                 rec = record("diloco_stream_round", cost, state_b(B_isl),
-                             islands=pods, group=g)
+                             islands=pods, group=g, intra=stream_why)
                 prof = C.wire_profile(g, chips_per_pod=cpp,
                                       tau=stream_tau or None)
                 rec["stream_interleaving"] = prof["interleaving"]
@@ -654,7 +875,7 @@ def dryrun_pair(arch_name: str, shape_name: str, *, multi_pod: bool,
                 cost = _count(build_gossip_exchange(k=k, group=g),
                               (band(fresh_params()),))
                 record("gossip_exchange", cost, param_b, islands=pods,
-                       group=g, temp_shards=no_batch)
+                       group=g, temp_shards=no_batch, intra=elementwise)
             if "main" in fns or "ddp" in fns:
                 made = []
                 cost = counted(step(B_isl, made), S)
@@ -662,21 +883,21 @@ def dryrun_pair(arch_name: str, shape_name: str, *, multi_pod: bool,
                        islands=pods, group=made[-1])
     elif shape.kind == "prefill":
         cost = counted(lambda s: (build_prefill(arch, cfg, groups=groups),
-                                  (fresh_params(pdtype), batch_of(B_isl, s))),
-                       S)
+                                  (on_island(fresh_params(pdtype)),
+                                   batch_of(B_isl, s))), S)
         record("prefill", cost, param_b + batch_b(B_isl), islands=serving)
     else:
         cache_b = _cache_shard_bytes(
             arch.cache_specs(shape, batch_override=B_isl,
                              dtype=torch.bfloat16), island,
             include_pod=False)
+        tokens = torch.empty((B_isl, 1), dtype=torch.int32, device=META)
         cost = counted(lambda s: (
             build_decode(arch, cfg, groups=groups),
-            (fresh_params(pdtype),
-             arch.cache_specs(shape, batch_override=B_isl,
-                              dtype=torch.bfloat16),
-             torch.empty((B_isl, 1), dtype=torch.int32, device=META),
-             S - 1)), S)
+            (on_island(fresh_params(pdtype)),
+             cache_on_island(arch.cache_specs(shape, batch_override=B_isl,
+                                              dtype=torch.bfloat16)),
+             batch_on_island({"tokens": tokens})["tokens"], S - 1)), S)
         record("serve_step", cost, param_b + cache_b + batch_b(B_isl),
                islands=serving)
     return records

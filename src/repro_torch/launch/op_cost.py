@@ -41,6 +41,22 @@ storage is freed; ``peak_live_bytes`` is the peak of that live set during
 the run (what the function allocates beyond its arguments) and
 ``end_live_bytes`` what is still live when it returns (its results
 among it).
+
+On an island's DTensors (``sharding/spec.py``; meta blocks on a process
+group of the mesh's size) the counter sees each DTensor op at its global
+shapes, and counts its FLOPs and bytes there: the totals stay global, and
+equal those of the same function on plain tensors. It runs the op under a
+second mode that sees what DTensor does with this rank's blocks: their
+storage is what is tracked as live (the memory of one chip, temporaries
+such as a gathered weight included), and the functional collectives among
+them are recorded in ``collectives`` (op, bytes a chip moves over its
+links: an all-gather receives (n−1)/n of its result, a reduce-scatter
+sends (n−1)/n of its input, an all-reduce or all-to-all (n−1)/n of its
+tensor each way). Plain ops outside a DTensor op (a ``redistribute``'s, a
+``to_local``'s, the model's own replicated index tensors) count once at
+their shapes, and their collectives are recorded too. A fused leaf handed
+DTensors counts the global leaf once (its FLOPs and bytes at the global
+shape), as the kernel runs on every rank's block of it.
 """
 from __future__ import annotations
 
@@ -49,7 +65,10 @@ import weakref
 
 import numpy as np
 import torch
+import torch.distributed as dist
 from torch.utils._python_dispatch import TorchDispatchMode
+
+from ..sharding.spec import BLOCKS
 from torch.utils._pytree import tree_flatten
 
 aten = torch.ops.aten
@@ -97,6 +116,74 @@ def _nbytes(t) -> int:
     return t.numel() * t.element_size()
 
 
+def _blocks(tensors) -> int:
+    """The island blocks the plain tensors stand for (1 unmarked)."""
+    return max((getattr(t, BLOCKS, 1) for t in tensors), default=1)
+
+
+def _is_dtensor_type(t) -> bool:
+    from torch.distributed.tensor import DTensor
+    return issubclass(t, DTensor)
+
+
+def _is_fake_type(t) -> bool:
+    from torch._subclasses.fake_tensor import FakeTensor
+    return issubclass(t, FakeTensor)
+
+
+def _group_size(name) -> int:
+    from torch.distributed.distributed_c10d import _resolve_process_group
+    return dist.get_world_size(_resolve_process_group(name))
+
+
+
+def _collective(func, args) -> tuple | None:
+    """(op, bytes a chip moves) of a functional collective, else None."""
+    if func.namespace != "_c10d_functional":
+        return None
+    name = func.__name__.split(".")[0]
+    if name == "all_gather_into_tensor":
+        t, n = args[0], int(args[1])
+        return "all-gather", _nbytes(t) * (n - 1)
+    if name == "reduce_scatter_tensor":
+        t, n = args[0], int(args[2])
+        return "reduce-scatter", _nbytes(t) * (n - 1) // n
+    if name in ("all_reduce", "all_reduce_"):
+        n = _group_size(args[2])
+        return "all-reduce", _nbytes(args[0]) * (n - 1) // n
+    if name == "all_to_all_single":
+        n = _group_size(args[3])
+        return "all-to-all", _nbytes(args[0]) * (n - 1) // n
+    if name == "broadcast":
+        return "collective-broadcast", _nbytes(args[0])
+    if name.startswith(("all_", "reduce_", "broadcast", "scatter",
+                        "gather")):
+        raise NotImplementedError(f"op_cost: collective {func} is not "
+                                  "counted")
+    return None        # wait_tensor and the autograd wrappers move nothing
+
+
+class _LocalOps(TorchDispatchMode):
+    """The ops a DTensor op runs on this rank's blocks: the counter tracks
+    their fresh storage and records their collectives, and counts nothing
+    else (the DTensor op is counted at its global shapes)."""
+
+    def __init__(self, counter):
+        super().__init__()
+        self.counter = counter
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        if any(_is_dtensor_type(t) for t in types):
+            return NotImplemented      # DTensor desugars it into local ops
+        out = func(*args, **(kwargs or {}))
+        if any(_is_fake_type(t) for t in types) or any(
+                _is_fake_type(type(t)) for t in _tensors(out)):
+            return out    # DTensor's shape propagation on fake global tensors
+        self.counter._fresh(func, out)
+        self.counter._communicate(func, args)
+        return out
+
+
 def _tensors(x) -> list:
     return [t for t in tree_flatten(x)[0] if isinstance(t, torch.Tensor)]
 
@@ -116,6 +203,7 @@ class OpCounter(TorchDispatchMode):
         super().__init__()
         self.flops = self.bytes = self.bytes_min = self.dots = 0
         self.leaves: dict = {}
+        self.collectives: list = []          # (op, bytes) per chip
         self.live = self.peak = 0
         self._tracked: set = set()
         self._quiet = 0
@@ -135,29 +223,56 @@ class OpCounter(TorchDispatchMode):
         self.live += n
         self.peak = max(self.peak, self.live)
 
+    def _fresh(self, func, out):
+        """Track the storage of ``out``'s tensors that ``func`` made."""
+        if func.is_view:
+            return
+        for t, r in zip(_tensors(out), func._schema.returns):
+            if r.alias_info is None:
+                self._track(t)
+
+    def _communicate(self, func, args):
+        got = _collective(func, args)
+        if got is not None:
+            self.collectives.append(got)
+
     def __torch_dispatch__(self, func, types, args=(), kwargs=None):
-        out = func(*args, **(kwargs or {}))
+        if any(_is_fake_type(t) for t in types):
+            return func(*args, **(kwargs or {}))     # shapes, not work
+        sharded = any(_is_dtensor_type(t) for t in types)
+        if sharded:
+            # the blocks' storage and collectives, seen by the local mode
+            with _LocalOps(self):
+                out = func(*args, **(kwargs or {}))
+        else:
+            out = func(*args, **(kwargs or {}))
+            self._fresh(func, out)
+            self._communicate(func, args)
+            if func.namespace == "_c10d_functional":
+                return out
         outs = _tensors(out)
-        fresh = [t for t, r in zip(outs, func._schema.returns)
-                 if r.alias_info is None] if not func.is_view else []
-        for t in fresh:
-            self._track(t)
+        # a rank's block of work split over an island (``spec.mark_local``)
+        # counts for every block; what is made from it is marked too
+        blocks = 1 if sharded else _blocks(_tensors((args, kwargs)))
+        if blocks > 1:
+            for t in outs:
+                setattr(t, BLOCKS, blocks)
         if self._quiet or func.is_view:
             return out
         out_b = sum(_nbytes(t) for t in outs) if func not in _NO_WRITE \
             else 0
         if func in _MATMUL:
             io = out_b + sum(_nbytes(t) for t in _tensors((args, kwargs)))
-            self.flops += _matmul_flops(func, args, outs[0])
+            self.flops += _matmul_flops(func, args, outs[0]) * blocks
             self.dots += 1
-            self.bytes += io
-            self.bytes_min += io
+            self.bytes += io * blocks
+            self.bytes_min += io * blocks
         elif func in _GATHER:
             io = out_b + sum(_nbytes(t) for t in _tensors((args, kwargs)))
-            self.bytes += io
-            self.bytes_min += io
+            self.bytes += io * blocks
+            self.bytes_min += io * blocks
         else:
-            self.bytes += out_b
+            self.bytes += out_b * blocks
         return out
 
     def leaf(self, name: str, count: int, reads, writes):
@@ -173,9 +288,10 @@ class OpCounter(TorchDispatchMode):
                 f"{name} got a tensor on {', '.join(off_meta)} (it computes "
                 "nothing and launches no kernel)")
         io = sum(_nbytes(t) for t in (*reads, *writes) if t is not None)
-        self.flops += LEAF_FLOPS[name] * int(count)
-        self.bytes += io
-        self.bytes_min += io
+        blocks = _blocks([t for t in reads if t is not None])
+        self.flops += LEAF_FLOPS[name] * int(count) * blocks
+        self.bytes += io * blocks
+        self.bytes_min += io * blocks
         self.leaves[name] = self.leaves.get(name, 0) + 1
 
     @contextlib.contextmanager
@@ -192,7 +308,8 @@ class OpCounter(TorchDispatchMode):
         return {"flops": self.flops, "bytes": self.bytes,
                 "bytes_min": self.bytes_min, "dots": self.dots,
                 "peak_live_bytes": self.peak, "end_live_bytes": self.live,
-                "leaves": dict(self.leaves)}
+                "leaves": dict(self.leaves),
+                "collectives": list(self.collectives)}
 
 
 # ---------------------------------------------------------------------------
@@ -328,7 +445,7 @@ def _stand_ins(c: OpCounter) -> dict:
 
     def flash_bwd(q, k, v, o, lse, do, *, causal=True, window=0,
                   scale=None, q_offset=0):
-        delta = (do * o).sum(-1)        # a PyTorch expression, as there
+        delta = (do.float() * o.float()).sum(-1)   # as there
         dq, dk, dv = empty(q, k, v)
         work = pairs_x_d(q, k, causal, window, q_offset)
         c.leaf("flash_bwd_dq", work, (q, k, v, do, lse, delta), (dq,))
@@ -379,4 +496,33 @@ def op_cost(fn, *args) -> dict:
         cost = c.result()
     del out
     return cost
+
+
+class _CollectiveLog(TorchDispatchMode):
+    """Records the functional collectives a run issues, DTensor's own
+    among them (a DTensor op is let through to DTensor, whose local ops
+    and collectives then come back here)."""
+
+    def __init__(self, log: list):
+        super().__init__()
+        self.log = log
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        if any(_is_dtensor_type(t) for t in types):
+            return NotImplemented
+        got = _collective(func, args)
+        if got is not None:
+            self.log.append(got)
+        return func(*args, **(kwargs or {}))
+
+
+@contextlib.contextmanager
+def collective_log():
+    """The list of (op, bytes a chip moves) of every functional collective
+    issued while the context is active, on real tensors as the counter
+    records them on meta ones: what a rank of an island measures of its
+    own traffic."""
+    log: list = []
+    with _CollectiveLog(log):
+        yield log
 

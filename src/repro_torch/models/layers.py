@@ -17,6 +17,7 @@ import torch
 import torch.nn.functional as F
 
 from ..kernels import ops as kops
+from ..sharding.spec import constrain, is_dtensor, mark_local
 
 NEG_INF = -1e30
 
@@ -167,7 +168,12 @@ def _mask_bias(q_pos, k_pos, causal: bool, window: int, kv_valid=None):
     """Additive float32 bias, 0 where attended and -1e30 where masked:
     (Sq, Sk) for shared key positions k_pos (Sk,), (B, Sq, Sk) for
     per-slot position tracks k_pos (B, Sk) (continuous batching);
-    ``kv_valid``, when given, has k_pos's shape."""
+    ``kv_valid``, when given, has k_pos's shape. A cache's position track
+    on an island mesh is replicated there: its full value is read."""
+    if is_dtensor(k_pos):
+        k_pos = k_pos.full_tensor()
+    if is_dtensor(kv_valid):
+        kv_valid = kv_valid.full_tensor()
     kp = k_pos[..., None, :]                   # (..., 1, Sk)
     qp = q_pos[:, None]                        # (Sq, 1)
     ok = torch.ones(torch.broadcast_shapes(kp.shape, qp.shape),
@@ -193,27 +199,21 @@ def attention(q, k, v, *, causal=True, window=0, q_offset=0,
     ``q_offset``: absolute position of q[0] (an int). ``kv_positions``:
     absolute positions of the kv entries, (Sk,) or per-slot (B, Sk)
     (defaults to arange; a ring cache passes its position track);
-    ``kv_valid``: bool of the same shape (a partly filled cache)."""
-    B, Sq, H, dh = q.shape
+    ``kv_valid``: bool of the same shape (a partly filled cache). On an
+    island mesh it runs on each rank's own blocks (``on_local_heads``)."""
+    B, Sq, H, _ = q.shape
     _, Sk, G, _ = k.shape
     dv = v.shape[-1]
     rep = H // G
-    scale = dh ** -0.5 if scale is None else scale
-    qh = (q * scale).reshape(B, Sq, G, rep, dh)
+    qh, q_pos = _grouped_queries(q, G, scale, q_offset)
     dev = q.device
-    q_pos = q_offset + torch.arange(Sq, device=dev)
     if kv_positions is None:
         kv_positions = torch.arange(Sk, device=dev)
 
     if Sk <= max(2 * chunk, 2048) or Sq <= 8:
         _count(2)
-        s = torch.einsum("bqgrd,bkgd->bgrqk", qh, k).float()
-        if softcap:
-            s = torch.tanh(s / softcap) * softcap
-        bias = _mask_bias(q_pos, kv_positions, causal, window, kv_valid)
-        if bias.dim() == 3:             # per-slot tracks: (B, Sq, Sk)
-            bias = bias[:, None, None]
-        s = s + bias
+        s = _scores(qh, k, q_pos, kv_positions, causal, window, kv_valid,
+                    softcap)
         p = torch.softmax(s, dim=-1)
         o = torch.einsum("bgrqk,bkgd->bqgrd", p.to(v.dtype), v).float()
         return o.reshape(B, Sq, H, dv).to(q.dtype)
@@ -232,12 +232,9 @@ def attention(q, k, v, *, causal=True, window=0, q_offset=0,
     for c0 in range(0, Sk, chunk):
         kc, vc = k[:, c0:c0 + chunk], v[:, c0:c0 + chunk]
         _count(2)
-        s = torch.einsum("bqgrd,bkgd->bgrqk", qh, kc).float()
-        if softcap:
-            s = torch.tanh(s / softcap) * softcap
-        s = s + _mask_bias(q_pos, kv_positions[c0:c0 + chunk], causal,
-                           window, None if kv_valid is None
-                           else kv_valid[c0:c0 + chunk])
+        s = _scores(qh, kc, q_pos, kv_positions[c0:c0 + chunk], causal,
+                    window, None if kv_valid is None
+                    else kv_valid[c0:c0 + chunk], softcap)
         m_new = torch.maximum(m, s.amax(-1))
         p = torch.exp(s - m_new[..., None])
         corr = torch.exp(m - m_new)
@@ -247,6 +244,45 @@ def attention(q, k, v, *, causal=True, window=0, q_offset=0,
         m = m_new
     o = acc / torch.clamp(l, min=1e-30)[..., None]
     return o.movedim(3, 1).reshape(B, Sq, H, dv).to(q.dtype)
+
+
+def _grouped_queries(q, G: int, scale, q_offset):
+    """(q scaled and grouped as (B, Sq, G, rep, dh), the queries' absolute
+    positions)."""
+    B, Sq, H, dh = q.shape
+    scale = dh ** -0.5 if scale is None else scale
+    return ((q * scale).reshape(B, Sq, G, H // G, dh),
+            q_offset + torch.arange(Sq, device=q.device))
+
+
+def _scores(qh, k, q_pos, kv_positions, causal, window, kv_valid, softcap):
+    """The float32 scores (B, G, rep, Sq, Sk) of the grouped queries ``qh``
+    against keys ``k``: soft-capped, plus the mask's bias (a per-slot
+    track's (B, Sq, Sk) bias broadcast over the heads)."""
+    s = torch.einsum("bqgrd,bkgd->bgrqk", qh, k).float()
+    if softcap:
+        s = torch.tanh(s / softcap) * softcap
+    bias = _mask_bias(q_pos, kv_positions, causal, window, kv_valid)
+    if bias.dim() == 3:
+        bias = bias[:, None, None]
+    return s + bias
+
+
+def attention_stats(q, k, v, *, causal=True, window=0, q_offset=0,
+                    kv_positions=None, kv_valid=None, softcap: float = 0.0,
+                    scale: float | None = None):
+    """The direct path of ``attention`` without its normalisation, over a
+    block of the keys: (acc (B, G, rep, Sq, dv) = Σ p·v, m (B, G, rep, Sq)
+    the block's max score, l the block's Σ p), float32, with p = exp(s −
+    m). Blocks combine as flash decoding does (``on_local_heads``)."""
+    qh, q_pos = _grouped_queries(q, k.shape[2], scale, q_offset)
+    _count(2)
+    s = _scores(qh, k, q_pos, kv_positions, causal, window, kv_valid,
+                softcap)
+    m = s.amax(-1)
+    p = torch.exp(s - m[..., None])
+    acc = torch.einsum("bgrqk,bkgd->bgrqd", p.to(v.dtype), v).float()
+    return acc, m, p.sum(-1)
 
 
 # ---------------------------------------------------------------------------
@@ -270,11 +306,25 @@ def init_attention(gen, cfg, *, device, lead=()):
     return p
 
 
+def whole_features(x, cfg):
+    """``x`` (B, S, D) with its whole d_model (and sequence) on every rank
+    of the "model" axis, the batch on the activations' axes: what a
+    projection whose weight is sharded over its output features reads (on
+    an island mesh, the all-gather of Megatron's sequence and tensor
+    parallelism, which GSPMD places before the JAX model's projections);
+    the identity on a plain tensor."""
+    if not is_dtensor(x):
+        return x
+    ba = tuple(cfg.act_batch_axes)
+    return constrain(x, (ba if len(ba) > 1 else ba[0], None, None))
+
+
 def project_cross_kv(p, cfg, kv_x):
     """Cross-attention K/V of the source ``kv_x`` (B, S_src, D), projected
     once (a prefill caches them; a decode step reuses them)."""
     dt = kv_x.dtype
     _count(2)
+    kv_x = whole_features(kv_x, cfg)
     k = torch.einsum("bsd,dgk->bsgk", kv_x, p["wk"].to(dt))
     v = torch.einsum("bsd,dgk->bsgk", kv_x, p["wv"].to(dt))
     if "bk" in p:
@@ -403,6 +453,7 @@ def apply_attention(p, x, cfg, *, positions, cache=None, cache_pos=None,
     ``causal``."""
     dt = x.dtype
     _count(2 if cross_kv is not None else 4)     # the projections
+    x = whole_features(x, cfg)
     q = torch.einsum("bsd,dhk->bshk", x, p["wq"].to(dt))
     if "bq" in p:
         q = q + p["bq"].to(dt)
@@ -440,22 +491,119 @@ def apply_attention(p, x, cfg, *, positions, cache=None, cache_pos=None,
             _ring_write(kv_pos, track[None].expand(kv_pos.shape[0], n),
                         start % C)
         kv_pos1 = kv_pos if q.shape[1] <= 8 else kv_pos[0]
-        out = attention(q, ck, cv, causal=causal, window=window,
-                        q_offset=int(cache_pos), kv_positions=kv_pos1,
-                        kv_valid=kv_pos1 >= 0, chunk=cfg.attn_chunk)
+        opts = dict(causal=causal, window=window, q_offset=int(cache_pos))
+        out = on_local_heads(
+            lambda ql, kl, vl, pos: attention(
+                ql, kl, vl, kv_positions=pos, kv_valid=pos >= 0,
+                chunk=cfg.attn_chunk, **opts),
+            q, ck, cv, cfg, kv_pos=kv_pos1,
+            kv_axis=cfg.decode_kv_shard or None,
+            stats=lambda ql, kl, vl, pos: attention_stats(
+                ql, kl, vl, kv_positions=pos, kv_valid=pos >= 0, **opts))
     # the JAX model's dispatch rule, condition for condition (with a cache
     # or a cross-attention source, JAX never takes the flash branch)
     elif (cfg.use_pallas and cross_kv is None
             and cfg.resolved_head_dim % 128 == 0 and q.shape[1] % 128 == 0):
         _count(2)
-        out = kops.flash_attention(q, k, v, causal=causal, window=window)
+        out = on_local_heads(lambda ql, kl, vl, _: kops.flash_attention(
+            ql, kl, vl, causal=causal, window=window), q, k, v, cfg)
     else:
-        out = attention(q, k, v, causal=causal, window=window,
-                        chunk=cfg.attn_chunk)
+        out = on_local_heads(lambda ql, kl, vl, _: attention(
+            ql, kl, vl, causal=causal, window=window, chunk=cfg.attn_chunk),
+            q, k, v, cfg)
     o = torch.einsum("bshk,hkd->bsd", out, p["wo"].to(dt))
     if "bo" in p:
         o = o + p["bo"].to(dt)
     return o, cache
+
+
+def on_local_heads(fn, q, k, v, cfg, *, kv_pos=None, kv_axis=None,
+                   stats=None):
+    """``fn(q, k, v, kv_pos)``: attention of (B, Sq, H, d) queries over
+    (B, Sk, G, d) keys and values (``kv_pos``: their position track, (B,
+    Sk) or (Sk,), or None), run on each rank's own batch rows and heads
+    where q is an island's DTensor (attention is independent over both,
+    so no rank reads another's: what GSPMD makes of the JAX model's
+    attention), and as it is on plain tensors. q is laid out with its
+    heads on "model" (where they divide it) and the batch on the
+    activations' axes, and the output keeps q's layout: the heads are
+    never gathered. k and v follow q's heads where both head counts
+    divide the axis; otherwise each rank takes the kv heads its query
+    heads read from a copy replicated over "model".
+
+    ``kv_axis`` (a cache's ``decode_kv_shard``): the keys' sequence dim
+    stays sharded on that mesh axis, and ``stats(q, k, v, kv_pos)`` (the
+    direct path's unnormalised ``attention_stats``) runs on each block of
+    it; the blocks' softmax maxima and sums, and their weighted values,
+    are reduced over the axis (flash decoding: small reductions instead of
+    a gather of the cache, as JAX's constraint on the scores' kv dim
+    makes GSPMD do). The local work is counted for every block it stands
+    for (``spec.mark_local``)."""
+    if not is_dtensor(q):
+        return fn(q, k, v, kv_pos)
+    from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+    mesh = q.device_mesh
+    names = list(mesh.mesh_dim_names)
+    kv_ax = kv_axis if (kv_axis in names and stats is not None
+                        and k.shape[1] % mesh.size(names.index(kv_axis))
+                        == 0) else None
+    ba = tuple(a for a in cfg.act_batch_axes if a != kv_ax)
+    n = mesh.size(names.index("model")) if "model" in names else 1
+    H, G = q.shape[2], k.shape[2]
+    heads = "model" if H % n == 0 and kv_ax != "model" else None
+    split_kv = heads is not None and G % n == 0
+    if kv_ax is not None and not split_kv:
+        heads = None          # a block's stats keep q's heads whole
+    ba = ba if len(ba) > 1 else (ba[0] if ba else None)
+    q = constrain(q, (ba, None, heads, None))
+    k, v = (constrain(t, (ba, kv_ax, heads if split_kv else None, None))
+            for t in (k, v))
+    # a block read by ranks that each use a different part of it (q over
+    # the kv blocks, k and v over the query heads) has a gradient partial
+    # over their axis
+    kv_i = names.index(kv_ax) if kv_ax is not None else None
+    m_i = names.index("model") if "model" in names else None
+    ql = _local_partial(q, [kv_i] if kv_i is not None else [])
+    kl, vl = (_local_partial(t, [m_i] if heads is not None and not split_kv
+                             else []) for t in (k, v))
+    ql, kl, vl = mark_local((q, k), ql, kl, vl)
+    pos = kv_pos
+    if is_dtensor(pos):
+        pos = constrain(pos, (ba, kv_ax) if pos.dim() == 2 else (kv_ax,))
+        pos = pos.to_local()
+    if heads is not None and not split_kv:
+        # this rank's query heads [h0, h0 + Hl) read kv heads h // rep
+        rep, Hl = H // G, H // n
+        h0 = mesh.get_local_rank(names.index("model")) * Hl
+        lo, hi = h0 // rep, (h0 + Hl - 1) // rep + 1
+        kl, vl = kl[:, :, lo:hi], vl[:, :, lo:hi]
+        if not (Hl % rep == 0 or rep % Hl == 0):
+            # neither whole groups nor one group: a kv head per query head
+            idx = torch.arange(h0, h0 + Hl, device=kl.device) // rep - lo
+            kl, vl = kl[:, :, idx], vl[:, :, idx]
+    if kv_ax is None:
+        return DTensor.from_local(fn(ql, kl, vl, pos), mesh, q.placements,
+                                  run_check=False)
+    # flash decoding over the kv blocks of ``kv_ax``
+    acc, m, l = stats(ql, kl, vl, pos)
+    batch = set(ba) if isinstance(ba, tuple) else {ba}
+
+    def over_kv(x, op):
+        pl = [Partial(op) if a == kv_ax else Shard(0) if a in batch
+              else Shard(1) if (a == "model" and heads) else Replicate()
+              for a in names]
+        done = [Replicate() if a == kv_ax else p for a, p in zip(names, pl)]
+        return DTensor.from_local(x, mesh, pl, run_check=False) \
+            .redistribute(mesh, done).to_local()
+
+    big = over_kv(m, "max")
+    scale = torch.exp(m - big)
+    o = over_kv(acc * scale[..., None], "sum") / torch.clamp(
+        over_kv(l * scale, "sum"), min=1e-30)[..., None]
+    B_l, Sq = ql.shape[0], ql.shape[1]
+    o = o.movedim(3, 1).reshape(B_l, Sq, ql.shape[2], o.shape[-1])
+    return DTensor.from_local(o.to(ql.dtype), mesh, q.placements,
+                              run_check=False)
 
 
 def init_attn_cache(cfg, batch: int, cache_len: int, dtype, *, device):
@@ -507,6 +655,7 @@ def _act(x, kind: str):
 def apply_mlp(p, x, cfg):
     dt = x.dtype
     _count(2 + ("w_gate" in p))
+    x = whole_features(x, cfg)
     h = x @ p["w_up"].to(dt)
     if "b_up" in p:
         h = h + p["b_up"].to(dt)
@@ -530,7 +679,62 @@ def init_embedding(gen, cfg, *, device):
 
 
 def embed(p, tokens, cfg):
-    return p["table"][tokens].to(getattr(torch, cfg.compute_dtype))
+    dt = getattr(torch, cfg.compute_dtype)
+    if is_dtensor(p["table"]):
+        return _embed_on_mesh(p["table"], tokens, cfg).to(dt)
+    return p["table"][tokens].to(dt)
+
+
+def _local_partial(t, axes):
+    """``t.to_local()``, its gradient declared partial over the mesh
+    ``axes`` (the ranks of an axis where ``t`` is replicated each use a
+    different part of it, so their gradients are summed)."""
+    from torch.distributed.tensor import Partial
+    if not axes:
+        return t.to_local()
+    return t.to_local(grad_placements=[
+        Partial() if i in axes else p for i, p in enumerate(t.placements)])
+
+
+def _embed_on_mesh(table, tokens, cfg):
+    """The embedding gather of a table on an island mesh, from each rank's
+    block (Megatron's vocab-parallel embedding, as GSPMD partitions the
+    JAX gather): the table's other shards (FSDP's feature columns) are
+    gathered, its vocab rows stay split where they are, each rank looks
+    up the tokens of its own batch rows that fall in its block of the
+    vocab (0 for the others), and the blocks sum over the vocab's axis (a
+    ``Partial`` result, reduced where it is read: the residual stream's
+    ``constrain``)."""
+    from torch.distributed.tensor import DTensor, Partial, Replicate
+    mesh = table.device_mesh
+    axis = next((i for i, p in enumerate(table.placements)
+                 if p.is_shard(0)), None)
+    table = table.redistribute(mesh, [
+        p if i == axis else Replicate() for i, p in enumerate(
+            table.placements)])
+    ba = tuple(a for a in cfg.act_batch_axes
+               if axis is None or a != mesh.mesh_dim_names[axis])
+    ba = ba if len(ba) > 1 else (ba[0] if ba else None)
+    tokens = tokens if is_dtensor(tokens) else DTensor.from_local(
+        tokens, mesh, [Replicate()] * mesh.ndim, run_check=False)
+    tokens = constrain(tokens, (ba, None))
+    # each rank reads the table for its own rows: its gradient is partial
+    # over the axes the rows are split on
+    rows = [i for i, p in enumerate(tokens.placements) if p.is_shard()]
+    ids, block = mark_local(tokens, tokens.to_local(),
+                            _local_partial(table, rows))
+    vl = block.shape[0]
+    idx = ids.long() - (0 if axis is None
+                        else mesh.get_local_rank(axis) * vl)
+    out = block[idx.clamp(0, vl - 1)]
+    if axis is not None:
+        ok = (idx >= 0) & (idx < vl)
+        out = torch.where(ok[..., None], out,
+                          torch.zeros((), dtype=out.dtype, device=out.device))
+    return DTensor.from_local(
+        out, mesh, [Partial() if i == axis else p
+                    for i, p in enumerate(tokens.placements)],
+        run_check=False)
 
 
 def init_lm_head(gen, cfg, *, device):
@@ -546,7 +750,7 @@ def lm_logits(head_p, emb_p, x, cfg):
     else:
         w = head_p["w"].to(x.dtype)
     _count()
-    logits = (x @ w).float()
+    logits = (whole_features(x, cfg) @ w).float()
     if cfg.logit_softcap:
         logits = torch.tanh(logits / cfg.logit_softcap) * cfg.logit_softcap
     return logits
@@ -561,6 +765,55 @@ def next_token_loss(logits, tokens):
     logsumexp(logits) − logits[target]."""
     lg = logits[:, :-1].float()
     tgt = tokens[:, 1:]
+    if is_dtensor(lg):
+        return _ce_on_mesh(lg, tgt)
     lse = torch.logsumexp(lg, dim=-1)
     picked = torch.gather(lg, -1, tgt[..., None].long())[..., 0]
     return (lse - picked).mean()
+
+
+def _ce_on_mesh(lg, tgt):
+    """``next_token_loss``'s per-token terms on an island mesh, from each
+    rank's block of the logits, as GSPMD partitions the JAX loss: where
+    the vocab dim is sharded, the logsumexp reduces each block's max and
+    sum of exponentials over the vocab's mesh axis (two (B, S) all-reduces
+    instead of a gather of the logits), and each rank picks the targets
+    that fall in its block of the vocab (0 for the others), the picks
+    summed over that axis. The other mesh axes keep the logits' shards (a
+    partial sum is reduced first), the targets laid out to match, and the
+    mean is DTensor's over the terms' blocks."""
+    from torch.distributed.tensor import DTensor, Partial, Replicate
+    mesh, last = lg.device_mesh, lg.dim() - 1
+    axis = next((i for i, p in enumerate(lg.placements) if p.is_shard(last)),
+                None)
+    keep = [p if (p.is_shard() and i != axis) else Replicate()
+            for i, p in enumerate(lg.placements)]
+    lg = lg.redistribute(mesh, [lg.placements[i] if i == axis else p
+                                for i, p in enumerate(keep)])
+    tgt = tgt if is_dtensor(tgt) else DTensor.from_local(
+        tgt, mesh, [Replicate()] * mesh.ndim, run_check=False)
+    tgt = tgt.redistribute(mesh, keep).to_local().long()
+    block, = mark_local(lg, lg.to_local())
+    vl = block.shape[-1]
+
+    def over_vocab(x, op):
+        """A (B, S) block reduced over the vocab's axis (x itself when the
+        vocab is whole on every rank)."""
+        if axis is None:
+            return x
+        return DTensor.from_local(
+            x, mesh, [Partial(op) if i == axis else p
+                      for i, p in enumerate(keep)],
+            run_check=False).redistribute(mesh, keep).to_local()
+
+    m = over_vocab(block.detach().amax(-1), "max")
+    lse = m + torch.log(over_vocab(
+        torch.exp(block - m[..., None]).sum(-1), "sum"))
+    idx = tgt - (0 if axis is None else mesh.get_local_rank(axis) * vl)
+    got = torch.gather(block, -1, idx.clamp(0, vl - 1)[..., None])[..., 0]
+    if axis is not None:
+        ok = (idx >= 0) & (idx < vl)
+        got = torch.where(ok, got, torch.zeros((), dtype=got.dtype,
+                                               device=got.device))
+    terms = lse - over_vocab(got, "sum")
+    return DTensor.from_local(terms, mesh, keep, run_check=False).mean()

@@ -21,9 +21,12 @@ from __future__ import annotations
 from dataclasses import dataclass
 
 import torch
+from torch._subclasses.fake_tensor import FakeTensorMode
 from torch.utils.checkpoint import checkpoint
 
 from .. import tree
+from ..sharding.spec import (cache_pspec, constrain, empty_on_mesh,
+                             is_dtensor, mesh_shape)
 from . import blocks as BLK
 from . import layers as L
 
@@ -169,6 +172,16 @@ def forward(params, cfg, tokens, *, extra=None, window=None, cache=None,
     dt = getattr(torch, cfg.compute_dtype)
     B, S = tokens.shape
     x = L.embed(params["embed"], tokens, cfg)
+    # activations: batch over cfg.act_batch_axes, d_model over "model"
+    # when act_model_shard (the residual stream sharded Megatron-style),
+    # or (act_seq_shard) the sequence over "model" (Megatron sequence
+    # parallelism); the identity off an island mesh
+    ba = tuple(cfg.act_batch_axes)
+    ba = ba if len(ba) > 1 else ba[0]
+    if cfg.act_seq_shard:
+        x = constrain(x, (ba, "model", None))
+    else:
+        x = constrain(x, (ba, None, "model" if cfg.act_model_shard else None))
     cache_pos = 0 if cache_pos is None else int(cache_pos)
     positions = cache_pos + torch.arange(S, device=tokens.device)
     if cfg.pos_emb == "learned":
@@ -298,9 +311,25 @@ def prefill(params, cfg, tokens, *, extra=None, window: int = 0,
     cache); ``cache_len`` sizes the cache for the decode that follows
     (default: the prompt length); ``groups``: the MoE token grouping."""
     B, S = tokens.shape
-    cache = init_cache(cfg, B, max(cache_len, S),
-                       getattr(torch, cfg.compute_dtype),
-                       device=tokens.device, window=window)
+    make = lambda device: init_cache(cfg, B, max(cache_len, S),
+                                     getattr(torch, cfg.compute_dtype),
+                                     device=device, window=window)
+    if is_dtensor(tokens):
+        # on an island mesh each rank makes its own blocks of the cache,
+        # laid out as the dry run's (``cache_pspec``: batch over "data",
+        # kv heads or the sequence over "model"; the position tracks
+        # replicated), the empty cache's values (0, and -1 for a track)
+        mesh = tokens.device_mesh
+        dev = tokens.to_local().device
+        with FakeTensorMode():
+            shapes = make(dev)
+        cache = tree.map_nested(lambda t: empty_on_mesh(
+            t.shape, t.dtype, cache_pspec(tuple(t.shape), mesh_shape(mesh),
+                                          include_pod=False)
+            if t.is_floating_point() else (None,) * t.dim(), mesh,
+            fill=0 if t.is_floating_point() else -1, device=dev), shapes)
+    else:
+        cache = make(tokens.device)
     logits, cache, _ = forward(params, cfg, tokens, extra=extra, cache=cache,
                                cache_pos=0, window=window or None,
                                groups=groups)

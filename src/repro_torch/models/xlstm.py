@@ -78,11 +78,14 @@ def apply_mlstm(p, x, cfg, *, state=None):
     f_pre = (x @ p["wf"].to(dt_) + p["bf"].to(dt_)).float()
     if state is None:
         state = init_mlstm_state(cfg, B, dh, device=x.device)
-    qf, kf, vf = (a.float() for a in (q, k, v))
+    # unbind each input once: its backward stacks the per-token grads in
+    # one op (slicing token by token would build a full-length zero grad
+    # per token, bytes growing with T²)
+    steps = zip(*(torch.unbind(a, 1) for a in
+                  (q.float(), k.float(), v.float(), i_pre, f_pre)))
     hs = []
-    for t in range(T):
-        state, h = mlstm_cell(state, (qf[:, t], kf[:, t], vf[:, t],
-                                      i_pre[:, t], f_pre[:, t]))
+    for xt in steps:
+        state, h = mlstm_cell(state, xt)
         hs.append(h)
     h = torch.stack(hs, 1).reshape(B, T, D).to(dt_)
     z = x @ p["wz"].to(dt_)
@@ -153,10 +156,12 @@ def apply_slstm(p, x, cfg, *, state=None):
     if state is None:
         state = init_slstm_state(cfg, B, device=x.device)
     pf32 = {k: p[k].float() for k in ("rz", "ri", "rf", "ro")}
+    # one unbind per gate, as in ``apply_mlstm``
+    per_t = {g: torch.unbind(a, 1) for g, a in pre.items()}
     hs = []
     for t in range(T):
         state, h = slstm_cell(pf32, cfg, state,
-                              {g: a[:, t] for g, a in pre.items()})
+                              {g: a[t] for g, a in per_t.items()})
         hs.append(h)
     hs = apply_norm({"scale": p["norm"]}, torch.stack(hs, 1).to(dt_),
                     "rmsnorm")

@@ -18,6 +18,7 @@ import torch
 from .. import tree
 from ..kernels import ops
 from ..kernels.ref import device_scalar, f32
+from ..sharding.spec import is_dtensor, local_blocks
 from . import precision
 
 
@@ -77,24 +78,28 @@ def update(grads, state: AdamWState, params, *, lr, b1=0.9, b2=0.95,
         raise ValueError(
             "mixed-policy update needs a master copy in the state: build "
             "it with adamw.init(params, policy=policy)")
-    first = tree.leaves(params)[0]
+    # an island's DTensors (each leaf's param, grad and moments in one
+    # layout) are updated on each rank's blocks, as they lie: AdamW is
+    # elementwise; the returned params are the DTensors, updated in place
+    trees = (params, grads, state.m, state.v) + (
+        (state.master,) if mixed else ())
+    blocks = [local_blocks(*ls) for ls in zip(*map(tree.leaves, trees))]
+    local = [tree.unflatten(t, [b[i] for b in blocks])
+             for i, t in enumerate(trees)]
+    first = blocks[0][0]
     hp = dict(lr=lr, count=count, b1=b1, b2=b2, eps=eps,
               weight_decay=weight_decay, mode=mode)
     if ops._resolve(mode, first):
         if mixed:
-            ops.adamw_update_tree_mixed(params, grads, state.m, state.v,
-                                        state.master, **hp)
+            ops.adamw_update_tree_mixed(*local, **hp)
         else:
-            ops.adamw_update_tree(params, grads, state.m, state.v, **hp)
+            ops.adamw_update_tree(*local, **hp)
         return params, state._replace(count=count)
     c1, c2 = ops.adamw_scalars(count, b1, b2)
     c1t, c2t = device_scalar(c1, first), device_scalar(c2, first)
-    masters = tree.leaves(state.master) if mixed else [None] * len(
-        tree.leaves(params))
     with torch.no_grad():
-        for p, g, m, v, w in zip(tree.leaves(params), tree.leaves(grads),
-                                 tree.leaves(state.m), tree.leaves(state.v),
-                                 masters):
+        for p, g, m, v, *w in blocks:
+            w = w[0] if w else None
             gf = g.float()
             wf = (p if w is None else w).float()
             m_new = f32(b1) * m.float() + f32(1.0 - b1) * gf
@@ -119,7 +124,12 @@ def clip_by_global_norm(grads, max_norm: float):
     grads' dtype, and bf16 grads are rounded back to bf16 once. Returns
     (grads, norm); norm and scale stay on the device, so no host sync."""
     ls = tree.leaves(grads)
-    gn = torch.sqrt(sum(torch.sum(torch.square(g.float())) for g in ls))
+    # on an island's DTensors each leaf's sum of squares is reduced across
+    # its shards (``full_tensor``); the scale then applies to every block
+    sq = [torch.sum(torch.square(g.float())) for g in ls]
+    sq = [s.full_tensor() if is_dtensor(s) else s for s in sq]
+    ls = [local_blocks(g)[0] for g in ls]
+    gn = torch.sqrt(sum(sq))
     # a 0-d numerator: PyTorch computes scalar / tensor as a reciprocal
     # times the scalar, which does not round as the reference's division
     scale = torch.clamp(device_scalar(max_norm, gn) / (gn + f32(1e-12)),

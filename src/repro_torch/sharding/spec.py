@@ -9,19 +9,30 @@ priority (for a given mesh axis, the highest-priority divisible logical
 axis present on the leaf gets it; e.g. whisper's 20 heads don't divide 16
 so the d_model/"embed" axis is sharded instead).
 
-The mesh is a ``MeshShape`` of axis names and sizes, and a spec is a
-tuple of mesh-axis names (or tuples of them) and None, one per dim: the
-port lays out no device mesh. Its DiLoCo islands are the ranks of a pod
-process group (``launch/mesh.py``), and its models run no model
-parallelism within an island, so the JAX ``Boxed``, ``unbox`` and
-``constrain`` (GSPMD annotations) have no counterpart here. The dry run
-(``launch/dryrun.py``) reads these specs to size each leaf's bytes per
+A ``MeshShape`` names a mesh's axes and sizes, and a spec is a tuple of
+mesh-axis names (or tuples of them) and None, one per dim. The dry run
+(``launch/dryrun.py``) reads the specs to size each leaf's bytes per
 device (``shard_shape``).
+
+Within an island the specs are applied, as GSPMD applies JAX's, by
+``torch.distributed.tensor`` (DTensor) on a ``DeviceMesh`` with axes
+("data", "model") (``island_mesh``): ``param_pspec`` lays out each
+parameter FSDP×TP (``shard_params``; each sharded dim a ``Shard(dim)``
+on its mesh axis, everything else ``Replicate()``), and ``constrain``,
+the counterpart of JAX's ``with_sharding_constraint`` sites, redistributes
+an activation to a spec. DTensor's sharding propagation inserts the
+collectives between them, as GSPMD does. On plain tensors (every run
+without an island mesh) ``constrain`` is the identity, so the model's
+code is the same on one card and on a mesh. The JAX ``Boxed`` and
+``unbox`` have no counterpart: the port keeps the axes beside the init
+(``models.model.param_axes``).
 """
 from __future__ import annotations
 
 import math
 from typing import NamedTuple
+
+import torch
 
 # Logical axis -> mesh axis. Order in PRIORITY decides who wins a mesh axis
 # when several logical axes on one param map to it.
@@ -136,3 +147,239 @@ def shard_bytes(t, spec: tuple, mesh: MeshShape) -> int:
     """Bytes one device holds of tensor ``t`` laid out by ``spec``."""
     return math.prod(shard_shape(tuple(t.shape), spec, mesh)) \
         * t.element_size()
+
+
+# ---------------------------------------------------------------------------
+# the dry run's layouts (the JAX ``launch/dryrun.py``'s)
+# ---------------------------------------------------------------------------
+
+def param_pspec(axes: tuple, shape: tuple, mesh: MeshShape,
+                fsdp: bool = True) -> tuple:
+    """2-D param sharding: model-parallel pass (priority rules), then an
+    FSDP pass putting 'embed' rows on "data" if still free.
+
+    Exception, as in the JAX dry run: *gathered* tables (axes start with
+    "vocab") whose vocab dim does not divide the model axis are fully
+    replicated (a gather from a feature-sharded table mis-lowers under
+    XLA's SPMD partitioner, and a data-sharded table is all-gathered every
+    step anyway)."""
+    sizes = mesh.sizes
+    if (axes and axes[0] == "vocab" and "model" in sizes
+            and shape[0] % sizes["model"] != 0):
+        return (None,) * len(axes)
+    spec = list(logical_to_pspec(axes, shape, mesh))
+    if fsdp and "data" in sizes and "data" not in spec:
+        for i, name in enumerate(axes):
+            if (spec[i] is None and name == "embed"
+                    and shape[i] % sizes["data"] == 0):
+                spec[i] = "data"
+                break
+    return tuple(spec)
+
+
+def cache_pspec(shape: tuple, mesh: MeshShape, *, include_pod: bool) -> tuple:
+    """Decode-cache sharding: leading (groups) dim replicated, batch dim
+    over ("pod"?, "data") when divisible, and ONE more dim over "model"
+    (kv-heads first, then the sequence dim, then feature dims); a batch too
+    small for "data" puts the sequence dim on it instead."""
+    sizes = mesh.sizes
+    nd = len(shape)
+    spec = [None] * nd
+    if nd >= 2:
+        axes = []
+        if include_pod and "pod" in sizes:
+            axes.append("pod")
+        axes.append("data")
+        total = math.prod(sizes[a] for a in axes)
+        while axes and shape[1] % total != 0:
+            total //= sizes[axes.pop()]
+        if axes:
+            spec[1] = tuple(axes) if len(axes) > 1 else axes[0]
+    if "model" in sizes and nd >= 3:
+        for i in [3, 2, nd - 1, nd - 2]:
+            if 2 <= i < nd and spec[i] is None \
+                    and shape[i] % sizes["model"] == 0 and shape[i] > 1:
+                spec[i] = "model"
+                break
+    if spec[1] is None and "data" in sizes and nd >= 4:
+        for i in [2, nd - 2]:
+            if 2 <= i < nd and spec[i] is None \
+                    and shape[i] % sizes["data"] == 0 and shape[i] > 1:
+                spec[i] = "data"
+                break
+    return tuple(spec)
+
+
+# ---------------------------------------------------------------------------
+# DTensor: the specs applied on an island's device mesh
+# ---------------------------------------------------------------------------
+
+def island_mesh(shape: tuple, axes: tuple = ("data", "model"),
+                device_type: str = "cuda"):
+    """A ``DeviceMesh`` of this process group's first prod(shape) ranks,
+    laid out row-major as ``shape`` with axis names ``axes`` (the JAX
+    island mesh). The default process group must be up."""
+    from torch.distributed.device_mesh import DeviceMesh
+    n = math.prod(shape)
+    return DeviceMesh(device_type, torch.arange(n).reshape(tuple(shape)),
+                      mesh_dim_names=tuple(axes))
+
+
+def mesh_shape(mesh) -> MeshShape:
+    """The ``MeshShape`` of a ``DeviceMesh``."""
+    return MeshShape(tuple(mesh.mesh_dim_names), tuple(mesh.mesh.shape))
+
+
+def placements(spec: tuple, mesh) -> list:
+    """DTensor placements of a spec on ``mesh``: for each mesh axis, a
+    ``Shard(dim)`` where the spec puts a dim on it, else ``Replicate()``
+    (a dim on several axes takes each of them, in order)."""
+    from torch.distributed.tensor import Replicate, Shard
+    out = [Replicate()] * mesh.ndim
+    names = list(mesh.mesh_dim_names)
+    for dim, entry in enumerate(spec):
+        for ax in entry_axes(entry):
+            out[names.index(ax)] = Shard(dim)
+    return out
+
+
+def is_dtensor(t) -> bool:
+    from torch.distributed.tensor import DTensor
+    return isinstance(t, DTensor)
+
+
+def local_blocks(*ts) -> tuple:
+    """This rank's blocks of DTensors of one layout (elementwise work runs
+    on them as they lie), marked as one of the blocks the work is split
+    into (``mark_local``), or the tensors themselves when none is a
+    DTensor; DTensors of different layouts are refused."""
+    if not any(is_dtensor(t) for t in ts):
+        return ts
+    first = next(t for t in ts if is_dtensor(t))
+    for t in ts:
+        if not is_dtensor(t) or t.device_mesh != first.device_mesh \
+                or tuple(t.placements) != tuple(first.placements) \
+                or t.shape != first.shape:
+            raise ValueError(
+                "elementwise work takes DTensors of one layout: got "
+                f"{[getattr(x, 'placements', None) for x in ts]}")
+    return mark_local(first, *(t.to_local() for t in ts))
+
+
+def distribute(t, spec: tuple, mesh):
+    """``t`` laid out by ``spec`` on ``mesh``, from its full value, which
+    every rank holds: each rank keeps its own block (cut here, so nothing
+    is communicated); a meta tensor becomes a DTensor of meta blocks
+    (nothing allocated)."""
+    from torch.distributed.tensor import DTensor
+    pl = placements(spec, mesh)
+    if t.device.type == "meta":
+        block = torch.empty(shard_shape(tuple(t.shape), spec,
+                                        mesh_shape(mesh)),
+                            dtype=t.dtype, device="meta")
+    else:
+        block = block_of(t, pl, mesh).contiguous()
+    return DTensor.from_local(block, mesh, pl, run_check=False,
+                              shape=t.shape, stride=t.stride())
+
+
+def block_of(t, pl, mesh):
+    """This rank's block (a view) of the full tensor ``t`` laid out by the
+    placements ``pl`` on ``mesh``: each mesh axis in order (outer first)
+    cuts the dim it shards, as DTensor cuts it."""
+    for i, p in enumerate(pl):
+        if p.is_shard():
+            t = torch.chunk(t, mesh.size(i), p.dim)[mesh.get_local_rank(i)]
+    return t
+
+
+def contiguous_strides(shape) -> tuple:
+    """The strides of a contiguous tensor of ``shape`` (computed: a tensor
+    made for them would count as storage where storage is counted)."""
+    out, n = [], 1
+    for d in reversed(tuple(shape)):
+        out.append(n)
+        n *= int(d)
+    return tuple(reversed(out))
+
+
+def empty_on_mesh(shape, dtype, spec: tuple, mesh, *, fill, device):
+    """A DTensor of ``shape`` laid out by ``spec`` on ``mesh``, each rank
+    making only its own block, filled with ``fill``."""
+    from torch.distributed.tensor import DTensor
+    shape = tuple(shape)
+    block = torch.full(shard_shape(shape, spec, mesh_shape(mesh)), fill,
+                       dtype=dtype, device=device)
+    return DTensor.from_local(block, mesh, placements(spec, mesh),
+                              run_check=False, shape=torch.Size(shape),
+                              stride=contiguous_strides(shape))
+
+
+def shard_params(params, axes, mesh, *, fsdp: bool = True,
+                 pure_dp: bool = False):
+    """The param tree as DTensors in ``param_pspec``'s layout (``fsdp``
+    False: model-sharded only; ``pure_dp``: every leaf replicated), the
+    leaves' logical axes from ``axes`` (``models.model.param_axes``)."""
+    from .. import tree
+    ms = mesh_shape(mesh)
+    specs = [(None,) * t.dim() if pure_dp
+             else param_pspec(tuple(ax), tuple(t.shape), ms, fsdp)
+             for t, ax in zip(tree.leaves(params), tree.leaves(axes))]
+    return tree.unflatten(params, [distribute(t, sp, mesh) for t, sp in
+                                   zip(tree.leaves(params), specs)])
+
+
+# the attribute that marks a rank's local block of an island's work with
+# the number of distinct blocks it is one of (``launch/op_cost.py``
+# multiplies the counts of the plain ops that read it)
+BLOCKS = "_island_blocks"
+
+
+def mark_local(like, *blocks):
+    """Mark plain tensors as this rank's share of work split over the mesh
+    axes that DTensor ``like`` (or any of a tuple of them) is sharded on:
+    the other ranks of those axes do the other blocks, the ranks of an
+    axis they are all replicated on repeat the same work. Returns
+    ``blocks``."""
+    likes = like if isinstance(like, tuple) else (like,)
+    mesh = likes[0].device_mesh
+    n = math.prod(mesh.size(i) for i in range(mesh.ndim)
+                  if any(t.placements[i].is_shard() for t in likes))
+    for t in blocks:
+        setattr(t, BLOCKS, n)
+    return blocks
+
+
+def on_mesh(*trees):
+    """A context in which a function of the trees' DTensors runs: plain
+    tensors the model makes itself (positions, masks, RoPE tables, 0-d
+    scalars) count as replicated on the mesh (DTensor's
+    ``implicit_replication``). Where no leaf is a DTensor, nothing."""
+    import contextlib
+
+    from .. import tree
+    if not any(is_dtensor(t) for x in trees for t in tree.leaves(x)):
+        return contextlib.nullcontext()
+    from torch.distributed.tensor.experimental import implicit_replication
+    return implicit_replication()
+
+
+def constrain(x, spec: tuple):
+    """``x`` redistributed to ``spec`` on its own mesh, the counterpart of
+    the JAX ``constrain`` (``with_sharding_constraint``): a plain tensor
+    (no mesh) comes back as it is. Mesh axes the spec names that the mesh
+    lacks are dropped, as is a dim whose size the axis does not divide
+    (GSPMD pads it; a DTensor would split it unevenly)."""
+    if not is_dtensor(x):
+        return x
+    mesh = x.device_mesh
+    sizes = dict(zip(mesh.mesh_dim_names, mesh.mesh.shape))
+    keep = []
+    for d, entry in enumerate(spec):
+        axes = tuple(a for a in entry_axes(entry) if a in sizes)
+        n = math.prod(sizes[a] for a in axes)
+        keep.append(axes if axes and x.shape[d] % n == 0 else None)
+    pl = placements(tuple(keep), mesh)
+    if list(x.placements) == pl:
+        return x
+    return x.redistribute(mesh, pl)

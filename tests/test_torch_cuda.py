@@ -283,6 +283,7 @@ def test_cuda_flash_kernels_match_plain(cuda, case):
     dq, dk, dv = TFK.flash_bwd(q, k, v, o, lse, do, **opts)
     torch.cuda.synchronize()
     assert {n: TFK.launches[n] - before[n] for n in before} == {
+        **dict.fromkeys(before, 0),        # the bf16 kernels' counters
         "fwd": 1, "fwd_lse": 1, "bwd_dq": 1, "bwd_dkv": 1}
     want_o, want_lse = tref.flash_fwd_lse(
         *(t.double() if amp != 1.0 else t for t in (q, k, v)), **opts)
@@ -293,6 +294,51 @@ def test_cuda_flash_kernels_match_plain(cuda, case):
     close(o_plain, want_o, 2e-5)
     close(o, want_o, 2e-5)
     close(lse, want_lse, 2e-5)
+    for got, want in zip((dq, dk, dv), want_grads):
+        close(got, want, 5e-4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", FLASH_CASES[:8] + FLASH_CASES[9:12],
+                         ids=_flash_id)
+def test_cuda_flash_bf16_kernels_match_plain(cuda, case, monkeypatch):
+    """The four kernels on bf16 operands (their own launch counters)
+    against their plain versions on the same bf16 tensors: both compute in
+    f32 and round o, dq, dk and dv to bf16 once, so they differ by the
+    f32 sums' order (split TF32 against whole rows) and the rounding flips
+    that order causes: rtol 2^-7 (two bf16 ulps) with atol 2e-5 (forward)
+    or 5e-4 (backward); lse (f32) at the f32 forward's 2e-5. A bf16 CUDA
+    tensor never reaches a plain version (patched here to raise)."""
+    B, H, G, S, Sk, d, causal, window, amp = _flash_case(case)
+    seed = S + d + (0 if Sk == S else Sk) + 1
+    q, k, v, do = (t.to(torch.bfloat16) for t in _flash_inputs(
+        cuda, B, H, G, S, d, seed, Sk=Sk, amp=amp))
+    opts = dict(causal=causal, window=window)
+    plain = (tref.flash_fwd_lse, tref.flash_bwd)
+
+    def refuse(*_a, **_k):
+        raise AssertionError("a bf16 CUDA tensor reached a plain version")
+    monkeypatch.setattr(tref, "flash_fwd_lse", refuse)
+    monkeypatch.setattr(tref, "flash_bwd", refuse)
+    before = dict(TFK.launches)
+    o_plain = TFK.flash_fwd(q, k, v, **opts)
+    o, lse = TFK.flash_fwd_lse(q, k, v, **opts)
+    dq, dk, dv = TFK.flash_bwd(q, k, v, o, lse, do, **opts)
+    torch.cuda.synchronize()
+    monkeypatch.undo()
+    assert {n: TFK.launches[n] - before[n] for n in before} == {
+        **dict.fromkeys(TFK.KERNELS, 0),
+        "fwd_bf16": 1, "fwd_lse_bf16": 1, "bwd_dq_bf16": 1,
+        "bwd_dkv_bf16": 1}
+    for t in (o_plain, o, dq, dk, dv):
+        assert t.dtype == torch.bfloat16
+    want_o, want_lse = plain[0](q, k, v, **opts)
+    want_grads = plain[1](q, k, v, o, lse, do, **opts)
+    close = lambda a, b, tol: torch.testing.assert_close(
+        a.float(), b.float(), rtol=2 ** -7, atol=tol)
+    close(o_plain, want_o, 2e-5)
+    close(o, want_o, 2e-5)
+    torch.testing.assert_close(lse, want_lse, rtol=2e-5, atol=2e-5)
     for got, want in zip((dq, dk, dv), want_grads):
         close(got, want, 5e-4)
 
@@ -343,6 +389,7 @@ def test_cuda_flash_round_matches_cpu(cuda):
     got = _smoke_round(cuda, k=k, H=H, **changes)
     steps = k * H
     assert {n: TFK.launches[n] - before[n] for n in before} == {
+        **dict.fromkeys(before, 0),        # the bf16 kernels' counters
         "fwd": 0, "fwd_lse": 2 * L * steps, "bwd_dq": L * steps,
         "bwd_dkv": L * steps}
     want = _smoke_round(torch.device("cpu"), k=k, H=H, **changes)

@@ -58,8 +58,20 @@ def test_mini_dryrun_structure(mini):
     for r in mini:
         assert "error" not in r, r
         c = r["collectives"]
-        assert c["intra_pod_bytes"] is None and "not modelled" in \
-            c["intra_pod"]
+        # within the island: the FSDP×TP steps' collectives counted on the
+        # island mesh's DTensors; none in the elementwise outer update and
+        # exchange; the streaming round's inner steps counted unsharded
+        if r["fn"] == "diloco_stream_round":
+            assert c["intra_pod_bytes"] is None and "not modelled" in \
+                c["intra_pod"]
+            assert r["roofline"]["collective_intra_s"] is None
+        elif r["fn"] in ("diloco_outer_step", "gossip_exchange"):
+            assert c["intra_pod_bytes"] == 0
+            assert r["roofline"]["collective_intra_s"] == 0
+        else:
+            assert isinstance(c["intra_pod_bytes"], int) and \
+                c["intra_pod_bytes"] > 0
+            assert r["roofline"]["collective_intra_s"] > 0
         assert r["memory"]["peak_bytes_est"] > 0
         if r["fn"] in ("inner_train_step", "diloco_inner_step",
                        "ddp_train_step"):
@@ -68,10 +80,10 @@ def test_mini_dryrun_structure(mini):
         if r["fn"] in ("inner_train_step", "serve_step",
                        "diloco_inner_step"):
             # the paper's core property: an inner step talks to no pod
-            assert c["cross_pod_bytes"] == 0 and c["count"] == 0
+            assert c["cross_pod_bytes"] == 0 and c["cross_count_by_op"] == {}
         if r["fn"] in ("diloco_outer_step", "ddp_train_step"):
             assert c["cross_pod_bytes"] > 0
-            assert set(c["by_op"]) == {"all-reduce"}
+            assert set(c["cross_by_op"]) == {"all-reduce"}
         if r["fn"] == "diloco_stream_round":
             P = TD.STREAM_FRAGMENTS
             st = r["stream_interleaving"]
@@ -82,7 +94,7 @@ def test_mini_dryrun_structure(mini):
             assert c["cross_pod_bytes"] > 0
         if r["fn"] == "gossip_exchange":
             assert c["cross_pod_bytes"] > 0
-            assert set(c["by_op"]) == {"collective-permute"}, c
+            assert set(c["cross_by_op"]) == {"collective-permute"}, c
     by = {r["fn"]: r for r in mini}
     # DDP all-reduces every step's gradients, DiLoCo's outer step the
     # deltas once: the same tree, the same bytes per sync
@@ -143,10 +155,21 @@ def test_refusals(capsys):
         with pytest.raises(ValueError, match=mode):
             TD.dryrun_pair("diloco_60m", "decode_32k", multi_pod=False,
                            mesh=SINGLE, kernel_mode=mode)
+    # the variants that steer within-island collectives: taken for the
+    # families that run on an island's DTensors
+    # (tests/test_torch_dryrun_island.py), refused by family for the rest
     for v in TD.ISLAND_ONLY_VARIANTS:
-        with pytest.raises(ValueError, match=f"{v}.*within an island"):
-            TD.dryrun_pair("diloco_60m", "decode_32k", multi_pod=False,
-                           mesh=SINGLE, variant={v: True})
+        for name, family in (("olmoe_1b_7b", "MoE/MLA"),
+                             ("deepseek_v2_lite_16b", "MoE/MLA"),
+                             ("zamba2_2_7b", "Mamba2"),
+                             ("xlstm_350m", "xLSTM")):
+            with pytest.raises(ValueError, match=f"{v}.*within an island"
+                               f".*{family}.*not modelled"):
+                TD.dryrun_pair(name, "decode_32k", multi_pod=False,
+                               mesh=SINGLE, variant={v: True})
+    with pytest.raises(ValueError, match="unknown variant"):
+        TD.dryrun_pair("diloco_60m", "decode_32k", multi_pod=False,
+                       mesh=SINGLE, variant={"bogus": True})
     with pytest.raises(SystemExit):
         TD.main(["--arch", "diloco_60m", "--shape", "decode_32k",
                  "--kernel-mode", "pallas"])
@@ -237,13 +260,21 @@ def test_cli_writes_records_and_manifest(tmp_path):
 
 def test_extrapolation_fits_a_checked_quadratic():
     """A per-token loop's counts come from four short lengths: a count
-    that is a quadratic in the length is extrapolated exactly, any other
-    is refused (no silent trip multiplier)."""
+    that is a quadratic in the length is extrapolated exactly; a count
+    that changes regime among the first lengths is fitted from the first
+    window of four lengths past the change (the window moves on by one
+    step at a time, at most ``FIT_SHIFTS`` times); any other count is
+    refused (no silent trip multiplier)."""
     quad = lambda s: 7 * s * s + 3 * s + 11
     got = TD._extrapolated(lambda s: dict.fromkeys(TD._COUNTS, quad(s)),
                            32768, 32)
     assert got["extrapolated_from"] == [32, 64, 96, 128]
     assert all(got[k] == quad(32768) for k in TD._COUNTS)
+    # affine from 90 on: the third window is the first past the change
+    got = TD._extrapolated(lambda s: dict.fromkeys(TD._COUNTS, max(s, 90)),
+                           4096, 4 * 8)
+    assert got["extrapolated_from"] == [96, 128, 160, 192]
+    assert all(got[k] == 4096 for k in TD._COUNTS)
     with pytest.raises(ValueError, match="not a quadratic"):
-        TD._extrapolated(lambda s: dict.fromkeys(TD._COUNTS, max(s, 90)),
+        TD._extrapolated(lambda s: dict.fromkeys(TD._COUNTS, s ** 3),
                          4096, 4 * 8)
