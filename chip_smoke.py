@@ -49,8 +49,9 @@ Phases, each printing one JSON line; any failure exits non-zero:
               their plain versions on the same bf16 tensors (rtol 2^-7,
               two bf16 ulps, beside the f32 atols; lse at 2e-5), a bf16
               CUDA tensor never reaching a plain version, each timed at
-              the layer shape in bf16 beside SDPA's bf16 call and the
-              bound on the bf16 tensor cores; and their path: one inner
+              the layer shape in bf16 (one call, and a burst of 20 back
+              to back) beside SDPA's bf16 call and the bound on the bf16
+              tensor cores; and their path: one inner
               step and one eval forward of diloco_400m at full width with
               ``use_pallas=True, compute_dtype="bfloat16"``, the counters
               set to 0 just before and read just after (2·L
@@ -506,6 +507,25 @@ def time_ms(torch, fn, reps=20, warmup=3, setup=None) -> float:
         b.synchronize()
         times.append(a.elapsed_time(b))
     return sorted(times)[len(times) // 2]
+
+
+BURST = 20       # back-to-back calls in a burst timing (``burst_ms``)
+
+
+def burst_ms(torch, fn, n=BURST, warmup=3) -> float:
+    """Mean ms of ``fn`` over ``n`` calls back to back between two CUDA
+    events: the device's time, the host's gaps before the launches hidden
+    behind the calls in flight."""
+    for _ in range(warmup):
+        fn()
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    a.record()
+    for _ in range(n):
+        fn()
+    b.record()
+    b.synchronize()
+    return a.elapsed_time(b) / n
 
 
 def reset_launches():
@@ -3817,8 +3837,9 @@ def phase_dryrun(torch, dev, sharded_traffic):
 
 
 # the bf16 kernels' tolerance against their plain versions: both compute
-# in f32 and round o, dq, dk, dv to bf16 once; the f32 sums' orders differ
-# (split TF32 against whole rows), and so may the rounding: two bf16 ulps
+# at f32 accuracy and round o, dq, dk, dv to bf16 once; the f32 sums'
+# orders differ (bf16 tensor-core chains with split f32 operands, or dq's
+# split TF32, against whole rows), and so may the rounding: two bf16 ulps
 # relative, beside the f32 kernels' absolute tolerances
 BF16_RTOL = 2 ** -7
 FLASH_BF16_CASES = FLASH_CASES[:5] + FLASH_CASES[9:]
@@ -3832,8 +3853,11 @@ def phase_flash_bf16(torch, dev):
     CUDA tensor never reaching a plain version; then each kernel's time
     at ``FLASH_LAYER`` in bf16 beside its plain version, PyTorch's bf16
     ``scaled_dot_product_attention`` (the yardstick, which the port never
-    calls) and the bound on the bf16 tensor cores. Returns the kernels'
-    rows."""
+    calls) and the bound on the bf16 tensor cores; beside each single
+    call's time (``ms``, as every kernel's row: it includes the host's
+    gap before the launch) the mean of ``BURST`` calls back to back
+    (``burst_ms``: the device's time), SDPA's likewise. Returns the
+    kernels' rows."""
     from repro_torch.kernels import flash_attention as FK
     from repro_torch.kernels import ref
 
@@ -3924,6 +3948,10 @@ def phase_flash_bf16(torch, dev):
         out, leaves, do, retain_graph=True))
     library = {"fwd": lib_fwd, "fwd_lse": lib_fwd, "bwd_dq": lib_bwd,
                "bwd_dkv": lib_bwd}
+    lib_burst = {"fwd": burst_ms(torch, lambda: sdpa(q, k, v,
+                                                     is_causal=causal)),
+                 "bwd": burst_ms(torch, lambda: torch.autograd.grad(
+                     out, leaves, do, retain_graph=True))}
     # the bound: this run's visible pairs, 2·d flops per pair and head for
     # each product, on the bf16 tensor cores; bytes: bf16 q, k, v, dO, o,
     # dq, dk, dv read or written once, f32 lse and delta
@@ -3945,6 +3973,7 @@ def phase_flash_bf16(torch, dev):
         by_ops, by_bytes = flops / PEAK_BF16, nbytes / bw
         t = {"ms": time_ms(torch, kernel[n]),
              "plain_ms": time_ms(torch, plain_fn[n])}
+        burst = burst_ms(torch, kernel[n])
         rows.append({"name": f"flash_{n}_bf16", "route": "cuda",
                      "source": "src/repro_torch/kernels/csrc/"
                                "flash_attention.cu",
@@ -3957,7 +3986,9 @@ def phase_flash_bf16(torch, dev):
              "flops": flops, "bytes": nbytes, **t,
              "bound_ms": rows[-1]["bound_ms"],
              "bound_by": rows[-1]["bound_by"], "library_ms": library[n],
-             "kernel_TFLOPs": flops / t["ms"] / 1e9})
+             "kernel_TFLOPs": flops / t["ms"] / 1e9, "burst_ms": burst,
+             "burst_TFLOPs": flops / burst / 1e9,
+             "library_burst_ms": lib_burst[n[:3]]})
     del q, k, v, do, o, lse, delta, dq, dk, dv, leaves, out
     torch.cuda.empty_cache()
     return rows

@@ -7,13 +7,15 @@
 //                            per-row logsumexp lse = m + log(l)
 //   repro_flash_bwd_dq_f32   _bwd, first call  (_bwd_dq_kernel)
 //   repro_flash_bwd_dkv_f32  _bwd, second call (_bwd_dkv_kernel)
-// and the same four as _bf16: as the Pallas kernels, q, k, v and
-// dO of any float dtype are converted to f32 where they are staged, every
-// product and sum is f32, and o, dq, dk and dv are written in the
-// operands' dtype; lse and delta are f32 whatever the operands' dtype. A
-// bf16 or f16 tile is loaded through registers (8 bytes a thread-chunk)
-// and stored to shared memory as f32, so the f32 pipeline's split-TF32
-// products run unchanged; f32 tiles keep their cp.async ring.
+// and the same four as _bf16. As the Pallas kernels, each computes p and
+// every product at f32 accuracy whatever the operands' dtype and writes o,
+// dq, dk and dv in the operands' dtype; lse and delta are f32. On f32
+// operands the kernels below run split TF32 on mma.sync. On bf16 operands
+// the forward and dk/dv are kernels of their own, on the bf16 tensor cores
+// (flash_fwd_bf16_kernel, flash_dkv_bf16_kernel: see "bf16 operands"
+// below), while dq runs flash_dq_kernel on bf16 tiles loaded through
+// registers (8 bytes a thread-chunk) and stored to shared memory as f32,
+// its split-TF32 products unchanged.
 //
 // Layout: q, o, dO, dq (B, H, Sq, D); k, v, dk, dv (B, G, Sk, D), H % G == 0,
 // query head h reads kv head h / (H / G). Each tensor comes with its batch,
@@ -105,6 +107,63 @@
 // mma.sync reaches, as the forward does (PERF.md). ptxas (-Xptxas -v, sm_90a), no spills: dq 239 registers
 // (d 128) or 187 (d 64), dk/dv 252 or 176; dynamic shared memory: dq
 // 196,608 or 98,304 bytes, dk/dv 139,776 or 74,240; one block per SM.
+//
+// bf16 operands, flash_fwd_bf16_kernel and flash_dkv_bf16_kernel: bound
+// by operations. At the 400m layer the forward's products are 25.8 GFLOP
+// and dk/dv's 51.6, against ~0.10 and ~0.15 GB of device memory (0.030,
+// 0.045 ms at 3.35 TB/s). The bf16 tensor cores multiply two bf16 values
+// exactly into an f32 sum at 989 TFLOP/s, so q K^T, K q^T and V dO^T take
+// one bf16 product each; P V, P^T dO and dS^T q have an f32 operand that
+// the kernel computes, split into two bf16 parts (below): 38.7 and 77.4
+// GFLOP on the tensor cores, 0.039 and 0.078 ms at their peak. What held
+// the first port back was its staging (bf16 tiles widened to f32 through
+// registers, then three TF32 MMAs a product: six bf16 MMAs' worth). The
+// design:
+//   * q, k, v and dO stay bf16 from device memory to the tensor cores:
+//     16-byte cp.async copies, each tile loaded one tile ahead into a
+//     three-stage ring of 64-row tiles stored with the 128-byte swizzle
+//     that wgmma reads without bank conflicts (half the f32 staging's
+//     bytes, so the ring is deeper);
+//   * wgmma m64nNk16 (bf16 operands, f32 accumulators), two warpgroups:
+//     the score products read both operands from shared memory (K-major),
+//     the second products take the split f32 operand as A fragments in
+//     registers, straight from the accumulators, and the bf16 tile MN-major
+//     as B: no tile needs a transposed copy;
+//   * accuracy, decided by emulating these MMAs on the CPU
+//     (tests/test_torch_flash_bf16_mma.py): the split x = hi + lo, hi =
+//     bf16(x), lo = bf16(x - hi), holds x to ~2^-17 of itself (one bf16
+//     pass, p rounded to bf16 as PyTorch's bf16 attention does, misses the
+//     absolute tolerance 16-61 times over where a sum nearly cancels); the
+//     scale multiplies q K^T's f32 result (the Pallas kernel scales q
+//     first: one f32 rounding a score apart); the tensor cores round each
+//     MMA's sum toward zero, yet one chain over all of d, all keys or all
+//     the group's queries stays within the f32 kernels' tolerance of
+//     float64 at scores of std 8, far below the bf16 outputs' rounding, so
+//     these chains are long where the f32 kernels' restart every slice;
+//   * each warpgroup issues tile j + 1's score product with tile j's
+//     second product and runs its softmax while that one is on the tensor
+//     cores. ptxas waits after every wgmma of a kernel when it finds one
+//     in a branch it cannot prove uniform (C7520: a draft with the products
+//     under per-tile conditions ran the forward at 0.22-0.28 ms a call);
+//     here the loops are peeled, so every wgmma is issued in straight-line
+//     code and each chain goes out without a wait inside it (the warp index
+//     is broadcast, which keeps the branches warp-uniform and saves dk/dv
+//     25 registers: tools/flash_ab.py --bf16);
+//   * p = 2^((s - m) log2 e) on ex2.approx (0.119 against 0.134 ms for
+//     expf by burst, tools/flash_ab.py --bf16; its ~2^-22 error a term is
+//     far below the tolerance);
+//   * dk/dv keeps the f32 kernel's shape: 64 keys as M, warpgroup 0 S^T,
+//     P^T and dV, warpgroup 1 dP^T, dS^T and dK with P^T handed over
+//     through shared memory; no atomics, so bit-reproducible; the GQA sum
+//     inside the block; the heaviest tiles first; query tiles the mask
+//     hides skipped. In the forward both warpgroups walk the block's live
+//     tiles, so under the causal mask the first one computes one tile it
+//     cannot see (masked to p = 0).
+// ptxas (-Xptxas -v, sm_90a), no spills: the forward 213-214 registers (d
+// 128) or 165-168 (d 64), dk/dv 211 or 162; dynamic shared memory: the
+// forward 132,096 or 66,560 bytes, dk/dv 150,016 or 84,480; one block per
+// SM. On the card (PERF.md, chip_smoke.py phase 6) the forward runs at
+// ~215 TFLOP/s of its useful 25.8 GFLOP and dk/dv at ~136 by burst.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -270,10 +329,10 @@ __device__ __forceinline__ void stage4(float* dst, const T* src, bool in) {
 
 // Stage key rows k0 .. k0 + FBK - 1 of k and v; rows at or past Sk are
 // zero-filled (src-size 0), never read.
-template <typename T, int D>
-__device__ __forceinline__ void load_kv(float* Kt, float* Vt, const T* k,
-                                        const T* v, const Attn<T>& a,
-                                        int k0) {
+template <int D>
+__device__ __forceinline__ void load_kv(float* Kt, float* Vt, const float* k,
+                                        const float* v,
+                                        const Attn<float>& a, int k0) {
   constexpr int V4 = D / 4;
   static_assert(FBK * V4 % THREADS == 0, "whole rounds of 16-byte chunks");
 #pragma unroll
@@ -300,9 +359,9 @@ __device__ __forceinline__ void load_kv(float* Kt, float* Vt, const T* k,
 //   rows 2t and 2t + 1. Output n-tile 4 mm + r, column g holds d = 32 mm +
 //   4 g + r, so one float4 of a V row feeds four n-tiles and a thread's
 //   accumulators cover d = 32 mm + 8 t .. + 7 of its rows.
-template <typename T, int D, bool LSE>
+template <int D, bool LSE>
 __global__ void __launch_bounds__(THREADS, 1)
-flash_fwd_kernel(Attn<T> a) {
+flash_fwd_kernel(Attn<float> a) {
   constexpr int LDK = FWD_LDK<D>, LDV = FWD_LDV<D>;
   constexpr int NKP = D / 16, NJ = FBK / 8, NM = D / 32;
   extern __shared__ float4 smem4[];
@@ -316,8 +375,8 @@ flash_fwd_kernel(Attn<T> a) {
   const int q0 = (n_q - 1 - (int)blockIdx.x / bh_n) * FBQ;
   const int h = bh % a.H, b = bh / a.H;
   const int gk = h / (a.H / a.G);
-  const T* k = a.k + b * a.sk.b + gk * a.sk.h;
-  const T* v = a.v + b * a.sv.b + gk * a.sv.h;
+  const float* k = a.k + b * a.sk.b + gk * a.sk.h;
+  const float* v = a.v + b * a.sv.b + gk * a.sv.h;
   const int r0 = q0 + 16 * warp;                 // the warp's first row
   const int qa = a.q_off + r0, qb = qa + 15;     // its absolute positions
 
@@ -325,7 +384,7 @@ flash_fwd_kernel(Attn<T> a) {
   // after the first barrier of the loop)
   {
     constexpr int V4 = D / 4;
-    const T* q = a.q + b * a.sq.b + h * a.sq.h;
+    const float* q = a.q + b * a.sq.b + h * a.sq.h;
     for (int idx = threadIdx.x; idx < FBQ * V4; idx += THREADS) {
       const int r = idx / V4, c = (idx % V4) * 4;
       float4 x = make_float4(0.f, 0.f, 0.f, 0.f);
@@ -356,7 +415,7 @@ flash_fwd_kernel(Attn<T> a) {
 #pragma unroll
   for (int i = 0; i < STAGES - 1; ++i) {
     if (lo + i <= hi)
-      load_kv<T, D>(Ks + i * FBK * LDK, Vs + i * FBK * LDV, k, v, a,
+      load_kv<D>(Ks + i * FBK * LDK, Vs + i * FBK * LDV, k, v, a,
                     (lo + i) * FBK);
     cp_async_commit();
   }
@@ -366,7 +425,7 @@ flash_fwd_kernel(Attn<T> a) {
     {
       const int nb = kb + STAGES - 1, st = (nb - lo) % STAGES;
       if (nb <= hi)
-        load_kv<T, D>(Ks + st * FBK * LDK, Vs + st * FBK * LDV, k, v, a,
+        load_kv<D>(Ks + st * FBK * LDK, Vs + st * FBK * LDV, k, v, a,
                       nb * FBK);
       cp_async_commit();
     }
@@ -465,7 +524,7 @@ flash_fwd_kernel(Attn<T> a) {
         o[n][e] = fmaf(o[n][e], corr[e >> 1], c[n][e]);
   }
 
-  T* out = a.out + b * a.sout.b + h * a.sout.h;
+  float* out = a.out + b * a.sout.b + h * a.sout.h;
 #pragma unroll
   for (int i = 0; i < 2; ++i) {
     float li = l[i];
@@ -477,7 +536,7 @@ flash_fwd_kernel(Attn<T> a) {
     if (row >= a.Sq) continue;
     if (LSE && t == 0)
       a.lse_out[((long long)b * a.H + h) * a.Sq + row] = m[i] + logf(li);
-    T* dst = out + (long long)row * a.sout.s + 8 * t;
+    float* dst = out + (long long)row * a.sout.s + 8 * t;
 #pragma unroll
     for (int mm = 0; mm < NM; ++mm) {
       store4(dst + 32 * mm, make_float4(
@@ -851,9 +910,9 @@ flash_dq_kernel(Attn<T> a) {
 // accumulator layout that the A fragments of the second products read.
 // ---------------------------------------------------------------------------
 
-template <typename T, int D>
+template <int D>
 __global__ void __launch_bounds__(THREADS, 1)
-flash_dkv_kernel(Attn<T> a) {
+flash_dkv_kernel(Attn<float> a) {
   extern __shared__ float4 smem4[];
   float* Ks = reinterpret_cast<float*>(smem4);   // [BKV][D]
   float* Vs = Ks + BKV * D;                       // [BKV][D]
@@ -986,6 +1045,618 @@ flash_dkv_kernel(Attn<T> a) {
 }
 
 // ---------------------------------------------------------------------------
+// bf16 operands: the forward and dk/dv on the bf16 tensor cores (wgmma)
+// ---------------------------------------------------------------------------
+//
+// flash_fwd_bf16_kernel and flash_dkv_bf16_kernel keep q, k, v and dO bf16
+// from device memory to the tensor cores: 16-byte cp.async copies into a
+// two-stage ring of swizzled tiles, read by wgmma (m64nNk16, bf16
+// operands, f32 accumulators). A tile of R rows of D bf16 is stored as
+// D / 64 blocks of R rows x 128 bytes, 16-byte chunk c of row r at chunk
+// c ^ (r % 8) (the 128-byte swizzle, on a 1024-byte aligned base): the
+// same tile is a K-major operand (rows as M or N, d as the k dimension:
+// q, K, V and dO in the score products) and an MN-major one (rows as the
+// k dimension, d as N: V, dO and q in the second products), so no tile
+// needs a transposed copy.
+
+constexpr int WBQ = 128;     // query rows per bf16 forward block, 64 a warpgroup
+constexpr int WBK = 64;      // key rows per forward tile
+constexpr int WBKV = 64;     // key rows per bf16 dk/dv block
+constexpr int WBQT = 64;     // query rows per bf16 dk/dv tile
+constexpr int WSTAGES = 3;   // tiles in the bf16 kernels' cp.async rings
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src,
+                                           bool full) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;"
+               :: "r"(dst), "l"(src), "r"(full ? 16 : 0) : "memory");
+}
+
+// cp.async writes through the generic proxy, wgmma reads through the
+// async one: each thread fences its landed copies before the barrier.
+__device__ __forceinline__ void fence_async_smem() {
+  asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
+}
+
+// Byte offset of 16-byte chunk c of row r in a swizzled tile of R rows.
+template <int R>
+__device__ __forceinline__ uint32_t sw(int r, int c) {
+  return (c >> 3) * (R * 128) + r * 128 + (((c ^ r) & 7) << 4);
+}
+
+// Stage rows row0 .. row0 + R - 1 of src (row stride ld) into the tile at
+// dst; rows at or past n_rows are zero-filled, never read.
+template <int D, int R>
+__device__ __forceinline__ void stage_bf16(uint32_t dst,
+                                           const __nv_bfloat16* src,
+                                           long long ld, int row0,
+                                           int n_rows) {
+  constexpr int C = D / 8;
+  static_assert(R * C % THREADS == 0, "whole rounds of 16-byte chunks");
+#pragma unroll
+  for (int it = 0; it < R * C / THREADS; ++it) {
+    const int idx = threadIdx.x + it * THREADS;
+    const int r = idx / C, c = idx % C;
+    const bool in = row0 + r < n_rows;
+    cp_async16(dst + sw<R>(r, c),
+               src + (long long)(in ? row0 + r : 0) * ld + 8 * c, in);
+  }
+}
+
+// The shared-memory matrix descriptor of wgmma: start address, leading
+// and stride byte offsets (16-byte units), 128-byte swizzle. SBO is 1024
+// (8 rows of 128 bytes) in both uses.
+__device__ __forceinline__ uint64_t wg_desc(uint32_t addr, uint32_t lbo) {
+  return (uint64_t)((addr & 0x3FFFF) >> 4) | ((uint64_t)(lbo >> 4) << 16) |
+         ((uint64_t)(1024 >> 4) << 32) | (1ull << 62);
+}
+
+// A K-major operand: rows from `tile` on as M or N, d as the k dimension
+// (LBO unused). Its slice d = 16 ks .. 16 ks + 15 in a tile of R rows is
+// the descriptor plus kstep<R>(ks) (16-byte units of the start address).
+__device__ __forceinline__ uint64_t kmajor(uint32_t tile) {
+  return wg_desc(tile, 16);
+}
+template <int R>
+__device__ __forceinline__ constexpr uint64_t kstep(int ks) {
+  return ((ks >> 2) * (R * 128) + (ks & 3) * 32) >> 4;
+}
+
+// An MN-major operand: a tile of R rows as the k dimension, all of d as N
+// (LBO: the stride of the 64-wide column blocks). Rows 16 kk .. 16 kk +
+// 15 are the descriptor plus 128 kk (2048 bytes a slice).
+template <int R>
+__device__ __forceinline__ uint64_t mnmajor(uint32_t tile) {
+  return wg_desc(tile, R * 128);
+}
+
+__device__ __forceinline__ void wg_fence() {
+  asm volatile("wgmma.fence.sync.aligned;" ::: "memory");
+}
+__device__ __forceinline__ void wg_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void wg_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;" :: "n"(N) : "memory");
+}
+
+// Keep the compiler from moving reads or writes of registers that an
+// asynchronous wgmma owns across its issue and wait.
+template <int N>
+__device__ __forceinline__ void fence_regs(float (&d)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i]) :: "memory");
+}
+template <int N>
+__device__ __forceinline__ void fence_regs(uint32_t (&d)[N][4]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) asm volatile("" : "+r"(d[i][e]) :: "memory");
+}
+
+#define WG_ACC8(i)                                                        \
+  "+f"(d[i]), "+f"(d[i + 1]), "+f"(d[i + 2]), "+f"(d[i + 3]),             \
+      "+f"(d[i + 4]), "+f"(d[i + 5]), "+f"(d[i + 6]), "+f"(d[i + 7])
+
+// d = A B (first == 1: d's old value is dropped) or d += A B, m64n64k16:
+// A (64 x 16) and B (16 x 64) bf16 in shared memory, both K-major.
+__device__ __forceinline__ void wgmma_ss(float (&d)[32], uint64_t da,
+                                         uint64_t db, int first) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.eq.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, "
+      "%30, %31"
+      "}, %32, %33, p, 1, 1, 0, 0;\n}\n"
+      : WG_ACC8(0), WG_ACC8(8), WG_ACC8(16), WG_ACC8(24)
+      : "l"(da), "l"(db), "r"(first));
+}
+
+// d += A B, m64nNk16 (N = 64 or 128, the head dim): A (64 x 16) bf16
+// fragments in registers, B (16 x N) bf16 in shared memory, MN-major.
+__device__ __forceinline__ void wgmma_rs(float (&d)[32],
+                                         const uint32_t (&a)[4],
+                                         uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, "
+      "%30, %31"
+      "}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      : WG_ACC8(0), WG_ACC8(8), WG_ACC8(16), WG_ACC8(24)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+__device__ __forceinline__ void wgmma_rs(float (&d)[64],
+                                         const uint32_t (&a)[4],
+                                         uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, "
+      "%30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, "
+      "%44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, "
+      "%58, %59, %60, %61, %62, %63"
+      "}, {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
+      : WG_ACC8(0), WG_ACC8(8), WG_ACC8(16), WG_ACC8(24), WG_ACC8(32),
+        WG_ACC8(40), WG_ACC8(48), WG_ACC8(56)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+#undef WG_ACC8
+
+// Accumulator layout of m64nNk16 (f32): warp w of the warpgroup holds
+// rows 16 w + g (d[4 j], d[4 j + 1]) and 16 w + g + 8 (d[4 j + 2], d[4 j +
+// 3]) at columns 8 j + 2t and 8 j + 2t + 1 (lane = 4 g + t). The A
+// register fragment of a 16-wide k slice is mma.sync m16n8k16's: a[0]
+// (row g, k 2t, 2t + 1), a[1] (row g + 8, the same k), a[2] and a[3] at
+// k + 8. So accumulator columns 16 kk .. 16 kk + 15 (n8 blocks 2 kk and
+// 2 kk + 1) are slice kk's A fragment as they lie, two to a register.
+//
+// An f32 operand x that the kernel computes (p, p^T, dS^T) is split into
+// hi = bf16(x) and lo = bf16(x - hi) (x - hi is exact in f32): hi + lo
+// holds x to ~2^-17 of itself, and the product takes two bf16 MMAs, lo
+// then hi, into the f32 accumulator. One pass (p rounded to bf16, as
+// PyTorch's bf16 attention does) errs by 2^-9 a term, beyond the
+// kernels' absolute tolerance wherever the sum nearly cancels
+// (tests/test_torch_flash_bf16_mma.py).
+template <int NC>
+struct SplitBF16 {
+  uint32_t hi[NC / 16][4], lo[NC / 16][4];
+  __device__ __forceinline__ void set(const float (&x)[NC / 2]) {
+#pragma unroll
+    for (int kk = 0; kk < NC / 16; ++kk)
+#pragma unroll
+      for (int r = 0; r < 4; ++r) {
+        const float x0 = x[8 * kk + 2 * r], x1 = x[8 * kk + 2 * r + 1];
+        const __nv_bfloat162 h = __floats2bfloat162_rn(x0, x1);
+        const float2 hf = __bfloat1622float2(h);
+        const __nv_bfloat162 l = __floats2bfloat162_rn(x0 - hf.x,
+                                                       x1 - hf.y);
+        hi[kk][r] = *reinterpret_cast<const uint32_t*>(&h);
+        lo[kk][r] = *reinterpret_cast<const uint32_t*>(&l);
+      }
+  }
+  __device__ __forceinline__ void fence() {
+    fence_regs(hi);
+    fence_regs(lo);
+  }
+};
+
+// d += x B over a tile's WB rows (the k dimension): x's split fragments
+// as A, B (descriptor db) an MN-major bf16 tile; lo then hi for each
+// 16-row slice.
+template <int WB, int N>
+__device__ __forceinline__ void wgmma_split(float (&d)[N],
+                                            const SplitBF16<WB>& x,
+                                            uint64_t db) {
+#pragma unroll
+  for (int kk = 0; kk < WB / 16; ++kk) {
+    wgmma_rs(d, x.lo[kk], db + 128 * kk);
+    wgmma_rs(d, x.hi[kk], db + 128 * kk);
+  }
+}
+
+// d = A B^T over the head dim (a score product): A (descriptor da) 64
+// rows of a K-major tile of RA rows, B (db) a K-major tile of 64 rows;
+// one chain of D / 16 wgmma from zero. The descriptors are warp-uniform
+// values stepped by constants, so that they stay in uniform registers and
+// the chain is issued without a wait between its wgmma.
+template <int D, int RA>
+__device__ __forceinline__ void wgmma_scores(float (&d)[32], uint64_t da,
+                                             uint64_t db) {
+#pragma unroll
+  for (int ks = 0; ks < D / 16; ++ks)
+    wgmma_ss(d, da + kstep<RA>(ks), db + kstep<64>(ks), ks == 0);
+}
+
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// Rows `row` (d[4 n], d[4 n + 1]) and `row + 8` (d[4 n + 2], d[4 n + 3])
+// of a warpgroup accumulator over the head dim, times mul[0] and mul[1],
+// into dst as bf16 pairs (row stride ld), rows at or past n_rows dropped.
+template <int D>
+__device__ __forceinline__ void store_wg(__nv_bfloat16* dst, long long ld,
+                                         const float (&d)[D / 2],
+                                         const float (&mul)[2], int row,
+                                         int t, int n_rows) {
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    if (row + 8 * i >= n_rows) continue;
+    __nv_bfloat16* p = dst + (long long)(row + 8 * i) * ld + 2 * t;
+#pragma unroll
+    for (int n = 0; n < D / 8; ++n)
+      *reinterpret_cast<__nv_bfloat162*>(p + 8 * n) = __floats2bfloat162_rn(
+          d[4 * n + 2 * i] * mul[i], d[4 * n + 2 * i + 1] * mul[i]);
+  }
+}
+
+// The bf16 forward: a 1-d grid of ceil(Sq / WBQ) * H * B blocks, the last
+// q-tile first, as the f32 forward. Two warpgroups, each owning 64 rows
+// of the 128-row query tile (q staged once); K and V stream through a
+// three-stage ring of 64-key tiles, each loaded one tile ahead, and both
+// warpgroups walk the block's live tiles (under the causal mask the first
+// warpgroup's last one is all masked). Per tile a warpgroup computes S =
+// q K^T in D / 16 wgmma (one accumulator chain over d, then times the
+// scale: the Pallas kernel scales q in f32 first, one f32 rounding a score
+// apart), runs the online softmax on the accumulators (quad shuffles, as
+// the f32 kernel; p = 2^((s - m) log2 e)), multiplies O by the correction
+// and adds P V into O: P from the S accumulators split into A fragments
+// (hi, lo), V from shared memory, two wgmma a 16-key slice, one chain over
+// all keys (the long chains stay within 2e-5 of float64 where the scores
+// are large, below the bf16 output's rounding;
+// tests/test_torch_flash_bf16_mma.py). The P V of tile j is issued with
+// the S of tile j + 1, so that each warpgroup's softmax runs while its
+// previous tile's P V is on the tensor cores; the ring keeps tile j's V
+// until then. The loop is peeled (the first tile's S alone, the last
+// tile's P V alone) and every branch is warp-uniform, so that ptxas
+// issues each chain of wgmma without a wait between them.
+template <int D, bool LSE>
+__global__ void __launch_bounds__(THREADS, 1)
+flash_fwd_bf16_kernel(Attn<__nv_bfloat16> a) {
+  extern __shared__ __align__(1024) unsigned char smem[];
+  constexpr uint32_t KVB = WBK * D * 2;          // bytes of a K or V tile
+  constexpr float LOG2E = 1.4426950408889634f;
+  const uint32_t Qs = (smem_u32(smem) + 1023) & ~1023u;   // [WBQ][D]
+  const uint32_t KVs = Qs + WBQ * D * 2;         // [WSTAGES][K, V][WBK][D]
+  // the warp index broadcast, so that the compiler knows it (and all that
+  // depends on it) to be warp-uniform
+  const int warp = __shfl_sync(0xffffffffu, threadIdx.x / 32, 0);
+  const int lane = threadIdx.x % 32, wg = warp / 4, w = warp % 4;
+  const int g = lane / 4, t = lane % 4;
+  const int n_q = (a.Sq + WBQ - 1) / WBQ, bh_n = gridDim.x / n_q;
+  const int bh = blockIdx.x % bh_n;
+  const int q0 = (n_q - 1 - (int)blockIdx.x / bh_n) * WBQ;
+  const int h = bh % a.H, b = bh / a.H;
+  const int gk = h / (a.H / a.G);
+  const __nv_bfloat16* k = a.k + b * a.sk.b + gk * a.sk.h;
+  const __nv_bfloat16* v = a.v + b * a.sv.b + gk * a.sv.h;
+  const int rw = q0 + 64 * wg + 16 * w;          // the warp's rows
+  const int wa = a.q_off + rw, wb = wa + 15;
+
+  // the live key tiles form one range
+  const int n_kv = (a.Sk + WBK - 1) / WBK;
+  int lo = 0, hi = n_kv - 1;
+  while (lo <= hi && !live(a, q0, lo * WBK, WBQ, WBK)) ++lo;
+  while (hi >= lo && !live(a, q0, hi * WBK, WBQ, WBK)) --hi;
+  auto kv = [&](int kb) { return KVs + ((kb - lo) % WSTAGES) * 2 * KVB; };
+  // tile kb landed (after every copy this thread issued), tile kb + 1 on
+  // its way into the stage of tile kb - 2, whose P V has completed
+  auto next = [&](int kb) {
+    cp_async_wait<0>();
+    fence_async_smem();
+    __syncthreads();
+    if (kb + 1 <= hi) {
+      const uint32_t st = kv(kb + 1);
+      stage_bf16<D, WBK>(st, k, a.sk.s, (kb + 1) * WBK, a.Sk);
+      stage_bf16<D, WBK>(st + KVB, v, a.sv.s, (kb + 1) * WBK, a.Sk);
+    }
+    cp_async_commit();
+  };
+
+  float o[D / 2], s[WBK / 2], m[2] = {NEG_INF, NEG_INF}, l[2] = {0.f, 0.f};
+  float corr[2];
+  SplitBF16<WBK> p;                              // P of the last tile
+  const uint64_t dq = kmajor(Qs + 64 * wg * 128);
+  auto scores = [&](int kb) {                    // S = q K^T, issued
+#pragma unroll
+    for (int i = 0; i < WBK / 2; ++i) s[i] = 0.f;
+    fence_regs(s);
+    wg_fence();
+    wgmma_scores<D, WBQ>(s, dq, kmajor(kv(kb)));
+    wg_commit();
+  };
+  auto pv = [&](int kb) {                        // O += P V of tile kb
+    fence_regs(o);
+    p.fence();
+    wg_fence();
+    wgmma_split(o, p, mnmajor<WBK>(kv(kb) + KVB));
+    wg_commit();
+  };
+  // S (landed) times the scale, masked, into P (in s); m, l and the
+  // correction corr of O updated. A row's 4 threads share a quad; l
+  // stays a per-thread partial sum until the end.
+  auto softmax = [&](int kb) {
+    fence_regs(s);
+    const int k0 = kb * WBK;
+    // masks only where this warp's rows see part of the tile
+    const bool full = k0 + WBK <= a.Sk && (!a.causal || k0 + WBK - 1 <= wa)
+                      && (a.window <= 0 || k0 > wb - a.window);
+#pragma unroll
+    for (int j = 0; j < WBK / 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[4 * j + e] *= a.scale;
+    if (!full) {
+#pragma unroll
+      for (int j = 0; j < WBK / 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          s[4 * j + e] = visible(a, wa + g + 8 * (e >> 1),
+                                 k0 + 8 * j + 2 * t + (e & 1))
+                             ? s[4 * j + e] : NEG_INF;
+    }
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      float mx = m[i];
+#pragma unroll
+      for (int j = 0; j < WBK / 8; ++j)
+        mx = fmaxf(mx, fmaxf(s[4 * j + 2 * i], s[4 * j + 2 * i + 1]));
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+      corr[i] = ex2((m[i] - mx) * LOG2E);
+      m[i] = mx;
+      float rs = 0.f;
+#pragma unroll
+      for (int j = 0; j < WBK / 8; ++j)
+#pragma unroll
+        for (int e = 2 * i; e < 2 * i + 2; ++e) {
+          s[4 * j + e] = ex2((s[4 * j + e] - mx) * LOG2E);
+          rs += s[4 * j + e];
+        }
+      l[i] = l[i] * corr[i] + rs;
+    }
+  };
+
+  // q (rows at or past Sq zero) lands with the first K/V tile
+  stage_bf16<D, WBQ>(Qs, a.q + b * a.sq.b + h * a.sq.h, a.sq.s, q0, a.Sq);
+  if (lo <= hi) {
+    stage_bf16<D, WBK>(kv(lo), k, a.sk.s, lo * WBK, a.Sk);
+    stage_bf16<D, WBK>(kv(lo) + KVB, v, a.sv.s, lo * WBK, a.Sk);
+  }
+  cp_async_commit();
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) o[i] = 0.f;
+  if (lo <= hi) {
+    next(lo);
+    scores(lo);
+    wg_wait<0>();
+    softmax(lo);                                 // O is 0: no correction
+    p.set(s);
+    for (int kb = lo + 1; kb <= hi; ++kb) {
+      next(kb);
+      scores(kb);
+      pv(kb - 1);
+      wg_wait<1>();
+      softmax(kb);
+      wg_wait<0>();
+      fence_regs(o);
+      p.fence();
+#pragma unroll
+      for (int n = 0; n < D / 8; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) o[4 * n + e] *= corr[e >> 1];
+      p.set(s);
+    }
+    pv(hi);
+    wg_wait<0>();
+    fence_regs(o);
+    p.fence();
+  }
+
+  float inv[2];
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    float li = l[i];
+    li += __shfl_xor_sync(0xffffffffu, li, 1);
+    li += __shfl_xor_sync(0xffffffffu, li, 2);
+    li = fmaxf(li, 1e-30f);
+    inv[i] = 1.f / li;
+    const int row = rw + g + 8 * i;
+    if (LSE && t == 0 && row < a.Sq)
+      a.lse_out[((long long)b * a.H + h) * a.Sq + row] = m[i] + logf(li);
+  }
+  store_wg<D>(a.out + b * a.sout.b + h * a.sout.h, a.sout.s, o, inv,
+              rw + g, t, a.Sq);
+}
+
+// The bf16 dk, dv: a 1-d grid of ceil(Sk / WBKV) * G * B blocks, the
+// first kv-tile first, as the f32 kernel; the group's query heads and
+// their query tiles (q, dO, lse, delta) stream through a three-stage ring
+// of 64-query tiles, each loaded one tile ahead. Two warpgroups over the
+// same 64 keys, the key rows the MMAs' M: warpgroup 0 computes S^T = K q^T
+// (times the scale), P^T = exp(S^T - lse) and dV += P^T dO; warpgroup 1
+// computes dP^T = V dO^T, takes P^T from warpgroup 0 through shared memory
+// (named barrier P_BAR), and computes dS^T = P^T (dP^T - delta) and dK +=
+// dS^T q (scaled once at the store). The score products read both operands
+// from shared memory (D / 16 wgmma); P^T and dS^T go from their
+// accumulators into A fragments split hi and lo (two wgmma a 16-query
+// slice, one chain over all the group's queries), and tile j's second
+// product is issued with tile j + 1's score product, the loop peeled as in
+// the forward. No atomics, the GQA sum inside the block: bit-reproducible.
+template <int D>
+__global__ void __launch_bounds__(THREADS, 1)
+flash_dkv_bf16_kernel(Attn<__nv_bfloat16> a) {
+  extern __shared__ __align__(1024) unsigned char smem[];
+  constexpr uint32_t TB = 64 * D * 2;            // bytes of a 64-row tile
+  static_assert(WBKV == 64 && WBQT == 64, "64-row tiles");
+  const uint32_t s0 = smem_u32(smem), base = (s0 + 1023) & ~1023u;
+  const uint32_t Ks = base, Vs = Ks + TB;        // [WBKV][D] each
+  const uint32_t QdO = Vs + TB;                  // [WSTAGES][q, dO][WBQT][D]
+  float* Ls = reinterpret_cast<float*>(smem + (base - s0) + 2 * TB
+                                       + WSTAGES * 2 * TB);
+                                                 // [WSTAGES][lse, delta][WBQT]
+  float4* Ps = reinterpret_cast<float4*>(Ls + WSTAGES * 2 * WBQT);
+                                                 // [4 warps][8][32 lanes]
+  const int warp = __shfl_sync(0xffffffffu, threadIdx.x / 32, 0);
+  const int lane = threadIdx.x % 32, wg = warp / 4, w = warp % 4;
+  const int g = lane / 4, t = lane % 4;
+  const int n_kv = (a.Sk + WBKV - 1) / WBKV, gb_n = gridDim.x / n_kv;
+  const int gb = blockIdx.x % gb_n;
+  const int k0 = ((int)blockIdx.x / gb_n) * WBKV;
+  const int gk = gb % a.G, b = gb / a.G;
+  const int rep = a.H / a.G;
+  const int kw = k0 + 16 * w;                    // the warp's first key
+
+  // the live query tiles of each head form one range; the ring walks the
+  // group's heads, each over that range
+  const int n_qt = (a.Sq + WBQT - 1) / WBQT;
+  int lo = 0, hi = n_qt - 1;
+  while (lo <= hi && !live(a, lo * WBQT, k0, WBQT, WBKV)) ++lo;
+  while (hi >= lo && !live(a, hi * WBQT, k0, WBQT, WBKV)) --hi;
+  const int nq = hi - lo + 1, n_it = rep * nq;
+  auto qdo = [&](int it) { return QdO + (it % WSTAGES) * 2 * TB; };
+  auto stage = [&](int it) {
+    const int h = gk * rep + it / nq, q0 = (lo + it % nq) * WBQT;
+    stage_bf16<D, WBQT>(qdo(it), a.q + b * a.sq.b + h * a.sq.h, a.sq.s, q0,
+                        a.Sq);
+    stage_bf16<D, WBQT>(qdo(it) + TB, a.dout + b * a.sdo.b + h * a.sdo.h,
+                        a.sdo.s, q0, a.Sq);
+    if (threadIdx.x < 2 * WBQT) {
+      const int r = threadIdx.x % WBQT, row = q0 + r;
+      const float* src = threadIdx.x < WBQT ? a.lse : a.delta;
+      const bool in = row < a.Sq;
+      cp_async4(Ls + (it % WSTAGES) * 2 * WBQT + threadIdx.x,
+                src + ((long long)b * a.H + h) * a.Sq + (in ? row : 0), in);
+    }
+  };
+  // tile it landed, tile it + 1 on its way into the stage of tile it - 2
+  auto next = [&](int it) {
+    cp_async_wait<0>();
+    fence_async_smem();
+    __syncthreads();
+    if (it + 1 < n_it) stage(it + 1);
+    cp_async_commit();
+  };
+
+  float acc[D / 2];          // dV (warpgroup 0) or dK (warpgroup 1)
+  float x[WBQT / 2];
+  SplitBF16<WBQT> y;         // P^T or dS^T of the last tile
+  const uint64_t da = kmajor(wg ? Vs : Ks);      // the score product's A
+  // S^T = K q^T (warpgroup 0) or dP^T = V dO^T (warpgroup 1), issued
+  auto scores = [&](int it) {
+#pragma unroll
+    for (int i = 0; i < WBQT / 2; ++i) x[i] = 0.f;
+    fence_regs(x);
+    wg_fence();
+    wgmma_scores<D, WBKV>(x, da, kmajor(qdo(it) + (wg ? TB : 0)));
+    wg_commit();
+  };
+  // dV += P^T dO (warpgroup 0) or dK += dS^T q (warpgroup 1) of tile it
+  auto second = [&](int it) {
+    fence_regs(acc);
+    y.fence();
+    wg_fence();
+    wgmma_split(acc, y, mnmajor<WBQT>(qdo(it) + (wg ? 0 : TB)));
+    wg_commit();
+  };
+  // the landed scores into P^T (warpgroup 0, handed to warpgroup 1) or
+  // dS^T (warpgroup 1), in x
+  auto grads = [&](int it) {
+    fence_regs(x);
+    const float* L = Ls + (it % WSTAGES) * 2 * WBQT;
+    const int q0 = (lo + it % nq) * WBQT;
+    const int qa = a.q_off + q0, qz = qa + WBQT - 1;
+    // the warp's keys see all of this tile
+    const bool full = kw + 16 <= a.Sk && q0 + WBQT <= a.Sq &&
+                      (!a.causal || kw + 15 <= qa) &&
+                      (a.window <= 0 || kw > qz - a.window);
+    float4* Pw = Ps + w * 8 * 32 + lane;
+    if (wg == 0) {
+#pragma unroll
+      for (int j = 0; j < WBQT / 8; ++j) {
+        const float2 l2 = *reinterpret_cast<const float2*>(L + 8 * j + 2 * t);
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int col = 8 * j + 2 * t + (e & 1);
+          const bool ok = full || (q0 + col < a.Sq &&
+                                   visible(a, qa + col,
+                                           kw + g + 8 * (e >> 1)));
+          x[4 * j + e] = ok ? __expf(x[4 * j + e] * a.scale
+                                     - ((e & 1) ? l2.y : l2.x))
+                            : 0.f;
+        }
+        Pw[32 * j] = make_float4(x[4 * j], x[4 * j + 1], x[4 * j + 2],
+                                 x[4 * j + 3]);
+      }
+      __threadfence_block();
+      asm volatile("bar.arrive %0, %1;" :: "n"(P_BAR), "n"(THREADS)
+                   : "memory");
+    } else {
+      asm volatile("bar.sync %0, %1;" :: "n"(P_BAR), "n"(THREADS)
+                   : "memory");
+#pragma unroll
+      for (int j = 0; j < WBQT / 8; ++j) {
+        const float4 p = Pw[32 * j];
+        const float2 d2 = *reinterpret_cast<const float2*>(
+            L + WBQT + 8 * j + 2 * t);
+        x[4 * j] = p.x * (x[4 * j] - d2.x);
+        x[4 * j + 1] = p.y * (x[4 * j + 1] - d2.y);
+        x[4 * j + 2] = p.z * (x[4 * j + 2] - d2.x);
+        x[4 * j + 3] = p.w * (x[4 * j + 3] - d2.y);
+      }
+    }
+  };
+
+  // K and V (rows at or past Sk zero) land with the first query tile
+  stage_bf16<D, WBKV>(Ks, a.k + b * a.sk.b + gk * a.sk.h, a.sk.s, k0, a.Sk);
+  stage_bf16<D, WBKV>(Vs, a.v + b * a.sv.b + gk * a.sv.h, a.sv.s, k0, a.Sk);
+  if (n_it > 0) stage(0);
+  cp_async_commit();
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) acc[i] = 0.f;
+  if (n_it > 0) {
+    next(0);
+    scores(0);
+    wg_wait<0>();
+    grads(0);
+    y.set(x);
+    for (int it = 1; it < n_it; ++it) {
+      next(it);
+      scores(it);
+      second(it - 1);
+      wg_wait<1>();
+      grads(it);
+      wg_wait<0>();
+      fence_regs(acc);
+      y.fence();
+      y.set(x);
+    }
+    second(n_it - 1);
+    wg_wait<0>();
+    fence_regs(acc);
+    y.fence();
+  }
+
+  const float mul[2] = {wg ? a.scale : 1.f, wg ? a.scale : 1.f};
+  if (wg == 0)
+    store_wg<D>(a.dv + b * a.sdv.b + gk * a.sdv.h, a.sdv.s, acc, mul,
+                kw + g, t, a.Sk);
+  else
+    store_wg<D>(a.dk + b * a.sdk.b + gk * a.sdk.h, a.sdk.s, acc, mul,
+                kw + g, t, a.Sk);
+}
+
+// ---------------------------------------------------------------------------
 // host side
 // ---------------------------------------------------------------------------
 
@@ -1004,6 +1675,20 @@ static_assert(smem_bytes<128>(FWD) <= 232448, "forward stages overflow");
 static_assert(smem_bytes<128>(BWD_DQ) <= 232448, "dq stages overflow");
 static_assert(smem_bytes<128>(BWD_DKV) <= 232448, "dk/dv stages overflow");
 
+// The bf16 forward and dk/dv kernels: bf16 tiles, 1024 bytes of slack to
+// align the swizzled tiles, and dk/dv's lse, delta and P^T hand-over.
+template <int D>
+constexpr size_t smem_bytes_bf16(Kind kind) {
+  return 1024 + (kind == BWD_DKV
+                     ? 2 * (2 * WBKV + WSTAGES * 2 * WBQT) * D
+                           + sizeof(float) * (WSTAGES * 2 * WBQT
+                                              + 4 * 8 * 32 * 4)
+                     : 2 * (WBQ + WSTAGES * 2 * WBK) * D);
+}
+static_assert(smem_bytes_bf16<128>(FWD) <= 232448, "forward stages overflow");
+static_assert(smem_bytes_bf16<128>(BWD_DKV) <= 232448,
+              "dk/dv stages overflow");
+
 template <typename K, typename T>
 cudaError_t launch(K kernel, dim3 grid, size_t smem, cudaStream_t stream,
                    const Attn<T>& a) {
@@ -1018,16 +1703,33 @@ template <typename T, int D>
 cudaError_t run(Kind kind, const Attn<T>& a, int B, cudaStream_t stream) {
   const dim3 rows(((a.Sq + FBQ - 1) / FBQ) * a.H * B);
   const dim3 keys(((a.Sk + BKV - 1) / BKV) * a.G * B);
-  const size_t smem = smem_bytes<D>(kind);
-  switch (kind) {
-    case FWD:
-      return launch(flash_fwd_kernel<T, D, false>, rows, smem, stream, a);
-    case FWD_LSE:
-      return launch(flash_fwd_kernel<T, D, true>, rows, smem, stream, a);
-    case BWD_DQ:
-      return launch(flash_dq_kernel<T, D>, rows, smem, stream, a);
-    case BWD_DKV:
-      return launch(flash_dkv_kernel<T, D>, keys, smem, stream, a);
+  if constexpr (std::is_same_v<T, __nv_bfloat16>) {
+    // wgmma for the forward and dk/dv; dq keeps the f32 pipeline
+    static_assert(WBQ == FBQ && WBKV == BKV, "the f32 kernels' grids");
+    const size_t smem = smem_bytes_bf16<D>(kind);
+    switch (kind) {
+      case FWD:
+        return launch(flash_fwd_bf16_kernel<D, false>, rows, smem, stream, a);
+      case FWD_LSE:
+        return launch(flash_fwd_bf16_kernel<D, true>, rows, smem, stream, a);
+      case BWD_DQ:
+        return launch(flash_dq_kernel<T, D>, rows, smem_bytes<D>(kind),
+                      stream, a);
+      case BWD_DKV:
+        return launch(flash_dkv_bf16_kernel<D>, keys, smem, stream, a);
+    }
+  } else {
+    const size_t smem = smem_bytes<D>(kind);
+    switch (kind) {
+      case FWD:
+        return launch(flash_fwd_kernel<D, false>, rows, smem, stream, a);
+      case FWD_LSE:
+        return launch(flash_fwd_kernel<D, true>, rows, smem, stream, a);
+      case BWD_DQ:
+        return launch(flash_dq_kernel<T, D>, rows, smem, stream, a);
+      case BWD_DKV:
+        return launch(flash_dkv_kernel<D>, keys, smem, stream, a);
+    }
   }
   return cudaErrorInvalidValue;
 }

@@ -16,10 +16,15 @@ in as transposed views, without a copy.
                  flash_fwd
 
 Operands are float32 or bfloat16 (all of one dtype), as the Pallas
-kernels take any float dtype: the kernels stage bf16 tiles as f32,
-compute in f32, and write o, dq, dk and dv in the operands' dtype; lse
-and delta are float32 whatever the operands' dtype (the plain versions
-do the same).
+kernels take any float dtype, and the kernels compute what the Pallas
+kernels compute, p and every product at f32 accuracy: on f32 operands in
+split TF32; on bf16 operands the forward and dk/dv keep q, k, v and dO
+bf16 in shared memory and multiply on the bf16 tensor cores (``wgmma``:
+two bf16 tensors exactly, a computed f32 operand such as p split into
+two bf16 parts), while dq stages bf16 tiles as f32 and runs the split
+TF32 of the f32 kernel. o, dq, dk and dv are written in the operands'
+dtype; lse and delta are float32 whatever the operands' dtype (the plain
+versions do the same).
 
 Each function runs the kernels on CUDA tensors and the plain PyTorch
 versions (``ref.flash_fwd_lse``, ``ref.flash_bwd``) on CPU tensors; a
@@ -101,13 +106,17 @@ def _check(q, k, v, *more):
         if not kernel_layout(t):
             raise ValueError(
                 f"flash attention kernels need the last dim contiguous, "
-                f"the other strides multiples of 4 and 16-byte aligned "
+                f"the other strides 16-byte multiples "
+                f"({16 // t.element_size()} elements) and 16-byte aligned "
                 f"data; got strides {t.stride()}")
 
 
 def kernel_layout(t) -> bool:
-    """Whether the kernels read ``t`` (4-d) as it lies in memory."""
-    return (t.stride(-1) == 1 and all(s % 4 == 0 for s in t.stride()[:3])
+    """Whether the kernels read ``t`` (4-d) as it lies in memory: every
+    row starts on 16 bytes (the kernels copy rows in 16-byte chunks)."""
+    step = 16 // t.element_size()
+    return (t.stride(-1) == 1
+            and all(s % step == 0 for s in t.stride()[:3])
             and t.data_ptr() % 16 == 0)
 
 

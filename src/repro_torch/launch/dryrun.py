@@ -172,7 +172,12 @@ def _microbatch(x, i: int, mb: int):
     """Microbatch i of mb of batch leaf ``x``: rows i·B/mb .. of a plain
     tensor; of an island's DTensor (rows sharded over the batch's mesh
     axes), microbatch i of each rank's own rows (the same mean over the
-    batch; nothing moves between ranks)."""
+    batch; nothing moves between ranks). With more than one data rank
+    that groups the rows otherwise than JAX's contiguous split
+    ``x.reshape((mb, B // mb) + ...)`` (``build_train_step`` of
+    ``src/repro/launch/dryrun.py``), whose microbatch i is rows i·B/mb ..
+    of the global batch, and which GSPMD's lowering may move between
+    ranks."""
     if not is_dtensor(x):
         B = x.shape[0]
         return x[i * B // mb:(i + 1) * B // mb]

@@ -344,10 +344,13 @@ def test_cuda_flash_bf16_kernels_match_plain(cuda, case, monkeypatch):
 
 
 @pytest.mark.cuda
-def test_cuda_flash_bwd_deterministic(cuda):
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_cuda_flash_bwd_deterministic(cuda, dtype):
     """The backward kernels sum in a fixed order (no atomics): two runs on
-    the same inputs give bit-identical dq, dk and dv."""
-    q, k, v, do = _flash_inputs(cuda, 2, 8, 2, 333, 128, 11)
+    the same inputs give bit-identical dq, dk and dv, on f32 operands and
+    on bf16 ones (dk/dv's bf16 tensor-core kernel among them)."""
+    q, k, v, do = (t.to(getattr(torch, dtype)) for t in
+                   _flash_inputs(cuda, 2, 8, 2, 333, 128, 11))
     opts = dict(causal=True, window=0)
     o, lse = TFK.flash_fwd_lse(q, k, v, **opts)
     first = TFK.flash_bwd(q, k, v, o, lse, do, **opts)

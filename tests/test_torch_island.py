@@ -61,16 +61,20 @@ CASES = {
     # the flash branch (head_dim 128, seq 128), JAX's in interpret mode
     "flash": ("diloco_400m", {"head_dim": 128, "use_pallas": True}, {}, {}),
 }
-# (data, model) -> (microbatches, the cases its group runs). The gradients
-# pass through JAX's bf16 cast, so a microbatch's gradient is rounded to
-# bf16 before the microbatches are summed; a sharded step splits each
-# rank's own rows into microbatches, which on two data ranks groups the
-# rows otherwise than JAX's contiguous split, and the rounding then moves
-# the ~0.1 % of gradient entries that are sums of near-cancelling terms
-# (AdamW's first step moves each by ±lr). So the (2, 2) group runs one
-# microbatch, and the (1, 2) group, whose split is JAX's, two.
-GROUPS = {(2, 2): (1, ["diloco_60m", "qwen3_32b", "llama_vision",
-                       "seq_parallel", "no_act_shard"]),
+# (data, model) -> (microbatches, the cases its group runs). Each group
+# runs two microbatches, so the gradients of each pass through JAX's bf16
+# cast and are rounded once per microbatch before they are summed. On two
+# data ranks a sharded step splits each rank's own rows into microbatches
+# (``dryrun._microbatch``), which groups the rows otherwise than JAX's
+# contiguous split; the bounds hold all the same because the step starts
+# from seeded v, so that AdamW's update is smooth in the gradient and the
+# other grouping moves each param by far less than the f32 bound (from
+# v = 0 the first update is lr·sign(g), which any other rounding flips at
+# the entries that are sums of near-cancelling terms). ``cast_outside_mb``
+# runs on both meshes: on (1, 2) the data axis has one rank and FSDP's
+# hoisted gathers are trivial, on (2, 2) they are not.
+GROUPS = {(2, 2): (2, ["diloco_60m", "qwen3_32b", "llama_vision",
+                       "seq_parallel", "no_act_shard", "cast_outside_mb"]),
           (1, 2): (2, ["diloco_60m", "cast_outside_mb", "flash"])}
 
 

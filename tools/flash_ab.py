@@ -1,8 +1,9 @@
 #!/usr/bin/env python3
-"""The flash-attention backward kernels against variants of themselves on
-one NVIDIA GPU, in turns.
+"""The flash-attention kernels against variants of themselves on one NVIDIA
+GPU, in turns.
 
     python3 tools/flash_ab.py [variant ...]      (default: all of VARIANTS)
+    python3 tools/flash_ab.py --bf16 [variant ...]   (BF16_VARIANTS)
 
 Imports nothing of JAX. Needs the CUDA toolkit's nvcc (as the port's
 kernel build does). Builds ``kernels/csrc/flash_attention.cu`` as it is
@@ -12,8 +13,14 @@ of the two backward kernels (ptxas); holds each build's dq, dk and dv to
 the plain versions (5e-4·(1 + |want|)) on three cases; then times dq and
 dk/dv at diloco_400m's layer (B 8, H = G = 12, S 1024, d 128, causal),
 every build in each of ``REPS`` rounds, the order reversed every other
-round, and prints the medians beside SDPA's backward. Prints the card's
-name and power limit first and last.
+round, and prints the medians beside SDPA's backward. With ``--bf16`` the
+same for the bf16 forward (with lse) and dk/dv kernels: their ptxas lines
+(and any wgmma serialization ptxas reports), o, lse, dk and dv held to
+the plain versions on bf16 operands (rtol 2^-7 with atol 2e-5, 2e-5 on
+lse, 5e-4 on dk and dv), and each timed by one call (``time_ms``) and by
+a burst of calls back to back (``burst_ms``, the device's time) beside
+SDPA's bf16 forward and backward. Prints the card's name and power limit
+first and last.
 """
 from __future__ import annotations
 
@@ -43,26 +50,42 @@ VARIANTS = {
 }
 CASES = [(8, 12, 12, 1024, 128, True, 0), (2, 8, 2, 700, 128, True, 200),
          (1, 4, 2, (461, 777), 64, False, 0)]
+BF16_VARIANTS = {
+    "divergent_warp": ("the warp index read from threadIdx.x as it is, "
+                       "without the broadcast that shows the compiler it "
+                       "is warp-uniform",
+                       [("const int warp = __shfl_sync(0xffffffffu, "
+                         "threadIdx.x / 32, 0);",
+                         "const int warp = threadIdx.x / 32;")]),
+    "expf": ("the forward's p = expf(s - m) instead of 2^((s - m) log2 e) "
+             "on ex2.approx",
+             [("ex2((m[i] - mx) * LOG2E)", "expf(m[i] - mx)"),
+              ("ex2((s[4 * j + e] - mx) * LOG2E)",
+               "expf(s[4 * j + e] - mx)")]),
+}
+BF16_KERNELS = ("flash_fwd_bf16_kernelILi128ELb1", "flash_dkv_bf16_kernelILi128")
 
 
-def source(name: str, base: str) -> str:
+def source(name: str, base: str, variants=VARIANTS) -> str:
     text = base
-    for old, new in ([] if name == "base" else VARIANTS[name][1]):
+    for old, new in ([] if name == "base" else variants[name][1]):
         if old not in text:
             raise SystemExit(f"variant {name}: {old!r} is not in the source")
         text = text.replace(old, new)
     return text
 
 
-def build_all(names, build):
+def build_all(names, build, variants=VARIANTS,
+              kernels=("flash_dq_kernelILi128", "flash_dkv_kernelILi128")):
     """{name: ctypes library}, one nvcc per build, all started together;
-    prints each one's ptxas lines for the d 128 backward kernels."""
+    prints each one's ptxas lines for ``kernels`` (d 128) and the
+    serializations of wgmma that ptxas reports."""
     OUT.mkdir(parents=True, exist_ok=True)
     base = (build.CSRC / "flash_attention.cu").read_text()
     procs = {}
     for n in names:
         cu, so = OUT / f"{n}.cu", OUT / f"{n}.so"
-        cu.write_text(source(n, base))
+        cu.write_text(source(n, base, variants))
         procs[n] = (so, subprocess.Popen(
             [build.nvcc(), *build.flags("flash_attention"), "-o", str(so),
              str(cu)], stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
@@ -74,7 +97,10 @@ def build_all(names, build):
             raise SystemExit(f"build {n} failed:\n{out}")
         lines = out.splitlines()
         for i, line in enumerate(lines):
-            for kernel in ("flash_dq_kernelILi128", "flash_dkv_kernelILi128"):
+            if "serialized" in line:
+                print(json.dumps({"build": n, "ptxas": line.strip()}),
+                      flush=True)
+            for kernel in kernels:
                 if "Compiling entry" in line and kernel in line:
                     print(json.dumps({"build": n, "kernel": kernel[:-6],
                                       "d": 128, "ptxas": " | ".join(
@@ -84,15 +110,18 @@ def build_all(names, build):
     return libs
 
 
-def entry_points(lib):
+def entry_points(lib, dtype, names=("bwd_dq", "bwd_dkv")):
+    """The library's entry points for ``dtype`` operands, keyed as the
+    wrapper's cache (``flash_attention._fns``) keys them."""
+    from repro_torch.kernels import flash_attention as FK
     fns = {}
-    for name in ("bwd_dq", "bwd_dkv"):
-        fn = getattr(lib, f"repro_flash_{name}_f32")
+    for name in names:
+        fn = getattr(lib, f"repro_flash_{name}_{FK.DTYPES[dtype]}")
         fn.restype = ctypes.c_int
         fn.argtypes = ([ctypes.c_void_p] * 11 + [ctypes.c_int] * 6
                        + [ctypes.c_float] + [ctypes.c_int] * 4
                        + [ctypes.c_void_p])
-        fns[name] = fn
+        fns[(name, dtype)] = fn
     return fns
 
 
@@ -106,10 +135,13 @@ def main() -> int:
     from repro_torch.kernels import build, ref
     from repro_torch.kernels import flash_attention as FK
 
+    if sys.argv[1:2] == ["--bf16"]:
+        return main_bf16(torch, CS, sys.argv[2:])
     names = ["base"] + (sys.argv[1:] or list(VARIANTS))
     torch.backends.cuda.matmul.allow_tf32 = False
     print(CS.card_line(), flush=True)
-    fns = {n: entry_points(lib) for n, lib in build_all(names, build).items()}
+    fns = {n: entry_points(lib, torch.float32)
+           for n, lib in build_all(names, build).items()}
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(2)
     for case in CASES:
@@ -162,6 +194,89 @@ def main() -> int:
                               "ms": times[n], "median_ms": med,
                               "pair_ms": sum(med.values()),
                               "sdpa_bwd_ms": sdpa_bwd}), flush=True)
+        FK._fns.clear()
+    print(CS.card_line(), flush=True)
+    return 0
+
+
+def main_bf16(torch, CS, args) -> int:
+    """``--bf16``: the bf16 forward (with lse) and dk/dv kernels against
+    ``BF16_VARIANTS``."""
+    from repro_torch.kernels import build, ref
+    from repro_torch.kernels import flash_attention as FK
+
+    names = ["base"] + (args or list(BF16_VARIANTS))
+    bf16 = torch.bfloat16
+    print(CS.card_line(), flush=True)
+    fns = {n: entry_points(lib, bf16, ("fwd_lse", "bwd_dkv"))
+           for n, lib in build_all(names, build, BF16_VARIANTS,
+                                   BF16_KERNELS).items()}
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(2)
+
+    def outside(got, want, atol, rtol=CS.BF16_RTOL):
+        got, want = got.float(), want.float()
+        return float(((got - want).abs() - atol - rtol * want.abs()).max())
+    for case in CASES:
+        B, H, G, S, d, causal, window = case
+        Sq, Sk = S if isinstance(S, tuple) else (S, S)
+        q, k, v, do = (torch.randn(shape, generator=gen, device=dev).to(bf16)
+                       for shape in ((B, H, Sq, d), (B, G, Sk, d),
+                                     (B, G, Sk, d), (B, H, Sq, d)))
+        opts = dict(causal=causal, window=window)
+        want_o, want_lse = ref.flash_fwd_lse(q, k, v, **opts)
+        delta = (do.float() * want_o.float()).sum(-1).contiguous()
+        want = ref.flash_bwd_dkv(q, k, v, want_lse, do, delta, **opts)
+        o, dk, dv = (torch.empty_like(t) for t in (q, k, v))
+        lse = torch.empty_like(want_lse)
+        launch = dict(scale=d ** -0.5, q_offset=0, **opts)
+        run = {"fwd_lse": lambda: FK._launch("fwd_lse", q, k, v, out=o,
+                                             lse_out=lse, **launch),
+               "bwd_dkv": lambda: FK._launch(
+                   "bwd_dkv", q, k, v, out=None, do=do, lse=want_lse,
+                   delta=delta, dk=dk, dv=dv, **launch)}
+        for n in names:
+            FK._fns.update(fns[n])
+            run["fwd_lse"]()
+            run["bwd_dkv"]()
+            torch.cuda.synchronize()
+            err = {"o": outside(o, want_o, CS.FWD_TOL),
+                   "lse": outside(lse, want_lse, CS.FWD_TOL, CS.FWD_TOL),
+                   "dk": outside(dk, want[0], CS.BWD_TOL),
+                   "dv": outside(dv, want[1], CS.BWD_TOL)}
+            if max(err.values()) > 0:
+                raise SystemExit(f"{n} differs from the plain version on "
+                                 f"{case}: {err}")
+            print(json.dumps({"build": n, "case": case,
+                              "outside_bound": err}), flush=True)
+        if case != CASES[0]:
+            continue
+        times = {n: {f"{k_}_{how}": [] for k_ in run
+                     for how in ("ms", "burst_ms")} for n in names}
+        for r in range(REPS):
+            for n in (names if r % 2 == 0 else names[::-1]):
+                FK._fns.update(fns[n])
+                for k_, fn in run.items():
+                    times[n][f"{k_}_ms"].append(CS.time_ms(torch, fn))
+                    times[n][f"{k_}_burst_ms"].append(CS.burst_ms(torch, fn))
+        sdpa = torch.nn.functional.scaled_dot_product_attention
+        leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
+        out = sdpa(*leaves, is_causal=causal)
+        lib = {"sdpa_fwd_ms": CS.time_ms(torch, lambda: sdpa(
+                   q, k, v, is_causal=causal)),
+               "sdpa_fwd_burst_ms": CS.burst_ms(torch, lambda: sdpa(
+                   q, k, v, is_causal=causal)),
+               "sdpa_bwd_ms": CS.time_ms(torch, lambda: torch.autograd.grad(
+                   out, leaves, do, retain_graph=True)),
+               "sdpa_bwd_burst_ms": CS.burst_ms(
+                   torch, lambda: torch.autograd.grad(
+                       out, leaves, do, retain_graph=True))}
+        for n in names:
+            med = {k_: sorted(ts)[REPS // 2] for k_, ts in times[n].items()}
+            print(json.dumps({"build": n, "undoes": BF16_VARIANTS[n][0]
+                              if n in BF16_VARIANTS else None,
+                              "ms": times[n], "median_ms": med, **lib}),
+                  flush=True)
         FK._fns.clear()
     print(CS.card_line(), flush=True)
     return 0
