@@ -45,13 +45,15 @@ Phases, each printing one JSON line; any failure exits non-zero:
               against dq + dk/dv) and the bound (on the tensor cores as
               three TF32 products per f32 product, beside the f32
               CUDA-core one, ``bound_f32_ms``). Then the same four on
-              bf16 operands (their own entry points and counters) against
+              bf16 operands (their own entry points and counters, all
+              four kernels on the bf16 tensor cores, ``wgmma``) against
               their plain versions on the same bf16 tensors (rtol 2^-7,
               two bf16 ulps, beside the f32 atols; lse at 2e-5), a bf16
               CUDA tensor never reaching a plain version, each timed at
               the layer shape in bf16 (one call, and a burst of 20 back
               to back) beside SDPA's bf16 call and the bound on the bf16
-              tensor cores; and their path: one inner
+              tensor cores, dq + dk/dv by burst beside SDPA's bf16
+              backward by burst; and their path: one inner
               step and one eval forward of diloco_400m at full width with
               ``use_pallas=True, compute_dtype="bfloat16"``, the counters
               set to 0 just before and read just after (2·L
@@ -3848,16 +3850,19 @@ PEAK_BF16 = CA.PEAK_BF16    # dense bf16 FLOP/s of the tensor cores, H100 SXM
 
 def phase_flash_bf16(torch, dev):
     """Phase 6, bf16: the four flash kernels on bf16 operands (their own
-    entry points and counters) against their plain versions on the same
-    bf16 tensors (``BF16_RTOL``; lse, f32, at the forward's 2e-5), a bf16
-    CUDA tensor never reaching a plain version; then each kernel's time
+    entry points and counters: ``flash_fwd_bf16_kernel`` with and without
+    lse, ``flash_dq_bf16_kernel``, ``flash_dkv_bf16_kernel``, all on
+    ``wgmma``) against their plain versions on the same bf16 tensors
+    (``BF16_RTOL``; lse, f32, at the forward's 2e-5), a bf16 CUDA tensor
+    never reaching a plain version; then each kernel's time
     at ``FLASH_LAYER`` in bf16 beside its plain version, PyTorch's bf16
     ``scaled_dot_product_attention`` (the yardstick, which the port never
     calls) and the bound on the bf16 tensor cores; beside each single
     call's time (``ms``, as every kernel's row: it includes the host's
     gap before the launch) the mean of ``BURST`` calls back to back
-    (``burst_ms``: the device's time), SDPA's likewise. Returns the
-    kernels' rows."""
+    (``burst_ms``: the device's time), SDPA's likewise, and dq + dk/dv by
+    burst beside SDPA's whole backward by burst. Returns the kernels'
+    rows."""
     from repro_torch.kernels import flash_attention as FK
     from repro_torch.kernels import ref
 
@@ -3967,13 +3972,13 @@ def phase_flash_bf16(torch, dev):
            "fwd_lse": "src/repro/kernels/flash_attention.py:293",
            "bwd_dq": "src/repro/kernels/flash_attention.py:360",
            "bwd_dkv": "src/repro/kernels/flash_attention.py:380"}
-    rows = []
+    rows, bursts = [], {}
     for n in names:
         flops, nbytes = work[n]
         by_ops, by_bytes = flops / PEAK_BF16, nbytes / bw
         t = {"ms": time_ms(torch, kernel[n]),
              "plain_ms": time_ms(torch, plain_fn[n])}
-        burst = burst_ms(torch, kernel[n])
+        burst = bursts[n] = burst_ms(torch, kernel[n])
         rows.append({"name": f"flash_{n}_bf16", "route": "cuda",
                      "source": "src/repro_torch/kernels/csrc/"
                                "flash_attention.cu",
@@ -3989,6 +3994,9 @@ def phase_flash_bf16(torch, dev):
              "kernel_TFLOPs": flops / t["ms"] / 1e9, "burst_ms": burst,
              "burst_TFLOPs": flops / burst / 1e9,
              "library_burst_ms": lib_burst[n[:3]]})
+    say({"phase": "flash_bf16", "shape": list(FLASH_LAYER),
+         "bwd_dq_plus_dkv_burst_ms": bursts["bwd_dq"] + bursts["bwd_dkv"],
+         "library_bwd_burst_ms": lib_burst["bwd"]})
     del q, k, v, do, o, lse, delta, dq, dk, dv, leaves, out
     torch.cuda.empty_cache()
     return rows

@@ -11,11 +11,9 @@
 // every product at f32 accuracy whatever the operands' dtype and writes o,
 // dq, dk and dv in the operands' dtype; lse and delta are f32. On f32
 // operands the kernels below run split TF32 on mma.sync. On bf16 operands
-// the forward and dk/dv are kernels of their own, on the bf16 tensor cores
-// (flash_fwd_bf16_kernel, flash_dkv_bf16_kernel: see "bf16 operands"
-// below), while dq runs flash_dq_kernel on bf16 tiles loaded through
-// registers (8 bytes a thread-chunk) and stored to shared memory as f32,
-// its split-TF32 products unchanged.
+// all four are kernels of their own, on the bf16 tensor cores
+// (flash_fwd_bf16_kernel, flash_dq_bf16_kernel, flash_dkv_bf16_kernel:
+// see "bf16 operands" below).
 //
 // Layout: q, o, dO, dq (B, H, Sq, D); k, v, dk, dv (B, G, Sk, D), H % G == 0,
 // query head h reads kv head h / (H / G). Each tensor comes with its batch,
@@ -108,17 +106,18 @@
 // (d 128) or 187 (d 64), dk/dv 252 or 176; dynamic shared memory: dq
 // 196,608 or 98,304 bytes, dk/dv 139,776 or 74,240; one block per SM.
 //
-// bf16 operands, flash_fwd_bf16_kernel and flash_dkv_bf16_kernel: bound
-// by operations. At the 400m layer the forward's products are 25.8 GFLOP
-// and dk/dv's 51.6, against ~0.10 and ~0.15 GB of device memory (0.030,
-// 0.045 ms at 3.35 TB/s). The bf16 tensor cores multiply two bf16 values
-// exactly into an f32 sum at 989 TFLOP/s, so q K^T, K q^T and V dO^T take
-// one bf16 product each; P V, P^T dO and dS^T q have an f32 operand that
-// the kernel computes, split into two bf16 parts (below): 38.7 and 77.4
-// GFLOP on the tensor cores, 0.039 and 0.078 ms at their peak. What held
-// the first port back was its staging (bf16 tiles widened to f32 through
-// registers, then three TF32 MMAs a product: six bf16 MMAs' worth). The
-// design:
+// bf16 operands, flash_fwd_bf16_kernel, flash_dq_bf16_kernel and
+// flash_dkv_bf16_kernel: bound by operations. At the 400m layer the
+// forward's products are 25.8 GFLOP, dq's 38.7 and dk/dv's 51.6, against
+// ~0.10, ~0.13 and ~0.15 GB of device memory (0.030, 0.039, 0.045 ms at
+// 3.35 TB/s). The bf16 tensor cores multiply two bf16 values exactly into
+// an f32 sum at 989 TFLOP/s, so q K^T, dO V^T, K q^T and V dO^T take one
+// bf16 product each; P V, dS K, P^T dO and dS^T q have an f32 operand
+// that the kernel computes, split into two bf16 parts (below): 38.7, 51.6
+// and 77.4 GFLOP on the tensor cores, 0.039, 0.052 and 0.078 ms at their
+// peak. What held the first port back was its staging (bf16 tiles
+// widened to f32 through registers, then three TF32 MMAs a product: nine
+// bf16 MMAs' worth for dq's three products, where four do). The design:
 //   * q, k, v and dO stay bf16 from device memory to the tensor cores:
 //     16-byte cp.async copies, each tile loaded one tile ahead into a
 //     three-stage ring of 64-row tiles stored with the 128-byte swizzle
@@ -128,42 +127,54 @@
 //     the score products read both operands from shared memory (K-major),
 //     the second products take the split f32 operand as A fragments in
 //     registers, straight from the accumulators, and the bf16 tile MN-major
-//     as B: no tile needs a transposed copy;
+//     as B: no tile needs a transposed copy (dq reads the K tile of S as
+//     dS K's B, as the forward reads V);
 //   * accuracy, decided by emulating these MMAs on the CPU
 //     (tests/test_torch_flash_bf16_mma.py): the split x = hi + lo, hi =
 //     bf16(x), lo = bf16(x - hi), holds x to ~2^-17 of itself (one bf16
-//     pass, p rounded to bf16 as PyTorch's bf16 attention does, misses the
-//     absolute tolerance 16-61 times over where a sum nearly cancels); the
-//     scale multiplies q K^T's f32 result (the Pallas kernel scales q
-//     first: one f32 rounding a score apart); the tensor cores round each
-//     MMA's sum toward zero, yet one chain over all of d, all keys or all
-//     the group's queries stays within the f32 kernels' tolerance of
-//     float64 at scores of std 8, far below the bf16 outputs' rounding, so
-//     these chains are long where the f32 kernels' restart every slice;
-//   * each warpgroup issues tile j + 1's score product with tile j's
-//     second product and runs its softmax while that one is on the tensor
-//     cores. ptxas waits after every wgmma of a kernel when it finds one
-//     in a branch it cannot prove uniform (C7520: a draft with the products
-//     under per-tile conditions ran the forward at 0.22-0.28 ms a call);
+//     pass, p or dS rounded to bf16 as PyTorch's bf16 attention does,
+//     misses the absolute tolerance 1.9-61 times over where a sum nearly
+//     cancels); the scale multiplies q K^T's f32 result (the Pallas kernel
+//     scales q first: one f32 rounding a score apart); the tensor cores
+//     round each MMA's sum toward zero, yet one chain over all of d, all
+//     keys or all the group's queries stays within the f32 kernels'
+//     tolerance of float64 at scores of std 8, far below the bf16 outputs'
+//     rounding, so these chains are long where the f32 kernels' restart
+//     every slice;
+//   * each warpgroup issues tile j + 1's score products with tile j's
+//     second product and runs its softmax (or forms dS) while that one is
+//     on the tensor cores. ptxas waits after every wgmma of a kernel when
+//     it finds one in a branch it cannot prove uniform (C7520: a draft
+//     with the products under per-tile conditions ran the forward at
+//     0.22-0.28 ms a call);
 //     here the loops are peeled, so every wgmma is issued in straight-line
 //     code and each chain goes out without a wait inside it (the warp index
 //     is broadcast, which keeps the branches warp-uniform and saves dk/dv
 //     25 registers: tools/flash_ab.py --bf16);
 //   * p = 2^((s - m) log2 e) on ex2.approx (0.119 against 0.134 ms for
 //     expf by burst, tools/flash_ab.py --bf16; its ~2^-22 error a term is
-//     far below the tolerance);
+//     far below the tolerance); dq's p = 2^(s scale log2 e - lse log2 e),
+//     one fma before the ex2;
+//   * dq keeps the forward's shape: 128 query rows a block, 64 a
+//     warpgroup (the rows are wgmma's M), K and V through the ring of
+//     64-key tiles, S and dP one accumulator each, dS made on them and
+//     split into the A fragments of dS K, the dq accumulator one chain of
+//     m64nDk16 over all keys; no atomics, no fusion into dk/dv, so
+//     bit-reproducible;
 //   * dk/dv keeps the f32 kernel's shape: 64 keys as M, warpgroup 0 S^T,
 //     P^T and dV, warpgroup 1 dP^T, dS^T and dK with P^T handed over
 //     through shared memory; no atomics, so bit-reproducible; the GQA sum
 //     inside the block; the heaviest tiles first; query tiles the mask
-//     hides skipped. In the forward both warpgroups walk the block's live
-//     tiles, so under the causal mask the first one computes one tile it
-//     cannot see (masked to p = 0).
-// ptxas (-Xptxas -v, sm_90a), no spills: the forward 213-214 registers (d
-// 128) or 165-168 (d 64), dk/dv 211 or 162; dynamic shared memory: the
-// forward 132,096 or 66,560 bytes, dk/dv 150,016 or 84,480; one block per
-// SM. On the card (PERF.md, chip_smoke.py phase 6) the forward runs at
-// ~215 TFLOP/s of its useful 25.8 GFLOP and dk/dv at ~136 by burst.
+//     hides skipped. In the forward and dq both warpgroups walk the
+//     block's live tiles, so under the causal mask the first one computes
+//     one tile it cannot see (masked to p = 0).
+// ptxas (-Xptxas -v, sm_90a), no spills, no C7520: the forward 213-214
+// registers (d 128) or 165-168 (d 64), dq 239 or 173, dk/dv 211 or 162;
+// dynamic shared memory: the forward 132,096 or 66,560 bytes, dq 164,864
+// or 82,944, dk/dv 150,016 or 84,480; one block per SM. On the card
+// (PERF.md, chip_smoke.py phase 6, tools/flash_ab.py --bf16) the forward
+// runs at ~215 TFLOP/s of its useful 25.8 GFLOP, dq at ~250 of its 38.7
+// and dk/dv at ~136 of its 51.6 by burst.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -290,41 +301,11 @@ __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;" :: "n"(N) : "memory");
 }
 
-// Four consecutive elements as f32, and back in the element type
-// (round to nearest even).
 __device__ __forceinline__ float4 load4(const float* p) {
   return *reinterpret_cast<const float4*>(p);
 }
-__device__ __forceinline__ float4 load4(const __nv_bfloat16* p) {
-  const uint2 u = *reinterpret_cast<const uint2*>(p);
-  const float2 a = __bfloat1622float2(
-      *reinterpret_cast<const __nv_bfloat162*>(&u.x));
-  const float2 b = __bfloat1622float2(
-      *reinterpret_cast<const __nv_bfloat162*>(&u.y));
-  return make_float4(a.x, a.y, b.x, b.y);
-}
 __device__ __forceinline__ void store4(float* p, float4 x) {
   *reinterpret_cast<float4*>(p) = x;
-}
-__device__ __forceinline__ void store4(__nv_bfloat16* p, float4 x) {
-  const __nv_bfloat162 a = __floats2bfloat162_rn(x.x, x.y);
-  const __nv_bfloat162 b = __floats2bfloat162_rn(x.z, x.w);
-  *reinterpret_cast<uint2*>(p) = make_uint2(
-      *reinterpret_cast<const uint32_t*>(&a),
-      *reinterpret_cast<const uint32_t*>(&b));
-}
-
-// Stage four elements of src at dst as f32: a 16-byte cp.async for f32
-// (zero-filled unless `in`), a load through registers otherwise (nothing
-// read unless `in`).
-template <typename T>
-__device__ __forceinline__ void stage4(float* dst, const T* src, bool in) {
-  if constexpr (std::is_same_v<T, float>) {
-    cp_async16(dst, src, in);
-  } else {
-    *reinterpret_cast<float4*>(dst) =
-        in ? load4(src) : make_float4(0.f, 0.f, 0.f, 0.f);
-  }
 }
 
 // Stage key rows k0 .. k0 + FBK - 1 of k and v; rows at or past Sk are
@@ -341,8 +322,8 @@ __device__ __forceinline__ void load_kv(float* Kt, float* Vt, const float* k,
     const int r = idx / V4, c = (idx % V4) * 4;
     const bool in = k0 + r < a.Sk;
     const long long row = in ? k0 + r : 0;
-    stage4(Kt + r * FWD_LDK<D> + c, k + row * a.sk.s + c, in);
-    stage4(Vt + r * FWD_LDV<D> + c, v + row * a.sv.s + c, in);
+    cp_async16(Kt + r * FWD_LDK<D> + c, k + row * a.sk.s + c, in);
+    cp_async16(Vt + r * FWD_LDV<D> + c, v + row * a.sv.s + c, in);
   }
 }
 
@@ -581,8 +562,8 @@ __device__ __forceinline__ int at(int r, int c) {
 
 // Stage rows row0 .. row0 + R - 1 of src (row stride ld) into dst; rows
 // at or past n_rows are zero-filled, never read.
-template <int D, int R, typename T>
-__device__ __forceinline__ void stage_rows(float* dst, const T* src,
+template <int D, int R>
+__device__ __forceinline__ void stage_rows(float* dst, const float* src,
                                            long long ld, int row0,
                                            int n_rows) {
   constexpr int V4 = D / 4;
@@ -593,7 +574,7 @@ __device__ __forceinline__ void stage_rows(float* dst, const T* src,
     const int r = idx / V4, c = idx % V4;
     const bool in = row0 + r < n_rows;
     const long long row = in ? row0 + r : 0;
-    stage4(dst + at<D>(r, c), src + row * ld + 4 * c, in);
+    cp_async16(dst + at<D>(r, c), src + row * ld + 4 * c, in);
   }
 }
 
@@ -751,15 +732,15 @@ __device__ __forceinline__ void accumulate(float (&acc)[D / 8][4],
 
 // Rows `row` (accumulator e = 0, 1) and `row + 8` (e = 2, 3) of acc times
 // `mul` into dst (row stride ld), rows at or past n_rows dropped.
-template <int D, typename T>
-__device__ __forceinline__ void store_acc(T* dst, long long ld,
+template <int D>
+__device__ __forceinline__ void store_acc(float* dst, long long ld,
                                           const float (&acc)[D / 8][4],
                                           float mul, int row, int t,
                                           int n_rows) {
 #pragma unroll
   for (int i = 0; i < 2; ++i) {
     if (row + 8 * i >= n_rows) continue;
-    T* p = dst + (long long)(row + 8 * i) * ld + 8 * t;
+    float* p = dst + (long long)(row + 8 * i) * ld + 8 * t;
 #pragma unroll
     for (int mm = 0; mm < D / 32; ++mm) {
       store4(p + 32 * mm, make_float4(
@@ -779,9 +760,9 @@ __device__ __forceinline__ void store_acc(T* dst, long long ld,
 // through a cp.async ring of FBK-key tiles
 // ---------------------------------------------------------------------------
 
-template <typename T, int D>
+template <int D>
 __global__ void __launch_bounds__(THREADS, 1)
-flash_dq_kernel(Attn<T> a) {
+flash_dq_kernel(Attn<float> a) {
   extern __shared__ float4 smem4[];
   float* Qs = reinterpret_cast<float*>(smem4);   // [FBQ][D], scaled
   float* dOs = Qs + FBQ * D;                      // [FBQ][D]
@@ -794,8 +775,8 @@ flash_dq_kernel(Attn<T> a) {
   const int q0 = (n_q - 1 - (int)blockIdx.x / bh_n) * FBQ;
   const int h = bh % a.H, b = bh / a.H;
   const int gk = h / (a.H / a.G);
-  const T* k = a.k + b * a.sk.b + gk * a.sk.h;
-  const T* v = a.v + b * a.sv.b + gk * a.sv.h;
+  const float* k = a.k + b * a.sk.b + gk * a.sk.h;
+  const float* v = a.v + b * a.sv.b + gk * a.sv.h;
   const int r0 = q0 + 16 * warp;                 // the warp's first row
   const int qa = a.q_off + r0, qb = qa + 15;     // its absolute positions
 
@@ -817,8 +798,8 @@ flash_dq_kernel(Attn<T> a) {
   // after the first barrier of the loop)
   {
     constexpr int V4 = D / 4;
-    const T* q = a.q + b * a.sq.b + h * a.sq.h;
-    const T* dout = a.dout + b * a.sdo.b + h * a.sdo.h;
+    const float* q = a.q + b * a.sq.b + h * a.sq.h;
+    const float* dout = a.dout + b * a.sdo.b + h * a.sdo.h;
     for (int idx = threadIdx.x; idx < FBQ * V4; idx += THREADS) {
       const int r = idx / V4, c = idx % V4;
       float4 x = make_float4(0.f, 0.f, 0.f, 0.f), y = x;
@@ -1479,6 +1460,161 @@ flash_fwd_bf16_kernel(Attn<__nv_bfloat16> a) {
               rw + g, t, a.Sq);
 }
 
+// The bf16 dq: a 1-d grid of ceil(Sq / WBQ) * H * B blocks, the last
+// q-tile first, as the forward. Two warpgroups, each owning 64 rows of
+// the 128-row query tile (q and dO staged once); K and V stream through a
+// three-stage ring of 64-key tiles, each loaded one tile ahead, and both
+// warpgroups walk the block's live tiles (under the causal mask the first
+// warpgroup's last one is all masked). Per tile a warpgroup computes S =
+// q K^T and dP = dO V^T (D / 16 wgmma each, both operands K-major from
+// shared memory, one chain over d), then p = 2^((S scale - lse) log2 e)
+// where visible (0 elsewhere) and dS = p (dP - delta) on the
+// accumulators, and adds dS K into dq: dS split into A fragments (hi, lo),
+// K read MN-major as B from the tile S read K-major (as the forward reads
+// V), two wgmma a 16-key slice, one chain over all keys; the scale
+// multiplies dq at the store. Tile j's dS K is issued with tile j + 1's S
+// and dP, so that each warpgroup forms dS while the previous tile's
+// product is on the tensor cores; the ring keeps tile j's K until then.
+// The loop is peeled and every branch is warp-uniform, as in the forward.
+// No atomics: bit-reproducible.
+template <int D>
+__global__ void __launch_bounds__(THREADS, 1)
+flash_dq_bf16_kernel(Attn<__nv_bfloat16> a) {
+  extern __shared__ __align__(1024) unsigned char smem[];
+  constexpr uint32_t KVB = WBK * D * 2;          // bytes of a K or V tile
+  constexpr uint32_t QB = WBQ * D * 2;           // bytes of the q or dO tile
+  constexpr float LOG2E = 1.4426950408889634f;
+  const uint32_t Qs = (smem_u32(smem) + 1023) & ~1023u;   // [WBQ][D]
+  const uint32_t dOs = Qs + QB;                  // [WBQ][D]
+  const uint32_t KVs = dOs + QB;                 // [WSTAGES][K, V][WBK][D]
+  // the warp index broadcast, so that the compiler knows it (and all that
+  // depends on it) to be warp-uniform
+  const int warp = __shfl_sync(0xffffffffu, threadIdx.x / 32, 0);
+  const int lane = threadIdx.x % 32, wg = warp / 4, w = warp % 4;
+  const int g = lane / 4, t = lane % 4;
+  const int n_q = (a.Sq + WBQ - 1) / WBQ, bh_n = gridDim.x / n_q;
+  const int bh = blockIdx.x % bh_n;
+  const int q0 = (n_q - 1 - (int)blockIdx.x / bh_n) * WBQ;
+  const int h = bh % a.H, b = bh / a.H;
+  const int gk = h / (a.H / a.G);
+  const __nv_bfloat16* k = a.k + b * a.sk.b + gk * a.sk.h;
+  const __nv_bfloat16* v = a.v + b * a.sv.b + gk * a.sv.h;
+  const int rw = q0 + 64 * wg + 16 * w;          // the warp's rows
+  const int wa = a.q_off + rw, wb = wa + 15;
+
+  // the live key tiles form one range
+  const int n_kv = (a.Sk + WBK - 1) / WBK;
+  int lo = 0, hi = n_kv - 1;
+  while (lo <= hi && !live(a, q0, lo * WBK, WBQ, WBK)) ++lo;
+  while (hi >= lo && !live(a, q0, hi * WBK, WBQ, WBK)) --hi;
+  auto kv = [&](int kb) { return KVs + ((kb - lo) % WSTAGES) * 2 * KVB; };
+  // tile kb landed (after every copy this thread issued), tile kb + 1 on
+  // its way into the stage of tile kb - 2, whose dS K has completed
+  auto next = [&](int kb) {
+    cp_async_wait<0>();
+    fence_async_smem();
+    __syncthreads();
+    if (kb + 1 <= hi) {
+      const uint32_t st = kv(kb + 1);
+      stage_bf16<D, WBK>(st, k, a.sk.s, (kb + 1) * WBK, a.Sk);
+      stage_bf16<D, WBK>(st + KVB, v, a.sv.s, (kb + 1) * WBK, a.Sk);
+    }
+    cp_async_commit();
+  };
+
+  // lse (times log2 e) and delta of the thread's rows rw + g and rw + g +
+  // 8; rows at or past Sq read 0 (their q and dO are 0: dS = 0)
+  float lse2[2], dl[2];
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int row = rw + g + 8 * i;
+    const long long at_row = ((long long)b * a.H + h) * a.Sq + row;
+    lse2[i] = row < a.Sq ? a.lse[at_row] * LOG2E : 0.f;
+    dl[i] = row < a.Sq ? a.delta[at_row] : 0.f;
+  }
+  const float sl2 = a.scale * LOG2E;
+
+  float acc[D / 2], s[WBK / 2], dp[WBK / 2];
+  SplitBF16<WBK> ds;                             // dS of the last tile
+  const uint64_t qd = kmajor(Qs + 64 * wg * 128);
+  const uint64_t dod = kmajor(dOs + 64 * wg * 128);
+  auto scores = [&](int kb) {                    // S = q K^T, dP = dO V^T
+#pragma unroll
+    for (int i = 0; i < WBK / 2; ++i) s[i] = dp[i] = 0.f;
+    fence_regs(s);
+    fence_regs(dp);
+    wg_fence();
+    wgmma_scores<D, WBQ>(s, qd, kmajor(kv(kb)));
+    wgmma_scores<D, WBQ>(dp, dod, kmajor(kv(kb) + KVB));
+    wg_commit();
+  };
+  auto dsk = [&](int kb) {                       // dq += dS K of tile kb
+    fence_regs(acc);
+    ds.fence();
+    wg_fence();
+    wgmma_split(acc, ds, mnmajor<WBK>(kv(kb)));
+    wg_commit();
+  };
+  // the landed S and dP into dS (in s), masked to 0 where not visible
+  auto grads = [&](int kb) {
+    fence_regs(s);
+    fence_regs(dp);
+    const int k0 = kb * WBK;
+    // masks only where this warp's rows see part of the tile
+    const bool full = k0 + WBK <= a.Sk && (!a.causal || k0 + WBK - 1 <= wa)
+                      && (a.window <= 0 || k0 > wb - a.window);
+#pragma unroll
+    for (int j = 0; j < WBK / 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int i = e >> 1;
+        float p = ex2(s[4 * j + e] * sl2 - lse2[i]);
+        if (!full &&
+            !visible(a, wa + g + 8 * i, k0 + 8 * j + 2 * t + (e & 1)))
+          p = 0.f;
+        s[4 * j + e] = p * (dp[4 * j + e] - dl[i]);
+      }
+  };
+
+  // q and dO (rows at or past Sq zero) land with the first K/V tile
+  stage_bf16<D, WBQ>(Qs, a.q + b * a.sq.b + h * a.sq.h, a.sq.s, q0, a.Sq);
+  stage_bf16<D, WBQ>(dOs, a.dout + b * a.sdo.b + h * a.sdo.h, a.sdo.s, q0,
+                     a.Sq);
+  if (lo <= hi) {
+    stage_bf16<D, WBK>(kv(lo), k, a.sk.s, lo * WBK, a.Sk);
+    stage_bf16<D, WBK>(kv(lo) + KVB, v, a.sv.s, lo * WBK, a.Sk);
+  }
+  cp_async_commit();
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) acc[i] = 0.f;
+  if (lo <= hi) {
+    next(lo);
+    scores(lo);
+    wg_wait<0>();
+    grads(lo);
+    ds.set(s);
+    for (int kb = lo + 1; kb <= hi; ++kb) {
+      next(kb);
+      scores(kb);
+      dsk(kb - 1);
+      wg_wait<1>();
+      grads(kb);
+      wg_wait<0>();
+      fence_regs(acc);
+      ds.fence();
+      ds.set(s);
+    }
+    dsk(hi);
+    wg_wait<0>();
+    fence_regs(acc);
+    ds.fence();
+  }
+
+  const float mul[2] = {a.scale, a.scale};
+  store_wg<D>(a.out + b * a.sout.b + h * a.sout.h, a.sout.s, acc, mul,
+              rw + g, t, a.Sq);
+}
+
 // The bf16 dk, dv: a 1-d grid of ceil(Sk / WBKV) * G * B blocks, the
 // first kv-tile first, as the f32 kernel; the group's query heads and
 // their query tiles (q, dO, lse, delta) stream through a three-stage ring
@@ -1675,17 +1811,19 @@ static_assert(smem_bytes<128>(FWD) <= 232448, "forward stages overflow");
 static_assert(smem_bytes<128>(BWD_DQ) <= 232448, "dq stages overflow");
 static_assert(smem_bytes<128>(BWD_DKV) <= 232448, "dk/dv stages overflow");
 
-// The bf16 forward and dk/dv kernels: bf16 tiles, 1024 bytes of slack to
-// align the swizzled tiles, and dk/dv's lse, delta and P^T hand-over.
+// The bf16 kernels: bf16 tiles, 1024 bytes of slack to align the
+// swizzled tiles, and dk/dv's lse, delta and P^T hand-over.
 template <int D>
 constexpr size_t smem_bytes_bf16(Kind kind) {
   return 1024 + (kind == BWD_DKV
                      ? 2 * (2 * WBKV + WSTAGES * 2 * WBQT) * D
                            + sizeof(float) * (WSTAGES * 2 * WBQT
                                               + 4 * 8 * 32 * 4)
-                     : 2 * (WBQ + WSTAGES * 2 * WBK) * D);
+                 : kind == BWD_DQ ? 2 * (2 * WBQ + WSTAGES * 2 * WBK) * D
+                                  : 2 * (WBQ + WSTAGES * 2 * WBK) * D);
 }
 static_assert(smem_bytes_bf16<128>(FWD) <= 232448, "forward stages overflow");
+static_assert(smem_bytes_bf16<128>(BWD_DQ) <= 232448, "dq stages overflow");
 static_assert(smem_bytes_bf16<128>(BWD_DKV) <= 232448,
               "dk/dv stages overflow");
 
@@ -1704,7 +1842,7 @@ cudaError_t run(Kind kind, const Attn<T>& a, int B, cudaStream_t stream) {
   const dim3 rows(((a.Sq + FBQ - 1) / FBQ) * a.H * B);
   const dim3 keys(((a.Sk + BKV - 1) / BKV) * a.G * B);
   if constexpr (std::is_same_v<T, __nv_bfloat16>) {
-    // wgmma for the forward and dk/dv; dq keeps the f32 pipeline
+    // wgmma; the grids are the f32 kernels'
     static_assert(WBQ == FBQ && WBKV == BKV, "the f32 kernels' grids");
     const size_t smem = smem_bytes_bf16<D>(kind);
     switch (kind) {
@@ -1713,8 +1851,7 @@ cudaError_t run(Kind kind, const Attn<T>& a, int B, cudaStream_t stream) {
       case FWD_LSE:
         return launch(flash_fwd_bf16_kernel<D, true>, rows, smem, stream, a);
       case BWD_DQ:
-        return launch(flash_dq_kernel<T, D>, rows, smem_bytes<D>(kind),
-                      stream, a);
+        return launch(flash_dq_bf16_kernel<D>, rows, smem, stream, a);
       case BWD_DKV:
         return launch(flash_dkv_bf16_kernel<D>, keys, smem, stream, a);
     }
@@ -1726,7 +1863,7 @@ cudaError_t run(Kind kind, const Attn<T>& a, int B, cudaStream_t stream) {
       case FWD_LSE:
         return launch(flash_fwd_kernel<D, true>, rows, smem, stream, a);
       case BWD_DQ:
-        return launch(flash_dq_kernel<T, D>, rows, smem, stream, a);
+        return launch(flash_dq_kernel<D>, rows, smem, stream, a);
       case BWD_DKV:
         return launch(flash_dkv_kernel<D>, keys, smem, stream, a);
     }

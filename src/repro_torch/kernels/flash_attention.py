@@ -18,13 +18,12 @@ in as transposed views, without a copy.
 Operands are float32 or bfloat16 (all of one dtype), as the Pallas
 kernels take any float dtype, and the kernels compute what the Pallas
 kernels compute, p and every product at f32 accuracy: on f32 operands in
-split TF32; on bf16 operands the forward and dk/dv keep q, k, v and dO
-bf16 in shared memory and multiply on the bf16 tensor cores (``wgmma``:
-two bf16 tensors exactly, a computed f32 operand such as p split into
-two bf16 parts), while dq stages bf16 tiles as f32 and runs the split
-TF32 of the f32 kernel. o, dq, dk and dv are written in the operands'
-dtype; lse and delta are float32 whatever the operands' dtype (the plain
-versions do the same).
+split TF32; on bf16 operands the forward, dq and dk/dv keep q, k, v and
+dO bf16 in shared memory and multiply on the bf16 tensor cores
+(``wgmma``: two bf16 tensors exactly, a computed f32 operand such as p
+or dS split into two bf16 parts). o, dq, dk and dv are written in the
+operands' dtype; lse and delta are float32 whatever the operands' dtype
+(the plain versions do the same).
 
 Each function runs the kernels on CUDA tensors and the plain PyTorch
 versions (``ref.flash_fwd_lse``, ``ref.flash_bwd``) on CPU tensors; a

@@ -1,43 +1,45 @@
-"""The arithmetic of the bf16 flash-attention forward and dk/dv kernels on
-the CPU.
+"""The arithmetic of the bf16 flash-attention kernels (forward, dq and
+dk/dv) on the CPU.
 
 On bf16 operands ``csrc/flash_attention.cu`` runs its forward
-(``flash_fwd_bf16_kernel``) and dk/dv (``flash_dkv_bf16_kernel``) on the
-bf16 tensor cores (``wgmma`` m64nNk16, f32 accumulators). The kernels run
-only on the card; this file emulates their products as they issue them:
+(``flash_fwd_bf16_kernel``), dq (``flash_dq_bf16_kernel``) and dk/dv
+(``flash_dkv_bf16_kernel``) on the bf16 tensor cores (``wgmma`` m64nNk16,
+f32 accumulators). The kernels run only on the card; this file emulates
+their products as they issue them:
 
 - a product of two bf16 tensors is exact (8-bit significands), so q·kᵀ
-  (forward), k·qᵀ and v·dOᵀ (dk/dv) take one MMA per 16-wide slice of d,
-  chained in one accumulator over all of d; the scale multiplies the f32
-  result (the Pallas kernels scale q in f32 first: one f32 rounding a
-  score apart);
-- a product with an f32 operand that the kernel computes (p·v, pᵀ·dO,
-  dSᵀ·q) splits it into hi = bf16(x) and lo = bf16(x − hi), which hold x
-  to ~2⁻¹⁷ of itself, and issues two MMAs, lo then hi, into the f32
+  (forward, dq), dO·vᵀ (dq), k·qᵀ and v·dOᵀ (dk/dv) take one MMA per
+  16-wide slice of d, chained in one accumulator over all of d; the scale
+  multiplies the f32 result (the Pallas kernels scale q in f32 first: one
+  f32 rounding a score apart);
+- a product with an f32 operand that the kernel computes (p·v, dS·k,
+  pᵀ·dO, dSᵀ·q) splits it into hi = bf16(x) and lo = bf16(x − hi), which
+  hold x to ~2⁻¹⁷ of itself, and issues two MMAs, lo then hi, into the f32
   accumulator;
 - each MMA sums its 16 products (exact) and its accumulator and rounds the
   sum toward zero to f32, as the tensor cores do (``flash_tf32.f32_rz``;
   the emulation sums exactly before that one rounding, so it is kinder
   than the card);
-- the chains are long: q·kᵀ, k·qᵀ and v·dOᵀ one chain over all of d; the
+- the chains are long: the score products one chain over all of d; the
   forward's o is multiplied by the softmax correction before each 64-key
-  tile and p·v accumulates into it, one chain over all keys; dk/dv's pᵀ·dO
-  and dSᵀ·q one chain over all the group's query heads and their query
-  tiles. The f32 kernels sum each 16-wide slice of d and each tile from
-  zero, because the round-toward-zero drift of long chains reaches their
-  2e-5; here it stays within that of float64 (``chains="tile"``, the f32
+  tile and p·v accumulates into it, one chain over all keys; dq's dS·k one
+  chain over all keys, times the scale at the end; dk/dv's pᵀ·dO and dSᵀ·q
+  one chain over all the group's query heads and their query tiles. The
+  f32 kernels sum each 16-wide slice of d and each tile from zero,
+  because the round-toward-zero drift of long chains reaches their 2e-5;
+  here it stays within that of float64 (``chains="tile"``, the f32
   kernels' shape, lands as close), while the bf16 outputs' rounding is
   2⁻⁹ of them;
 - around them the plain versions' maths: ``ref.flash_fwd_lse``'s masks and
   the kernel's online normalisation over 64-key tiles, p = exp(s − lse).
 
-Held as ``tests/test_torch_cuda.py`` holds the kernels on the card: o, dk
-and dv rounded to bf16 against the plain versions' bf16 results at rtol
-2⁻⁷ with atol 2e-5 (o) or 5e-4 (dk, dv), lse at 2e-5. With scores of std
-8 the plain versions run on float64 copies of the inputs, as
+Held as ``tests/test_torch_cuda.py`` holds the kernels on the card: o, dq,
+dk and dv rounded to bf16 against the plain versions' bf16 results at rtol
+2⁻⁷ with atol 2e-5 (o) or 5e-4 (dq, dk, dv), lse at 2e-5. With scores of
+std 8 the plain versions run on float64 copies of the inputs, as
 ``test_torch_flash_tf32.py`` explains. A single bf16 pass for p (or for
-pᵀ and dSᵀ), which rounds p to bf16 as PyTorch's bf16 attention does,
-must fall outside that check: where o, dk or dv sums near-cancelling
+dS, pᵀ and dSᵀ), which rounds p to bf16 as PyTorch's bf16 attention does,
+must fall outside that check: where o, dq, dk or dv sums near-cancelling
 terms its 2⁻⁹ error a term exceeds the absolute tolerance.
 
 ``python tests/test_torch_flash_bf16_mma.py`` (with ``PYTHONPATH=src``)
@@ -59,6 +61,7 @@ FWD_TOL, BWD_TOL, LSE_TOL = 2e-5, 5e-4, 2e-5   # tests/test_torch_cuda.py
 RTOL = 2 ** -7                                  # two bf16 ulps
 BK = 64           # the forward's key tile: its online normalisation steps
 BQ = 64           # dk/dv's query tile
+BKQ = 64          # dq's key tile
 MMA_K = 16        # the products one bf16 MMA sums
 bf16 = torch.bfloat16
 
@@ -117,6 +120,36 @@ def emulated_fwd_lse(q, k, v, *, causal, window, passes=2, chains="one"):
             o = (o.double() * corr.double() + c.double()).float()
     l = torch.clamp(l, min=1e-30)
     return o * (1 / l), (m + torch.log(l))[..., 0]
+
+
+def emulated_dq(q, k, v, lse, do, delta, *, causal, window, passes=2,
+                chains="one"):
+    """The bf16 dq kernel's maths in the kernel layout: dq in f32, before
+    its rounding to bf16. S = q·kᵀ and dP = dO·vᵀ exact bf16 chains over d,
+    p = exp(S·scale − lse) where visible, dS = p∘(dP − Δ) split hi/lo, dS·k
+    one chain over all keys (``chains="tile"``: each 64-key tile from zero,
+    added in f32), times the scale."""
+    d, Sk = q.shape[-1], k.shape[2]
+    rep = q.shape[1] // k.shape[1]
+    scale = ref.f32(d ** -0.5)
+    kh, vh = (t.repeat_interleave(rep, dim=1) for t in (k, v))
+    ok = ref.flash_visible(q.shape[2], Sk, causal=causal, window=window)
+    s = mma_chain(None, q, kh.transpose(-1, -2), fresh=True) * scale
+    p = torch.where(ok, torch.exp(s - lse[..., None]), 0.0)
+    dp = mma_chain(None, do, vh.transpose(-1, -2), fresh=True)
+    ds = p * (dp - delta[..., None])
+    acc = torch.zeros(q.shape)
+    for k0 in range(0, Sk, BKQ):
+        x, y = ds[..., k0:k0 + BKQ], kh[..., k0:k0 + BKQ, :]
+        if x.shape[-1] % MMA_K:                # the tile's zero-filled rows
+            pad = MMA_K - x.shape[-1] % MMA_K
+            x = torch.nn.functional.pad(x, (0, pad))
+            y = torch.nn.functional.pad(y.float(), (0, 0, 0, pad))
+        if chains == "one":
+            acc = mma_chain(acc, x, y, passes)
+        else:
+            acc = acc + mma_chain(None, x, y, passes, fresh=True)
+    return acc * scale
 
 
 def emulated_dkv(q, k, v, lse, do, delta, *, causal, window, passes=2,
@@ -215,6 +248,15 @@ def _plain_dkv(q, k, v, lse, do, delta, opts, large):
     return dk.to(bf16), dv.to(bf16)
 
 
+def _plain_dq(q, k, v, lse, do, delta, opts, large):
+    """The plain dq (bf16) on the kernel's residuals: on float64 copies of
+    everything where the scores are large."""
+    if large:
+        q, k, v, lse, do, delta = (t.double() for t in
+                                   (q, k, v, lse, do, delta))
+    return ref.flash_bwd_dq(q, k, v, lse, do, delta, **opts).to(bf16)
+
+
 def _residuals(q, k, v, do, opts):
     """lse and Δ = rowsum(dO∘O) (f32) from the plain forward, as the
     backward kernels receive them."""
@@ -246,6 +288,17 @@ def test_bf16_dkv_within_tolerance(name):
         assert _outside(g.to(bf16), w, BWD_TOL) <= 0, (name, what)
 
 
+@pytest.mark.parametrize("name", list(CASES))
+def test_bf16_dq_within_tolerance(name):
+    """dq's bf16 MMAs (exact q·kᵀ and dO·vᵀ, split dS, one chain over all
+    keys) keep dq within the card test's bound of the plain version."""
+    (q, k, v, do), opts, large = _case(name)
+    lse, delta = _residuals(q, k, v, do, opts)
+    got = emulated_dq(q, k, v, lse, do, delta, **opts)
+    want = _plain_dq(q, k, v, lse, do, delta, opts, large)
+    assert _outside(got.to(bf16), want, BWD_TOL) <= 0, name
+
+
 @pytest.mark.parametrize("name", ["causal_d128", "large_logits_d128"])
 def test_one_bf16_pass_for_p_fails(name):
     """p rounded to bf16 once (one MMA a slice) puts o outside the
@@ -268,6 +321,17 @@ def test_one_bf16_pass_for_pt_dst_fails(name):
                for g, w in zip(got, want)) > 0
 
 
+@pytest.mark.parametrize("name", ["causal_d128", "large_logits_d128"])
+def test_one_bf16_pass_for_ds_fails(name):
+    """dS rounded to bf16 once puts dq outside the backward's bound, at
+    scores of std 1 and 8."""
+    (q, k, v, do), opts, large = _case(name)
+    lse, delta = _residuals(q, k, v, do, opts)
+    got = emulated_dq(q, k, v, lse, do, delta, **opts, passes=1)
+    want = _plain_dq(q, k, v, lse, do, delta, opts, large)
+    assert _outside(got.to(bf16), want, BWD_TOL) > 0
+
+
 @pytest.mark.parametrize("chains", ["one", "tile"])
 def test_long_chains_keep_f32_accuracy(chains):
     """Before their rounding to bf16, the kernels' f32 o and lse stay
@@ -275,7 +339,8 @@ def test_long_chains_keep_f32_accuracy(chains):
     within the f32 backward's 5e-4·(1 + |want|), where the scores are
     large (std 8), whether the chains are long (the bf16 kernels') or
     start from zero each tile (the f32 kernels'): the chains' drift is far
-    below the bf16 outputs' rounding."""
+    below the bf16 outputs' rounding. dq likewise, within 5e-4·(1 +
+    |want|)."""
     (q, k, v, do), opts, _ = _case("large_logits_d128")
     o, lse = emulated_fwd_lse(q, k, v, **opts, chains=chains)
     q64, k64, v64, do64 = (t.double() for t in (q, k, v, do))
@@ -288,6 +353,10 @@ def test_long_chains_keep_f32_accuracy(chains):
                              delta.double(), **opts)
     for g, w in zip(got, want):
         assert _outside(g, w, BWD_TOL, BWD_TOL) <= 0
+    dq = emulated_dq(q, k, v, lse, do, delta, **opts, chains=chains)
+    want_dq = ref.flash_bwd_dq(q64, k64, v64, lse.double(), do64,
+                               delta.double(), **opts)
+    assert _outside(dq, want_dq, BWD_TOL, BWD_TOL) <= 0
 
 
 def test_split_holds_x_to_2_pow_minus_17():
@@ -312,13 +381,16 @@ if __name__ == "__main__":
         want_o, want_lse = _plain_fwd(q, k, v, opts, large)
         lse, delta = _residuals(q, k, v, do, opts)
         want = _plain_dkv(q, k, v, lse, do, delta, opts, large)
+        want_dq = _plain_dq(q, k, v, lse, do, delta, opts, large)
         row = {}
         for passes in (2, 1):
             o, got_lse = emulated_fwd_lse(q, k, v, **opts, passes=passes)
             dk, dv = emulated_dkv(q, k, v, lse, do, delta, **opts,
                                   passes=passes)
+            dq = emulated_dq(q, k, v, lse, do, delta, **opts, passes=passes)
             row[passes] = dict(
                 o=_ratio(o.to(bf16), want_o, FWD_TOL),
+                dq=_ratio(dq.to(bf16), want_dq, BWD_TOL),
                 lse=_ratio(got_lse, want_lse, LSE_TOL, LSE_TOL),
                 dk=_ratio(dk.to(bf16), want[0], BWD_TOL),
                 dv=_ratio(dv.to(bf16), want[1], BWD_TOL))

@@ -3,7 +3,8 @@
 GPU, in turns.
 
     python3 tools/flash_ab.py [variant ...]      (default: all of VARIANTS)
-    python3 tools/flash_ab.py --bf16 [variant ...]   (BF16_VARIANTS)
+    python3 tools/flash_ab.py --bf16 [--parent FILE] [variant ...]
+                                                 (BF16_VARIANTS)
 
 Imports nothing of JAX. Needs the CUDA toolkit's nvcc (as the port's
 kernel build does). Builds ``kernels/csrc/flash_attention.cu`` as it is
@@ -14,18 +15,25 @@ the plain versions (5e-4·(1 + |want|)) on three cases; then times dq and
 dk/dv at diloco_400m's layer (B 8, H = G = 12, S 1024, d 128, causal),
 every build in each of ``REPS`` rounds, the order reversed every other
 round, and prints the medians beside SDPA's backward. With ``--bf16`` the
-same for the bf16 forward (with lse) and dk/dv kernels: their ptxas lines
-(and any wgmma serialization ptxas reports), o, lse, dk and dv held to
-the plain versions on bf16 operands (rtol 2^-7 with atol 2e-5, 2e-5 on
-lse, 5e-4 on dk and dv), and each timed by one call (``time_ms``) and by
-a burst of calls back to back (``burst_ms``, the device's time) beside
-SDPA's bf16 forward and backward. Prints the card's name and power limit
-first and last.
+same for the three bf16 kernels, the forward (with lse), dq and dk/dv:
+their ptxas lines at d 64 and 128 (and any wgmma serialization ptxas
+reports), o, lse, dq, dk and dv held to the plain versions on bf16
+operands (rtol 2^-7 with atol 2e-5, 2e-5 on lse, 5e-4 on dq, dk and dv),
+and each timed by one call (``time_ms``) and by a burst of calls back to
+back (``burst_ms``, the device's time) beside SDPA's bf16 forward and
+backward, with dq + dk/dv by burst beside SDPA's backward. ``--parent
+FILE`` adds a build of another ``flash_attention.cu`` (an earlier
+commit's, unpacked with ``git archive``) as "parent", timed in the same
+turns, and compares each kernel's SASS (``cuobjdump -sass``) in the two
+builds, instruction for instruction. Prints the card's name and power
+limit first and last.
 """
 from __future__ import annotations
 
 import ctypes
 import json
+import re
+import shutil
 import subprocess
 import sys
 from pathlib import Path
@@ -63,12 +71,14 @@ BF16_VARIANTS = {
               ("ex2((s[4 * j + e] - mx) * LOG2E)",
                "expf(s[4 * j + e] - mx)")]),
 }
-BF16_KERNELS = ("flash_fwd_bf16_kernelILi128ELb1", "flash_dkv_bf16_kernelILi128")
+BF16_KERNELS = ("flash_fwd_bf16_kernel", "flash_dq_bf16_kernel",
+                "flash_dkv_bf16_kernel")
 
 
 def source(name: str, base: str, variants=VARIANTS) -> str:
     text = base
-    for old, new in ([] if name == "base" else variants[name][1]):
+    for old, new in ([] if name in ("base", "parent")
+                     else variants[name][1]):
         if old not in text:
             raise SystemExit(f"variant {name}: {old!r} is not in the source")
         text = text.replace(old, new)
@@ -76,16 +86,18 @@ def source(name: str, base: str, variants=VARIANTS) -> str:
 
 
 def build_all(names, build, variants=VARIANTS,
-              kernels=("flash_dq_kernelILi128", "flash_dkv_kernelILi128")):
-    """{name: ctypes library}, one nvcc per build, all started together;
-    prints each one's ptxas lines for ``kernels`` (d 128) and the
+              kernels=("flash_dq_kernel", "flash_dkv_kernel"), parent=None):
+    """{name: ctypes library}, one nvcc per build, all started together
+    ("parent" builds the file ``parent``); prints each one's ptxas lines
+    for ``kernels`` (every instantiation: d 64 and 128) and the
     serializations of wgmma that ptxas reports."""
     OUT.mkdir(parents=True, exist_ok=True)
     base = (build.CSRC / "flash_attention.cu").read_text()
     procs = {}
     for n in names:
         cu, so = OUT / f"{n}.cu", OUT / f"{n}.so"
-        cu.write_text(source(n, base, variants))
+        cu.write_text(Path(parent).read_text() if n == "parent"
+                      else source(n, base, variants))
         procs[n] = (so, subprocess.Popen(
             [build.nvcc(), *build.flags("flash_attention"), "-o", str(so),
              str(cu)], stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
@@ -101,13 +113,55 @@ def build_all(names, build, variants=VARIANTS,
                 print(json.dumps({"build": n, "ptxas": line.strip()}),
                       flush=True)
             for kernel in kernels:
-                if "Compiling entry" in line and kernel in line:
-                    print(json.dumps({"build": n, "kernel": kernel[:-6],
-                                      "d": 128, "ptxas": " | ".join(
+                m = re.search(rf"\d{kernel}I(?:[a-z]*)Li(\d+)E(\S*)'",
+                              line) if "Compiling entry" in line else None
+                if m:
+                    print(json.dumps({"build": n, "kernel": kernel,
+                                      "d": int(m.group(1)),
+                                      "lse": "Lb1" in m.group(2) or None,
+                                      "ptxas": " | ".join(
                                           l.strip() for l in
                                           lines[i + 2:i + 4])}), flush=True)
         libs[n] = ctypes.CDLL(str(so))
     return libs
+
+
+def sass(so: Path) -> dict:
+    """{kernel: [instructions]} of a built library (``cuobjdump -sass``):
+    each kernel keyed by its name, head dim and lse flag, and "bf16," for
+    a kernel templated on a bf16 element type (so that a float kernel
+    that lost its type parameter keeps its key); each instruction without
+    its address and encoding."""
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    out = subprocess.run([tool, "-sass", str(so)], capture_output=True,
+                         text=True, check=True).stdout
+    funcs, cur = {}, None
+    for line in out.splitlines():
+        m = re.match(r"\s*Function : (\S+)", line)
+        if m:
+            k = re.search(r"(flash_\w+?_kernel)I(f|13__nv_bfloat16)?"
+                          r"Li(\d+)E(Lb1)?", m.group(1))
+            cur = m.group(1) if k is None else "{}<{}{}{}>".format(
+                k.group(1), "bf16," if k.group(2) == "13__nv_bfloat16"
+                else "", k.group(3), ",lse" if k.group(4) else "")
+            funcs[cur] = []
+            continue
+        m = re.match(r"\s*/\*[0-9a-f]{4,}\*/\s*(.*?)\s*;?\s*(/\*.*)?$",
+                     line)
+        if cur and m and m.group(1):
+            funcs[cur].append(m.group(1))
+    return funcs
+
+
+def compare_sass(base: Path, parent: Path) -> None:
+    """Print, for each kernel of either build, whether its SASS is the
+    same instruction for instruction."""
+    a, b = sass(base), sass(parent)
+    for f in sorted(set(a) | set(b)):
+        same = a.get(f) == b.get(f)
+        print(json.dumps({"sass": f, "base": len(a.get(f, [])),
+                          "parent": len(b.get(f, [])), "same": same}),
+              flush=True)
 
 
 def entry_points(lib, dtype, names=("bwd_dq", "bwd_dkv")):
@@ -136,7 +190,10 @@ def main() -> int:
     from repro_torch.kernels import flash_attention as FK
 
     if sys.argv[1:2] == ["--bf16"]:
-        return main_bf16(torch, CS, sys.argv[2:])
+        args, parent = sys.argv[2:], None
+        if args[:1] == ["--parent"]:
+            parent, args = args[1], args[2:]
+        return main_bf16(torch, CS, args, parent)
     names = ["base"] + (sys.argv[1:] or list(VARIANTS))
     torch.backends.cuda.matmul.allow_tf32 = False
     print(CS.card_line(), flush=True)
@@ -199,18 +256,22 @@ def main() -> int:
     return 0
 
 
-def main_bf16(torch, CS, args) -> int:
-    """``--bf16``: the bf16 forward (with lse) and dk/dv kernels against
-    ``BF16_VARIANTS``."""
+def main_bf16(torch, CS, args, parent=None) -> int:
+    """``--bf16``: the bf16 forward (with lse), dq and dk/dv kernels
+    against ``BF16_VARIANTS`` and, given ``parent``, another source's
+    build."""
     from repro_torch.kernels import build, ref
     from repro_torch.kernels import flash_attention as FK
 
-    names = ["base"] + (args or list(BF16_VARIANTS))
+    names = (["base"] + (["parent"] if parent else [])
+             + (args or list(BF16_VARIANTS)))
     bf16 = torch.bfloat16
     print(CS.card_line(), flush=True)
-    fns = {n: entry_points(lib, bf16, ("fwd_lse", "bwd_dkv"))
+    fns = {n: entry_points(lib, bf16, ("fwd_lse", "bwd_dq", "bwd_dkv"))
            for n, lib in build_all(names, build, BF16_VARIANTS,
-                                   BF16_KERNELS).items()}
+                                   BF16_KERNELS, parent).items()}
+    if parent:
+        compare_sass(OUT / "base.so", OUT / "parent.so")
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(2)
 
@@ -226,22 +287,26 @@ def main_bf16(torch, CS, args) -> int:
         opts = dict(causal=causal, window=window)
         want_o, want_lse = ref.flash_fwd_lse(q, k, v, **opts)
         delta = (do.float() * want_o.float()).sum(-1).contiguous()
+        want_dq = ref.flash_bwd_dq(q, k, v, want_lse, do, delta, **opts)
         want = ref.flash_bwd_dkv(q, k, v, want_lse, do, delta, **opts)
-        o, dk, dv = (torch.empty_like(t) for t in (q, k, v))
+        o, dq, dk, dv = (torch.empty_like(t) for t in (q, q, k, v))
         lse = torch.empty_like(want_lse)
         launch = dict(scale=d ** -0.5, q_offset=0, **opts)
+        bwd = dict(do=do, lse=want_lse, delta=delta, **launch)
         run = {"fwd_lse": lambda: FK._launch("fwd_lse", q, k, v, out=o,
                                              lse_out=lse, **launch),
+               "bwd_dq": lambda: FK._launch("bwd_dq", q, k, v, out=dq,
+                                            **bwd),
                "bwd_dkv": lambda: FK._launch(
-                   "bwd_dkv", q, k, v, out=None, do=do, lse=want_lse,
-                   delta=delta, dk=dk, dv=dv, **launch)}
+                   "bwd_dkv", q, k, v, out=None, dk=dk, dv=dv, **bwd)}
         for n in names:
             FK._fns.update(fns[n])
-            run["fwd_lse"]()
-            run["bwd_dkv"]()
+            for fn in run.values():
+                fn()
             torch.cuda.synchronize()
             err = {"o": outside(o, want_o, CS.FWD_TOL),
                    "lse": outside(lse, want_lse, CS.FWD_TOL, CS.FWD_TOL),
+                   "dq": outside(dq, want_dq, CS.BWD_TOL),
                    "dk": outside(dk, want[0], CS.BWD_TOL),
                    "dv": outside(dv, want[1], CS.BWD_TOL)}
             if max(err.values()) > 0:
@@ -275,7 +340,9 @@ def main_bf16(torch, CS, args) -> int:
             med = {k_: sorted(ts)[REPS // 2] for k_, ts in times[n].items()}
             print(json.dumps({"build": n, "undoes": BF16_VARIANTS[n][0]
                               if n in BF16_VARIANTS else None,
-                              "ms": times[n], "median_ms": med, **lib}),
+                              "ms": times[n], "median_ms": med,
+                              "bwd_burst_ms": med["bwd_dq_burst_ms"]
+                              + med["bwd_dkv_burst_ms"], **lib}),
                   flush=True)
         FK._fns.clear()
     print(CS.card_line(), flush=True)
