@@ -129,7 +129,10 @@ Phases, each printing one JSON line; any failure exits non-zero:
               α=0.5, int4 with error feedback) on the card against the
               CPU, with the tolerance of ``repro_torch.check`` (the flip
               share, and each entry outside within the code steps of
-              the CPU's sends).
+              the CPU's sends); both runs' sends are recorded, and an
+              entry whose differing codes were all straddles (the two
+              pre-rounding values on either side of one boundary, within
+              the float32 bound) is counted apart (printed).
 
  17. wire_kernels  ``quantize_pack_int4`` and ``unpack_dequantize_int4``
               (the packed int4 wire's sender and receiver) against their
@@ -159,7 +162,8 @@ Phases, each printing one JSON line; any failure exits non-zero:
               int4 blocks (scenario B of ``tests/test_torch_async*.py``:
               drops with a retry, a preemption and a rejoin), int4 with
               error feedback and bf16, on the card against the CPU, with
-              the tolerance of ``repro_torch.check``.
+              the tolerance of ``repro_torch.check`` (straddles counted
+              apart, as in phase 16).
 
  20. codec_kernels  ``unpack_dequantize_reduce`` (the sharded transport's
               deferred consumer) and the unfused codec pieces
@@ -347,6 +351,13 @@ Phases, each printing one JSON line; any failure exits non-zero:
               that mesh and step (``dryrun.island_step_cost``, on meta
               tensors); each rank's peak over the step within phase 34's
               25 % of the count's per-chip estimate (the gap printed).
+              Then the same for the MoE/MLA family at full width, depth
+              cut (``reduced``): olmoe_1b_7b at 2 of its 16 layers and
+              deepseek_v2_lite_16b at 1 of its 27 (each rank's own
+              unsharded check fits the card beside the other rank's),
+              the tokens grouped by the data axis, and the (token, k)
+              router choices that differ from the unsharded step's
+              printed.
 
 ``python3 chip_smoke.py --cards 4`` runs only phases 22 and 21 across
 four cards: one pod rank and one replica per card, over NCCL; then phase
@@ -1788,10 +1799,14 @@ def phase_smoke_stream(torch, dev):
         return convert.stream_state_to_numpy(st), m
 
     counts0 = read_launches()
-    got, m_gpu = run(dev)
+    with check.TransportSteps(params, dcfg) as card_steps:
+        got, m_gpu = run(dev)
     counts = {n: c - counts0[n] for n, c in read_launches().items()}
     with check.TransportSteps(params, dcfg) as steps:
         want, m_cpu = run(torch.device("cpu"))
+    # a code that differs is explained only as a straddle of the two runs'
+    # pre-rounding values within the float32 bound (``check.py``)
+    steps.explain(card_steps)
     quant, nest = stream_launches(
         arch.init(generator=None, device="meta"), 2, h, 1, rounds, "int4")
     if counts != expect_launches(fake_quant_int4=quant, outer_nesterov=nest,
@@ -1808,6 +1823,9 @@ def phase_smoke_stream(torch, dev):
          "error_feedback": True, "leaves_compared": len(shares),
          "worst_share_outside_tolerance": shares[path], "worst_leaf": path,
          "code_steps_allowed": steps.allow,
+         "straddles_explained": {p: n for p, n in steps.explained.items()
+                                 if n},
+         "flips_unexplained": steps.unexplained[:8],
          "launches": counts,
          "inner_loss_cuda": float(m_gpu["inner_loss"]),
          "inner_loss_cpu": float(m_cpu["inner_loss"])})
@@ -2024,10 +2042,13 @@ def phase_smoke_async(torch, dev):
             return convert.async_state_to_numpy(st), hist
 
         counts0 = read_launches()
-        got, hist = run(dev)
+        with check.TransportSteps(params, dcfg) as card_steps:
+            got, hist = run(dev)
         counts = {n: c - counts0[n] for n, c in read_launches().items()}
         with check.TransportSteps(params, dcfg) as steps:
             want, whist = run(torch.device("cpu"))
+        if dtype != "float32":
+            steps.explain(card_steps)
         n_arr = sum(r["event"] == "arrival" for r in hist)
         q = n_arr if dtype == "int4" else 0
         phases = sum(r["event"] in ("arrival", "lost") for r in hist)
@@ -2051,6 +2072,8 @@ def phase_smoke_async(torch, dev):
              "leaves_compared": len(shares),
              "worst_share_outside_tolerance": shares[path],
              "worst_leaf": path, "launches": counts,
+             "straddles_explained": sum(steps.explained.values()),
+             "flips_unexplained": steps.unexplained[:8],
              "delta_norm_cuda": [r["delta_norm"] for r in hist
                                  if r["event"] == "arrival"],
              "delta_norm_cpu": [r["delta_norm"] for r in whist
@@ -2382,7 +2405,7 @@ def phase_smoke_sharded(torch, dev, pods=2):
         backend = backend or mesh.describe(layout)
         res[where] = mesh.spawn("repro_torch.launch.pod_rounds:rounds",
                                 layout, arch.cfg, dcfg, tcfg, toks, masks,
-                                params)
+                                params, None, None, True)
     enc, red, nest = sharded_launches(
         arch.init(generator=None, device="meta"), 2, h, 1, rounds, "int4",
         k // pods)
@@ -2397,18 +2420,29 @@ def phase_smoke_sharded(torch, dev, pods=2):
         if len({r["shared"] for r in rs}) != 1:
             raise SystemExit(f"smoke_sharded: the shared state differs "
                              f"between the {where} ranks")
+    # each rank's sends, card against CPU: a code that differs is
+    # explained only as a straddle within the float32 bound (``check.py``)
+    steps = check.TransportSteps.of_ranks(
+        params, dcfg, [r["sends"] for r in res["cpu"]],
+        [r["sends"] for r in res["cuda"]])
     shares = check.stream_mismatch_shares(res["cuda"][0]["state"],
-                                          res["cpu"][0]["state"], H=h)
+                                          res["cpu"][0]["state"], H=h,
+                                          steps=steps)
     path = max(shares, key=shares.get)
     if shares[path] > check.TRANSPORT_FLIP_SHARE["int4"]:
         raise SystemExit(f"smoke_sharded: {path}: {shares[path]:.3g} of the "
-                         "entries outside the tolerance")
+                         "entries outside the tolerance, or one beyond "
+                         f"{steps.allow:.3g} code steps; unexplained flips "
+                         f"{steps.unexplained[:8]}")
     say({"phase": "smoke_sharded", "k": k, "pods": pods, "H": h,
          "card_backend": backend,
          "rounds": rounds, "P": 2, "tau": 1, "alpha": 0.5,
          "transport": "int4", "error_feedback": True, "packed": True,
          "leaves_compared": len(shares),
          "worst_share_outside_tolerance": shares[path], "worst_leaf": path,
+         "straddles_explained": {p: n for p, n in steps.explained.items()
+                                 if n},
+         "flips_unexplained": steps.unexplained[:8],
          "launches_per_card_rank": counts[0],
          "inner_loss_cuda": [m["inner_loss"]
                              for m in res["cuda"][0]["metrics"]],
@@ -4064,13 +4098,16 @@ ISLAND_M_REL = 2.0 ** -7
 
 
 def phase_island(torch, dev, shape=ISLAND_SHAPE, arch_name="diloco_150m",
-                 cards=1):
+                 cards=1, n_layers=None):
     """Phase 35: one inner train step of ``arch_name`` at full width (B 8,
-    S 1024, f32 params and compute through the step's bf16 weight cast)
-    on an island mesh of ``shape`` (data, model): the dry run's sharded
-    step (``launch/island.py``) on one rank per chip of the mesh, on this
-    card's ranks (gloo, collectives staged through the host) or one a card
-    over NCCL (``cards`` > 1), from m = 0 and ``island.second_moments``.
+    S 1024, f32 params and compute through the step's bf16 weight cast;
+    ``n_layers``: its depth cut to that many layers, printed as
+    ``reduced``) on an island mesh of ``shape`` (data, model): the dry
+    run's sharded step (``launch/island.py``; an MoE model's tokens
+    grouped by the data axis's size) on one rank per chip of the mesh, on
+    this card's ranks (gloo, collectives staged through the host) or one a
+    card over NCCL (``cards`` > 1), from m = 0 and
+    ``island.second_moments``.
     Held against the unsharded step of the same params, state and batch
     on the card: the loss and every param after the step (atol 1e-5,
     rtol 1e-4), and the first moments leaf by leaf within
@@ -4079,13 +4116,21 @@ def phase_island(torch, dev, shape=ISLAND_SHAPE, arch_name="diloco_150m",
     to the dry run's count for that mesh and step (op and bytes, in
     order); each rank's peak memory over the step within phase 34's gate
     of the dry run's per-chip estimate (its blocks of the arguments plus
-    the meta run's peak of live storage)."""
+    the meta run's peak of live storage). Of an MoE model it prints how
+    many (token, k) router choices of the sharded step differ from the
+    unsharded step's (a near-tie decided otherwise by TP's reordered
+    sums; no bound is loosened for one)."""
     from repro_torch.launch import dryrun, mesh
     from repro_torch.models.registry import get_arch
 
     t0 = time.perf_counter()
     arch = get_arch(arch_name)
     cfg = arch.cfg
+    from repro_torch import tree
+    reduced = None
+    if n_layers is not None and n_layers < cfg.n_layers:
+        reduced = {"n_layers": [cfg.n_layers, n_layers]}
+        cfg = cfg.replace(n_layers=n_layers)
     ranks = shape[0] * shape[1]
     layout = mesh.make_pod_layout(ranks, "cuda")
     # the dry run's count (on meta tensors, on this process's CPU) while
@@ -4129,8 +4174,13 @@ def phase_island(torch, dev, shape=ISLAND_SHAPE, arch_name="diloco_150m",
     by_op = {}
     for op, nb in want_coll:
         by_op[op] = by_op.get(op, 0) + nb
-    say({"phase": "island", "arch": arch_name, "mesh": list(shape),
-         "cards": cards, "backend": layout.backend,
+    say({"phase": "island", "arch": arch_name, "reduced": reduced,
+         "params": sum(math.prod(t.shape) for t in tree.leaves(
+             get_arch(arch_name).abstract_params(cfg)[0])),
+         "router_choices": [g["check"]["router_choices"] for g in got],
+         "router_choices_differ": [g["check"]["router_choices_differ"]
+                                   for g in got],
+         "mesh": list(shape), "cards": cards, "backend": layout.backend,
          "staged": layout.staged, "batch": BATCH, "seq": SEQ,
          "loss": got[0]["loss"], "unsharded_loss": got[0]["check"]["loss"],
          "params_max_abs_diff": max(g["check"]["params_max_abs_diff"]
@@ -4230,6 +4280,10 @@ def main() -> int:
     families = phase_serve_families(torch, dev)
     phase_dryrun(torch, dev, sharded_traffic)
     phase_island(torch, dev)
+    # the MoE/MLA family at full width, depth cut so that both ranks and
+    # each rank's unsharded check fit the card beside each other
+    phase_island(torch, dev, arch_name="olmoe_1b_7b", n_layers=2)
+    phase_island(torch, dev, arch_name="deepseek_v2_lite_16b", n_layers=1)
     for row in rows:
         row["launches"] = launches[row["name"]]
         if row["name"] in serve:        # their launches on the serve paths

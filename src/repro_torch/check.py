@@ -89,18 +89,31 @@ def mismatch_shares(got: dict, want: dict, *, H: int, pure: bool) -> dict:
 # difference can move a value across a rounding boundary of the transport
 # and flip its code: the transported value then differs by one code step
 # (the block's int4 scale, or one bf16 ulp), and the residual, the pending
-# reduce and what they update differ at that entry. So at most this share
-# of a leaf's entries may lie outside the round's tolerance, each finite
-# where the other run is finite and, given the run's ``TransportSteps``,
-# within ``allow`` code steps of it. A bf16 step is 2^-8 of the value,
-# where int4's is a seventh of the block's largest: a last-bit difference
-# of relative size e crosses a bf16 boundary with probability about e·2^8
-# (0.26 % at e = 1e-5), far more often than an int4 one. The largest
-# shares the JAX parity grid of ``tests/test_torch_stream_*.py`` and
-# ``tests/test_torch_streaming.py`` reads: int4 4.7e-4, bf16 1.4e-3. The
-# async runs of ``tests/test_torch_async*.py`` (one flat payload per
-# arrival, six to eight arrivals) are held to the same limits.
+# reduce and what they update differ at that entry. Every entry outside
+# the round's tolerance must be finite where the other run is finite and,
+# given the run's ``TransportSteps``, within ``allow`` code steps of it.
+# Where both runs' sends were recorded (``TransportSteps.explain``), the
+# premise is tested directly: an entry outside is explained when every
+# send at its position whose code differed between the runs was a
+# straddle, the two runs' pre-rounding values on either side of one code
+# boundary and no further apart than the run's float32 bound (atol 1e-5 +
+# rtol 1e-4 of the operand params, the async atol per application);
+# explained entries are counted apart (``TransportSteps.explained``), and
+# at most this share of a leaf's entries may lie outside unexplained. A
+# bf16 step is 2^-8 of the value, where int4's is a seventh of the block's
+# largest: a last-bit difference of relative size e crosses a bf16
+# boundary with probability about e·2^8 (0.26 % at e = 1e-5), far more
+# often than an int4 one, and on a leaf of fewer than 1/limit entries a
+# single unexplained flip breaks the limit. The largest shares the JAX
+# parity grid of ``tests/test_torch_stream_*.py`` and
+# ``tests/test_torch_streaming.py`` read before straddles were counted
+# apart: int4 4.7e-4, bf16 1.4e-3. The async runs of
+# ``tests/test_torch_async*.py`` (one flat payload per arrival, six to
+# eight arrivals) are held to the same limits.
 TRANSPORT_FLIP_SHARE = {"float32": 0.0, "int4": 1e-3, "bfloat16": 5e-3}
+# the float32 bound a straddle's two pre-rounding values may lie apart:
+# atol + rtol · |operand param| (an async send: atol per application)
+STRADDLE_ATOL, STRADDLE_RTOL = 1e-5, 1e-4
 
 
 class TransportSteps:
@@ -135,7 +148,17 @@ class TransportSteps:
     workers. A flipped code moves the applied value by at most one step
     times the arrival's weight (≤ 1), and the outer step carries it as in
     a round: the same ``allow``. An arrival's delta is taken against its
-    own snapshot, so a shifted global shifts both terms alike."""
+    own snapshot, so a shifted global shifts both terms alike.
+
+    On the packed sharded transport a send is a region of the band
+    through ``pod_collectives.encode_wire``, which it wraps too (the int4
+    blocks start at the region); each pod rank records its own band's
+    sends (``record``), held together by ``of_ranks``.
+
+    Each send's pre-rounding values are kept too (``sends``: per replica,
+    the window of the leaf, or the flat payload, the transport rounded,
+    beside the operand params' magnitudes there), so that ``explain`` can
+    hold them against another run's sends of the same rounds."""
 
     def __init__(self, params, dcfg):
         from .core import streaming
@@ -154,6 +177,16 @@ class TransportSteps:
         self.allow = 1.0 + float(dcfg.outer_lr) * (
             1.0 + float(dcfg.outer_momentum))
         self._send = None
+        self._params = tree.leaves(params)
+        self.sends = []
+        # per leaf and replica row, the positions where a send's code
+        # differed from the other run's: explained straddles, other flips
+        self.straddles = self.flips = None
+        self.explained = {}          # leaf path -> entries explained
+        # the flips no straddle explains: (send, replica row, flat
+        # position in the leaf or payload, leaf index or None, this run's
+        # value, the other's, their float32 bound, codes apart)
+        self.unexplained = []
 
     def __enter__(self):
         from .core import streaming
@@ -162,22 +195,44 @@ class TransportSteps:
             encode = self._saved = ops.wire_encode
 
             def wire_encode(x, dtype, **kw):
-                self._record_flat(x.detach().cpu().numpy().reshape(-1))
+                flat = x.detach().cpu().numpy().reshape(-1)
+                self._record_flat(flat)
+                ref = np.concatenate([np.abs(t.detach().cpu().numpy())
+                                      .reshape(-1) for t in self._params])
+                self.sends.append({"leaf": None, "a": 0, "x": flat[None],
+                                   "ref": ref, "atol": STRADDLE_ATOL * (
+                                       len(self.sends) + 1)})
                 return encode(x, dtype, **kw)
 
             ops.wire_encode = wire_encode
             return self
-        window, prune, quant = (streaming._send_window, ops.sign_prune,
-                                ops.quant_roundtrip)
-        self._saved = window, prune, quant
+        from .core import pod_collectives
+        window, prune, quant, wire = (streaming._send_window, ops.sign_prune,
+                                      ops.quant_roundtrip,
+                                      pod_collectives.encode_wire)
+        self._saved = window, prune, quant, wire
+        windows = []                 # the packed sender's, in region order
 
         def send_window(leaf, reg, qdtype, pr):
             w = window(leaf, reg, qdtype, pr)
             off = 0 if w[0] is None else w[0] * (self.n[reg.leaf]
                                                  // int(leaf.shape[0]))
             self._send = {"leaf": reg.leaf, "a": w[2], "off": off,
-                          "thr": None}
+                          "thr": None, "ref": np.abs(
+                              leaf.detach().cpu().numpy().reshape(-1)
+                              [w[2]:w[3]])}
+            windows.append(self._send)
             return w
+
+        def encode_wire(d_regions, dtype, **kw):
+            # the packed sharded sender: one (k_loc, n) region a window
+            # of the last ones taken, its int4 blocks from the region on
+            for d, win in zip(d_regions, windows[-len(d_regions):]):
+                self._send = win
+                self._record(d.detach().cpu().numpy())
+            windows.clear()
+            self._send = None
+            return wire(d_regions, dtype, **kw)
 
         def sign_prune(x, frac, **kw):
             out = prune(x, frac, **kw)
@@ -192,22 +247,53 @@ class TransportSteps:
                 self._record(x.detach().cpu().numpy().reshape(x.shape[0],
                                                               -1))
                 self._send = None
+                windows.clear()
             return quant(x, dtype, **kw)
 
         streaming._send_window = send_window
         ops.sign_prune = sign_prune
         ops.quant_roundtrip = quant_roundtrip
+        pod_collectives.encode_wire = encode_wire
         return self
 
     def __exit__(self, *exc):
-        from .core import streaming
+        from .core import pod_collectives, streaming
         from .kernels import ops
         if self.flat:
             ops.wire_encode = self._saved
             return False
-        (streaming._send_window, ops.sign_prune,
-         ops.quant_roundtrip) = self._saved
+        (streaming._send_window, ops.sign_prune, ops.quant_roundtrip,
+         pod_collectives.encode_wire) = self._saved
         return False
+
+    def record(self) -> dict:
+        """What the run's sends left: picklable, for a pod rank to hand to
+        the process that holds the runs against each other
+        (``of_ranks``)."""
+        return {"sends": self.sends, "step": self.step}
+
+    @classmethod
+    def of_ranks(cls, params, dcfg, ref: list, other: list):
+        """The steps of a sharded run whose pod ranks recorded their own
+        bands' sends (``record``, rank by rank: the reference run's
+        ``ref`` and the other run's ``other``), each rank's sends
+        explained against the same rank's of the other run: the largest
+        step, and a straddle or another flip, at a position on any
+        rank."""
+        out = cls(params, dcfg)
+        out.straddles = [np.zeros(st.shape, bool) for st in out.step]
+        out.flips = [np.zeros(st.shape, bool) for st in out.step]
+        for a, b in zip(ref, other):
+            mine, theirs = cls(params, dcfg), cls(params, dcfg)
+            mine.sends, mine.step = a["sends"], a["step"]
+            theirs.sends = b["sends"]
+            mine.explain(theirs)
+            for li in range(len(out.step)):
+                np.maximum(out.step[li], mine.step[li], out=out.step[li])
+                out.straddles[li] |= mine.straddles[li]
+                out.flips[li] |= mine.flips[li]
+            out.unexplained += mine.unexplained
+        return out
 
     def _code_steps(self, x):
         """(k, w) values sent -> the step of the code each one took."""
@@ -234,6 +320,8 @@ class TransportSteps:
     def _record(self, x):
         k, w = x.shape
         s = self._send
+        self.sends.append({"leaf": s["leaf"], "a": s["a"], "x": x.copy(),
+                           "ref": s["ref"], "atol": STRADDLE_ATOL})
         step = self._code_steps(x)
         if s["thr"] is not None:
             cols = self.cols[s["leaf"]]
@@ -241,25 +329,118 @@ class TransportSteps:
             thr = s["thr"].reshape(k, -1)[:, rows]
             step = step + np.where(np.isfinite(thr), thr, 0.0)
         tgt = self.step[s["leaf"]][:, s["a"]:s["a"] + w]
+        if k != tgt.shape[0]:          # a pod rank's band of the replicas
+            step = step.max(axis=0, keepdims=True)
         np.maximum(tgt, step, out=tgt)
 
-    def of(self, path: str, size: int):
+    def _codes(self, x):
+        """(k, w) values -> each one's transport code as an ordered integer
+        (int4: the code of its 128-entry block; bfloat16: the bf16 value's
+        rank among the bf16 numbers), so that one code boundary lies
+        between two values exactly when their codes differ by one."""
+        if self.dtype == "int4":
+            k, w = x.shape
+            blk = QUANT_BLOCK
+            pad = np.zeros((k, -(-w // blk) * blk), np.float32)
+            pad[:, :w] = x
+            rows = pad.reshape(-1, blk)
+            amax = np.abs(rows).max(axis=1, keepdims=True)
+            scale = amax * np.float32(INV_INT4_LEVELS)
+            q = np.rint(rows / np.where(scale > 0, scale, np.float32(1)))
+            return np.clip(q, -7, 7).reshape(k, -1)[:, :w].astype(np.int64)
+        bits = (np.ascontiguousarray(x, np.float32).view(np.uint32)
+                + np.uint32(0x7FFF) + ((np.ascontiguousarray(
+                    x, np.float32).view(np.uint32) >> 16) & 1)) >> 16
+        mag = (bits & 0x7FFF).astype(np.int64)
+        return np.where(bits & 0x8000, -mag, mag)
+
+    def explain(self, other):
+        """Hold this run's sends against ``other``'s, the same rounds run
+        elsewhere: another ``TransportSteps`` (its sends paired in order)
+        or a list of 1-D rows of pre-rounding values (each a replica's
+        whole leaf, or a flat payload, as the JAX package quantizes them;
+        each window of this run is paired with the row of that size that
+        lies nearest it). At every position whose code differs between
+        the two runs, records whether the send was a straddle (the codes
+        one apart, the values within the send's float32 bound: ``atol`` +
+        ``STRADDLE_RTOL`` · |operand param|) or another flip; the
+        tolerance checks then count the entries explained apart."""
+        shape = lambda st: np.zeros(st.shape, bool)
+        self.straddles = [shape(st) for st in self.step]
+        self.flips = [shape(st) for st in self.step]
+        rows = None if isinstance(other, TransportSteps) else \
+            [np.asarray(r, np.float32).reshape(-1) for r in other]
+        if rows is None and len(other.sends) != len(self.sends):
+            raise ValueError(f"{len(self.sends)} sends against "
+                             f"{len(other.sends)}")
+        for n, s in enumerate(self.sends):
+            x = s["x"]
+            w = x.shape[1]
+            if rows is None:
+                theirs = other.sends[n]["x"]
+            else:
+                size = w if s["leaf"] is None else self.n[s["leaf"]]
+                cands = [r[s["a"]:s["a"] + w] for r in rows
+                         if r.size == size]
+                if not cands:
+                    raise ValueError(f"no send of {size} entries to pair")
+                theirs = np.stack([min(cands, key=lambda c: float(
+                    np.abs(c - row).max())) for row in x])
+            dc = np.abs(self._codes(x) - self._codes(theirs))
+            bound = s["atol"] + STRADDLE_RTOL * s["ref"]
+            near = np.abs(x.astype(np.float64) - theirs) <= bound
+            ok, bad = (dc == 1) & near, (dc > 0) & ~((dc == 1) & near)
+            for row, col in zip(*np.nonzero(bad)):
+                self.unexplained.append(
+                    (n, int(row), s["a"] + int(col), s["leaf"],
+                     float(x[row, col]), float(theirs[row, col]),
+                     float(np.broadcast_to(bound, x.shape[-1:])[col]),
+                     int(dc[row, col])))
+            if s["leaf"] is not None:
+                li, a = s["leaf"], s["a"]
+                if ok.shape[0] != self.step[li].shape[0]:   # a rank's band
+                    ok = ok.any(axis=0, keepdims=True)
+                    bad = bad.any(axis=0, keepdims=True)
+                self.straddles[li][:, a:a + w] |= ok
+                self.flips[li][:, a:a + w] |= bad
+                continue
+            off = 0
+            for li, n_li in enumerate(self.n):
+                self.straddles[li][0] |= ok[0, off:off + n_li]
+                self.flips[li][0] |= bad[0, off:off + n_li]
+                off += n_li
+
+    def explained_at(self, path: str, size: int):
+        """After ``explain``: for the state leaf at ``path`` of ``size``
+        entries, whether each entry's position saw a straddle and no other
+        flip (``of``'s layout); None for a leaf that holds no transported
+        value, or before ``explain``."""
+        if self.straddles is None:
+            return None
+        ok = self.of(path, size, self.straddles)
+        if ok is None:
+            return None
+        return ok & ~self.of(path, size, self.flips)
+
+    def of(self, path: str, size: int, table=None):
         """For the state leaf at ``path`` (a path of
         ``convert.stream_state_to_numpy``'s form) of ``size`` entries, the
         largest step any replica took at each of its positions, flattened
         (repeated over the leading k of a per-replica leaf; the band's for
         an in-flight payload); None for a leaf that holds no transported
-        value (armed, masks, counters)."""
+        value (armed, masks, counters). ``table``: per leaf and replica
+        row, another record of the sends to read the same way."""
+        table = self.step if table is None else table
         parts = path.split(".")
         if self.flat and parts[-1] == "residual":
-            return np.concatenate([st.max(axis=0) for st in self.step])
+            return np.concatenate([st.max(axis=0) for st in table])
         if parts[0] == "inflight":
             if parts[2] != "payload":
                 return None
             li = int(parts[3])
             reg = next(r for r in self.regions[int(parts[1])]
                        if r.leaf == li)
-            step = self.step[li].max(axis=0)
+            step = table[li].max(axis=0)
             if reg.start is not None:
                 step = step[reg.start * self.per[li]:reg.stop * self.per[li]]
         else:
@@ -268,7 +449,7 @@ class TransportSteps:
                        if path.endswith("." + p)), None)
             if li is None:
                 return None
-            step = self.step[li].max(axis=0)
+            step = table[li].max(axis=0)
         return np.tile(step, size // step.size)
 
 
@@ -289,10 +470,12 @@ def _paired(got: dict, want: dict) -> list:
 
 def _share_outside(path, a, b, tol, steps) -> float:
     """The share of ``a``'s entries further than ``tol`` from ``b``'s (float
-    leaves, bf16 as uint16 bits); 1.0 when they disagree on being finite,
-    or, given the ``steps`` recorded over the reference run, when an entry
-    outside lies more than ``steps.allow`` code steps (``TransportSteps``)
-    beyond the tolerance."""
+    leaves, bf16 as uint16 bits), but for the entries that the ``steps``
+    recorded over the reference run explain as straddles
+    (``TransportSteps.explained_at``; their count goes to
+    ``steps.explained[path]``); 1.0 when they disagree on being finite,
+    or when an entry outside lies more than ``steps.allow`` code steps
+    (``TransportSteps``) beyond the tolerance."""
     a, b = _values(a), _values(b)
     diff = np.abs(a - b)
     out = ~(diff <= tol)
@@ -305,6 +488,11 @@ def _share_outside(path, a, b, tol, steps) -> float:
                                 b.shape)
         if (diff[out] > bound[out]).any():
             return 1.0
+        ok = steps.explained_at(path, b.size)
+        if ok is not None:
+            ok = out & ok.reshape(b.shape)
+            steps.explained[path] = int(ok.sum())
+            out = out & ~ok
     return float(np.mean(out))
 
 

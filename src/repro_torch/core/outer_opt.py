@@ -13,7 +13,7 @@ import torch
 
 from .. import tree
 from ..kernels import ops
-from ..kernels.ref import device_scalar, f32
+from ..kernels.ref import device_scalar, f32, sqrt_rn
 
 
 class OuterState(NamedTuple):
@@ -65,7 +65,7 @@ def update(delta, state: OuterState, params, *, kind: str, lr: float,
             for p, d, m, v in zip(ps, ds, bs, b2s):
                 m.copy_(mu * m + f32(1 - momentum) * d)
                 v.copy_(f32(b2) * v + f32(1 - b2) * d * d)
-                p.copy_(p - lr * (m / c1t) / (torch.sqrt(v / c2t)
+                p.copy_(p - lr * (m / c1t) / (sqrt_rn(v / c2t)
                                               + f32(eps)))
         else:
             raise ValueError(kind)

@@ -33,6 +33,17 @@ def device_scalar(x, like: torch.Tensor) -> torch.Tensor:
     return torch.full((), f32(x), dtype=torch.float32, device=like.device)
 
 
+def sqrt_rn(x: torch.Tensor) -> torch.Tensor:
+    """The correctly rounded square root of ``x`` on every device, as XLA's
+    and CUDA's roots are. The CPU's float32 ``torch.sqrt`` is not (one ulp
+    off on some inputs), so a float32 root off the card is taken in
+    float64 and rounded once: a float64 root of a float32 value rounds to
+    the correctly rounded float32 root (53 ≥ 2·24 + 2 bits)."""
+    if x.dtype != torch.float32 or x.device.type == "cuda":
+        return torch.sqrt(x)
+    return torch.sqrt(x.double()).float()
+
+
 def _adamw_f32(w, g, m, v, *, lr, b1, b2, eps, weight_decay, c1, c2):
     """The f32 maths shared by both AdamW steps: (w_new, m_new, v_new)
     from f32 (w, g, m, v), in the order of ``_adamw_kernel``
@@ -41,7 +52,7 @@ def _adamw_f32(w, g, m, v, *, lr, b1, b2, eps, weight_decay, c1, c2):
     c1t, c2t = device_scalar(c1, w), device_scalar(c2, w)
     m_new = f32(b1) * m + f32(1.0 - b1) * g
     v_new = f32(b2) * v + f32(1.0 - b2) * g * g
-    step = (m_new / c1t) / (torch.sqrt(v_new / c2t) + f32(eps)) \
+    step = (m_new / c1t) / (sqrt_rn(v_new / c2t) + f32(eps)) \
         + f32(weight_decay) * w
     return w - f32(lr) * step, m_new, v_new
 

@@ -35,8 +35,9 @@ once), the collectives (per chip), ``comm_analysis.roofline`` on the
 H100's rates, and the memory per chip against the card's
 (``comm_analysis.memory_items``).
 
-Within an island, the dense and cross-attention families (dense, vlm,
-encdec: ``ISLAND_FAMILIES``) run as JAX's GSPMD lowering runs them, FSDP×TP
+Within an island, the dense, cross-attention and MoE/MLA families
+(dense, vlm, encdec, moe: ``ISLAND_FAMILIES``) run as JAX's GSPMD lowering
+runs them, FSDP×TP
 on the island's (data, model) mesh: the train, prefill and decode
 functions take params, moments, batch and caches as DTensors of meta
 blocks laid out by the specs (``sharding/spec.py``: ``param_pspec``,
@@ -53,11 +54,15 @@ island variants (``cast_outside_mb``, ``decode_kv_shard``,
 a ``CountingGroup`` for the pods and the same island mesh within each:
 the inner step's collectives are all within the island. The elementwise
 outer update and gossip exchange run none (``intra_pod_bytes`` 0); the
-streaming round's inner steps are counted unsharded. The MoE/MLA, Mamba2
-and xLSTM families run unsharded within an island: their records say
-so (``intra_pod_bytes`` None, ``intra_pod`` naming the family), their
-temporaries are divided by the batch's mesh axes, and the island
-variants are refused for them by family.
+streaming round's inner steps are counted unsharded. The MoE tokens are
+grouped by the data axis's size (``moe_groups``): JAX's three dispatch
+constrain sites lay the groups over "data" and the experts over "model"
+(``models/moe.py``); MLA keeps its heads over "model" and, at decode,
+its latent ring's features where ``cache_pspec`` puts them. The Mamba2
+(hybrid) and xLSTM (ssm) families run unsharded within an island: their
+records say so (``intra_pod_bytes`` None, ``intra_pod`` naming the
+family), their temporaries are divided by the batch's mesh axes, and the
+island variants are refused for them by family.
 
 What the JAX dry run has and this one does not: XLA's own cost analysis
 (``xla_flops``, ``xla_bytes``). Kernel modes: ``auto`` counts each kernel
@@ -94,9 +99,9 @@ from ..models.registry import ARCH_NAMES, Arch, get_arch
 from ..obs import metrics as obs_metrics
 from ..optim import adamw
 from ..sharding.spec import (MeshShape, batch_pspec, cache_pspec,
-                             contiguous_strides, distribute, entry_axes,
-                             is_dtensor, island_mesh, on_mesh, param_pspec,
-                             production_mesh, shard_bytes, shard_params)
+                             distribute, entry_axes, is_dtensor, island_mesh,
+                             on_mesh, param_pspec, production_mesh,
+                             shard_bytes, shard_params)
 from . import comm_analysis as C
 from .op_cost import counting
 
@@ -113,11 +118,9 @@ ISLAND_ONLY_VARIANTS = ("cast_outside_mb", "decode_kv_shard",
                         "seq_parallel", "no_act_shard")
 VARIANTS = ("fsdp", "pure_dp", "remat", "microbatches",
             "moe_groups") + ISLAND_ONLY_VARIANTS
-# the families whose models run on an island's DTensors (FSDP×TP): those
-# that PyTorch's sharding propagation carries unchanged
-ISLAND_FAMILIES = ("dense", "vlm", "encdec")
-_FAMILY_NAMES = {"moe": "MoE/MLA", "hybrid": "Mamba2 (zamba2)",
-                 "ssm": "xLSTM"}
+# the families whose models run on an island's DTensors (FSDP×TP)
+ISLAND_FAMILIES = ("dense", "vlm", "encdec", "moe")
+_FAMILY_NAMES = {"hybrid": "Mamba2 (zamba2)", "ssm": "xLSTM"}
 # the mesh type the island's collectives are chosen for (the H100's; the
 # DTensors hold meta blocks, so nothing runs on a card)
 ISLAND_DEVICE = "cuda"
@@ -169,25 +172,22 @@ def _meta_like(t, dtype=None):
 
 
 def _microbatch(x, i: int, mb: int):
-    """Microbatch i of mb of batch leaf ``x``: rows i·B/mb .. of a plain
-    tensor; of an island's DTensor (rows sharded over the batch's mesh
-    axes), microbatch i of each rank's own rows (the same mean over the
-    batch; nothing moves between ranks). With more than one data rank
-    that groups the rows otherwise than JAX's contiguous split
-    ``x.reshape((mb, B // mb) + ...)`` (``build_train_step`` of
-    ``src/repro/launch/dryrun.py``), whose microbatch i is rows i·B/mb ..
-    of the global batch, and which GSPMD's lowering may move between
-    ranks."""
+    """Microbatch i of mb of batch leaf ``x``: rows i·B/mb .. of the batch
+    (JAX's contiguous split ``x.reshape((mb, B // mb) + ...)``,
+    ``build_train_step`` of ``src/repro/launch/dryrun.py``). Of an island's
+    DTensor (rows sharded over the batch's mesh axes) the rows are gathered
+    and the microbatch's rows laid out as the batch's were: the rows a
+    microbatch groups matter to a loss that is not a mean over rows (the
+    MoE's load-balancing term, its per-group capacity)."""
+    B = x.shape[0]
     if not is_dtensor(x):
-        B = x.shape[0]
         return x[i * B // mb:(i + 1) * B // mb]
-    from torch.distributed.tensor import DTensor
-    block = x.to_local()
-    b = block.shape[0] // mb
-    shape = (x.shape[0] // mb,) + tuple(x.shape[1:])
-    return DTensor.from_local(block[i * b:(i + 1) * b], x.device_mesh,
-                              x.placements, run_check=False, shape=shape,
-                              stride=contiguous_strides(shape))
+    from torch.distributed.tensor import Replicate
+    mesh, pl = x.device_mesh, x.placements
+    whole = x.redistribute(mesh, [Replicate()] * mesh.ndim)
+    sub = whole[i * B // mb:(i + 1) * B // mb]
+    split = math.prod(mesh.size(a) for a, q in enumerate(pl) if q.is_shard())
+    return sub.redistribute(mesh, pl) if (B // mb) % split == 0 else sub
 
 
 def _like(g, a):
@@ -570,7 +570,8 @@ def fake_world(n: int):
 
 def island_step_cost(cfg, batch: int, seq: int, shape: tuple) -> dict:
     """``op_cost`` of one island train step (``build_train_step``, one
-    microbatch) of the model ``cfg`` on a (data, model) mesh of ``shape``,
+    microbatch, the MoE tokens grouped by the data axis's size) of the
+    model ``cfg`` on a (data, model) mesh of ``shape``,
     on meta blocks at ``batch`` × ``seq`` tokens: the counts one chip of
     the island makes (its collectives, its live storage), laid out as
     ``launch/island.py`` lays out a real run. Its ``argument_bytes`` are
@@ -589,8 +590,8 @@ def island_step_cost(cfg, batch: int, seq: int, shape: tuple) -> dict:
                 tree.map(torch.zeros_like, params), 0, {"tokens": tokens})
         held = sum(t.to_local().numel() * t.element_size()
                    for x in args for t in tree.leaves(x) if is_dtensor(t))
-        cost = _count(build_train_step(arch, cfg, groups=1, microbatches=1),
-                      args)
+        cost = _count(build_train_step(arch, cfg, groups=shape[0],
+                                       microbatches=1), args)
     cost["argument_bytes"] = held
     return cost
 

@@ -10,12 +10,19 @@ the ones the dry run counts.
     results = mesh.spawn("repro_torch.launch.island:train_steps", layout,
                          (data, model), cases)
 
+(``serve_steps`` runs a prefill and decode steps the same way, the
+cache laid out by ``cache_pspec``.)
+
 Each case is a dict: ``cfg`` (a ``ModelConfig``), ``params``, ``v``
 (AdamW's second moments the step starts from) and ``batch`` (numpy
 trees: every rank holds the same full values and keeps its own block,
 ``spec.distribute``) or ``init_seed`` and ``tokens_shape``
 (``seeded_case``: each rank draws them itself), and optionally
-``microbatches`` and ``cast_outside_mb``. The first moments start at 0.
+``microbatches`` and ``cast_outside_mb``. The step groups an MoE model's
+tokens by the data axis's size (``groups``, as the dry run's island
+records do, one group a data rank; capacity is per group), and the
+unsharded step it is held to groups them alike. The first moments start
+at 0.
 On ranks that share a card (gloo, buffers staged through the host:
 ``launch/mesh.make_pod_layout``) every collective of the step runs on
 host copies (``_HostStaged``). Every rank returns per case its
@@ -25,13 +32,15 @@ what it held before its arguments, and the loss; rank 0 also returns the
 params and AdamW's first moments after the step, gathered (numpy), or,
 with ``check`` (a seeded case: {"atol", "rtol", "m_rel"}), every rank the
 comparison of its blocks with the unsharded step of the same case, run
-on its own device afterwards (``_against_unsharded``).
+on its own device afterwards (``_against_unsharded``; for an MoE model
+also how many of its groups' (token, k) router choices differ).
 """
 from __future__ import annotations
 
 import contextlib
 
 import torch
+import torch.distributed as dist
 from torch.utils._python_dispatch import TorchDispatchMode
 
 from .. import convert, tree
@@ -123,7 +132,7 @@ def train_steps(group, shape, cases) -> list:
                      else torch.from_numpy(x).to(dev)
                      for n, x in case["batch"].items()}
         step = dryrun.build_train_step(
-            Arch(cfg=cfg), cfg, groups=1,
+            Arch(cfg=cfg), cfg, groups=shape[0],
             microbatches=case.get("microbatches", 1),
             cast_outside_mb=case.get("cast_outside_mb", False))
         args = sharded_args(cfg, params, v, batch, mesh)
@@ -142,7 +151,8 @@ def train_steps(group, shape, cases) -> list:
         staged = _HostStaged() if group.staged else contextlib.nullcontext()
         # the log sees each collective as the step issues it, before it
         # is staged
-        with staged, op_cost.collective_log() as log:
+        with staged, op_cost.collective_log() as log, \
+                _router_choices() as picks:
             new, m, _, _, loss = step(*args)
         res = {"collectives": list(log)}
         if dev.type == "cuda":
@@ -151,8 +161,24 @@ def train_steps(group, shape, cases) -> list:
         with staged:
             loss = loss.full_tensor() if spec.is_dtensor(loss) else loss
         res["loss"] = float(loss)
+        # the step wrote the params and moments in place: what it returned
+        # is all that is kept (the second moments and the batch go)
+        del args
         if "check" in case:
-            res["check"] = _against_unsharded(cfg, case, step, new, m, dev)
+            if dev.type == "cuda":
+                torch.cuda.empty_cache()
+            # ranks that share a card take turns: each one's unsharded step
+            # holds the whole model's state beside the others' blocks
+            turns = group.pods if dev.type == "cuda" and group.staged \
+                else 1
+            for turn in range(turns):
+                if turns == 1 or turn == group.rank:
+                    res["check"] = _against_unsharded(
+                        cfg, case, step, new, m, dev, picks, mesh)
+                    if dev.type == "cuda":
+                        torch.cuda.empty_cache()
+                if turns > 1:
+                    dist.barrier()
         else:
             with staged:
                 full = tree.map(lambda t: t.full_tensor(), new)
@@ -161,27 +187,96 @@ def train_steps(group, shape, cases) -> list:
                 res["params"] = convert.params_to_numpy(full)
                 res["m"] = convert.params_to_numpy(full_m)
             del full, full_m
-        del args, new, m
+        del new, m
         out.append(res)
     return out
 
 
-def _against_unsharded(cfg, case, step, params, m, dev) -> dict:
+@contextlib.contextmanager
+def _router_choices():
+    """The MoE router's top-k choices ((groups, tokens, K) expert indices,
+    on the host) of every ``moe._topk_iterative`` call within the block,
+    in call order."""
+    from ..models import moe
+    picks, topk = [], moe._topk_iterative
+
+    def spy(probs, K):
+        out = topk(probs, K)
+        picks.append(out[1].detach().cpu())
+        return out
+    moe._topk_iterative = spy
+    try:
+        yield picks
+    finally:
+        moe._topk_iterative = topk
+
+
+def serve_steps(group, shape, cases) -> list:
+    """A prefill and decode steps of each case on this rank's blocks (a
+    pod-group target, as ``train_steps``): the params laid out by
+    ``param_pspec``, the prompt and each new token over the activations'
+    batch axes, the cache as ``cache_pspec`` lays it (``models.model.
+    prefill`` on an island mesh), the MoE tokens grouped by the data
+    axis's size. Each case: ``cfg``, ``params`` (numpy), ``tokens`` (B, S)
+    the prompt, ``next`` (B, n) the tokens decoded one at a time. Returns
+    per case, on rank 0, the float32 logits (numpy) of the prompt's last
+    position and of each decode step, gathered; {} on the other ranks."""
+    from ..models.model import decode_step, prefill
+    dev = group.device
+    mesh = spec.island_mesh(tuple(shape), ("data", "model"), dev.type)
+    staged = _HostStaged() if group.staged else contextlib.nullcontext()
+    out = []
+    for case in cases:
+        cfg = case["cfg"]
+        params = spec.shard_params(
+            convert.params_from_numpy(case["params"], device=dev),
+            param_axes(cfg), mesh)
+        ba = tuple(cfg.act_batch_axes)
+        lay = lambda x: spec.distribute(
+            torch.from_numpy(x).long().to(dev),
+            (ba if len(ba) > 1 else ba[0], None), mesh)
+        prompt, nxt = case["tokens"], case["next"]
+        S = prompt.shape[1]
+        logits = []
+        with torch.no_grad(), staged, spec.on_mesh(params):
+            lg, cache = prefill(params, cfg, lay(prompt),
+                                cache_len=S + nxt.shape[1], groups=shape[0])
+            logits.append(lg[:, -1].full_tensor().float())
+            for i in range(nxt.shape[1]):
+                lg, cache = decode_step(params, cfg, cache,
+                                        lay(nxt[:, i:i + 1].copy()), S + i,
+                                        groups=shape[0])
+                logits.append(lg[:, -1].full_tensor().float())
+        out.append({"logits": [x.cpu().numpy() for x in logits]}
+                   if group.rank == 0 else {})
+        del params, cache
+    return out
+
+
+def _against_unsharded(cfg, case, step, params, m, dev, picks,
+                       mesh) -> dict:
     """The unsharded step of a seeded case on this rank's device, held
     against this rank's blocks of the sharded step's ``params`` and first
     moments ``m`` (nothing gathered): the unsharded loss; the largest
     differences; the param entries beyond ``case["check"]``'s (atol, rtol)
     bound; the leaves whose first moments differ by more than ``m_rel`` of
-    the leaf's largest |m|, and the largest such ratio."""
+    the leaf's largest |m|, and the largest such ratio; and of an MoE
+    model the (token, k) router choices of this rank's groups that differ
+    from the unsharded step's (``picks``: the sharded step's, in call
+    order; a near-tie decided otherwise by TP's reordered sums)."""
     atol, rtol, m_rel = (case["check"][k] for k in ("atol", "rtol",
                                                     "m_rel"))
     p0, v0, batch = seeded_case(cfg, case["init_seed"],
                                 case["tokens_shape"], dev)
-    want, want_m, _, _, loss = step(p0, tree.map(torch.zeros_like, p0), v0,
-                                    0, batch)
+    with _router_choices() as want_picks:
+        want, want_m, _, _, loss = step(p0, tree.map(torch.zeros_like, p0),
+                                        v0, 0, batch)
     out = {"loss": float(loss), "entries": 0, "params_max_abs_diff": 0.0,
            "params_beyond": 0, "m_max_abs_diff": 0.0, "m_rel_max": 0.0,
-           "m_leaves_beyond": 0}
+           "m_leaves_beyond": 0,
+           "router_choices": sum(t.numel() for t in picks),
+           "router_choices_differ": _choices_differ(picks, want_picks,
+                                                    mesh)}
     with torch.no_grad():
         for a, w, am, wm in zip(tree.leaves(params), tree.leaves(want),
                                 tree.leaves(m), tree.leaves(want_m)):
@@ -199,3 +294,20 @@ def _against_unsharded(cfg, case, step, params, m, dev) -> dict:
             out["m_rel_max"] = max(out["m_rel_max"], rel)
             out["m_leaves_beyond"] += int(rel > m_rel)
     return out
+
+
+def _choices_differ(picks, want, mesh) -> int:
+    """The (token, k) choices of ``picks`` (this rank's groups) that differ
+    from ``want``'s at the same calls (every group; this rank's are the
+    data rank's share of them, in order)."""
+    if len(picks) != len(want):
+        raise ValueError(f"{len(picks)} router calls against {len(want)}")
+    names = list(mesh.mesh_dim_names)
+    r = mesh.get_local_rank(names.index("data")) if "data" in names else 0
+    n = 0
+    for got, ref in zip(picks, want):
+        g = got.shape[0]
+        if g != ref.shape[0]:
+            ref = ref[r * g:(r + 1) * g]
+        n += int((got != ref).sum())
+    return n

@@ -74,7 +74,8 @@ from torch.utils._pytree import tree_flatten
 aten = torch.ops.aten
 
 _MATMUL = {aten.mm.default, aten.bmm.default, aten.addmm.default,
-           aten.baddbmm.default, aten.mv.default, aten.dot.default}
+           aten.baddbmm.default, aten.mv.default, aten.dot.default,
+           aten.mm.dtype, aten.bmm.dtype}
 _GATHER = {aten.index.Tensor, aten.index_put.default, aten.index_put_.default,
            aten._index_put_impl_.default, aten.index_select.default,
            aten.index_add.default, aten.index_add_.default,

@@ -29,12 +29,13 @@ bit.
 """
 from __future__ import annotations
 
+import contextlib
 import hashlib
 
 import numpy as np
 import torch
 
-from .. import convert, resilience, tree
+from .. import check, convert, resilience, tree
 from ..checkpoint import checkpoint as ckpt
 from ..core import diloco, pod_collectives, streaming
 from ..kernels import ops as kops
@@ -63,10 +64,12 @@ def shared_digest(state) -> str:
 
 
 def rounds(group, model_cfg, dcfg, tcfg, tokens, masks, params=None,
-           state=None, snapshot=None):
+           state=None, snapshot=None, record_sends=False):
     """``len(masks)`` sharded rounds on this rank, from the full
     ``state`` (a port ``StreamState``, banded here) or, without one, from
-    ``params`` (``streaming.init_state``). See the module's doc."""
+    ``params`` (``streaming.init_state``). With ``record_sends`` the rank
+    also returns its sends (``check.TransportSteps.record``), for the
+    transport's flip rule. See the module's doc."""
     dev = group.device
     arch = Arch(cfg=model_cfg)
     if state is None:
@@ -79,9 +82,12 @@ def rounds(group, model_cfg, dcfg, tcfg, tokens, masks, params=None,
                             lambda r, b, s: tokens[r].to(dev), dcfg, tcfg,
                             batch_size=B, seq_len=S, group=group)
     metrics = []
-    for r, (drop, act, w) in enumerate(masks):
-        state, m = rnd(state, r, drop, act, w)
-        metrics.append({name: float(v) for name, v in m.items()})
+    steps = check.TransportSteps(state.base.global_params, dcfg) \
+        if record_sends else contextlib.nullcontext()
+    with steps:
+        for r, (drop, act, w) in enumerate(masks):
+            state, m = rnd(state, r, drop, act, w)
+            metrics.append({name: float(v) for name, v in m.items()})
     traffic = dict(group.traffic)
     launches = kops.launch_counts()
     # deferred gathers issued but not yet waited for: those whose apply
@@ -97,7 +103,8 @@ def rounds(group, model_cfg, dcfg, tcfg, tokens, masks, params=None,
     return {"rank": group.rank, "metrics": metrics, "traffic": traffic,
             "launches": launches, "shared": digest, "unwaited": unwaited,
             "state": None if full is None
-            else convert.stream_state_to_numpy(full, dcfg)}
+            else convert.stream_state_to_numpy(full, dcfg),
+            "sends": steps.record() if record_sends else None}
 
 
 def packed_means(group, params, d, m, cases):

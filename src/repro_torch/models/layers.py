@@ -36,6 +36,129 @@ def _count(n: int = 1):
 
 
 # ---------------------------------------------------------------------------
+# products accumulated in float32
+# ---------------------------------------------------------------------------
+
+def f32_product(eq: str, a, b):
+    """``torch.einsum(eq, a, b)`` accumulated and returned in float32, as
+    the JAX einsum with ``preferred_element_type=jnp.float32`` computes it:
+    on float32 operands the plain einsum; on bf16 operands the einsum of
+    their float32 values (a product of two bf16 values is exact in float32,
+    so only the order of the sums differs from JAX's), never a bf16 result
+    widened afterwards. Where no gradient is taken, bf16 operands on the
+    card (or on meta tensors, which count the card's work) go through
+    cuBLAS's bf16 GEMM that writes float32 instead (``_gemm_f32``)."""
+    if a.dtype == torch.float32 and b.dtype == torch.float32:
+        return torch.einsum(eq, a, b).float()
+    if eq in _AS_GEMM and _gemm_f32_ok(a, b):
+        out = _AS_GEMM[eq](a, b)
+        if out is not None:
+            return out
+    return torch.einsum(eq, a.float(), b.float())
+
+
+def f32_matmul(x, w):
+    """``x @ w`` (w 2-D) accumulated and returned in float32, as
+    ``f32_product``."""
+    if x.dtype == torch.float32 and w.dtype == torch.float32:
+        return (x @ w).float()
+    if _gemm_f32_ok(x, w):
+        out = _rows_gemm(x, w)
+        if out is not None:
+            return out
+    return x.float() @ w.float()
+
+
+# whether this build's ``torch.mm``/``torch.bmm`` take ``out_dtype`` (bf16
+# operands, float32 result; forward only: the op has no backward)
+_OUT_DTYPE = [True]
+
+
+def _gemm_f32_ok(a, b) -> bool:
+    return (_OUT_DTYPE[0] and a.dtype == b.dtype == torch.bfloat16
+            and a.device.type in ("cuda", "meta") and not is_dtensor(a)
+            and not is_dtensor(b) and not (torch.is_grad_enabled() and (
+                a.requires_grad or b.requires_grad)))
+
+
+def _gemm_f32(a, b):
+    """``a @ b`` of 2-D or 3-D (batched) bf16 operands, float32 out, or
+    None where this build has no such GEMM."""
+    try:
+        if a.dim() == 2:
+            return torch.mm(a, b, out_dtype=torch.float32)
+        return torch.bmm(a, b, out_dtype=torch.float32)
+    except (TypeError, RuntimeError, NotImplementedError):
+        _OUT_DTYPE[0] = False
+        return None
+
+
+def _scores_gemm(a, b):
+    """"bqgrd,bkgd->bgrqk" as (B·G) GEMMs."""
+    B, Sq, G, R, D = a.shape
+    Sk = b.shape[1]
+    out = _gemm_f32(a.permute(0, 2, 3, 1, 4).reshape(B * G, R * Sq, D),
+                    b.permute(0, 2, 3, 1).reshape(B * G, D, Sk))
+    return None if out is None else out.reshape(B, G, R, Sq, Sk)
+
+
+def _pv_gemm(a, b):
+    """"bgrqk,bkgd->bgrqd" as (B·G) GEMMs."""
+    B, G, R, Sq, Sk = a.shape
+    D = b.shape[-1]
+    out = _gemm_f32(a.reshape(B * G, R * Sq, Sk),
+                    b.permute(0, 2, 1, 3).reshape(B * G, Sk, D))
+    return None if out is None else out.reshape(B, G, R, Sq, D)
+
+
+def _ssd_gemm(a, b):
+    """"bcin,bcjn->bcij" as (B·C) GEMMs."""
+    B, C, I, N = a.shape
+    out = _gemm_f32(a.reshape(B * C, I, N),
+                    b.transpose(2, 3).reshape(B * C, N, b.shape[2]))
+    return None if out is None else out.reshape(B, C, I, b.shape[2])
+
+
+def _rows_gemm(a, b):
+    """"...d,de->...e" as one GEMM."""
+    out = _gemm_f32(a.reshape(-1, a.shape[-1]), b)
+    return None if out is None else out.reshape(*a.shape[:-1], b.shape[-1])
+
+
+def _latent_scores_gemm(a, b):
+    """"bshd,bcd->bhsc" as B GEMMs."""
+    B, S, H, D = a.shape
+    out = _gemm_f32(a.transpose(1, 2).reshape(B, H * S, D),
+                    b.transpose(1, 2))
+    return None if out is None else out.reshape(B, H, S, b.shape[1])
+
+
+def _latent_pv_gemm(a, b):
+    """"bhsc,bcr->bshr" as B GEMMs."""
+    B, H, S, C = a.shape
+    out = _gemm_f32(a.reshape(B, H * S, C), b)
+    return None if out is None else \
+        out.reshape(B, H, S, b.shape[-1]).transpose(1, 2)
+
+
+def _pv_out_gemm(a, b):
+    """"bgrqk,bkgd->bqgrd" as (B·G) GEMMs."""
+    out = _pv_gemm(a, b)
+    return None if out is None else out.permute(0, 3, 1, 2, 4)
+
+
+_AS_GEMM = {
+    "bqgrd,bkgd->bgrqk": _scores_gemm,
+    "bgrqk,bkgd->bgrqd": _pv_gemm,
+    "bgrqk,bkgd->bqgrd": _pv_out_gemm,
+    "bcin,bcjn->bcij": _ssd_gemm,
+    "gtd,de->gte": _rows_gemm,
+    "bshd,bcd->bhsc": _latent_scores_gemm,
+    "bhsc,bcr->bshr": _latent_pv_gemm,
+}
+
+
+# ---------------------------------------------------------------------------
 # init helpers
 # ---------------------------------------------------------------------------
 
@@ -215,7 +338,7 @@ def attention(q, k, v, *, causal=True, window=0, q_offset=0,
         s = _scores(qh, k, q_pos, kv_positions, causal, window, kv_valid,
                     softcap)
         p = torch.softmax(s, dim=-1)
-        o = torch.einsum("bgrqk,bkgd->bqgrd", p.to(v.dtype), v).float()
+        o = f32_product("bgrqk,bkgd->bqgrd", p.to(v.dtype), v)
         return o.reshape(B, Sq, H, dv).to(q.dtype)
 
     # chunked path: shared position track only (per-slot tracks imply
@@ -239,8 +362,8 @@ def attention(q, k, v, *, causal=True, window=0, q_offset=0,
         p = torch.exp(s - m_new[..., None])
         corr = torch.exp(m - m_new)
         l = l * corr + p.sum(-1)
-        acc = acc * corr[..., None] + torch.einsum(
-            "bgrqk,bkgd->bgrqd", p.to(vc.dtype), vc).float()
+        acc = acc * corr[..., None] + f32_product(
+            "bgrqk,bkgd->bgrqd", p.to(vc.dtype), vc)
         m = m_new
     o = acc / torch.clamp(l, min=1e-30)[..., None]
     return o.movedim(3, 1).reshape(B, Sq, H, dv).to(q.dtype)
@@ -259,7 +382,7 @@ def _scores(qh, k, q_pos, kv_positions, causal, window, kv_valid, softcap):
     """The float32 scores (B, G, rep, Sq, Sk) of the grouped queries ``qh``
     against keys ``k``: soft-capped, plus the mask's bias (a per-slot
     track's (B, Sq, Sk) bias broadcast over the heads)."""
-    s = torch.einsum("bqgrd,bkgd->bgrqk", qh, k).float()
+    s = f32_product("bqgrd,bkgd->bgrqk", qh, k)
     if softcap:
         s = torch.tanh(s / softcap) * softcap
     bias = _mask_bias(q_pos, kv_positions, causal, window, kv_valid)
@@ -281,7 +404,7 @@ def attention_stats(q, k, v, *, causal=True, window=0, q_offset=0,
                 softcap)
     m = s.amax(-1)
     p = torch.exp(s - m[..., None])
-    acc = torch.einsum("bgrqk,bkgd->bgrqd", p.to(v.dtype), v).float()
+    acc = f32_product("bgrqk,bkgd->bgrqd", p.to(v.dtype), v)
     return acc, m, p.sum(-1)
 
 
@@ -750,7 +873,7 @@ def lm_logits(head_p, emb_p, x, cfg):
     else:
         w = head_p["w"].to(x.dtype)
     _count()
-    logits = (whole_features(x, cfg) @ w).float()
+    logits = f32_matmul(whole_features(x, cfg), w)
     if cfg.logit_softcap:
         logits = torch.tanh(logits / cfg.logit_softcap) * cfg.logit_softcap
     return logits

@@ -11,7 +11,8 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
-from .layers import _count, apply_norm, dense_init, ones_init, zeros_init
+from .layers import (_count, apply_norm, dense_init, f32_product, ones_init,
+                     zeros_init)
 
 
 def _dims(cfg):
@@ -88,7 +89,7 @@ def ssd_chunked(x, dt, A, Bm, Cm, Dp, chunk: int):
                                               device=x.device))
     Lmat = torch.exp(seg)
     _count(4)
-    scores = torch.einsum("bcin,bcjn->bcij", Cc, Bc).float()
+    scores = f32_product("bcin,bcjn->bcij", Cc, Bc)
     ydiag = torch.einsum("bcijh,bcjhp->bcihp", scores[..., None] * Lmat,
                          xc).float()
 

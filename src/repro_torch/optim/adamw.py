@@ -17,7 +17,7 @@ import torch
 
 from .. import tree
 from ..kernels import ops
-from ..kernels.ref import device_scalar, f32
+from ..kernels.ref import device_scalar, f32, sqrt_rn
 from ..sharding.spec import is_dtensor, local_blocks
 from . import precision
 
@@ -106,7 +106,7 @@ def update(grads, state: AdamWState, params, *, lr, b1=0.9, b2=0.95,
             v_new = f32(b2) * v.float() + f32(1.0 - b2) * torch.square(gf)
             mhat = m_new / c1t
             vhat = v_new / c2t
-            step = mhat / (torch.sqrt(vhat) + f32(eps)) \
+            step = mhat / (sqrt_rn(vhat) + f32(eps)) \
                 + f32(weight_decay) * wf
             w_new = wf - f32(lr) * step
             # copy_ rounds each result to its storage dtype
@@ -129,7 +129,7 @@ def clip_by_global_norm(grads, max_norm: float):
     sq = [torch.sum(torch.square(g.float())) for g in ls]
     sq = [s.full_tensor() if is_dtensor(s) else s for s in sq]
     ls = [local_blocks(g)[0] for g in ls]
-    gn = torch.sqrt(sum(sq))
+    gn = sqrt_rn(sum(sq))
     # a 0-d numerator: PyTorch computes scalar / tensor as a reciprocal
     # times the scalar, which does not round as the reference's division
     scale = torch.clamp(device_scalar(max_norm, gn) / (gn + f32(1e-12)),

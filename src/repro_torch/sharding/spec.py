@@ -303,6 +303,16 @@ def contiguous_strides(shape) -> tuple:
     return tuple(reversed(out))
 
 
+def from_block(block, mesh, pl, shape):
+    """A DTensor of global ``shape`` (contiguous) from this rank's
+    ``block``, laid out by the placements ``pl`` on ``mesh``."""
+    from torch.distributed.tensor import DTensor
+    shape = tuple(shape)
+    return DTensor.from_local(block, mesh, pl, run_check=False,
+                              shape=torch.Size(shape),
+                              stride=contiguous_strides(shape))
+
+
 def empty_on_mesh(shape, dtype, spec: tuple, mesh, *, fill, device):
     """A DTensor of ``shape`` laid out by ``spec`` on ``mesh``, each rank
     making only its own block, filled with ``fill``."""
@@ -368,15 +378,18 @@ def constrain(x, spec: tuple):
     """``x`` redistributed to ``spec`` on its own mesh, the counterpart of
     the JAX ``constrain`` (``with_sharding_constraint``): a plain tensor
     (no mesh) comes back as it is. Mesh axes the spec names that the mesh
-    lacks are dropped, as is a dim whose size the axis does not divide
-    (GSPMD pads it; a DTensor would split it unevenly)."""
+    lacks, or that have one rank (they split nothing, and DTensor cannot
+    fold a dim split over one into its neighbours), are dropped, as is a
+    dim whose size the axis does not divide (GSPMD pads it; a DTensor
+    would split it unevenly)."""
     if not is_dtensor(x):
         return x
     mesh = x.device_mesh
     sizes = dict(zip(mesh.mesh_dim_names, mesh.mesh.shape))
     keep = []
     for d, entry in enumerate(spec):
-        axes = tuple(a for a in entry_axes(entry) if a in sizes)
+        axes = tuple(a for a in entry_axes(entry)
+                     if a in sizes and sizes[a] > 1)
         n = math.prod(sizes[a] for a in axes)
         keep.append(axes if axes and x.shape[d] % n == 0 else None)
     pl = placements(tuple(keep), mesh)

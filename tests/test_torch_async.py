@@ -75,6 +75,7 @@ from repro_torch.launch import train  # noqa: E402
 from repro_torch.models import registry as treg  # noqa: E402
 from repro_torch.obs import metrics as tmetrics  # noqa: E402
 from repro_torch.resilience import harness  # noqa: E402
+from transport_common import jax_sends  # noqa: E402
 
 torch.set_num_threads(2)
 K, H, B, S, VOCAB, EB, LAM = 2, 3, 2, 16, 64, 2, 0.7
@@ -150,9 +151,12 @@ def run_case(scenario, dtype, ef, policy=None):
                           scenario=tscen, eval_fn=TD.make_eval(
                               lambda p, b: tarch.loss(p, b)),
                           eval_tokens=torch.from_numpy(val).long())
-    jstate, jhist = jeng.run(jstate, ticks=ticks)
+    with jax_sends() as jrows:
+        jstate, jhist = jeng.run(jstate, ticks=ticks)
     with check.TransportSteps(tstate.global_params, tdcfg) as steps:
         tstate, thist = teng.run(tstate, ticks=ticks)
+    if dtype != "float32":
+        steps.explain(jrows)
     want = convert.async_state_to_numpy(convert.async_state_from_numpy(
         jax.tree.map(np.asarray, JA.state_to_tree(jstate)), device="cpu"))
     return want, convert.async_state_to_numpy(tstate), jhist, thist, steps
@@ -173,7 +177,10 @@ def assert_case_matches(want, got, jhist, thist, steps, *, transport,
     limit = check.MIXED_FLIP_SHARE if mixed and transport != "float32" \
         else check.TRANSPORT_FLIP_SHARE[transport]
     bad = {p: s for p, s in shares.items() if s > limit}
-    assert not bad, bad
+    explained = {p: n for p, n in steps.explained.items() if n}
+    if explained:
+        print("straddles explained (entries):", explained)
+    assert not bad, (bad, explained, steps.unexplained[:20])
     assert len(thist) == len(jhist)
     # a payload whose entries drift by ``drift`` moves its norm by at most
     # drift·sqrt(n)

@@ -156,12 +156,10 @@ def test_refusals(capsys):
             TD.dryrun_pair("diloco_60m", "decode_32k", multi_pod=False,
                            mesh=SINGLE, kernel_mode=mode)
     # the variants that steer within-island collectives: taken for the
-    # families that run on an island's DTensors
+    # families that run on an island's DTensors, MoE/MLA among them
     # (tests/test_torch_dryrun_island.py), refused by family for the rest
     for v in TD.ISLAND_ONLY_VARIANTS:
-        for name, family in (("olmoe_1b_7b", "MoE/MLA"),
-                             ("deepseek_v2_lite_16b", "MoE/MLA"),
-                             ("zamba2_2_7b", "Mamba2"),
+        for name, family in (("zamba2_2_7b", "Mamba2"),
                              ("xlstm_350m", "xLSTM")):
             with pytest.raises(ValueError, match=f"{v}.*within an island"
                                f".*{family}.*not modelled"):

@@ -3,19 +3,22 @@ on an island mesh of DTensors with meta blocks, on a ``fake`` process
 group), all on meta tensors: a closed form of the FSDP collectives on a
 (data 4, model 1) mesh, with and without ``cast_outside_mb``; the global
 FLOPs of the sharded functions against the unsharded count of the same
-functions; the four island variants; the port's collectives against
-JAX's HLO count of the same pair on a (2, 2) mesh of fake CPU devices (in
-a subprocess); and the three repairs that came first: xLSTM's counted
-bytes affine in the length, and the per-token loop's fit past a regime
-change of its peak live bytes, on a smoke config (xlstm_350m
-``train_4k`` at one microbatch, the pair that showed it, takes ~2 CPU
-minutes: the dry run's CLI counts it; the bf16 flash kernels' test is
+functions (the dense, cross-attention and MoE/MLA families); the four
+island variants, and the families they are accepted for; the port's
+collectives against JAX's HLO count of the same pair on a (2, 2) mesh of
+fake CPU devices (in a subprocess: diloco_60m and olmoe_1b_7b); and the
+three repairs that came first: xLSTM's counted bytes affine in the
+length, and the per-token loop's fit past a regime change of its peak
+live bytes, on a smoke config (xlstm_350m ``train_4k`` at one
+microbatch, the pair that showed it, takes ~2 CPU minutes: the dry run's
+CLI counts it; the bf16 flash kernels' test is
 ``tests/test_torch_flash_bf16.py``)."""
 from __future__ import annotations
 
 import json
 import math
 import os
+import re
 import subprocess
 import sys
 
@@ -116,6 +119,13 @@ KV_REPLICATED = MeshShape(("data", "model"), (1, 16))
     ("diloco_60m", "prefill_32k", {"no_act_shard": True}, SQUARE),
     ("whisper_large_v3", "decode_32k", {}, SQUARE),
     ("qwen3_32b", "decode_32k", {}, KV_REPLICATED),
+    # the MoE/MLA family: the grouped dispatch, the experts over "model",
+    # MLA's heads, its latent ring's features over "model" at decode
+    ("olmoe_1b_7b", "train_4k", {"microbatches": 1}, SQUARE),
+    ("olmoe_1b_7b", "decode_32k", {}, SQUARE),
+    ("deepseek_v2_lite_16b", "train_4k", {"microbatches": 1}, SQUARE),
+    ("deepseek_v2_lite_16b", "prefill_32k", {}, SQUARE),
+    ("deepseek_v2_lite_16b", "decode_32k", {}, SQUARE),
 ], ids=lambda x: "x".join(map(str, x.shape)) if isinstance(x, MeshShape)
     else None)
 def test_global_flops_equal_unsharded(monkeypatch, arch_name, shape,
@@ -141,6 +151,26 @@ def test_global_flops_equal_unsharded(monkeypatch, arch_name, shape,
     assert sh["memory"]["peak_bytes_est"] > 0
 
 
+@pytest.mark.parametrize("arch_name,accepted", [
+    ("olmoe_1b_7b", True), ("deepseek_v2_lite_16b", True),
+    ("zamba2_2_7b", False), ("xlstm_350m", False)])
+@pytest.mark.parametrize("variant", TD.ISLAND_ONLY_VARIANTS)
+def test_island_variants_by_family(arch_name, accepted, variant):
+    """The four island variants are accepted for the MoE/MLA family, whose
+    models run on an island's DTensors, and still refused, naming the
+    family, for the hybrid (Mamba2) and ssm (xLSTM) families."""
+    family = get_arch(arch_name).cfg.family
+    assert (family in TD.ISLAND_FAMILIES) is accepted
+    value = {"decode_kv_shard": "model"}.get(variant, True)
+    if accepted:
+        TD._check_variant({variant: value}, "auto", family)
+        assert family not in TD._FAMILY_NAMES
+        return
+    with pytest.raises(ValueError,
+                       match=re.escape(TD._FAMILY_NAMES[family])):
+        TD._check_variant({variant: value}, "auto", family)
+
+
 JAX_HLO = r"""
 import json, os, re, sys
 os.environ["XLA_FLAGS"] = "--xla_force_host_platform_device_count=4"
@@ -156,8 +186,8 @@ def spy(hlo, **kw):
     seen["hlo"] = hlo
     return real(hlo, **kw)
 H.collective_stats = spy
-(rec,) = DR.dryrun_pair("diloco_60m", "train_4k", multi_pod=False,
-                        microbatches=2, mesh=mesh)
+(rec,) = DR.dryrun_pair(sys.argv[1], "train_4k", multi_pod=False,
+                        microbatches=int(sys.argv[2]), mesh=mesh)
 hlo = seen["hlo"]
 comps = H._split_computations(hlo)
 mults = H.computation_multipliers(hlo)
@@ -249,15 +279,32 @@ def test_collectives_against_jax_hlo(monkeypatch):
     activations as f32): an all-gather's (n−1)/n of its result, a
     reduce-scatter's (n−1)/n of its input, an all-reduce's 2(n−1)/n, a
     permute's whole tensor. They agree within a factor of 2."""
+    _hold_to_jax_hlo(monkeypatch, "diloco_60m", 2)
+
+
+def test_moe_collectives_against_jax_hlo(monkeypatch):
+    """olmoe_1b_7b ``train_4k`` (one microbatch) on a (2, 2) mesh, held to
+    JAX's HLO as ``test_collectives_against_jax_hlo`` holds diloco_60m:
+    the MoE dispatch's three constrain sites, the experts over "model".
+    JAX's CPU partitioner emits no all-to-all for the dispatch or its
+    return (an all-gather of the experts' output, as the port's); an
+    all-to-all would be counted as such. Every op the port counts appears
+    in JAX's, and the elements a chip moves agree within a factor of 2."""
+    _hold_to_jax_hlo(monkeypatch, "olmoe_1b_7b", 1)
+
+
+def _hold_to_jax_hlo(monkeypatch, arch, microbatches):
     env = dict(os.environ, PYTHONPATH=os.pathsep.join(
         ["src", os.environ.get("PYTHONPATH", "")]))
     env.pop("XLA_FLAGS", None)
-    jax_run = subprocess.Popen([sys.executable, "-c", JAX_HLO], env=env,
+    jax_run = subprocess.Popen([sys.executable, "-c", JAX_HLO, arch,
+                                str(microbatches)], env=env,
                                stdout=subprocess.PIPE,
                                stderr=subprocess.PIPE, text=True)
     seen = _collectives(monkeypatch)
-    (rec,) = TD.dryrun_pair("diloco_60m", "train_4k", multi_pod=False,
-                            mesh=SQUARE, variant={"microbatches": 2})
+    (rec,) = TD.dryrun_pair(arch, "train_4k", multi_pod=False,
+                            mesh=SQUARE,
+                            variant={"microbatches": microbatches})
     out, err = jax_run.communicate(timeout=600)
     assert jax_run.returncode == 0, err[-2000:]
     jax_rec = json.loads(out.strip().splitlines()[-1])

@@ -33,6 +33,13 @@ port's run): a flipped code moves a value by one step, and the outer
 Nesterov step carries a flip in the reduce into the globals at
 outer_lr·(1 + momentum) steps. The grid reads at most 1.33 steps beyond
 the tolerance (bf16 in-flight payloads), 1.00 under int4 (residuals).
+Both runs' sends are recorded (the JAX package's by wrapping its
+transport functions, ``transport_common.jax_sends``), and an entry
+outside whose every differing code was a straddle (the two pre-rounding
+values on either side of one boundary, within the float32 bound of the
+operand params) is counted apart, not against the share
+(``check.TransportSteps.explain``): on a 120-entry leaf a single flip
+would break any share below 1/120.
 
 The grid of rounds (P × τ × α × transport × error feedback) lies in
 ``tests/test_torch_stream_*.py``, one file per transport (and P), using
@@ -66,6 +73,7 @@ from repro_torch.core import fragments as TF  # noqa: E402
 from repro_torch.core import pod_collectives  # noqa: E402
 from repro_torch.core import streaming as TS  # noqa: E402
 from repro_torch.models import registry as treg  # noqa: E402
+from transport_common import jax_sends  # noqa: E402
 
 torch.set_num_threads(2)
 K, H, B, S, VOCAB, ROUNDS = 3, 4, 2, 16, 64, 3
@@ -126,7 +134,8 @@ def run_case(P, tau, alpha, dtype, ef, *, jax_mode="ref", policy=None,
                          TrainConfig(**pol, **tc), batch_size=B,
                          seq_len=S, compute_cosine=cosine)
     jms, tms = [], []
-    with check.TransportSteps(tstate.global_params, tdcfg) as steps:
+    with check.TransportSteps(tstate.global_params, tdcfg) as steps, \
+            jax_sends() as jrows:
         for r in range(rounds):
             drop, act = MASKS[r]
             jstate, jm = jrnd(jstate, jax.random.PRNGKey(10 + r),
@@ -135,6 +144,8 @@ def run_case(P, tau, alpha, dtype, ef, *, jax_mode="ref", policy=None,
             tstate, tm = trnd(tstate, r, drop, act, WEIGHTS)
             jms.append(jm)
             tms.append(tm)
+    if dtype != "float32":
+        steps.explain(jrows)
     want = convert.stream_state_to_numpy(convert.stream_state_from_numpy(
         jax.tree.map(np.asarray, jstate), tdcfg, device="cpu"))
     return want, convert.stream_state_to_numpy(tstate), jms, tms, steps
@@ -153,7 +164,10 @@ def assert_case_matches(want, got, jms, tms, steps, *, transport,
                                           steps=steps)
     limit = check.TRANSPORT_FLIP_SHARE[transport]
     bad = {p: s for p, s in shares.items() if s > limit}
-    assert not bad, bad
+    explained = {p: n for p, n in steps.explained.items() if n}
+    if explained:
+        print("straddles explained (entries):", explained)
+    assert not bad, (bad, explained, steps.unexplained[:20])
     for jm, tm in zip(jms, tms):
         for name in METRICS:
             np.testing.assert_allclose(float(tm[name]), float(jm[name]),
