@@ -214,8 +214,9 @@ Phases, each printing one JSON line; any failure exits non-zero:
               leaves that differ are named). Prints the snapshot's bytes,
               ms to save (with its device-to-host copy), to verify and to
               load, and the disk left; D is deleted at the end.
- 24. guard    the same width, 3 rounds (4 before the island phase
-              needed the time), ``--nan-bomb 1:1 --guard --checkpoint-dir
+ 24. guard    diloco_60m at smoke width (full width before the
+              hybrid island phase needed the time), 3 rounds (4 before
+              the island phase), ``--nan-bomb 1:1 --guard --checkpoint-dir
               D --checkpoint-every 1``: exactly one
               anomaly and one rollback (round index 1), the replay with the
               in-graph guard armed (``guard_rejected`` 1 on the bombed
@@ -232,7 +233,8 @@ Phases, each printing one JSON line; any failure exits non-zero:
               every kernel (k·H·rounds·12 ``fused_adamw``, rounds·12
               ``outer_nesterov``, the guard's replayed round counted).
 
- 26. resume_sharded  slice 11's sharded snapshots at full width:
+ 26. resume_sharded  slice 11's sharded snapshots at smoke width (full
+              width before the hybrid island phase needed the time):
               diloco_60m, k=2, ``--transport sharded --pods 2`` with phase
               15's streaming flags, H=4, 3 rounds (4 before the island
               phase needed the time), ``--rounds-per-call 2``: the uncut
@@ -357,7 +359,9 @@ Phases, each printing one JSON line; any failure exits non-zero:
               unsharded check fits the card beside the other rank's),
               the tokens grouped by the data axis, and the (token, k)
               router choices that differ from the unsharded step's
-              printed.
+              printed. Then the hybrid family: zamba2_2_7b at full width,
+              12 of its 54 layers (two invocations of the tied SHARED
+              block; each rank runs its own Mamba2 heads).
 
 ``python3 chip_smoke.py --cards 4`` runs only phases 22 and 21 across
 four cards: one pod rank and one replica per card, over NCCL; then phase
@@ -2456,6 +2460,11 @@ def phase_smoke_sharded(torch, dev, pods=2):
 
 ARGV_60M = ["--full", "--arch", "diloco_60m", "--k", str(K), "--batch",
             str(BATCH), "--seq", str(SEQ), "--eval-batch", "8"]
+# the guard's and the sharded snapshots' phases run diloco_60m at smoke
+# width (cut so that the script's phases fit its time: the snapshots'
+# costs at full width are phase 23's)
+SMOKE_60M = ["--arch", "diloco_60m", "--k", str(K), "--batch", "2",
+             "--seq", "32", "--eval-batch", "2"]
 CKPT_DIR = ROOT / "build" / "chip_smoke_ckpt"
 # the milestone's card-against-CPU bound on every round's inner and val
 # loss (absolute): over its ten smoke-width rounds the card (TF32 off)
@@ -2572,7 +2581,7 @@ def phase_guard(torch, dev):
     try:
         man = {}
         records, timing, wall_s, launches = run_trainer(
-            torch, dev, ARGV_60M + guard_argv(CKPT_DIR / "card"), man)
+            torch, dev, SMOKE_60M + guard_argv(CKPT_DIR / "card"), man)
         events = guard_events(records)
         rnds = [r for r in records if r["phase"] == "diloco"]
         replay = [r for r in rnds if "guard_rejected" in r]
@@ -2590,14 +2599,12 @@ def phase_guard(torch, dev):
                    and math.isfinite(r["val_loss"]) for r in replay):
             raise SystemExit(f"guard: the replay is not finite: {replay}")
         args = train.make_parser().parse_args(
-            ["--device", "cpu", "--arch", "diloco_60m", "--k", str(K),
-             "--batch", "2", "--seq", "32", "--eval-batch", "2",
-             *guard_argv(CKPT_DIR / "cpu")])
+            ["--device", "cpu", *SMOKE_60M, *guard_argv(CKPT_DIR / "cpu")])
         cpu = guard_events(train.run(args, recorder=RunRecorder(
             printer=lambda *a, **kw: None)))
         if cpu != events:
             raise SystemExit(f"guard: card events {events}, CPU {cpu}")
-        say({"phase": "guard", "argv": ARGV_60M + guard_argv("D"),
+        say({"phase": "guard", "argv": SMOKE_60M + guard_argv("D"),
              "events": events, "cpu_events": cpu,
              "rounds": [(r["round"], str(r["val_loss"]),
                          r.get("guard_rejected")) for r in rnds],
@@ -2737,7 +2744,7 @@ SHARDED_RESUME_ROUNDS = 3
 
 
 def sharded_resume_argv() -> list:
-    return ARGV_60M + ["--H", str(H), "--rounds",
+    return SMOKE_60M + ["--H", str(H), "--rounds",
                        str(SHARDED_RESUME_ROUNDS), "--transport", "sharded",
                        "--pods", "2", *STREAM_FLAGS]
 
@@ -2777,12 +2784,12 @@ class CrashRun:
 
 
 def phase_resume_sharded(torch, dev, crash: CrashRun):
-    """Phase 26: diloco_60m at full width on two sharded ranks with
+    """Phase 26: diloco_60m at smoke width on two sharded ranks with
     snapshots, 3 rounds: the uncut run, the same run killed by
     ``--crash-at-round 2`` in a trainer subprocess (``crash``, started
     before phase 23), and ``--resume auto`` of the killed run's snapshot
     (which writes none of its own): one final state (sha256)."""
-    from repro_torch.models.registry import get_arch
+    from repro_torch.models.registry import get_smoke_arch
     from repro_torch.resilience import CheckpointManager, harness
 
     torch.cuda.empty_cache()
@@ -2790,7 +2797,8 @@ def phase_resume_sharded(torch, dev, crash: CrashRun):
     argv = sharded_resume_argv()
     logs, tag = crash.logs, crash.tag
     try:
-        meta = get_arch("diloco_60m").init(generator=None, device="meta")
+        meta = get_smoke_arch("diloco_60m").init(generator=None,
+                                                 device="meta")
         n = leaves_60m()
         out = {}
         # the uncut run's one snapshot, at its end, is the one timed
@@ -4284,6 +4292,9 @@ def main() -> int:
     # each rank's unsharded check fit the card beside each other
     phase_island(torch, dev, arch_name="olmoe_1b_7b", n_layers=2)
     phase_island(torch, dev, arch_name="deepseek_v2_lite_16b", n_layers=1)
+    # the hybrid family: Mamba2's heads over "model", two invocations of
+    # the SHARED block
+    phase_island(torch, dev, arch_name="zamba2_2_7b", n_layers=12)
     for row in rows:
         row["launches"] = launches[row["name"]]
         if row["name"] in serve:        # their launches on the serve paths

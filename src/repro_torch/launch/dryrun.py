@@ -35,16 +35,16 @@ once), the collectives (per chip), ``comm_analysis.roofline`` on the
 H100's rates, and the memory per chip against the card's
 (``comm_analysis.memory_items``).
 
-Within an island, the dense, cross-attention and MoE/MLA families
-(dense, vlm, encdec, moe: ``ISLAND_FAMILIES``) run as JAX's GSPMD lowering
-runs them, FSDP×TP
-on the island's (data, model) mesh: the train, prefill and decode
-functions take params, moments, batch and caches as DTensors of meta
-blocks laid out by the specs (``sharding/spec.py``: ``param_pspec``,
-``batch_pspec``, ``cache_pspec``), on a process group of the mesh's size
-on the ``fake`` backend (``fake_world``); DTensor's propagation and the
-model's ``constrain`` sites put in the collectives. The record then
-holds one chip's within-island collectives (``intra_pod_bytes``, by op;
+Within an island, the dense, cross-attention, MoE/MLA and hybrid
+families (dense, vlm, encdec, moe, hybrid: ``ISLAND_FAMILIES``) run as
+JAX's GSPMD lowering runs them, FSDP×TP on the island's (data, model)
+mesh: the train, prefill and decode functions take params, moments,
+batch and caches as DTensors of meta blocks laid out by the specs
+(``sharding/spec.py``: ``param_pspec``, ``batch_pspec``, ``cache_pspec``),
+on a process group of the mesh's size on the ``fake`` backend
+(``fake_world``); DTensor's propagation and the model's ``constrain``
+sites put in the collectives. The record then holds one chip's
+within-island collectives (``intra_pod_bytes``, by op;
 ``roofline.collective_intra_s`` at NVLink's rate), and its memory is the
 chip's blocks of the arguments plus the peak of the chip's live storage
 (``op_cost`` tracks the local blocks); its FLOPs, counted at the DTensor
@@ -58,11 +58,16 @@ streaming round's inner steps are counted unsharded. The MoE tokens are
 grouped by the data axis's size (``moe_groups``): JAX's three dispatch
 constrain sites lay the groups over "data" and the experts over "model"
 (``models/moe.py``); MLA keeps its heads over "model" and, at decode,
-its latent ring's features where ``cache_pspec`` puts them. The Mamba2
-(hybrid) and xLSTM (ssm) families run unsharded within an island: their
-records say so (``intra_pod_bytes`` None, ``intra_pod`` naming the
-family), their temporaries are divided by the batch's mesh axes, and the
-island variants are refused for them by family.
+its latent ring's features where ``cache_pspec`` puts them. Mamba2
+(zamba2) runs each rank's own heads, its ``in_proj`` and conv weights
+gathered whole, B and C gathered over "model", its decode state brought
+from ``cache_pspec``'s layout (N over "model") to the heads' and back at
+each call (``models/ssm.py``); the tied SHARED block's weights are
+gathered, and their gradient reduce-scattered, at each invocation. The
+xLSTM (ssm) family runs unsharded within an island: its records say so
+(``intra_pod_bytes`` None, ``intra_pod`` naming the family), its
+temporaries are divided by the batch's mesh axes, and the island
+variants are refused for it by family.
 
 What the JAX dry run has and this one does not: XLA's own cost analysis
 (``xla_flops``, ``xla_bytes``). Kernel modes: ``auto`` counts each kernel
@@ -119,8 +124,9 @@ ISLAND_ONLY_VARIANTS = ("cast_outside_mb", "decode_kv_shard",
 VARIANTS = ("fsdp", "pure_dp", "remat", "microbatches",
             "moe_groups") + ISLAND_ONLY_VARIANTS
 # the families whose models run on an island's DTensors (FSDP×TP)
-ISLAND_FAMILIES = ("dense", "vlm", "encdec", "moe")
-_FAMILY_NAMES = {"hybrid": "Mamba2 (zamba2)", "ssm": "xLSTM"}
+ISLAND_FAMILIES = ("dense", "vlm", "encdec", "moe", "hybrid")
+# the families whose models run unsharded within an island
+_FAMILY_NAMES = {"ssm": "xLSTM"}
 # the mesh type the island's collectives are chosen for (the H100's; the
 # DTensors hold meta blocks, so nothing runs on a card)
 ISLAND_DEVICE = "cuda"

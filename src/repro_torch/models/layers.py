@@ -213,13 +213,28 @@ def apply_norm(params, x, kind: str, eps: float = 1e-6):
     if kind == "rmsnorm":
         y = xf * torch.rsqrt(xf.square().mean(-1, keepdim=True) + eps)
     else:
-        mu = xf.mean(-1, keepdim=True)
-        var = (xf - mu).square().mean(-1, keepdim=True)
+        mu = _mean_last(xf)
+        var = _mean_last((xf - mu).square())
         y = (xf - mu) * torch.rsqrt(var + eps)
     y = y * params["scale"].float()
     if "bias" in params:
         y = y + params["bias"].float()
     return y.to(x.dtype)
+
+
+def _mean_last(t):
+    """``t.mean(-1, keepdim=True)``; of an island's DTensor whose last dim
+    is sharded, the sum over it divided by its size and reduced (an
+    all-reduce of the partial sums), so that it meets ``t`` as a
+    replicated value (DTensor's partial mean would make ``t - mean``
+    partial too, and the gradient of its partial average cannot be
+    brought back)."""
+    if not is_dtensor(t):
+        return t.mean(-1, keepdim=True)
+    from torch.distributed.tensor import Replicate
+    m = t.sum(-1, keepdim=True) / t.shape[-1]
+    return m.redistribute(m.device_mesh, [
+        Replicate() if p.is_partial() else p for p in m.placements])
 
 
 def rms_head_norm(scale, x, eps: float = 1e-6):
@@ -427,6 +442,18 @@ def init_attention(gen, cfg, *, device, lead=()):
         p["q_norm"] = ones_init((hd,), device=device, lead=lead)
         p["k_norm"] = ones_init((hd,), device=device, lead=lead)
     return p
+
+
+def residual_spec(cfg) -> tuple:
+    """The residual stream's spec on an island mesh: the batch over
+    cfg.act_batch_axes, and d_model over "model" when act_model_shard
+    (Megatron-style), or (act_seq_shard) the sequence over "model"
+    (Megatron sequence parallelism)."""
+    ba = tuple(cfg.act_batch_axes)
+    ba = ba if len(ba) > 1 else ba[0]
+    if cfg.act_seq_shard:
+        return (ba, "model", None)
+    return (ba, None, "model" if cfg.act_model_shard else None)
 
 
 def whole_features(x, cfg):

@@ -172,16 +172,9 @@ def forward(params, cfg, tokens, *, extra=None, window=None, cache=None,
     dt = getattr(torch, cfg.compute_dtype)
     B, S = tokens.shape
     x = L.embed(params["embed"], tokens, cfg)
-    # activations: batch over cfg.act_batch_axes, d_model over "model"
-    # when act_model_shard (the residual stream sharded Megatron-style),
-    # or (act_seq_shard) the sequence over "model" (Megatron sequence
-    # parallelism); the identity off an island mesh
-    ba = tuple(cfg.act_batch_axes)
-    ba = ba if len(ba) > 1 else ba[0]
-    if cfg.act_seq_shard:
-        x = constrain(x, (ba, "model", None))
-    else:
-        x = constrain(x, (ba, None, "model" if cfg.act_model_shard else None))
+    # the residual stream's layout on an island mesh (``L.residual_spec``);
+    # the identity off one
+    x = constrain(x, L.residual_spec(cfg))
     cache_pos = 0 if cache_pos is None else int(cache_pos)
     positions = cache_pos + torch.arange(S, device=tokens.device)
     if cfg.pos_emb == "learned":

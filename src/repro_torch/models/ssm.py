@@ -4,14 +4,19 @@ Training and prefill run the chunked SSD algorithm: a within-chunk
 quadratic (attention-like) term plus a linear recurrence between chunks,
 the JAX ``lax.scan`` over chunks a Python loop here. Decode is the exact
 one-token recurrence on a constant (B, H, N, P) state and a (conv
-width − 1)-deep causal-conv tail.
+width − 1)-deep causal-conv tail. On an island's DTensors (FSDP×TP) each
+rank runs its own heads (``_mamba2_on_mesh``).
 """
 from __future__ import annotations
+
+import math
 
 import torch
 import torch.nn.functional as F
 
-from .layers import (_count, apply_norm, dense_init, f32_product, ones_init,
+from ..sharding.spec import constrain, is_dtensor, mark_blocks
+from .layers import (_count, _local_partial, apply_norm, dense_init,
+                     f32_product, ones_init, residual_spec, whole_features,
                      zeros_init)
 
 
@@ -131,7 +136,10 @@ def apply_mamba2(p, x, cfg, *, state=None, conv_tail=None):
     """x: (B, T, D). With ``state`` and T == 1 the decode recurrence; else
     the chunked scan from a zero state (train, or a prefill, whose conv
     still starts from ``conv_tail``). Returns (out, (new_state,
-    new_conv_tail))."""
+    new_conv_tail)). On an island's DTensors each rank runs its own heads
+    (``_mamba2_on_mesh``)."""
+    if is_dtensor(x):
+        return _mamba2_on_mesh(p, x, cfg, state=state, conv_tail=conv_tail)
     dt_ = x.dtype
     d_inner, H, N = _dims(cfg)
     _count(2)                               # in_proj, out_proj
@@ -157,6 +165,147 @@ def apply_mamba2(p, x, cfg, *, state=None, conv_tail=None):
     # gated RMSNorm (mamba2 style), then the down-projection
     y = apply_norm({"scale": p["norm"]}, y * F.silu(z), "rmsnorm")
     return y @ p["out_proj"].to(dt_), (new_state, new_tail)
+
+
+def _mamba2_on_mesh(p, x, cfg, *, state=None, conv_tail=None):
+    """``apply_mamba2`` on an island's DTensors: each rank runs its own
+    heads (H / model of them, with their z, x and dt channels) and B and C
+    whole, on its own batch rows; the scan is independent over the heads.
+
+    The layouts are JAX's (``param_pspec``, ``cache_pspec``), and they do
+    not follow the heads: ``in_proj``'s columns [z | x | B | C | dt] and
+    the conv's channels [x | B | C] are cut into contiguous blocks over
+    "model". So each rank gathers the whole (bf16) ``in_proj`` and conv
+    weights (FSDP's gather and one over "model") and takes the columns of
+    its own heads and a 1/model share of B and C; the shares of B and C
+    (after the conv) are gathered over "model", so that every rank holds
+    them whole and each of their products is counted once per batch
+    block. ``out_proj``'s rows and ``norm`` are cut by "inner" and follow
+    the heads: each rank reads its own block (``out_proj`` gathered over
+    "data" only). The gated RMSNorm sums each rank's squares over "model"
+    in float32; the output is a partial sum over "model", reduced into
+    the residual stream's layout. A decode state laid out with N over
+    "model" (``cache_pspec`` picks N before the heads) is brought to the
+    heads' layout and back, and the conv tail gathered whole, at each
+    call. On a mesh whose "model" axis has one rank, or holds the batch
+    (``pure_dp``), every rank runs all heads. The local work is counted
+    for every block it stands for (``spec.mark_blocks``)."""
+    from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+    dt_ = x.dtype
+    d_inner, H, N = _dims(cfg)
+    P = d_inner // H
+    mesh = x.device_mesh
+    mi = list(mesh.mesh_dim_names).index("model")
+    xf = whole_features(x, cfg)           # batch on its axes, whole features
+    rows = [i for i, q in enumerate(xf.placements) if q.is_shard()]
+    split = mi not in rows and mesh.size(mi) > 1
+    n = mesh.size(mi) if split else 1
+    if H % n or (2 * N) % n:
+        raise ValueError(f"Mamba2 on an island: {H} heads and B, C of "
+                         f"{N} channels each cannot be cut {n} ways")
+    r = mesh.get_local_rank(mi) if split else 0
+    Hl, k, w = H // n, 2 * N // n, H // n * P
+    nb_rows = math.prod(mesh.size(i) for i in rows)
+    nb = nb_rows * n
+    grad_axes = sorted(set(rows) | ({mi} if split else set()))
+
+    def lay(q):
+        """The activations' layout, "model" set to ``q`` where the heads
+        are split over it."""
+        pl = list(xf.placements)
+        if split:
+            pl[mi] = q
+        return pl
+
+    def wlay(q):                            # a weight's: "model" alone
+        pl = [Replicate()] * mesh.ndim
+        pl[mi] = q
+        return pl
+
+    def whole(t):
+        """A weight every rank reads whole (each for its own heads, on its
+        own rows: its gradient is partial over both)."""
+        t = t.redistribute(mesh, [Replicate()] * mesh.ndim)
+        return _local_partial(t, grad_axes)
+
+    dev = xf.to_local().device
+    ar = lambda a, b: torch.arange(a, b, device=dev)
+    hp, bc, hd = ar(r * w, r * w + w), ar(r * k, r * k + k), \
+        ar(r * Hl, r * Hl + Hl)
+    conv_cols = torch.cat([hp, d_inner + bc])
+    _count(2)                               # in_proj, out_proj
+    xl, = mark_blocks(nb, _local_partial(xf, [mi] if split else []))
+    wl, = mark_blocks(nb, whole(p["in_proj"].to(dt_))[:, torch.cat(
+        [hp, d_inner + conv_cols, 2 * d_inner + 2 * N + hd])])
+    proj = xl @ wl                          # [z | x | B, C share | dt]
+    z, conv_in, dtr = proj[..., :w], proj[..., w:2 * w + k], \
+        proj[..., 2 * w + k:]
+    cw, cb = mark_blocks(nb, whole(p["conv_w"].to(dt_))[:, conv_cols],
+                         whole(p["conv_b"].to(dt_))[conv_cols])
+    tail = None
+    if conv_tail is not None:               # the tail whole, own channels
+        tail = conv_tail.redistribute(mesh, lay(Replicate())).to_local()[
+            ..., conv_cols]
+    conv_out, new_tail = _causal_conv(conv_in, cw, cb, tail)
+    xo, bcl = conv_out[..., :w], conv_out[..., w:]
+    if split:                               # B and C whole on every rank
+        bcl = _local_partial(DTensor.from_local(
+            bcl, mesh, lay(Shard(2)), run_check=False).redistribute(
+                mesh, xf.placements), [mi])
+    mark_blocks(nb_rows, bcl)
+    Bm, Cm = bcl[..., :N], bcl[..., N:]
+    heads = lambda t: mark_blocks(nb, whole(t)[hd].float())[0]
+    dt_soft = F.softplus(dtr.float() + heads(p["dt_bias"]))
+    A = -torch.exp(heads(p["A_log"]))
+    Dp = heads(p["D"])
+    xh = xo.reshape(*xo.shape[:2], Hl, P)
+    # a decode state in the heads' layout (batch as the rows, heads on
+    # "model"), from the cache's and back
+    st_pl = lay(Shard(1))
+    if state is not None and x.shape[1] == 1:
+        st = state.redistribute(mesh, st_pl).to_local()
+        y, new_state = ssd_decode_step(xh, dt_soft, A, Bm, Cm, Dp, st)
+    else:
+        y, new_state = ssd_chunked(xh, dt_soft, A, Bm, Cm, Dp,
+                                   cfg.ssm_chunk)
+    y = y.reshape(*y.shape[:2], w)
+    # gated RMSNorm (mamba2 style): the mean of squares over all of
+    # d_inner, each rank's sum reduced over "model" in float32
+    g = (y * F.silu(z)).float()
+    ssq = g.square().sum(-1, keepdim=True)
+    if split:
+        ssq = _local_partial(DTensor.from_local(
+            ssq, mesh, lay(Partial()), run_check=False).redistribute(
+                mesh, xf.placements), [mi])
+    scale = p["norm"].redistribute(mesh, wlay(
+        Shard(0) if split else Replicate()))
+    yn = (g * torch.rsqrt(ssq / d_inner + 1e-6)
+          * mark_blocks(nb, _local_partial(scale, rows))[0].float()).to(dt_)
+    wo = p["out_proj"].to(dt_).redistribute(mesh, wlay(
+        Shard(0) if split else Replicate()))
+    o = yn @ mark_blocks(nb, _local_partial(wo, rows))[0]
+    o = DTensor.from_local(o, mesh, lay(Partial()), run_check=False)
+    o = constrain(o, residual_spec(cfg))     # reduced into the stream
+    if state is None and conv_tail is None:
+        return o, (None, None)
+    # the new state and tail written in the cache's layouts: the state
+    # back to N over "model"; the tail's channels (each rank's own, in
+    # rank order) gathered whole and put in [x | B | C] order
+    new_state = DTensor.from_local(new_state, mesh, st_pl,
+                                   run_check=False).redistribute(
+        mesh, state.placements)
+    if split:
+        new_tail = DTensor.from_local(
+            new_tail, mesh, lay(Shard(2)), run_check=False).redistribute(
+                mesh, lay(Replicate())).to_local()
+        order = torch.cat([torch.cat([ar(s * w, s * w + w),
+                                      d_inner + ar(s * k, s * k + k)])
+                           for s in range(n)])
+        new_tail = new_tail[..., torch.argsort(order)]
+    new_tail = DTensor.from_local(new_tail, mesh, lay(Replicate()),
+                                  run_check=False).redistribute(
+        mesh, conv_tail.placements)
+    return o, (new_state, new_tail)
 
 
 def init_mamba2_state(cfg, batch: int, dtype=torch.float32, *, device):

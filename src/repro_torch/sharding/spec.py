@@ -353,8 +353,14 @@ def mark_local(like, *blocks):
     ``blocks``."""
     likes = like if isinstance(like, tuple) else (like,)
     mesh = likes[0].device_mesh
-    n = math.prod(mesh.size(i) for i in range(mesh.ndim)
-                  if any(t.placements[i].is_shard() for t in likes))
+    return mark_blocks(math.prod(
+        mesh.size(i) for i in range(mesh.ndim)
+        if any(t.placements[i].is_shard() for t in likes)), *blocks)
+
+
+def mark_blocks(n: int, *blocks):
+    """Mark plain tensors as one of ``n`` distinct blocks of an island's
+    work (``mark_local`` with the count given). Returns ``blocks``."""
     for t in blocks:
         setattr(t, BLOCKS, n)
     return blocks
