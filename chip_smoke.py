@@ -203,9 +203,10 @@ Phases, each printing one JSON line; any failure exits non-zero:
               the flip share of ``repro_torch.check``.
 
  23. resume   slice 10's path (``core.diloco.make_run`` in chunks, the
-              resilience hooks at their boundaries) on diloco_60m at full
-              width (d_model 896, 16 × 64 heads, 3 layers, vocab 32000;
-              k=2, H=4, 4 rounds, batch 8, seq 1024): an uncut run with
+              resilience hooks at their boundaries) on diloco_60m at smoke
+              width (full width, d_model 896 and batch 8 × seq 1024,
+              before the xLSTM island phase needed the time; k=2, H=4, 4
+              rounds, batch 2, seq 32): an uncut run with
               ``--rounds-per-call 2 --checkpoint-dir D --checkpoint-every
               2 --retain 2`` (the snapshots after rounds 2 and 4), the
               same run resumed with ``--resume 2``, and the
@@ -222,7 +223,8 @@ Phases, each printing one JSON line; any failure exits non-zero:
               in-graph guard armed (``guard_rejected`` 1 on the bombed
               round, 0 after), finite losses, and the same guard events as
               a CPU run of the same flags at smoke width.
- 25. milestone  diloco_60m at full width, k=2, H=8, 8 rounds,
+ 25. milestone  diloco_60m at smoke width (full width before the xLSTM
+              island phase needed the time), k=2, H=8, 8 rounds,
               ``--warmup 20 --rounds-per-call 4 --eval-every 2`` (128
               replica-steps): every round's inner and val loss beside the
               entropy floor, the last val loss below the first; then ten
@@ -361,7 +363,15 @@ Phases, each printing one JSON line; any failure exits non-zero:
               router choices that differ from the unsharded step's
               printed. Then the hybrid family: zamba2_2_7b at full width,
               12 of its 54 layers (two invocations of the tied SHARED
-              block; each rank runs its own Mamba2 heads).
+              block; each rank runs its own Mamba2 heads). Then the xLSTM
+              family: xlstm_350m at full width (d_model 1024, 4 heads of
+              256, vocab 50304), 4 of its 24 layers (one group: three
+              mLSTM blocks and an sLSTM block) and S 256 (both cuts in
+              ``reduced``): each rank its own block of the inner width,
+              two whole heads, the cells' loop on plain tensors; an
+              input-gate bias's first moments, which the loss does not
+              depend on (``xlstm.shift_free``), held to the tree's
+              largest.
 
 ``python3 chip_smoke.py --cards 4`` runs only phases 22 and 21 across
 four cards: one pod rank and one replica per card, over NCCL; then phase
@@ -2455,16 +2465,16 @@ def phase_smoke_sharded(torch, dev, pods=2):
 
 # ---------------------------------------------------------------------------
 # slice 10: the chunked round driver, snapshots, resume, the guard and the
-# first milestone, on diloco_60m at full width
+# first milestone, on diloco_60m
 # ---------------------------------------------------------------------------
 
-ARGV_60M = ["--full", "--arch", "diloco_60m", "--k", str(K), "--batch",
-            str(BATCH), "--seq", str(SEQ), "--eval-batch", "8"]
-# the guard's and the sharded snapshots' phases run diloco_60m at smoke
-# width (cut so that the script's phases fit its time: the snapshots'
-# costs at full width are phase 23's)
-SMOKE_60M = ["--arch", "diloco_60m", "--k", str(K), "--batch", "2",
-             "--seq", "32", "--eval-batch", "2"]
+# the snapshot, guard, milestone and sharded snapshots' phases (23-26)
+# run diloco_60m at smoke width (cut so that the script's phases fit its
+# time: 24 and 26 when the hybrid island phase came, 23 and 25 when the
+# xLSTM one did; the snapshots' costs at full width are PERF.md's)
+SMOKE_B, SMOKE_S = 2, 32
+SMOKE_60M = ["--arch", "diloco_60m", "--k", str(K), "--batch",
+             str(SMOKE_B), "--seq", str(SMOKE_S), "--eval-batch", "2"]
 CKPT_DIR = ROOT / "build" / "chip_smoke_ckpt"
 # the milestone's card-against-CPU bound on every round's inner and val
 # loss (absolute): over its ten smoke-width rounds the card (TF32 off)
@@ -2501,8 +2511,8 @@ def phase_resume(torch, dev):
     shutil.rmtree(CKPT_DIR, ignore_errors=True)
     CKPT_DIR.mkdir(parents=True)
     try:
-        argv = ARGV_60M + ["--H", str(H), "--rounds", "4",
-                           "--rounds-per-call", "2"]
+        argv = SMOKE_60M + ["--H", str(H), "--rounds", "4",
+                            "--rounds-per-call", "2"]
         snap = ["--checkpoint-dir", str(CKPT_DIR / "d"),
                 "--checkpoint-every", "2", "--retain", "2"]
         out = {}
@@ -2550,7 +2560,7 @@ def phase_resume(torch, dev):
              "load_ms": res["loads"][0]["load_s"] * 1e3,
              "disk_free_GB": shutil.disk_usage(CKPT_DIR).free / 1e9,
              "inner_step_ms": last["inner_s"] * 1e3 / (K * H),
-             "tokens_per_s": K * H * BATCH * SEQ / last["inner_s"],
+             "tokens_per_s": K * H * SMOKE_B * SMOKE_S / last["inner_s"],
              "wall_s": {n: o[2] for n, o in out.items()}})
     finally:
         shutil.rmtree(CKPT_DIR, ignore_errors=True)
@@ -2645,7 +2655,7 @@ MILESTONE_ROUNDS = 8
 
 
 def phase_milestone(torch, dev):
-    """Phase 25: diloco_60m at full width for 8 rounds of H=8 (128
+    """Phase 25: diloco_60m at smoke width for 8 rounds of H=8 (128
     replica-steps), every round's losses beside the entropy floor; then
     ten rounds of its smoke config through ``make_run`` on the card and
     on the CPU, every round's inner and val loss within
@@ -2653,9 +2663,9 @@ def phase_milestone(torch, dev):
     from repro_torch.data.sharding import make_regime
     from repro_torch.models.registry import get_smoke_arch
 
-    argv = ARGV_60M + ["--H", "8", "--rounds", str(MILESTONE_ROUNDS),
-                       "--warmup", "20", "--rounds-per-call", "4",
-                       "--eval-every", "2"]
+    argv = SMOKE_60M + ["--H", "8", "--rounds", str(MILESTONE_ROUNDS),
+                        "--warmup", "20", "--rounds-per-call", "4",
+                        "--eval-every", "2"]
     records, timing, wall_s, launches = run_trainer(torch, dev, argv)
     if launches != sync_launches(MILESTONE_ROUNDS, h=8):
         raise SystemExit(f"milestone: launches {launches}, expected "
@@ -2694,7 +2704,7 @@ def phase_milestone(torch, dev):
          "val_loss": [r["val_loss"] for r in rnds],
          "launches": launches,
          "inner_step_ms": last["inner_s"] * 1e3 / (K * 8),
-         "tokens_per_s": K * 8 * BATCH * SEQ / last["inner_s"],
+         "tokens_per_s": K * 8 * SMOKE_B * SMOKE_S / last["inner_s"],
          "wall_s": wall_s,
          "smoke": {"rounds": rounds, "k": k, "H": h, "batch": b, "seq": s,
                    "max_abs_diff_inner": diffs[0],
@@ -4103,14 +4113,20 @@ ISLAND_ATOL, ISLAND_RTOL = 1e-5, 1e-4
 # after its reduce), leaf by leaf: within one bf16 ulp of the leaf's
 # largest entry (2⁻⁷ of it)
 ISLAND_M_REL = 2.0 ** -7
+# xlstm_350m's sequence in phase 35: its cells step once per token (a
+# launch-bound loop), and the unsharded check holds a group's activations
+# (``dryrun.island_step_cost`` on meta, B 8, 4 layers, (1, 2): 4.80 GB a
+# rank and 9.49 GB unsharded at S 128, about linear in S)
+ISLAND_XLSTM_SEQ = 256
 
 
 def phase_island(torch, dev, shape=ISLAND_SHAPE, arch_name="diloco_150m",
-                 cards=1, n_layers=None):
+                 cards=1, n_layers=None, seq=SEQ):
     """Phase 35: one inner train step of ``arch_name`` at full width (B 8,
     S 1024, f32 params and compute through the step's bf16 weight cast;
-    ``n_layers``: its depth cut to that many layers, printed as
-    ``reduced``) on an island mesh of ``shape`` (data, model): the dry
+    ``n_layers``: its depth cut to that many layers, ``seq``: the sequence
+    cut to that many tokens, both printed as ``reduced``) on an island
+    mesh of ``shape`` (data, model): the dry
     run's sharded step (``launch/island.py``; an MoE model's tokens
     grouped by the data axis's size) on one rank per chip of the mesh, on
     this card's ranks (gloo, collectives staged through the host) or one a
@@ -4135,17 +4151,20 @@ def phase_island(torch, dev, shape=ISLAND_SHAPE, arch_name="diloco_150m",
     arch = get_arch(arch_name)
     cfg = arch.cfg
     from repro_torch import tree
-    reduced = None
+    reduced = {}
     if n_layers is not None and n_layers < cfg.n_layers:
-        reduced = {"n_layers": [cfg.n_layers, n_layers]}
+        reduced["n_layers"] = [cfg.n_layers, n_layers]
         cfg = cfg.replace(n_layers=n_layers)
+    if seq < SEQ:
+        reduced["seq"] = [SEQ, seq]
+    reduced = reduced or None
     ranks = shape[0] * shape[1]
     layout = mesh.make_pod_layout(ranks, "cuda")
     # the dry run's count (on meta tensors, on this process's CPU) while
     # the ranks run
     from concurrent.futures import ThreadPoolExecutor
     with ThreadPoolExecutor(1) as pool:
-        counting = pool.submit(dryrun.island_step_cost, cfg, BATCH, SEQ,
+        counting = pool.submit(dryrun.island_step_cost, cfg, BATCH, seq,
                                shape)
         t1 = time.perf_counter()
         # every rank also runs the unsharded step of the same params,
@@ -4153,7 +4172,7 @@ def phase_island(torch, dev, shape=ISLAND_SHAPE, arch_name="diloco_150m",
         # compares its blocks
         res = mesh.spawn("repro_torch.launch.island:train_steps", layout,
                          shape, [{"cfg": cfg, "init_seed": 35,
-                                  "tokens_shape": (BATCH, SEQ),
+                                  "tokens_shape": (BATCH, seq),
                                   "microbatches": 1,
                                   "check": {"atol": ISLAND_ATOL,
                                             "rtol": ISLAND_RTOL,
@@ -4189,7 +4208,7 @@ def phase_island(torch, dev, shape=ISLAND_SHAPE, arch_name="diloco_150m",
          "router_choices_differ": [g["check"]["router_choices_differ"]
                                    for g in got],
          "mesh": list(shape), "cards": cards, "backend": layout.backend,
-         "staged": layout.staged, "batch": BATCH, "seq": SEQ,
+         "staged": layout.staged, "batch": BATCH, "seq": seq,
          "loss": got[0]["loss"], "unsharded_loss": got[0]["check"]["loss"],
          "params_max_abs_diff": max(g["check"]["params_max_abs_diff"]
                                     for g in got),
@@ -4295,6 +4314,11 @@ def main() -> int:
     # the hybrid family: Mamba2's heads over "model", two invocations of
     # the SHARED block
     phase_island(torch, dev, arch_name="zamba2_2_7b", n_layers=12)
+    # the xLSTM family: one group (three mLSTM blocks, an sLSTM block),
+    # each rank its own block of the inner width; the per-token loop's
+    # launches and the unsharded check's memory cut the sequence
+    phase_island(torch, dev, arch_name="xlstm_350m", n_layers=4,
+                 seq=ISLAND_XLSTM_SEQ)
     for row in rows:
         row["launches"] = launches[row["name"]]
         if row["name"] in serve:        # their launches on the serve paths

@@ -35,12 +35,11 @@ once), the collectives (per chip), ``comm_analysis.roofline`` on the
 H100's rates, and the memory per chip against the card's
 (``comm_analysis.memory_items``).
 
-Within an island, the dense, cross-attention, MoE/MLA and hybrid
-families (dense, vlm, encdec, moe, hybrid: ``ISLAND_FAMILIES``) run as
-JAX's GSPMD lowering runs them, FSDP×TP on the island's (data, model)
-mesh: the train, prefill and decode functions take params, moments,
-batch and caches as DTensors of meta blocks laid out by the specs
-(``sharding/spec.py``: ``param_pspec``, ``batch_pspec``, ``cache_pspec``),
+Within an island every family (``ISLAND_FAMILIES``) runs as JAX's GSPMD
+lowering runs it, FSDP×TP on the island's (data, model) mesh: the train,
+prefill and decode functions take params, moments, batch and caches as
+DTensors of meta blocks laid out by the specs (``sharding/spec.py``:
+``param_pspec``, ``batch_pspec``, ``cache_pspec``),
 on a process group of the mesh's size on the ``fake`` backend
 (``fake_world``); DTensor's propagation and the model's ``constrain``
 sites put in the collectives. The record then holds one chip's
@@ -64,10 +63,13 @@ gathered whole, B and C gathered over "model", its decode state brought
 from ``cache_pspec``'s layout (N over "model") to the heads' and back at
 each call (``models/ssm.py``); the tied SHARED block's weights are
 gathered, and their gradient reduce-scattered, at each invocation. The
-xLSTM (ssm) family runs unsharded within an island: its records say so
-(``intra_pod_bytes`` None, ``intra_pod`` naming the family), its
-temporaries are divided by the batch's mesh axes, and the island
-variants are refused for it by family.
+xLSTM cells (xlstm_350m) run each rank's own block of the inner width
+on plain tensors, no collective inside their per-token loop
+(``models/xlstm.py``): the mLSTM's value columns (q, k, i and f of the
+heads the block touches), the sLSTM's whole heads (its own columns of
+the pre-activations gathered over "model" once a layer where the block
+is part of a head); the decode state is brought from ``cache_pspec``'s
+layout to the cell's and back at each call.
 
 What the JAX dry run has and this one does not: XLA's own cost analysis
 (``xla_flops``, ``xla_bytes``). Kernel modes: ``auto`` counts each kernel
@@ -81,7 +83,11 @@ prefill functions are counted at four short lengths (4, 8, 12, 16 tokens
 for a train step, 32 to 128 for a prefill: ``FIT_STEP``) and
 extrapolated to S by the quadratic through three of them, which must
 give the fourth exactly (else the window moves on past a regime change,
-or the pair fails): no trip multiplier is applied anywhere.
+or the pair fails): no trip multiplier is applied anywhere. On an island
+the collectives are fitted too, each one's bytes: the four lengths must
+issue the same collectives in the same order (a collective inside the
+loop would add some with each token, and fails the pair), and under
+``seq_parallel`` the lengths are multiples of the "model" axis, as S is.
 """
 from __future__ import annotations
 
@@ -123,21 +129,11 @@ ISLAND_ONLY_VARIANTS = ("cast_outside_mb", "decode_kv_shard",
                         "seq_parallel", "no_act_shard")
 VARIANTS = ("fsdp", "pure_dp", "remat", "microbatches",
             "moe_groups") + ISLAND_ONLY_VARIANTS
-# the families whose models run on an island's DTensors (FSDP×TP)
-ISLAND_FAMILIES = ("dense", "vlm", "encdec", "moe", "hybrid")
-# the families whose models run unsharded within an island
-_FAMILY_NAMES = {"ssm": "xLSTM"}
+# the families whose models run on an island's DTensors (FSDP×TP): all
+ISLAND_FAMILIES = ("dense", "vlm", "encdec", "moe", "hybrid", "ssm")
 # the mesh type the island's collectives are chosen for (the H100's; the
 # DTensors hold meta blocks, so nothing runs on a card)
 ISLAND_DEVICE = "cuda"
-
-
-def not_modelled(family: str) -> str:
-    """Why a family's record has no within-island collectives."""
-    return (f"within-island collectives (FSDP x TP over data and model) "
-            f"of the {_FAMILY_NAMES.get(family, family)} family are not "
-            "modelled: its models run unsharded within an island "
-            "(ROADMAP.md §1)")
 
 
 # ---------------------------------------------------------------------------
@@ -487,36 +483,59 @@ def _extrapolated(count_at, S: int, step: int) -> dict:
     its peak live bytes settle on their asymptote at 20 tokens), the
     window of four lengths moves on by one step, at most ``FIT_SHIFTS``
     times, and the fit is taken from the first window that passes its
-    check."""
+    check. An island count's collectives are fitted alike, each one's
+    bytes (``_series``)."""
     got = {}
     for start in range(1, FIT_SHIFTS + 2):
         lens = [step * i for i in range(start, start + 4)]
         for s in lens:
             if s not in got:
                 got[s] = count_at(s)
-        bad = [key for key in _COUNTS
-               if _quadratic_at(lens, [got[s][key] for s in lens], lens[3])
-               != got[lens[3]][key]]
+        series = _series([got[s] for s in lens])
+        bad = [key for key, ys in series.items()
+               if ys is None or _quadratic_at(lens, ys, lens[3]) != ys[3]]
         if not bad:
             break
     else:
         key = bad[0]
         raise ValueError(
             f"{key} is not a quadratic in the length "
-            f"({[(s, got[s][key]) for s in sorted(got)]}): cannot "
-            "extrapolate")
+            f"({[(s, _series([got[s]]).get(key)) for s in sorted(got)]}): "
+            "cannot extrapolate")
+    at = {key: int(round(_quadratic_at(lens, ys, S)))
+          for key, ys in series.items()}
+    # the live set's peak holds at least what is live at its end: a peak
+    # fitted where constant terms lead (an island's gathered weights, at a
+    # few tokens a chip) is raised to the fitted end, the outputs that
+    # grow with the length (a prefill's logits)
+    at["peak_live_bytes"] = max(at["peak_live_bytes"], at["end_live_bytes"])
     out = dict(got[lens[0]])
-    for key in _COUNTS:
-        out[key] = int(round(_quadratic_at(lens, [got[s][key] for s in lens],
-                                           S)))
+    out.update({key: at[key] for key in _COUNTS})
+    if "collectives" in out:
+        out["collectives"] = [(op, at[f"collective {i} {op}"]) for i, (op, _)
+                              in enumerate(out["collectives"])]
     out["extrapolated_from"] = lens
     return out
 
 
-def _check_variant(variant: dict, kernel_mode: str, family=None):
-    """Refuse an unknown variant or kernel mode, and (with ``family``) a
-    variant that steers within-island collectives for a family whose
-    models run unsharded within an island."""
+def _series(costs) -> dict:
+    """The numbers of counts at several lengths that the fit extrapolates,
+    each as the list of its values: ``_COUNTS``, and each collective's
+    bytes (keyed "collective i op"). Where the counts' collectives differ
+    in their ops (a collective inside a per-token loop adds some with
+    each token) the key "collective ops" holds None."""
+    out = {key: [c[key] for c in costs] for key in _COUNTS}
+    ops = [[op for op, _ in c.get("collectives", ())] for c in costs]
+    if any(o != ops[0] for o in ops):
+        out["collective ops"] = None
+        return out
+    for i, op in enumerate(ops[0]):
+        out[f"collective {i} {op}"] = [c["collectives"][i][1] for c in costs]
+    return out
+
+
+def _check_variant(variant: dict, kernel_mode: str):
+    """Refuse an unknown variant or kernel mode."""
     if kernel_mode not in KERNEL_MODES:
         raise ValueError(
             f"kernel_mode={kernel_mode!r}: the dry run takes {KERNEL_MODES} "
@@ -526,11 +545,6 @@ def _check_variant(variant: dict, kernel_mode: str, family=None):
         if key not in VARIANTS:
             raise ValueError(f"unknown variant {key!r}; the dry run takes "
                              f"{VARIANTS}")
-        if (key in ISLAND_ONLY_VARIANTS and family is not None
-                and family not in ISLAND_FAMILIES):
-            raise ValueError(
-                f"variant {key!r} steers the collectives within an island: "
-                + not_modelled(family))
 
 
 def _per_chip(stats: C.CollectiveStats, chips: int) -> C.CollectiveStats:
@@ -621,14 +635,12 @@ def dryrun_pair(arch_name: str, shape_name: str, *, multi_pod: bool,
       decode_kv_shard: str — constrain decode scores' kv dim to this axis
       seq_parallel: bool  — residual stream over (batch, seq on "model")
       no_act_shard: bool  — residual stream's d_model not sharded
-    The last four steer within-island collectives: refused for families
-    whose models run unsharded within an island.
+    The last four steer within-island collectives.
     """
     variant = dict(variant or {})
     arch = get_arch(arch_name)
-    family = arch.cfg.family
-    _check_variant(variant, kernel_mode, family)
-    island_sharded = family in ISLAND_FAMILIES
+    _check_variant(variant, kernel_mode)
+    island_sharded = arch.cfg.family in ISLAND_FAMILIES
     with (fake_world(_island_of(mesh, multi_pod).devices) if island_sharded
           else contextlib.nullcontext()):
         return _dryrun_pair(arch, arch_name, shape_name,
@@ -776,7 +788,9 @@ def _dryrun_pair(arch, arch_name, shape_name, *, multi_pod, microbatches,
             # the stats hold no within-island bytes: not modelled, not 0
             terms["collective_intra_s"] = None
             coll["intra_pod_bytes"] = None
-            coll["intra_pod"] = intra or not_modelled(cfg.family)
+            coll["intra_pod"] = intra or ("within-island collectives are "
+                                          "not modelled: counted without "
+                                          "an island mesh")
         if group is not None:
             coll["per_rank"] = group.stats.as_dict()
             coll["traffic"] = dict(group.traffic)
@@ -799,7 +813,10 @@ def _dryrun_pair(arch, arch_name, shape_name, *, multi_pod, microbatches,
         extrapolated for a per-token loop."""
         at = lambda s: _count(*make(s))
         if _per_token_loop(cfg) and shape.kind != "decode":
-            return _extrapolated(at, S, FIT_STEP[shape.kind])
+            step = FIT_STEP[shape.kind]
+            if cfg.act_seq_shard and dmesh is not None:
+                step = math.lcm(step, sizes.get("model", 1))
+            return _extrapolated(at, S, step)
         return at(S)
 
     def fresh_params(dtype=torch.float32):

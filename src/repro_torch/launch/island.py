@@ -45,6 +45,7 @@ from torch.utils._python_dispatch import TorchDispatchMode
 
 from .. import convert, tree
 from ..models.model import param_axes
+from ..models.xlstm import shift_free
 from ..models.registry import Arch
 from ..sharding import spec
 from . import dryrun, op_cost
@@ -94,19 +95,34 @@ class _HostStaged(TorchDispatchMode):
     which takes one rank a card), the result copied back to the card: the
     staging the sharded transport's ranks do (``core/pod_collectives``).
     DTensor ops pass through to DTensor, whose collectives then come back
-    here."""
+    here. DTensor's all-to-all between two shard dims runs on the host as
+    DTensor runs it on a CPU mesh: an all-gather, then this rank's
+    chunk."""
 
     def __torch_dispatch__(self, func, types, args=(), kwargs=None):
         from torch.distributed.tensor import DTensor
         if any(issubclass(t, DTensor) for t in types):
             return NotImplemented
         kwargs = kwargs or {}
-        if func.namespace != "_c10d_functional" or not any(
+        if not op_cost._is_collective(func) or not any(
                 isinstance(a, torch.Tensor) and a.is_cuda for a in args):
             return func(*args, **kwargs)
         dev = next(a.device for a in args if isinstance(a, torch.Tensor))
         if func.__name__.startswith("wait_tensor"):
             return args[0]                 # completed when it was staged
+        if func.namespace == "_dtensor":   # shard_dim_alltoall
+            from torch.distributed.distributed_c10d import (
+                _resolve_process_group)
+            x, gather_dim, shard_dim, group = args
+            pg = _resolve_process_group(group) if isinstance(group, str) \
+                else group
+            n = dist.get_world_size(pg)
+            c10d = torch.ops._c10d_functional
+            full = c10d.wait_tensor(c10d.all_gather_into_tensor(
+                x.cpu().contiguous(), n, pg.group_name))
+            full = torch.cat(full.chunk(n), gather_dim)
+            return full.chunk(n, shard_dim)[dist.get_rank(pg)] \
+                .contiguous().to(dev)
         host = [a.cpu() if isinstance(a, torch.Tensor) else a for a in args]
         out = torch.ops._c10d_functional.wait_tensor(func(*host, **kwargs))
         return out.to(dev)
@@ -260,7 +276,9 @@ def _against_unsharded(cfg, case, step, params, m, dev, picks,
     moments ``m`` (nothing gathered): the unsharded loss; the largest
     differences; the param entries beyond ``case["check"]``'s (atol, rtol)
     bound; the leaves whose first moments differ by more than ``m_rel`` of
-    the leaf's largest |m|, and the largest such ratio; and of an MoE
+    the leaf's largest |m| (of the tree's largest for a leaf the loss does
+    not depend on, ``xlstm.shift_free``: its moments are round-off), and
+    the largest such ratio; and of an MoE
     model the (token, k) router choices of this rank's groups that differ
     from the unsharded step's (``picks``: the sharded step's, in call
     order; a near-tie decided otherwise by TP's reordered sums)."""
@@ -278,9 +296,11 @@ def _against_unsharded(cfg, case, step, params, m, dev, picks,
            "router_choices_differ": _choices_differ(picks, want_picks,
                                                     mesh)}
     with torch.no_grad():
-        for a, w, am, wm in zip(tree.leaves(params), tree.leaves(want),
-                                tree.leaves(m), tree.leaves(want_m)):
-            top = float(wm.abs().max())
+        tree_top = max(float(t.abs().max()) for t in tree.leaves(want_m))
+        for (path, a), w, am, wm in zip(tree.paths(params),
+                                        tree.leaves(want), tree.leaves(m),
+                                        tree.leaves(want_m)):
+            top = tree_top if shift_free(path) else float(wm.abs().max())
             w = spec.block_of(w, a.placements, a.device_mesh)
             wm = spec.block_of(wm, am.placements, am.device_mesh)
             a, am = a.to_local(), am.to_local()

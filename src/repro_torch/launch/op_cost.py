@@ -133,16 +133,29 @@ def _is_fake_type(t) -> bool:
 
 
 def _group_size(name) -> int:
+    """The size of a process group given by its name (or itself)."""
     from torch.distributed.distributed_c10d import _resolve_process_group
-    return dist.get_world_size(_resolve_process_group(name))
+    return dist.get_world_size(_resolve_process_group(name)
+                               if isinstance(name, str) else name)
 
+
+
+def _is_collective(func) -> bool:
+    """A functional collective, or DTensor's all-to-all between two shard
+    dims of one mesh axis (``_dtensor.shard_dim_alltoall``)."""
+    return func.namespace == "_c10d_functional" or (
+        func.namespace == "_dtensor"
+        and func.__name__.startswith("shard_dim_alltoall"))
 
 
 def _collective(func, args) -> tuple | None:
     """(op, bytes a chip moves) of a functional collective, else None."""
-    if func.namespace != "_c10d_functional":
+    if not _is_collective(func):
         return None
     name = func.__name__.split(".")[0]
+    if name == "shard_dim_alltoall":
+        n = _group_size(args[3])
+        return "all-to-all", _nbytes(args[0]) * (n - 1) // n
     if name == "all_gather_into_tensor":
         t, n = args[0], int(args[1])
         return "all-gather", _nbytes(t) * (n - 1)
@@ -249,7 +262,7 @@ class OpCounter(TorchDispatchMode):
             out = func(*args, **(kwargs or {}))
             self._fresh(func, out)
             self._communicate(func, args)
-            if func.namespace == "_c10d_functional":
+            if _is_collective(func):
                 return out
         outs = _tensors(out)
         # a rank's block of work split over an island (``spec.mark_local``)

@@ -697,10 +697,19 @@ def on_local_heads(fn, q, k, v, cfg, *, kv_pos=None, kv_axis=None,
     kv_ax = kv_axis if (kv_axis in names and stats is not None
                         and k.shape[1] % mesh.size(names.index(kv_axis))
                         == 0) else None
-    ba = tuple(a for a in cfg.act_batch_axes if a != kv_ax)
+    # the batch lies where the keys' rows lie: on the activations' axes,
+    # or, for a decode over a cache laid out by ``cache_pspec``, on "data"
+    # alone where the activations' batch takes "model" too (``pure_dp``):
+    # the queries, one token a row, go to the cache's layout, never the
+    # cache to theirs. An axis that holds the batch holds no heads.
+    ba = tuple(names[i] for i, pl in enumerate(k.placements)
+               if pl.is_shard(0) and names[i] != kv_ax) \
+        if is_dtensor(k) else tuple(a for a in cfg.act_batch_axes
+                                    if a != kv_ax)
     n = mesh.size(names.index("model")) if "model" in names else 1
     H, G = q.shape[2], k.shape[2]
-    heads = "model" if H % n == 0 and kv_ax != "model" else None
+    heads = "model" if (H % n == 0 and kv_ax != "model"
+                        and "model" not in ba) else None
     split_kv = heads is not None and G % n == 0
     if kv_ax is not None and not split_kv:
         heads = None          # a block's stats keep q's heads whole
@@ -900,7 +909,18 @@ def lm_logits(head_p, emb_p, x, cfg):
     else:
         w = head_p["w"].to(x.dtype)
     _count()
-    logits = f32_matmul(whole_features(x, cfg), w)
+    x = whole_features(x, cfg)
+    if is_dtensor(w) and x.shape[1] > 1:
+        # over a sequence, the weight's shards of d_model (FSDP's) are
+        # gathered, the vocab kept where it lies: what DTensor itself does
+        # at full-size train and prefill shapes, where the tokens'
+        # activations outweigh the weight's block. For a few tokens it
+        # would move the activations instead, and the dry run counts a
+        # per-token loop's long pass at a few tokens (``_extrapolated``).
+        from torch.distributed.tensor import Replicate
+        w = w.redistribute(w.device_mesh, [
+            Replicate() if q.is_shard(0) else q for q in w.placements])
+    logits = f32_matmul(x, w)
     if cfg.logit_softcap:
         logits = torch.tanh(logits / cfg.logit_softcap) * cfg.logit_softcap
     return logits

@@ -195,8 +195,9 @@ def _with_rope_key(k_nope, k_rope, cfg):
         return torch.cat([k_nope, k_rope[:, :, None, :].expand(
             *k_nope.shape[:3], dr)], -1)
     ba = tuple(cfg.act_batch_axes)
+    h_ax = None if "model" in ba else "model"       # pure_dp: rows on it
     ba = ba if len(ba) > 1 else ba[0]
-    k_nope = constrain(k_nope, (ba, None, "model", None))
+    k_nope = constrain(k_nope, (ba, None, h_ax, None))
     k_rope = constrain(k_rope, (ba, None, None))
     heads = [i for i, q in enumerate(k_nope.placements) if q.is_shard(2)]
     kn, kr = mark_local(k_nope, k_nope.to_local(),

@@ -290,6 +290,17 @@ def init_paged_cache(cfg, batch: int, cache_len: int, dtype, *,
             for i, kind in enumerate(plan.pattern)}
 
 
+def _cache_fills(cfg):
+    """The constant each leaf of ``init_cache``'s tree starts at (0, -1
+    for a position track, xLSTM's stabiliser ``M_INIT``), read off one
+    block's cache of each kind at one row and one slot."""
+    plan = make_plan(cfg)
+    return tree.map_nested(lambda t: t.reshape(-1)[0].item(), {
+        f"cache{i}": BLK.init_block_cache(cfg, _kind(plan, kind), 1, 1,
+                                          torch.float32, device="cpu")
+        for i, kind in enumerate(plan.pattern)})
+
+
 def _stacked(make_one, n: int):
     """The tree ``make_one()`` with every leaf repeated along a new leading
     (n,) axis."""
@@ -311,16 +322,16 @@ def prefill(params, cfg, tokens, *, extra=None, window: int = 0,
         # on an island mesh each rank makes its own blocks of the cache,
         # laid out as the dry run's (``cache_pspec``: batch over "data",
         # kv heads or the sequence over "model"; the position tracks
-        # replicated), the empty cache's values (0, and -1 for a track)
+        # replicated), each leaf at the empty cache's value
         mesh = tokens.device_mesh
         dev = tokens.to_local().device
         with FakeTensorMode():
             shapes = make(dev)
-        cache = tree.map_nested(lambda t: empty_on_mesh(
+        cache = tree.map_nested(lambda t, fill: empty_on_mesh(
             t.shape, t.dtype, cache_pspec(tuple(t.shape), mesh_shape(mesh),
                                           include_pod=False)
             if t.is_floating_point() else (None,) * t.dim(), mesh,
-            fill=0 if t.is_floating_point() else -1, device=dev), shapes)
+            fill=fill, device=dev), shapes, _cache_fills(cfg))
     else:
         cache = make(tokens.device)
     logits, cache, _ = forward(params, cfg, tokens, extra=extra, cache=cache,

@@ -239,7 +239,11 @@ def placements(spec: tuple, mesh) -> list:
     names = list(mesh.mesh_dim_names)
     for dim, entry in enumerate(spec):
         for ax in entry_axes(entry):
-            out[names.index(ax)] = Shard(dim)
+            i = names.index(ax)
+            if out[i].is_shard():
+                raise ValueError(f"spec {spec}: mesh axis {ax!r} shards two "
+                                 "dims")
+            out[i] = Shard(dim)
     return out
 
 

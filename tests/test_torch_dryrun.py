@@ -155,15 +155,14 @@ def test_refusals(capsys):
         with pytest.raises(ValueError, match=mode):
             TD.dryrun_pair("diloco_60m", "decode_32k", multi_pod=False,
                            mesh=SINGLE, kernel_mode=mode)
-    # the variants that steer within-island collectives: taken for the
-    # families that run on an island's DTensors, MoE/MLA and Mamba2 among
-    # them (tests/test_torch_dryrun_island.py), refused by family for
-    # xLSTM
-    for v in TD.ISLAND_ONLY_VARIANTS:
-        with pytest.raises(ValueError, match=f"{v}.*within an island"
-                           ".*xLSTM.*not modelled"):
-            TD.dryrun_pair("xlstm_350m", "decode_32k", multi_pod=False,
-                           mesh=SINGLE, variant={v: True})
+    # every family runs on an island's DTensors and takes the variants
+    # that steer within-island collectives
+    # (tests/test_torch_dryrun_island.py); an island whose "model" axis
+    # cannot cut a model's inner width is refused by the model: xLSTM's
+    # 4 heads of 256 on 3 ranks
+    with pytest.raises(ValueError, match="xLSTM on an island.*cut 3 ways"):
+        TD.dryrun_pair("xlstm_350m", "decode_32k", multi_pod=False,
+                       mesh=MeshShape(("data", "model"), (1, 3)))
     with pytest.raises(ValueError, match="unknown variant"):
         TD.dryrun_pair("diloco_60m", "decode_32k", multi_pod=False,
                        mesh=SINGLE, variant={"bogus": True})
